@@ -1,0 +1,122 @@
+"""The port's SyncTrainer and CLI scenario (distributed_sgd_tpu_torch/
+core/trainer.py, main.py) against the JAX package's, on the CPU.
+
+With the same sample ids injected on both sides, the four per-epoch
+series agree to rtol 1e-5 (f32 sums in another order).  With each side's
+own random source, the port's main scenario lands within 0.03 test
+accuracy of the JAX trainer at the same config and one-card topology."""
+
+import logging
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from distributed_sgd_tpu.core.trainer import SyncTrainer as JaxTrainer
+from distributed_sgd_tpu.data.rcv1 import dim_sparsity, train_test_split
+from distributed_sgd_tpu.data.synthetic import rcv1_like
+from distributed_sgd_tpu.main import select_topology as jax_select_topology
+from distributed_sgd_tpu.models.linear import make_model as jax_make_model
+from distributed_sgd_tpu.parallel.mesh import make_mesh
+from distributed_sgd_tpu_torch import main as tmain
+from distributed_sgd_tpu_torch.config import Config
+from distributed_sgd_tpu_torch.core.trainer import SyncTrainer
+from distributed_sgd_tpu_torch.data.rcv1 import Dataset as TDataset
+
+torch.set_num_threads(1)
+
+
+def _torch(ds):
+    return TDataset(ds.indices, ds.values, ds.labels, ds.n_features)
+
+
+def _inject(trainer, ids_for):
+    """Wrap trainer.engine.bind so every bound split gets injected ids."""
+    bind = trainer.engine.bind
+
+    def bind_injected(data, *args, **kw):
+        bound = bind(data, *args, **kw)
+        ids_for(bound)
+        return bound
+
+    trainer.engine.bind = bind_injected
+
+
+def test_fit_with_injected_ids_gives_the_same_four_series():
+    d, k, b = 1500, 3, 40
+    data = rcv1_like(2400, n_features=d, nnz=16, seed=8, idf_values=True)
+    train, test = train_test_split(data)
+    ds = dim_sparsity(train)
+    jt = JaxTrainer(jax_make_model("hinge", 1e-4, d, dim_sparsity=jnp.asarray(ds)),
+                    make_mesh(1), batch_size=b, learning_rate=0.5, virtual_workers=k)
+    tt = SyncTrainer(tmain.make_model("hinge", 1e-4, d, dim_sparsity=ds, device="cpu"),
+                     batch_size=b, learning_rate=0.5, virtual_workers=k, device="cpu")
+    rng = np.random.default_rng(0)
+    ids = {}
+
+    def draw(bound):  # the same ids every epoch, on both sides
+        if bound.shard_n not in ids:
+            sub, starts, sizes = bound._subshards()
+            sel = rng.integers(0, sub, (bound.steps_per_epoch, k, b))
+            ids[bound.shard_n] = sel % np.minimum(sub, sizes)[:, None] + starts[:, None]
+        return ids[bound.shard_n]
+
+    def jax_ids(bound):
+        bound._sample_ids = lambda key, step, a=jnp.asarray(draw(bound), jnp.int32): a[step]
+
+    def torch_ids(bound):
+        bound._sample_ids = lambda key, a=torch.from_numpy(draw(bound)): a
+
+    _inject(jt, jax_ids)
+    _inject(tt, torch_ids)
+    jr = jt.fit(train, test, 3)
+    tr = tt.fit(_torch(train), _torch(test), 3)
+    assert tr.epochs_run == jr.epochs_run == 3
+    assert tr.steps_per_epoch == 16
+    for name in ("losses", "accuracies", "test_losses", "test_accuracies"):
+        np.testing.assert_allclose(getattr(tr, name), getattr(jr, name), rtol=1e-5, err_msg=name)
+    np.testing.assert_allclose(tr.weights.numpy(), np.asarray(jr.weights), atol=1e-5)
+
+
+def test_main_scenario_lands_in_the_jax_accuracy_band(caplog):
+    d = 5000
+    data = rcv1_like(20000, n_features=d, nnz=40, seed=0, idf_values=True)
+    train, test = train_test_split(data)
+    ds = dim_sparsity(train)
+    cfg = Config(max_epochs=3)
+    n, virtual = jax_select_topology(cfg.node_count, 1, False)
+    assert tmain.select_topology(cfg.node_count, 1, False) == (n, virtual) == (1, 3)
+    jr = JaxTrainer(jax_make_model(cfg.model, cfg.lam, d, dim_sparsity=jnp.asarray(ds)),
+                    make_mesh(n), batch_size=cfg.batch_size,
+                    learning_rate=cfg.learning_rate, seed=cfg.seed,
+                    virtual_workers=virtual).fit(train, test, cfg.max_epochs)
+    model = tmain.make_model(cfg.model, cfg.lam, d, dim_sparsity=ds, device="cpu")
+    with caplog.at_level(logging.INFO, logger="dsgd"):
+        res = tmain.scenario_mesh(cfg, _torch(train), _torch(test), model, device="cpu")
+    assert res.epochs_run == 3 and res.steps_per_epoch == 54
+    assert abs(res.test_accuracies[-1] - jr.test_accuracies[-1]) <= 0.03
+    assert res.test_losses[-1] < res.test_losses[0]
+    assert "epoch 2: loss=" in caplog.text and "test losses:" in caplog.text
+
+
+def test_config_reads_the_jax_env_names_and_refuses_what_is_not_ported(monkeypatch):
+    monkeypatch.setenv("DSGD_BATCH_SIZE", "64")
+    monkeypatch.setenv("DSGD_LAMBDA", "0.002")
+    monkeypatch.setenv("DSGD_EXACT_TOPOLOGY", "yes")
+    cfg = Config.from_env()
+    assert (cfg.batch_size, cfg.lam, cfg.exact_topology) == (64, 0.002, True)
+    assert cfg.learning_rate == 0.5 and cfg.node_count == 3 and cfg.max_epochs == 10
+    monkeypatch.setenv("DSGD_ENGINE", "rpc")
+    with pytest.raises(ValueError, match="DSGD_ENGINE"):
+        Config.from_env()
+    with pytest.raises(ValueError, match="DSGD_ASYNC"):
+        Config(use_async=True)
+
+
+def test_trainer_refuses_the_parts_not_ported_yet():
+    model = tmain.make_model("hinge", 1e-4, 10, device="cpu")
+    with pytest.raises(NotImplementedError, match="checkpoint"):
+        SyncTrainer(model, 10, 0.5, checkpointer=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="profile"):
+        SyncTrainer(model, 10, 0.5, profile_dir="x", device="cpu")
