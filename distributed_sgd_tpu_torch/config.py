@@ -3,7 +3,11 @@
 The fields of the JAX package's Config (distributed_sgd_tpu/config.py)
 that the port's sync path reads, under the same ``DSGD_*`` names and with
 the same defaults.  The port runs the in-process sync engine only:
-``engine`` must be 'mesh' and ``use_async`` false.
+``engine`` must be 'mesh' and ``use_async`` false.  ``optimizer`` is read
+and handed to the trainer, which refuses 'momentum' and 'adam' until they
+are ported.  ``DSGD_KERNEL`` is not read: in the JAX package it picks
+among XLA formulations of the same function, so ignoring it changes no
+result.
 """
 
 from __future__ import annotations
@@ -42,6 +46,8 @@ class Config:
     virtual_workers: int = 1  # reference workers emulated per card
     exact_topology: bool = False  # insist on exactly node_count workers
     engine: str = "mesh"
+    optimizer: str = "sgd"  # sgd (reference) | momentum | adam
+    momentum: float = 0.9  # used by optimizer='momentum'
 
     def __post_init__(self):
         if self.engine != "mesh":
@@ -54,6 +60,10 @@ class Config:
                 "engines are not ported yet")
         if self.model not in ("hinge", "svm", "logistic", "least_squares"):
             raise ValueError(f"config field model={self.model!r} is not a known model")
+        if self.optimizer not in ("sgd", "momentum", "adam"):
+            raise ValueError(
+                f"config field optimizer={self.optimizer!r} must be 'sgd', "
+                f"'momentum' or 'adam'")
         if self.virtual_workers < 1:
             raise ValueError("virtual_workers must be >= 1")
         if self.seed < 0:
@@ -79,6 +89,8 @@ class Config:
             virtual_workers=_env("DSGD_VIRTUAL_WORKERS", cls.virtual_workers, int),
             exact_topology=_env("DSGD_EXACT_TOPOLOGY", cls.exact_topology, bool),
             engine=_env("DSGD_ENGINE", cls.engine, str),
+            optimizer=_env("DSGD_OPTIMIZER", cls.optimizer, str),
+            momentum=_env("DSGD_MOMENTUM", cls.momentum, float),
         )
         return dataclasses.replace(cfg, **overrides)
 

@@ -24,30 +24,19 @@
 // shape K=3, B=100, P=76, D=47,236 the kernel reads 182 KB of idx/val, at
 // most 91 KB of gathered w and 1.2 KB of y, and the function writes the
 // 567 KB g[K, D]: about 0.25 us of memory traffic and ~0.1 MFLOP, so one
-// launch is bound by launch latency, not by the card.  Fusing the id
-// gather and the regularizer into this launch is the way to move that.
+// launch is bound by launch latency, not by the card.  sync_epoch.cu runs
+// a whole epoch's steps in one launch where the state fits a cluster; this
+// kernel serves the per-step path for the shapes that do not.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "coeff.cuh"
 
 namespace {
 
 constexpr int kWarp = 32;
 constexpr int kWarpsPerBlock = 8;
-
-// coeff_kind: 0 hinge, 1 logistic, 2 least squares.  Each matches the
-// port's plain rule in ops/worker_grads.py::grad_coeff.
-__device__ __forceinline__ float grad_coeff(int kind, float m, float y) {
-  if (kind == 0) {
-    // backward = 0 if y*(x.w) < 0 else y  (reference hinge subgradient)
-    return (y * m < 0.f) ? 0.f : y;
-  }
-  if (kind == 1) {
-    // -y * sigmoid(-y m) = -y / (1 + exp(y m))
-    return -y / (1.f + expf(y * m));
-  }
-  return 2.f * (m - y);
-}
 
 __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
 worker_grads_kernel(const float* __restrict__ w, const int32_t* __restrict__ idx,

@@ -28,6 +28,7 @@ from distributed_sgd_tpu_torch.data.rcv1 import Dataset, dim_sparsity, load_rcv1
 from distributed_sgd_tpu_torch.data.synthetic import rcv1_like
 from distributed_sgd_tpu_torch.models.linear import make_model
 from distributed_sgd_tpu_torch.parallel.mesh import DeviceLike, resolve_device, world_size
+from distributed_sgd_tpu_torch.parallel.sync import resolve_optimizer
 from distributed_sgd_tpu_torch.utils.log import setup as setup_logging
 
 log = logging.getLogger("dsgd.main")
@@ -109,7 +110,8 @@ def scenario_mesh(cfg: Config, train: Dataset, test: Dataset, model,
              n, virtual, cfg.model, resolve_device(device))
     trainer = SyncTrainer(
         model, batch_size=cfg.batch_size, learning_rate=cfg.learning_rate,
-        seed=cfg.seed, virtual_workers=virtual, device=device)
+        seed=cfg.seed, virtual_workers=virtual, optimizer=cfg.optimizer,
+        device=device)
     res = trainer.fit(train, test, cfg.max_epochs,
                       no_improvement(patience=cfg.patience, min_delta=cfg.conv_delta))
     _finish(res)
@@ -126,6 +128,7 @@ def main(device: DeviceLike = None) -> Run:
     device = resolve_device(device)
     setup_logging()
     cfg = Config.from_env()
+    resolve_optimizer(cfg.optimizer)  # refuse an unported optimizer before loading data
     log.info("host: %s (%s)", socket.gethostname(), sys.platform)
     log.info("config: %s", cfg.to_json())
     np.random.seed(cfg.seed)

@@ -13,9 +13,10 @@ quirks included:
 The ``1[g != 0]`` mask is applied to each worker's gradient sum before the
 sum over workers, as the JAX engine does.
 
-Each model names its coefficient rule for the CUDA kernel (`coeff_kind`,
-ops/worker_grads.py), since a Python function cannot be traced into CUDA;
-``grad_coeff`` evaluates that same rule in torch.
+Each model names its coefficient rule (`coeff_kind`, ops/worker_grads.py)
+and its regularizer (`reg_kind`, ops/sync_epoch.py) for the CUDA kernels,
+since a Python function cannot be traced into CUDA; ``grad_coeff`` and
+``regularize`` evaluate those same rules in torch.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import numpy as np
 import torch
 
 from distributed_sgd_tpu_torch.ops import worker_grads as wg
+from distributed_sgd_tpu_torch.ops.sync_epoch import regularize
 from distributed_sgd_tpu_torch.ops.sparse import SparseBatch, matvec, scatter_add
 from distributed_sgd_tpu_torch.parallel.mesh import DeviceLike, resolve_device
 
@@ -72,6 +74,11 @@ class LinearModel:
     def grad_coeff(self, margins: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         return wg.grad_coeff(self.coeff_kind, margins, y)
 
+    @property
+    def reg_kind(self) -> str:
+        """The regularizer by name, as the sync_epoch kernel takes it."""
+        return self.regularizer
+
     # -- shared ------------------------------------------------------------
     def margins(self, w: torch.Tensor, batch: SparseBatch) -> torch.Tensor:
         return matvec(batch, w)
@@ -88,12 +95,7 @@ class LinearModel:
     def regularize(self, grad: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """Add the regularizer to gradient sums `grad` — [D], or [K, D] for
         K workers, each masked by its own nonzeros."""
-        if self.regularizer == "dim_sparsity":
-            scalar = self.lam * 2.0 * torch.dot(w.float(), self.dim_sparsity)
-            return grad + torch.where(grad != 0, scalar, torch.zeros_like(grad))
-        if self.regularizer == "l2":
-            return grad + 2.0 * self.lam * w
-        return grad
+        return regularize(grad, w, self.reg_kind, self.lam, self.dim_sparsity)
 
 
 class SparseSVM(LinearModel):

@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into its own shared library under the
 package's ``_build/`` directory (listed in ``.gitignore``), at first use,
 from the sources in the checkout only.  The library is loaded with
-``ctypes``.  A library is named by a hash of its source and flags, so an
-edited source is rebuilt and a stale one is never loaded.
+``ctypes``.  A library is named by a hash of its source, of every
+``csrc/*.cuh`` header the source includes, and of the flags, so an edited
+source or header is rebuilt and a stale library is never loaded.
 
 Nothing here runs at import: the CPU test host has no ``nvcc``.
 """
@@ -15,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -27,7 +29,8 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v"]
-KERNELS = ("worker_grads",)
+KERNELS = ("worker_grads", "sync_epoch")
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+\.cuh)"', re.MULTILINE)
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -49,10 +52,25 @@ def find_nvcc() -> str:
         "the port's CUDA kernels are built at first use on the GPU host")
 
 
+def _sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and every ``csrc`` header it includes, directly
+    or through another header, in include order."""
+    found: List[Path] = []
+    todo = [CSRC_DIR / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        todo += [CSRC_DIR / m.decode() for m in _INCLUDE.findall(path.read_bytes())]
+    return found
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}.{tag}.so"
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}.{digest.hexdigest()[:12]}.so"
 
 
 def nvcc_command(name: str, out: Path) -> List[str]:

@@ -2,16 +2,23 @@
 
 The port of distributed_sgd_tpu/parallel/sync.py.  The JAX engine compiles
 an epoch into one XLA program over a device mesh; this engine runs the
-same step eagerly on one card (world size 1), as a Python loop over steps:
+same step on one card (world size 1):
 
 1. draw ``[K, B]`` sample ids, each virtual worker from its own disjoint
    contiguous sub-shard (the vanilla split);
-2. one launch of the worker-gradient kernel computes every worker's sum
-   ``sum_b grad_coeff(x_b . w, y_b) * x_b`` (ops/worker_grads.py);
+2. every worker's sum ``sum_b grad_coeff(x_b . w, y_b) * x_b``;
 3. each worker's sum gets the model's regularizer (the ``g != 0`` mask is
    per worker, before the sum over workers);
-4. mean over all workers (`all_reduce_sum` is the cross-card reduce,
-   identity on one card) and ``w -= lr * g``.
+4. mean over all workers and ``w -= lr * g``.
+
+Where the state (w, dim_sparsity and the K workers' sums) fits one
+thread-block cluster's shared memory (``cluster_plan``, checked when the
+engine is bound), a whole epoch's steps are one launch of the
+``sync_epoch`` kernel (ops/sync_epoch.py).  Otherwise each step runs on its
+own (``_one_step``): one ``worker_grads`` launch (ops/worker_grads.py), then
+the regularizer, the cross-card reduce (`all_reduce_sum`, identity on one
+card) and the update in torch.  The path is picked by shape alone, before
+any launch.
 
 Sampling mirrors the JAX engine's index arithmetic exactly; only the
 random source differs.  An epoch's draws come from one ``torch.Generator``
@@ -28,6 +35,7 @@ outside any Pallas kernel.
 
 from __future__ import annotations
 
+import logging
 import math
 from typing import NamedTuple, Optional, Tuple
 
@@ -37,6 +45,7 @@ import torch
 from distributed_sgd_tpu_torch.data.rcv1 import Dataset
 from distributed_sgd_tpu_torch.models.linear import LinearModel
 from distributed_sgd_tpu_torch.ops.sparse import SparseBatch
+from distributed_sgd_tpu_torch.ops.sync_epoch import cluster_plan, sync_epoch
 from distributed_sgd_tpu_torch.ops.worker_grads import worker_grads
 from distributed_sgd_tpu_torch.parallel.mesh import (
     DeviceLike,
@@ -46,6 +55,8 @@ from distributed_sgd_tpu_torch.parallel.mesh import (
     resolve_device,
     world_size,
 )
+
+log = logging.getLogger("dsgd.sync")
 
 
 def fold_in(key: int, data: int) -> int:
@@ -117,8 +128,12 @@ class BoundSync:
                 f"shard size {self.shard_n} not a multiple of eval_chunk {self.eval_chunk}")
         self.steps_per_epoch = steps_per_epoch or steps_per_epoch_for(
             data.n_true, self.n_workers, self.virtual_workers, self.batch_size)
-        # labels enter the kernel as f32 (pads stay 0)
+        # labels enter the kernels as f32 (pads stay 0)
         self._labels_f32 = data.labels.float().contiguous()
+        # the epoch kernel reduces over this card's workers only
+        self.epoch_kernel = (self.n_workers == 1 and cluster_plan(
+            self.virtual_workers, model.n_features) is not None)
+        self._told_per_step = False
 
     def _subshards(self):
         """(sub, starts, sizes): the per-virtual-worker ceil-split of this
@@ -183,12 +198,28 @@ class BoundSync:
 
     # -- host API ----------------------------------------------------------
 
+    def _run(self, w: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        """The weights after the steps ids[S, K, B]: one sync_epoch launch
+        where the shape fits the cluster, else one `_one_step` per step."""
+        if self.epoch_kernel:
+            m, d = self.model, self.data
+            return sync_epoch(
+                w, ids.contiguous(), d.indices, d.values, self._labels_f32,
+                coeff_kind=m.coeff_kind, reg_kind=m.reg_kind, lam=m.lam,
+                dim_sparsity=m.dim_sparsity, lr=self.learning_rate,
+                n_total_workers=self.n_workers * self.virtual_workers)
+        if not self._told_per_step:
+            log.info("K=%d workers at D=%d do not fit one cluster's shared memory: "
+                     "running the per-step path (worker_grads per step)",
+                     self.virtual_workers, self.model.n_features)
+            self._told_per_step = True
+        for rows in ids:
+            w = self._one_step(w, rows)
+        return w
+
     def epoch(self, w: torch.Tensor, key: int) -> torch.Tensor:
         self._check_trainable()
-        ids = self._sample_ids(fold_in(key, rank()))
-        for step in range(self.steps_per_epoch):
-            w = self._one_step(w, ids[step])
-        return w
+        return self._run(w, self._sample_ids(fold_in(key, rank())))
 
     def multi_epoch(self, w: torch.Tensor, key: int, n_epochs: int) -> torch.Tensor:
         """`n_epochs` epochs, epoch e keyed by fold_in(key, e)."""
@@ -199,7 +230,7 @@ class BoundSync:
     def step(self, w: torch.Tensor, key: int) -> torch.Tensor:
         """One step: the first step of the epoch keyed by `key`."""
         self._check_trainable()
-        return self._one_step(w, self._sample_ids(fold_in(key, rank()))[0])
+        return self._run(w, self._sample_ids(fold_in(key, rank()))[:1])
 
     def _chunks(self):
         d, c = self.data, self.eval_chunk

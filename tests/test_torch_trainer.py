@@ -114,6 +114,29 @@ def test_config_reads_the_jax_env_names_and_refuses_what_is_not_ported(monkeypat
         Config(use_async=True)
 
 
+def test_the_optimizer_setting_reaches_the_trainer(monkeypatch):
+    # the JAX CLI trains Adam under DSGD_OPTIMIZER=adam; the port must not
+    # silently train SGD instead
+    monkeypatch.setenv("DSGD_SYNTHETIC", "600")
+    monkeypatch.setenv("DSGD_MAX_EPOCHS", "1")
+    monkeypatch.setenv("DSGD_OPTIMIZER", "adam")
+    monkeypatch.setenv("DSGD_MOMENTUM", "0.5")
+    cfg = Config.from_env()
+    assert (cfg.optimizer, cfg.momentum) == ("adam", 0.5)
+    with pytest.raises(NotImplementedError, match="adam"):
+        tmain.main(device="cpu")
+    monkeypatch.setenv("DSGD_OPTIMIZER", "momentum")
+    with pytest.raises(NotImplementedError, match="momentum"):
+        tmain.main(device="cpu")
+    monkeypatch.setenv("DSGD_OPTIMIZER", "rmsprop")
+    with pytest.raises(ValueError, match="optimizer"):
+        Config.from_env()
+    monkeypatch.setenv("DSGD_OPTIMIZER", "sgd")
+    run = tmain.main(device="cpu")
+    assert run.fit.epochs_run == 1 and run.fit.steps_per_epoch == 2
+    assert Config().optimizer == "sgd"
+
+
 def test_trainer_refuses_the_parts_not_ported_yet():
     model = tmain.make_model("hinge", 1e-4, 10, device="cpu")
     with pytest.raises(NotImplementedError, match="checkpoint"):

@@ -126,6 +126,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
 
 def test_build_targets_hopper_and_needs_nvcc():
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    assert _build.KERNELS == ("worker_grads", "sync_epoch")
     for name in _build.KERNELS:
         assert (_build.CSRC_DIR / f"{name}.cu").exists()
         path = _build.library_path(name)
