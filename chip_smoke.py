@@ -11,10 +11,14 @@ Phases, each fatal (a traceback and a non-zero exit):
 3. kernels: hold each kernel against its plain torch version on the same
    CUDA tensors, at the main path's shapes and at edge shapes, and time
    both (CUDA events, in turns: plain, kernel, kernel, plain) -- for
-   ``sync_epoch`` over one full 2,146-step epoch;
-4. engine: one epoch of the sync engine on the card against the same
-   epoch on the CPU, fed the same sample ids;
-5. paths: ``main()`` of the port at full width (804,414 synthetic
+   ``sync_epoch`` over one full 2,146-step epoch, and for its mean mode
+   (K = 1, grad_divisor = B, the async engines' local steps) over one
+   64-step Hogwild dispatch;
+4. engines: one epoch of the sync engine, one Hogwild dispatch and a
+   short local SGD fit on the card against the same on the CPU, fed the
+   same sample ids; a 3-worker Hogwild fit whose replicas, less their
+   inboxes, must equal its coordinator's weights;
+5. sync paths: ``main()`` of the port at full width (804,414 synthetic
    RCV1-shaped rows x 47,236 features, 3 epochs), checking that the test
    loss falls, the test accuracy, and that each epoch was one
    ``sync_epoch`` launch and no step launched ``worker_grads``; then the
@@ -22,7 +26,16 @@ Phases, each fatal (a traceback and a non-zero exit):
    cut to 100,000 rows and 1 epoch), checking that every step launched
    ``worker_grads``; then a 2-epoch main-path run under ``torch.profiler``
    for the device's busy share over one epoch;
-6. summary: the card line, one JSON line of per-kernel numbers, and last
+6. async paths: ``main()`` with DSGD_ASYNC=1 at full width, Hogwild with
+   3 workers and 64 steps a dispatch, then local SGD with 256 steps a
+   round, each checking one ``sync_epoch`` launch per dispatch or round,
+   no ``worker_grads`` launch, a falling smoothed test loss, the test
+   accuracy of the returned best weights, and that no worker thread is
+   left; Hogwild at the reference's one step a dispatch (depth cut to
+   50,000 rows); one local SGD round and one evaluation timed at the
+   default period of 16 steps; and a Hogwild run under ``torch.profiler``
+   (depth cut to 200,000 rows) for the device's busy share;
+7. summary: the card line, one JSON line of per-kernel numbers, and last
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits non-zero before printing any result.
@@ -32,9 +45,11 @@ from __future__ import annotations
 
 import json
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from contextlib import contextmanager
 
@@ -42,13 +57,21 @@ import numpy as np
 import torch
 
 from distributed_sgd_tpu_torch import main as port_main
-from distributed_sgd_tpu_torch.data.rcv1 import Dataset, dim_sparsity
+from distributed_sgd_tpu_torch.data.rcv1 import Dataset, dim_sparsity, train_test_split
 from distributed_sgd_tpu_torch.data.synthetic import rcv1_like
 from distributed_sgd_tpu_torch.models.linear import make_model
 from distributed_sgd_tpu_torch.ops import _build
 from distributed_sgd_tpu_torch.ops import sync_epoch as se
 from distributed_sgd_tpu_torch.ops import worker_grads as wg
-from distributed_sgd_tpu_torch.parallel.sync import SyncEngine, steps_per_epoch_for
+from distributed_sgd_tpu_torch.parallel import hogwild as hw
+from distributed_sgd_tpu_torch.parallel.local_sgd import LocalSGDEngine
+from distributed_sgd_tpu_torch.parallel.sync import (
+    MeanSteps,
+    ShardedData,
+    SyncEngine,
+    steps_per_epoch_for,
+)
+from distributed_sgd_tpu_torch.utils.metrics import Metrics, global_metrics
 
 # published H100 SXM peaks: HBM bytes/s and f32 (non-tensor-core) FLOP/s
 HBM_BYTES_PER_S = 3.35e12
@@ -66,6 +89,16 @@ LR_FOR = {wg.HINGE: 0.5, wg.LOGISTIC: 0.5, wg.LEAST_SQUARES: 0.05}
 SE_ATOL = 1e-5  # weights after 20 steps: atomics reorder the f32 sums of g
 PER_STEP_TEST_ACC = 0.8080  # the main path's final test accuracy with the per-step path
 PER_STEP_ROWS, PER_STEP_WORKERS = 100000, 8
+# the main path's test losses and accuracies after each of its 3 epochs, as
+# the per-step path and the sync_epoch kernel both gave them (H100 80GB
+# HBM3, 700 W): grad_divisor 1 must keep them to 7 digits
+MAIN_PATH_LOSS_ACC = [[0.4378645, 0.4081789, 0.4020025], [0.7868265, 0.8038015, 0.8080468]]
+TPU_KERNEL = "distributed_sgd_tpu/ops/pallas_sparse.py:155"  # worker_grads, pl.pallas_call at :178
+HOGWILD_K = 64  # DSGD_STEPS_PER_DISPATCH of the full-width Hogwild run
+HOGWILD_K1_ROWS = 50000  # the one-step-a-dispatch run: 40,000 train rows, a 40,000-step budget
+LOCAL_SGD_PERIOD, LOCAL_SGD_CHECK_EVERY = 256, 65536
+TRACED_HOGWILD_ROWS = 200000
+ASYNC_ACC_FLOOR = 0.70  # the sync phase's floor, for the async fits' best weights
 
 
 def phase(name: str) -> None:
@@ -168,7 +201,7 @@ def check_worker_grads() -> dict:
     return {
         "name": "worker_grads", "route": "cuda",
         "source": "distributed_sgd_tpu_torch/csrc/worker_grads.cu",
-        "replaces": "distributed_sgd_tpu/ops/pallas_sparse.py:154",
+        "replaces": TPU_KERNEL,
         "launches": None, "max_abs_err": max_err,
         "ms": min(kernel_ms), "plain_ms": min(plain_ms),
         "bound_ms": max(bound_bytes_ms, bound_ops_ms),
@@ -213,11 +246,9 @@ def hinge_objective(w: torch.Tensor, data: dict, rows: int) -> float:
     return float(LAM * (w * w).sum() + torch.clamp(1.0 + y * torch.sign(m), min=0).mean())
 
 
-def check_sync_epoch() -> dict:
+def check_sync_epoch(train: Dataset, main_data: dict) -> dict:
     """The epoch kernel against its plain version; returns its summary row."""
     t0 = time.perf_counter()
-    train = rcv1_like(TRAIN_ROWS, n_features=D, nnz=P, seed=0, idf_values=True)
-    main_data = on_card(train)
     edge = edge_data(3000, 7)
     edge_card = on_card(edge)
     print(f"sync_epoch data seconds: {time.perf_counter() - t0:.2f}", flush=True)
@@ -315,12 +346,77 @@ def check_sync_epoch() -> dict:
     return {
         "name": "sync_epoch", "route": "cuda",
         "source": "distributed_sgd_tpu_torch/csrc/sync_epoch.cu",
-        "replaces": "distributed_sgd_tpu/ops/pallas_sparse.py:154",
+        "replaces": TPU_KERNEL,
         "launches": None, "max_abs_err": max_err,
         "ms": min(kernel_ms), "plain_ms": min(plain_ms),
         "bound_ms": max(bound_bytes_ms, bound_ops_ms),
         "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
         # no single PyTorch call runs the steps of an epoch
+        "library_ms": None,
+    }
+
+
+def check_mean_mode(train: Dataset, main_data: dict) -> dict:
+    """The epoch kernel's mean mode (K = 1, grad_divisor = B) against its
+    plain version; returns its summary row."""
+    rng = np.random.default_rng(2)
+    w_rand = torch.tensor(rng.normal(size=D).astype(np.float32) * 0.1, device="cuda")
+    max_err = 0.0
+    for s in (1, HOGWILD_K):
+        for kind in wg.COEFF_KINDS:
+            for reg in se.REG_KINDS:
+                args, kw = sync_epoch_args(main_data, rng.integers(0, TRAIN_ROWS, (s, 1, B)),
+                                           kind, reg, w_rand)
+                kw["grad_divisor"] = B
+                got = se.sync_epoch(*args, **kw)
+                want = se.sync_epoch_plain(*args, **kw)
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                moved = float((want - w_rand).abs().max())
+                print(f"sync_epoch mean mode S={s} kind={kind} reg={reg}: max_abs_err={err:.3e} "
+                      f"weights moved {moved:.3e}", flush=True)
+                if not err <= SE_ATOL:
+                    raise AssertionError(f"sync_epoch mean mode S={s} kind={kind} reg={reg} "
+                                         f"disagrees with its plain version (max abs err {err}, "
+                                         f"atol {SE_ATOL})")
+                max_err = max(max_err, err)
+
+    # one Hogwild dispatch at the full-width run's shape: hinge, dim_sparsity,
+    # 64 steps of 100 ids drawn from one worker's third of the train rows
+    ids = rng.integers(0, -(-TRAIN_ROWS // 3), (HOGWILD_K, 1, B))
+    args, kw = sync_epoch_args(main_data, ids, wg.HINGE, "dim_sparsity", lr=0.5)
+    kw["grad_divisor"] = B
+    kernel = lambda: se.sync_epoch(*args, **kw)  # noqa: E731
+    plain = lambda: se.sync_epoch_plain(*args, **kw)  # noqa: E731
+    plain_ms = [time_ms(plain, iters=5, warmup=1)]
+    kernel_ms = [time_ms(kernel, iters=50, warmup=5), time_ms(kernel, iters=50, warmup=5)]
+    plain_ms.append(time_ms(plain, iters=5, warmup=1))
+    row_nnz = (train.values != 0).sum(axis=1)
+    bytes_moved = len(np.unique(ids)) * (8 * P + 4) + ids.nbytes + 3 * 4 * D
+    # per sampled row: the margin and the scatter, a mul and an add per
+    # nonzero; per step and feature: the mean, the masked regularizer add,
+    # the sum, the mean over workers, the update and the w . dim_sparsity
+    # partial
+    flops = 4 * int(row_nnz[ids].sum()) + HOGWILD_K * D * (3 + 5)
+    bound_bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    bound_ops_ms = flops / F32_FLOPS * 1e3
+    row = {
+        "kernel": "sync_epoch mean mode", "max_abs_err": max_err, "steps": HOGWILD_K,
+        "kernel_ms": min(kernel_ms), "plain_ms": min(plain_ms),
+        "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+        "kernel_ms_runs": kernel_ms, "plain_ms_runs": plain_ms,
+        "bytes": bytes_moved, "flops": flops,
+    }
+    print(json.dumps(row), flush=True)
+    return {
+        "name": "sync_epoch (mean mode)", "route": "cuda",
+        "source": "distributed_sgd_tpu_torch/csrc/sync_epoch.cu",
+        "replaces": TPU_KERNEL,
+        "launches": None, "max_abs_err": max_err,
+        "ms": min(kernel_ms), "plain_ms": min(plain_ms),
+        "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+        "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
+        # no single PyTorch call runs the steps of a dispatch
         "library_ms": None,
     }
 
@@ -352,6 +448,66 @@ def check_engine() -> None:
     # atol 1e-5 on weights (atomic sums reorder over 20 steps); rtol 1e-5 on evaluate
     if err > 1e-5 or not np.allclose(ev_gpu, ev_cpu, rtol=1e-5, atol=0):
         raise AssertionError("sync engine on the card disagrees with the CPU run")
+
+
+def check_async_engines() -> None:
+    """One Hogwild dispatch and a short local SGD fit on the card against
+    the same on the CPU, fed the same ids; then a Hogwild fit's replicas
+    against its coordinator."""
+    data = rcv1_like(3000, n_features=2000, nnz=20, seed=6, idf_values=True)
+    train, test = train_test_split(data)
+    ds = dim_sparsity(train)
+    rng = np.random.default_rng(3)
+    dispatch_ids = torch.from_numpy(rng.integers(0, 800, (16, 1, 50)))
+    rounds = [torch.from_numpy(rng.integers(0, len(train), (8, 1, 50)))
+              for _ in range(-(-len(train) // 8))]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = make_model("hinge", 1e-4, 2000, dim_sparsity=ds, device=dev)
+        shard = ShardedData(*(torch.from_numpy(a[:800]).to(dev) for a in (
+            train.indices, train.values, train.labels.astype(np.float32))), n_true=800)
+        worker = hw._Worker(0, model, shard, 50, 0.5, 0, Metrics(), steps_per_dispatch=16)
+        if dev == "cuda" and not worker._steps.fused:
+            raise AssertionError("the async steps at D=2000 did not pick the sync_epoch kernel")
+        delta = worker._step(torch.full((2000,), 0.01, device=dev), dispatch_ids.to(dev))
+        eng = LocalSGDEngine(model, 50, 0.5, sync_period=8, check_every=400,
+                             metrics=Metrics(), device=dev)
+        eng._sample_ids = lambda rnd, shard_n, dev=dev: rounds[rnd].to(dev)
+        res = eng.fit(train, test, 1)
+        out[dev] = (delta.cpu(), res)
+    torch.cuda.synchronize()
+    (d_gpu, r_gpu), (d_cpu, r_cpu) = out["cuda"], out["cpu"]
+    d_err = float((d_gpu - d_cpu).abs().max())
+    w_err = float((r_gpu.weights.cpu() - r_cpu.weights).abs().max())
+    print(f"async engines: Hogwild dispatch delta max_abs_err={d_err:.3e}; local SGD best "
+          f"weights max_abs_err={w_err:.3e}, smoothed test losses gpu={r_gpu.test_losses} "
+          f"cpu={r_cpu.test_losses}", flush=True)
+    # atol 1e-5 on weights and deltas (atomics reorder f32 sums), rtol 1e-5 on losses
+    if (d_err > 1e-5 or w_err > 1e-5
+            or not np.allclose(r_gpu.test_losses, r_cpu.test_losses, rtol=1e-5, atol=0)):
+        raise AssertionError("async engines on the card disagree with the CPU run")
+
+    # a 3-worker Hogwild fit, each worker on its own stream: every delta
+    # reaches every peer and the coordinator, so each replica less the
+    # deltas still in its inbox is the coordinator's weights up to the
+    # order of the f32 sums, unless a stream race corrupted a copy
+    workers, real_worker = [], hw._Worker
+    hw._Worker = lambda *a, **kw: workers.append(real_worker(*a, **kw)) or workers[-1]
+    try:
+        eng = hw.HogwildEngine(make_model("hinge", 1e-4, 2000, dim_sparsity=ds, device="cuda"),
+                               3, 50, 0.5, check_every=400, backoff_s=0.01,
+                               steps_per_dispatch=8, metrics=Metrics(), device="cuda")
+        eng.fit(train, test, 4)
+    finally:
+        hw._Worker = real_worker
+    master = eng._w_master.cpu()
+    gap = max(float((w.w.cpu() - torch.from_numpy(sum(w.inbox.queue, np.zeros(2000, np.float32)))
+                     - master).abs().max()) for w in workers)
+    print(f"Hogwild on the card: {eng._updates} updates; largest gap between a replica (less "
+          f"its inbox) and the coordinator's weights {gap:.3e}, weights up to "
+          f"{float(master.abs().max()):.3e}", flush=True)
+    if not gap <= 1e-5:
+        raise AssertionError(f"a Hogwild replica and the coordinator differ by {gap}")
 
 
 @contextmanager
@@ -407,6 +563,10 @@ def run_main_path() -> int:
     if acc < 0.70 or abs(acc - PER_STEP_TEST_ACC) > 0.005:
         raise AssertionError(f"test accuracy {acc}: want >= 0.70 and within 0.005 of "
                              f"{PER_STEP_TEST_ACC}, the per-step path's")
+    got = np.array([fit.test_losses, fit.test_accuracies])
+    if not np.allclose(got, MAIN_PATH_LOSS_ACC, rtol=0, atol=1e-6):
+        raise AssertionError(f"test losses and accuracies {got.tolist()} differ from the "
+                             f"main path's {MAIN_PATH_LOSS_ACC} in the 7th digit")
     if (launches, steps_run, wg_launches) != (MAIN_EPOCHS, MAIN_EPOCHS * steps, 0):
         raise AssertionError(
             f"sync_epoch launched {launches} times over {steps_run} steps and worker_grads "
@@ -438,42 +598,197 @@ def run_per_step_path() -> int:
     return launches
 
 
-def busy_share() -> None:
-    """Two main-path epochs under torch.profiler; prints the device's busy
-    share from one sync_epoch launch to the next: one epoch's training,
-    its train and test evaluation and the next epoch's id draw."""
-    with cli_env(DSGD_SYNTHETIC=MAIN_ROWS, DSGD_MAX_EPOCHS=2), \
-            tempfile.TemporaryDirectory() as tmp:
+def device_events(fn) -> list:
+    """(start us, end us, name) of every device event, sorted, while `fn`
+    runs under torch.profiler."""
+    with tempfile.TemporaryDirectory() as tmp:
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
-            port_main.main()
+            fn()
             torch.cuda.synchronize()
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
-    dev = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)), e.get("name", ""))
-           for e in events if e.get("ph") == "X"
-           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    return sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)), e.get("name", ""))
+                  for e in events if e.get("ph") == "X"
+                  and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+
+
+def union_us(events, lo: float, hi: float) -> float:
+    """Microseconds of [lo, hi] covered by at least one of the sorted events."""
+    busy, end = 0.0, lo
+    for t0, t1, _ in events:
+        t0, t1 = max(t0, lo), min(t1, hi)
+        if t1 > t0:
+            busy += max(0.0, t1 - max(t0, end))
+            end = max(end, t1)
+    return busy
+
+
+def busy_share() -> None:
+    """Two main-path epochs under torch.profiler; prints the device's busy
+    share from one sync_epoch launch to the next: one epoch's training,
+    its train and test evaluation and the next epoch's id draw."""
+    with cli_env(DSGD_SYNTHETIC=MAIN_ROWS, DSGD_MAX_EPOCHS=2):
+        dev = device_events(port_main.main)
     starts = sorted(t0 for t0, _, name in dev if "sync_epoch" in name)
     if len(starts) < 2:
         print(f"device busy share: not measured (the trace holds {len(dev)} device "
               f"events and {len(starts)} sync_epoch kernels)", flush=True)
         return
     lo, hi = starts[0], starts[1]
-    busy, kernel_us, end = 0.0, 0.0, lo
-    for t0, t1, name in sorted(dev):
-        t0, t1 = max(t0, lo), min(t1, hi)
-        if t1 <= t0:
-            continue
-        if "sync_epoch" in name:
-            kernel_us += t1 - t0
-        busy += max(0.0, t1 - max(t0, end))
-        end = max(end, t1)
+    busy = union_us(dev, lo, hi)
+    kernel_us = sum(max(0.0, min(t1, hi) - max(t0, lo))
+                    for t0, t1, name in dev if "sync_epoch" in name)
     print(f"device busy share over one epoch ({hi - lo:.1f} us from one sync_epoch launch "
           f"to the next): {busy / (hi - lo):.4f}; sync_epoch kernel {kernel_us:.1f} us, "
           f"other device work {busy - kernel_us:.1f} us, idle {hi - lo - busy:.1f} us",
           flush=True)
+
+
+def async_counts() -> dict:
+    m = global_metrics()
+    return {"batch": m.counter("slave.async.batch").value,
+            "merged": m.counter("slave.async.grad.update").value,
+            "dropped": m.counter("slave.async.grad.dropped").value,
+            "rounds": m.histogram("slave.async.round.seconds").count}
+
+
+def live_worker_threads() -> list:
+    return [t.name for t in threading.enumerate()
+            if t.name.startswith("hogwild-") and t.is_alive()]
+
+
+def run_async_path(label: str, rows: int, per_launch: int, evaluate=None, **env) -> dict:
+    """``main()`` with DSGD_ASYNC=1, one epoch's budget and `env`.  Checks
+    one sync_epoch launch of `per_launch` steps per Hogwild dispatch or
+    local SGD round and no worker_grads launch, that the smoothed test
+    loss fell below 1.0 (its value at w = 0), that no worker thread is
+    left, and with `evaluate` the test accuracy of the returned best
+    weights.  Returns the run's numbers."""
+    with cli_env(DSGD_SYNTHETIC=rows, DSGD_ASYNC=1, DSGD_MAX_EPOCHS=1, **env):
+        before = async_counts()
+        reset_counts()
+        run = port_main.main()
+        torch.cuda.synchronize()
+        launches, steps_run = se.sync_epoch.launches, se.sync_epoch.steps
+        wg_launches = wg.worker_grads.launches
+    diff = {k: v - before[k] for k, v in async_counts().items()}
+    fit = run.fit
+    fit_s = fit.state.duration
+    hogwild = env.get("DSGD_ASYNC_MODE", "gossip") == "gossip"
+    units = diff["batch"] // per_launch if hogwild else diff["rounds"]
+    unit = "dispatches" if hogwild else "rounds"
+    stop = "budget" if fit.state.updates >= int(rows * 0.8) else "early stop"
+    losses = fit.test_losses
+    out = {"updates": fit.state.updates, "fit_s": fit_s, unit: units, "launches": launches,
+           "steps": steps_run, "worker_grads_launches": wg_launches, "merged": diff["merged"],
+           "dropped": diff["dropped"], "stop": stop, "checks": len(losses),
+           "best_smoothed_loss": fit.state.loss, "data_s": run.data_seconds}
+    print(f"{label}: {fit.state.updates} updates in {fit_s:.3f} s "
+          f"({fit.state.updates / fit_s:.1f} updates/s); {units} {unit} "
+          f"({units / fit_s:.1f}/s); sync_epoch launches {launches} over {steps_run} steps; "
+          f"worker_grads launches {wg_launches}; peer deltas merged {diff['merged']}, "
+          f"dropped {diff['dropped']}; stopped by {stop}; data seconds {run.data_seconds:.3f}",
+          flush=True)
+    print(f"{label} smoothed test losses ({len(losses)} checks): first {losses[:3]} last "
+          f"{losses[-3:]} best {fit.state.loss}; smoothed accuracies last "
+          f"{fit.test_accuracies[-3:]}", flush=True)
+    w = fit.weights
+    if w.shape != (D,) or not bool(torch.isfinite(w).all()):
+        raise AssertionError(f"{label}: best weights not finite f32[{D}]: {w.shape}")
+    if units < 1 or (launches, steps_run, wg_launches) != (units, units * per_launch, 0):
+        raise AssertionError(
+            f"{label}: sync_epoch launched {launches} times over {steps_run} steps and "
+            f"worker_grads {wg_launches} times; want {units}, {units * per_launch} and 0")
+    if hogwild and fit.state.updates != diff["batch"]:
+        raise AssertionError(f"{label}: the coordinator counted {fit.state.updates} updates, "
+                             f"the workers ran {diff['batch']} steps")
+    if not min(losses) < 1.0:
+        raise AssertionError(f"{label}: the smoothed test loss never fell below 1.0: {losses}")
+    if live_worker_threads():
+        raise AssertionError(f"{label}: worker threads left: {live_worker_threads()}")
+    if evaluate is not None:
+        loss, acc = evaluate(w)
+        out.update(best_test_loss=loss, best_test_acc=acc)
+        print(f"{label} best weights: raw test loss {loss:.7f} accuracy {acc:.7f}", flush=True)
+        if acc < ASYNC_ACC_FLOOR:
+            raise AssertionError(f"{label}: best weights reach test accuracy {acc}, "
+                                 f"want >= {ASYNC_ACC_FLOOR}")
+    return out
+
+
+def time_local_sgd_defaults(model, train_bound, test_bound) -> None:
+    """One local SGD round (the id draw and one launch) and one test
+    evaluation at the default sync_period 16 and check_every 100, and the
+    share of the fit the evaluation would take there."""
+    eng = LocalSGDEngine(model, B, 0.5, device="cuda")
+    d = train_bound.data
+    steps = MeanSteps(model, d.indices, d.values, d.labels, 0.5)
+    w = torch.zeros(D, device="cuda")
+    round_s = []
+    for r in range(40):
+        t0 = time.perf_counter()
+        w = steps.run(w, eng._sample_ids(r, train_bound.shard_n))
+        torch.cuda.synchronize()
+        round_s.append(time.perf_counter() - t0)
+    eval_s = []
+    for _ in range(7):
+        t0 = time.perf_counter()
+        test_bound.evaluate(w)
+        eval_s.append(time.perf_counter() - t0)
+    rounds_per_check = -(-eng.check_every // eng.sync_period)
+    r_s, e_s = statistics.median(round_s[5:]), statistics.median(eval_s[1:])
+    print(f"local SGD at its defaults: one round of {eng.sync_period} steps {r_s * 1e3:.4f} ms "
+          f"(median of 35), one test evaluation {e_s * 1e3:.4f} ms (median of 6); a check "
+          f"every {rounds_per_check} rounds, so the evaluation would take "
+          f"{e_s / (e_s + rounds_per_check * r_s):.4f} of the fit", flush=True)
+
+
+def async_busy_share() -> None:
+    """A Hogwild run (64 steps a dispatch, 3 workers) under torch.profiler;
+    prints the device's busy share from the first sync_epoch launch to the
+    end of the last, and how many clusters ran at once on average."""
+    with cli_env(DSGD_SYNTHETIC=TRACED_HOGWILD_ROWS, DSGD_ASYNC=1, DSGD_MAX_EPOCHS=1,
+                 DSGD_STEPS_PER_DISPATCH=HOGWILD_K):
+        dev = device_events(port_main.main)
+    kernels = [e for e in dev if "sync_epoch" in e[2]]
+    if len(kernels) < 2:
+        print(f"Hogwild device busy share: not measured (the trace holds {len(dev)} device "
+              f"events and {len(kernels)} sync_epoch kernels)", flush=True)
+        return
+    lo, hi = kernels[0][0], max(t1 for _, t1, _ in kernels)
+    span = hi - lo
+    print(f"Hogwild device busy share ({TRACED_HOGWILD_ROWS} rows, {span:.1f} us from the "
+          f"first sync_epoch launch to the end of the last): {union_us(dev, lo, hi) / span:.4f}; "
+          f"sync_epoch kernels cover {union_us(kernels, lo, hi) / span:.4f}, "
+          f"{len(kernels)} of them, {sum(t1 - t0 for t0, t1, _ in kernels) / span:.4f} "
+          f"clusters at once on average", flush=True)
+
+
+def run_async_paths(mean_row: dict) -> None:
+    t0 = time.perf_counter()
+    full = rcv1_like(MAIN_ROWS, seed=0, idf_values=True)
+    train, test = train_test_split(full)
+    model = make_model("hinge", LAM, D, dim_sparsity=dim_sparsity(train), device="cuda")
+    test_bound = SyncEngine(model, B, 0.0).bind(test)
+    print(f"async evaluation data seconds: {time.perf_counter() - t0:.2f}", flush=True)
+
+    hog = run_async_path("Hogwild", MAIN_ROWS, HOGWILD_K, evaluate=test_bound.evaluate,
+                         DSGD_STEPS_PER_DISPATCH=HOGWILD_K)
+    hog1 = run_async_path("Hogwild k=1", HOGWILD_K1_ROWS, 1)
+    local = run_async_path("local SGD", MAIN_ROWS, LOCAL_SGD_PERIOD,
+                           evaluate=test_bound.evaluate, DSGD_ASYNC_MODE="local_sgd",
+                           DSGD_SYNC_PERIOD=LOCAL_SGD_PERIOD,
+                           DSGD_CHECK_EVERY=LOCAL_SGD_CHECK_EVERY)
+    print(json.dumps({"hogwild": hog, "hogwild_k1": hog1, "local_sgd": local}), flush=True)
+    mean_row["launches"] = hog["launches"]
+    mean_row["path"] = (f"async: Hogwild (k={HOGWILD_K}, one launch a dispatch); local SGD "
+                        f"(one launch a round) {local['launches']}; Hogwild k=1 "
+                        f"({HOGWILD_K1_ROWS} rows) {hog1['launches']}")
+    time_local_sgd_defaults(model, SyncEngine(model, B, 0.5).bind(train), test_bound)
+    async_busy_share()
 
 
 def main() -> None:
@@ -495,21 +810,31 @@ def main() -> None:
 
     phase("3 kernels against their plain versions")
     wg_row = check_worker_grads()
-    se_row = check_sync_epoch()
+    t0 = time.perf_counter()
+    train = rcv1_like(TRAIN_ROWS, n_features=D, nnz=P, seed=0, idf_values=True)
+    main_data = on_card(train)
+    print(f"kernel data seconds: {time.perf_counter() - t0:.2f}", flush=True)
+    se_row = check_sync_epoch(train, main_data)
+    mean_row = check_mean_mode(train, main_data)
+    del train, main_data
 
-    phase("4 engine on the card against the CPU")
+    phase("4 engines on the card against the CPU")
     check_engine()
+    check_async_engines()
 
-    phase("5 main path and per-step path")
+    phase("5 sync paths: main path and per-step path")
     se_row["launches"] = run_main_path()
     se_row["path"] = "main"
     wg_row["launches"] = run_per_step_path()
     wg_row["path"] = f"per-step (K={PER_STEP_WORKERS}); 0 launches on the main path"
     busy_share()
 
-    phase("6 summary")
+    phase("6 async paths: Hogwild and local SGD")
+    run_async_paths(mean_row)
+
+    phase("7 summary")
     print(card)
-    print(json.dumps({"kernels": [wg_row, se_row]}))
+    print(json.dumps({"kernels": [wg_row, se_row, mean_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

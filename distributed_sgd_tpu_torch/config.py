@@ -1,13 +1,16 @@
 """Typed configuration with ``DSGD_*`` environment overrides.
 
 The fields of the JAX package's Config (distributed_sgd_tpu/config.py)
-that the port's sync path reads, under the same ``DSGD_*`` names and with
-the same defaults.  The port runs the in-process sync engine only:
-``engine`` must be 'mesh' and ``use_async`` false.  ``optimizer`` is read
-and handed to the trainer, which refuses 'momentum' and 'adam' until they
-are ported.  ``DSGD_KERNEL`` is not read: in the JAX package it picks
-among XLA formulations of the same function, so ignoring it changes no
-result.
+that the port's in-process engines read, under the same ``DSGD_*`` names
+and with the same defaults: the sync trainer, and with ``use_async`` the
+Hogwild gossip (``async_mode='gossip'``) or local SGD
+(``async_mode='local_sgd'``).  ``engine`` must be 'mesh'.  ``optimizer``
+is read and handed to the engines, which refuse 'momentum' and 'adam'
+until they are ported.  Settings that change what the JAX CLI does but are
+not ported (checkpoints, the profiler trace, the dp x tp engine, gossip
+compression) are read and refused here, before any data is loaded.
+``DSGD_KERNEL`` is not read: in the JAX package it picks among XLA
+formulations of the same function, so ignoring it changes no result.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ import json
 import os
 from dataclasses import dataclass
 from typing import Optional
+
+from distributed_sgd_tpu_torch.parallel.topology import parse_topology
 
 
 def _env(name: str, default, cast):
@@ -48,18 +53,57 @@ class Config:
     engine: str = "mesh"
     optimizer: str = "sgd"  # sgd (reference) | momentum | adam
     momentum: float = 0.9  # used by optimizer='momentum'
+    # async (use_async): the loss checker, the local SGD period, the gossip
+    check_every: int = 100
+    leaky_loss: float = 0.9
+    async_mode: str = "gossip"  # gossip | local_sgd
+    sync_period: int = 16  # local-SGD averaging period (steps)
+    steps_per_dispatch: int = 1  # gossip: k local steps per dispatch
+    gossip_topology: str = "all"  # all | ring | random:k
+    # read so that none is ignored without a word; each raises when set
+    compress: str = "none"  # none | topk | qint8
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 1
+    profile_dir: Optional[str] = None
+    feature_shards: int = 1
 
     def __post_init__(self):
         if self.engine != "mesh":
             raise ValueError(
                 f"DSGD_ENGINE={self.engine!r}: the port runs the in-process "
-                f"sync engine only ('mesh'); the rpc topology is not ported yet")
-        if self.use_async:
+                f"engines only ('mesh'); the rpc topology is not ported yet")
+        if self.async_mode not in ("gossip", "local_sgd"):
             raise ValueError(
-                "DSGD_ASYNC=1: the port runs the sync engine only; the async "
-                "engines are not ported yet")
+                f"config field async_mode={self.async_mode!r} must be 'gossip' or 'local_sgd'")
         if self.model not in ("hinge", "svm", "logistic", "least_squares"):
             raise ValueError(f"config field model={self.model!r} is not a known model")
+        if self.compress not in ("none", "topk", "qint8"):
+            raise ValueError(
+                f"config field compress={self.compress!r} must be 'none', 'topk' or 'qint8'")
+        if self.compress != "none":
+            raise NotImplementedError(
+                f"DSGD_COMPRESS={self.compress}: gossip compression is not ported yet "
+                f"(ROADMAP.md Queue A 13: compress/)")
+        if self.checkpoint_dir:
+            raise NotImplementedError(
+                "DSGD_CHECKPOINT_DIR: checkpoints are not ported yet (ROADMAP.md "
+                "Queue A: 'sync checkpoints' and 'async checkpoint resume')")
+        if self.profile_dir:
+            raise NotImplementedError(
+                "DSGD_PROFILE_DIR: the profiler trace is not ported yet (ROADMAP.md "
+                "Queue A: 'profiler trace of an epoch')")
+        if self.feature_shards < 1:
+            raise ValueError("feature_shards must be >= 1")
+        if self.feature_shards > 1:
+            raise NotImplementedError(
+                f"DSGD_FEATURE_SHARDS={self.feature_shards}: the dp x tp engine is not "
+                f"ported yet (ROADMAP.md Queue A 11: parallel/feature_sharded.py)")
+        parse_topology(self.gossip_topology)
+        for name in ("checkpoint_every", "steps_per_dispatch", "sync_period"):
+            if getattr(self, name) < 1:
+                raise ValueError(f"{name} must be >= 1")
+        if not 0.0 <= self.leaky_loss <= 1.0:
+            raise ValueError("leaky_loss must be between 0 and 1")
         if self.optimizer not in ("sgd", "momentum", "adam"):
             raise ValueError(
                 f"config field optimizer={self.optimizer!r} must be 'sgd', "
@@ -91,6 +135,17 @@ class Config:
             engine=_env("DSGD_ENGINE", cls.engine, str),
             optimizer=_env("DSGD_OPTIMIZER", cls.optimizer, str),
             momentum=_env("DSGD_MOMENTUM", cls.momentum, float),
+            check_every=_env("DSGD_CHECK_EVERY", cls.check_every, int),
+            leaky_loss=_env("DSGD_LEAKY_LOSS", cls.leaky_loss, float),
+            async_mode=_env("DSGD_ASYNC_MODE", cls.async_mode, str),
+            sync_period=_env("DSGD_SYNC_PERIOD", cls.sync_period, int),
+            steps_per_dispatch=_env("DSGD_STEPS_PER_DISPATCH", cls.steps_per_dispatch, int),
+            gossip_topology=_env("DSGD_GOSSIP_TOPOLOGY", cls.gossip_topology, str),
+            compress=_env("DSGD_COMPRESS", cls.compress, str),
+            checkpoint_dir=_env("DSGD_CHECKPOINT_DIR", None, str),
+            checkpoint_every=_env("DSGD_CHECKPOINT_EVERY", cls.checkpoint_every, int),
+            profile_dir=_env("DSGD_PROFILE_DIR", None, str),
+            feature_shards=_env("DSGD_FEATURE_SHARDS", cls.feature_shards, int),
         )
         return dataclasses.replace(cfg, **overrides)
 

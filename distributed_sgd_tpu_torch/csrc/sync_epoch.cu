@@ -6,11 +6,15 @@
 // _one_step): for each step s with sample ids ids[s] of shape [K, B],
 //
 //     g_k  = sum_b coeff(x_b . w, y_b) * x_b          per worker k
+//     g_k  = g_k / grad_divisor
 //     g_k += reg(g_k, w)                              dim_sparsity | l2 | none
 //     w    = w - lr * (sum_k g_k) / n_total_workers
 //
 // where reg is 1[g_k != 0] * 2*lam*(w . dim_sparsity) for dim_sparsity and
-// 2*lam*w for l2.
+// 2*lam*w for l2.  grad_divisor is 1 on the sync path.  The async engines
+// (Hogwild, local SGD) run it in a mean mode, K = 1 and grad_divisor = B:
+// each step is then the JAX async step, grad_mean (models/linear.py) then
+// regularize then w - lr*g (parallel/sync.py local_update).
 //
 // Bound on the H100 (3.35 TB/s HBM, 67 TFLOP/s f32).  At the main path's
 // shape (K=3, B=100, P=76, D=47,236, 2,146 steps an epoch) the state a step
@@ -96,6 +100,7 @@ struct Params {
   float lam2;                 // 2 * lam
   float lr;
   float n_total;              // workers over all cards
+  float grad_div;             // each worker's sum is divided by it: 1 (sync) or B (mean mode)
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -214,6 +219,7 @@ __global__ void __launch_bounds__(kThreads, 1) sync_epoch_kernel(const Params p)
   const int slice = p.slice;
   const int n_own = max(0, (p.D - rank + kCluster - 1) / kCluster);  // features rank + kCluster * j
   const bool dim_sp = p.reg_kind == kRegDimSparsity;
+  const bool mean = p.grad_div != 1.f;  // the sync path skips a division by 1
 
   // shared layout: w | dim_sparsity | g[K] | partial[2] | red[kWarps]
   extern __shared__ float smem[];
@@ -277,6 +283,9 @@ __global__ void __launch_bounds__(kThreads, 1) sync_epoch_kernel(const Params p)
         float* g = reinterpret_cast<float*>(&g4);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
+          // the mean first, as JAX's grad_sum / batch_size: its g != 0 mask
+          // is the regularizer's
+          if (mean) g[e] = __fdiv_rn(g[e], p.grad_div);
           if (dim_sp) {
             g[e] = __fadd_rn(g[e], g[e] != 0.f ? scalar : 0.f);
           } else if (p.reg_kind == kRegL2) {
@@ -315,12 +324,12 @@ extern "C" int dsgd_sync_epoch(const float* w, const float* ds, const int64_t* i
                                float* w_out, int64_t n_rows, int steps, int K, int B,
                                int P, int D, int cluster, int slice, int smem_bytes,
                                int coeff_kind, int reg_kind, float lam2, float lr,
-                               float n_total, void* stream) {
+                               float n_total, float grad_div, void* stream) {
   // the sweep reads the slices as float4s
   if (cluster != kCluster || slice % 4 != 0 || (int64_t)slice * kCluster < D)
     return (int)cudaErrorInvalidValue;
   const Params p{w, ds, ids, idx, val, y, w_out, n_rows, steps, K, B, P, D,
-                 slice, coeff_kind, reg_kind, lam2, lr, n_total};
+                 slice, coeff_kind, reg_kind, lam2, lr, n_total, grad_div};
   cudaError_t err = cudaFuncSetAttribute(
       sync_epoch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;

@@ -1,11 +1,14 @@
-"""Application entry point: the dev-mode sync scenario on one CUDA card.
+"""Application entry point: the dev-mode scenario on one CUDA card.
 
-The port of the JAX package's default CLI run (distributed_sgd_tpu/main.py
-with no DSGD_ENGINE): load RCV1 (or synthetic RCV1-shaped rows with
-DSGD_SYNTHETIC=<n>), split 80/20, build the model with the train split's
-dim-sparsity regularizer, and fit the sync engine with K virtual workers
-on the card, early-stopping on the test loss.  Behaviour is driven by
-DSGD_* env config (config.py).
+The port of the JAX package's CLI run with no DSGD_ENGINE
+(distributed_sgd_tpu/main.py): load RCV1 (or synthetic RCV1-shaped rows
+with DSGD_SYNTHETIC=<n>), split 80/20, build the model with the train
+split's dim-sparsity regularizer, and fit on the card, early-stopping on
+the test loss.  The fit is the sync engine with K virtual workers, or with
+DSGD_ASYNC=1 the Hogwild gossip engine with node_count workers
+(DSGD_ASYNC_MODE=gossip, the default) or local SGD
+(DSGD_ASYNC_MODE=local_sgd).  Behaviour is driven by DSGD_* env config
+(config.py).
 
 Run: ``python -m distributed_sgd_tpu_torch``
 """
@@ -27,6 +30,8 @@ from distributed_sgd_tpu_torch.core.trainer import FitResult, SyncTrainer
 from distributed_sgd_tpu_torch.data.rcv1 import Dataset, dim_sparsity, load_rcv1, train_test_split
 from distributed_sgd_tpu_torch.data.synthetic import rcv1_like
 from distributed_sgd_tpu_torch.models.linear import make_model
+from distributed_sgd_tpu_torch.parallel.hogwild import HogwildEngine
+from distributed_sgd_tpu_torch.parallel.local_sgd import LocalSGDEngine
 from distributed_sgd_tpu_torch.parallel.mesh import DeviceLike, resolve_device, world_size
 from distributed_sgd_tpu_torch.parallel.sync import resolve_optimizer
 from distributed_sgd_tpu_torch.utils.log import setup as setup_logging
@@ -102,18 +107,38 @@ def select_topology(
 
 def scenario_mesh(cfg: Config, train: Dataset, test: Dataset, model,
                   device: DeviceLike = None) -> FitResult:
-    """Dev-mode sync scenario on one device."""
+    """Dev-mode scenario on one device: the sync trainer, or an async
+    engine with DSGD_ASYNC=1."""
     n, virtual = select_topology(
         cfg.node_count, world_size(), cfg.use_async,
         cfg.virtual_workers, cfg.exact_topology)
-    log.info("engine=mesh devices=%d virtual_workers=%d model=%s device=%s",
-             n, virtual, cfg.model, resolve_device(device))
-    trainer = SyncTrainer(
-        model, batch_size=cfg.batch_size, learning_rate=cfg.learning_rate,
-        seed=cfg.seed, virtual_workers=virtual, optimizer=cfg.optimizer,
-        device=device)
-    res = trainer.fit(train, test, cfg.max_epochs,
-                      no_improvement(patience=cfg.patience, min_delta=cfg.conv_delta))
+    criterion = no_improvement(patience=cfg.patience, min_delta=cfg.conv_delta)
+    if cfg.gossip_topology != "all" and not (cfg.use_async and cfg.async_mode == "gossip"):
+        log.warning("DSGD_GOSSIP_TOPOLOGY=%s ignored: only the gossip engine "
+                    "(async_mode=gossip) has a peer fan-out", cfg.gossip_topology)
+    log.info("engine=mesh devices=%d virtual_workers=%d model=%s async=%s device=%s",
+             n, virtual, cfg.model, cfg.use_async, resolve_device(device))
+    if cfg.use_async and cfg.async_mode == "gossip":
+        eng = HogwildEngine(
+            model, n_workers=cfg.node_count, batch_size=cfg.batch_size,
+            learning_rate=cfg.learning_rate, check_every=cfg.check_every,
+            leaky_loss=cfg.leaky_loss, seed=cfg.seed,
+            steps_per_dispatch=cfg.steps_per_dispatch, optimizer=cfg.optimizer,
+            compress=cfg.compress, gossip_topology=cfg.gossip_topology, device=device)
+        res = eng.fit(train, test, cfg.max_epochs, criterion)
+    elif cfg.use_async:
+        eng = LocalSGDEngine(
+            model, batch_size=cfg.batch_size, learning_rate=cfg.learning_rate,
+            sync_period=cfg.sync_period, check_every=cfg.check_every,
+            leaky_loss=cfg.leaky_loss, seed=cfg.seed, optimizer=cfg.optimizer,
+            device=device)
+        res = eng.fit(train, test, cfg.max_epochs, criterion)
+    else:
+        trainer = SyncTrainer(
+            model, batch_size=cfg.batch_size, learning_rate=cfg.learning_rate,
+            seed=cfg.seed, virtual_workers=virtual, optimizer=cfg.optimizer,
+            device=device)
+        res = trainer.fit(train, test, cfg.max_epochs, criterion)
     _finish(res)
     return res
 

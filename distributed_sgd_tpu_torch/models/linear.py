@@ -92,6 +92,12 @@ class LinearModel:
         coeff = self.grad_coeff(self.margins(w, batch), y)
         return scatter_add(batch, coeff, self.n_features)
 
+    def grad_mean(self, w: torch.Tensor, batch: SparseBatch, y: torch.Tensor) -> torch.Tensor:
+        """Mean of per-sample backward over one batch: the async engines'
+        gradient (plain torch; on the card the sync_epoch kernel's mean
+        mode computes it)."""
+        return self.grad_sum(w, batch, y) / batch.batch_size
+
     def regularize(self, grad: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """Add the regularizer to gradient sums `grad` — [D], or [K, D] for
         K workers, each masked by its own nonzeros."""

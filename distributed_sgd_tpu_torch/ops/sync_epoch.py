@@ -5,20 +5,25 @@ plain version.
 each step s with sample ids ``ids[s]`` (``[K, B]`` rows of the data),
 
     g_k = sum_b grad_coeff(x_b . w, y_b) * x_b      for each worker k
+    g_k = g_k / grad_divisor
     g_k = regularize(g_k, w)                         per worker, by reg_kind
     w   = w - lr * (sum_k g_k) / n_total_workers
 
-— what the sync engine's per-step path (parallel/sync.py ``_one_step``)
-computes ``S`` times over, and through it the JAX engine's step (the
-Pallas ``worker_grads``, ``regularize_blocked`` per worker, the sum, the
-mean and the update).  The input ``w`` is left untouched.
+— with ``grad_divisor`` 1, what the sync engine's per-step path
+(parallel/sync.py ``_one_step``) computes ``S`` times over, and through it
+the JAX engine's step (the Pallas ``worker_grads``, ``regularize_blocked``
+per worker, the sum, the mean and the update).  In the mean mode (K = 1,
+``grad_divisor`` = B) each step is the JAX async engines' local step:
+``grad_mean``, ``regularize``, ``w - lr*g``.  The input ``w`` is left
+untouched.
 
 On a CUDA tensor the wrapper launches the hand-written kernel in
 ``csrc/sync_epoch.cu`` (one thread-block cluster holding w, dim_sparsity
 and g in distributed shared memory for the whole run; built at first use,
 ops/_build.py) or raises.  On a CPU tensor it runs ``sync_epoch_plain``.
 ``sync_epoch.launches`` counts kernel launches and ``sync_epoch.steps`` the
-steps they ran.
+steps they ran; the async engines launch from several threads, so both are
+added under a lock.
 
 ``cluster_plan(K, D)`` says whether that state fits the cluster's shared
 memory; the engine picks its path by it, before any launch.
@@ -27,6 +32,7 @@ memory; the engine picks its path by it, before any launch.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import NamedTuple, Optional
 
 import torch
@@ -38,6 +44,7 @@ CLUSTER_BLOCKS = 8  # the portable cluster size
 SMEM_BYTES_PER_BLOCK = 232_448  # what one Hopper block may use (227 KB)
 _SCRATCH_FLOATS = 2 + 32  # the w . dim_sparsity partial by step parity, one sum per warp
 _CLUSTER_UNSCHEDULABLE = 100000  # the C function's code for that
+_counts_lock = threading.Lock()
 
 
 class ClusterPlan(NamedTuple):
@@ -74,24 +81,27 @@ def regularize(gk: torch.Tensor, w: torch.Tensor, reg_kind: str, lam: float,
 
 
 def sync_epoch_plain(w, ids, indices, values, labels_f32, *, coeff_kind, reg_kind,
-                     lam, dim_sparsity, lr, n_total_workers) -> torch.Tensor:
+                     lam, dim_sparsity, lr, n_total_workers,
+                     grad_divisor: float = 1) -> torch.Tensor:
     """The kernel's function in plain torch: the per-step path's arithmetic
     in a loop over ``ids[S, K, B]``."""
     for rows in ids:
         gk = worker_grads_plain(w, indices[rows], values[rows], labels_f32[rows], coeff_kind)
-        gk = regularize(gk, w, reg_kind, lam, dim_sparsity)
+        gk = regularize(gk / grad_divisor, w, reg_kind, lam, dim_sparsity)  # / 1 is exact
         w = w - lr * (gk.sum(dim=0) / n_total_workers)
     return w.clone() if ids.shape[0] == 0 else w
 
 
 def _check(w, ids, indices, values, labels_f32, coeff_kind, reg_kind, dim_sparsity,
-           n_total_workers):
+           n_total_workers, grad_divisor):
     if coeff_kind not in COEFF_KINDS:
         raise ValueError(f"coeff_kind must be one of {COEFF_KINDS}, got {coeff_kind!r}")
     if reg_kind not in REG_KINDS:
         raise ValueError(f"reg_kind must be one of {REG_KINDS}, got {reg_kind!r}")
     if n_total_workers < 1:
         raise ValueError(f"n_total_workers must be >= 1, got {n_total_workers}")
+    if not grad_divisor > 0:
+        raise ValueError(f"grad_divisor must be > 0, got {grad_divisor}")
     if w.dim() != 1 or ids.dim() != 3 or indices.dim() != 2 or labels_f32.dim() != 1:
         raise ValueError(
             f"want w[D], ids[S, K, B], indices/values[N, P], labels[N]; got "
@@ -117,8 +127,21 @@ def _check(w, ids, indices, values, labels_f32, coeff_kind, reg_kind, dim_sparsi
             raise ValueError(f"{name} must be contiguous")
 
 
+def _kernel():
+    """The C entry point with its argument types, the library built at
+    first use."""
+    from distributed_sgd_tpu_torch.ops import _build
+
+    fn = _build.load("sync_epoch").dsgd_sync_epoch
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int64] + [ctypes.c_int] * 10
+                       + [ctypes.c_float] * 4 + [ctypes.c_void_p])
+    return fn
+
+
 def _launch(w, ids, indices, values, labels_f32, coeff_kind, reg_kind, lam,
-            dim_sparsity, lr, n_total_workers):
+            dim_sparsity, lr, n_total_workers, grad_divisor):
     s, k, b = ids.shape
     n, p = indices.shape
     d = w.shape[0]
@@ -127,13 +150,7 @@ def _launch(w, ids, indices, values, labels_f32, coeff_kind, reg_kind, lam,
         raise ValueError(
             f"K={k} workers at D={d} do not fit one cluster's shared memory "
             f"(cluster_plan); run the per-step path")
-    from distributed_sgd_tpu_torch.ops import _build
-
-    fn = _build.load("sync_epoch").dsgd_sync_epoch
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int64] + [ctypes.c_int] * 10
-                       + [ctypes.c_float] * 3 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+    fn = _kernel()
     ds_ptr = dim_sparsity.data_ptr() if reg_kind == "dim_sparsity" else 0
     with torch.cuda.device(w.device):
         w_out = torch.empty_like(w)
@@ -141,31 +158,33 @@ def _launch(w, ids, indices, values, labels_f32, coeff_kind, reg_kind, lam,
         err = fn(w.data_ptr(), ds_ptr, ids.data_ptr(), indices.data_ptr(),
                  values.data_ptr(), labels_f32.data_ptr(), w_out.data_ptr(), n, s, k, b,
                  p, d, plan.blocks, plan.slice, plan.smem_bytes, coeff_kind,
-                 REG_KINDS.index(reg_kind), 2.0 * lam, lr, float(n_total_workers), stream)
+                 REG_KINDS.index(reg_kind), 2.0 * lam, lr, float(n_total_workers),
+                 float(grad_divisor), stream)
     if err == _CLUSTER_UNSCHEDULABLE:
         raise RuntimeError(
             f"sync_epoch: a cluster of {plan.blocks} blocks with {plan.smem_bytes} B of "
             f"shared memory each cannot be scheduled on this card")
     if err != 0:
         raise RuntimeError(f"sync_epoch kernel launch failed: cudaError {err}")
-    sync_epoch.launches += 1
-    sync_epoch.steps += s
+    with _counts_lock:
+        sync_epoch.launches += 1
+        sync_epoch.steps += s
     return w_out
 
 
 def sync_epoch(w: torch.Tensor, ids: torch.Tensor, indices: torch.Tensor,
                values: torch.Tensor, labels_f32: torch.Tensor, *, coeff_kind: int,
                reg_kind: str, lam: float, dim_sparsity: Optional[torch.Tensor],
-               lr: float, n_total_workers: int) -> torch.Tensor:
+               lr: float, n_total_workers: int, grad_divisor: float = 1) -> torch.Tensor:
     """The weights after ``ids.shape[0]`` sync steps from `w` (f32[D]) over
     the data ``indices`` i32[N, P], ``values`` f32[N, P], ``labels_f32``
-    f32[N].  CUDA tensors launch the kernel (or raise); CPU tensors run
-    `sync_epoch_plain`."""
+    f32[N]; ``grad_divisor`` B gives the async mean mode.  CUDA tensors
+    launch the kernel (or raise); CPU tensors run `sync_epoch_plain`."""
     _check(w, ids, indices, values, labels_f32, coeff_kind, reg_kind, dim_sparsity,
-           n_total_workers)
+           n_total_workers, grad_divisor)
     args = (w, ids, indices, values, labels_f32)
     kw = dict(coeff_kind=coeff_kind, reg_kind=reg_kind, lam=lam, dim_sparsity=dim_sparsity,
-              lr=lr, n_total_workers=n_total_workers)
+              lr=lr, n_total_workers=n_total_workers, grad_divisor=grad_divisor)
     if w.device.type == "cuda":
         return _launch(*args, **kw)
     if w.device.type == "cpu":

@@ -13,7 +13,8 @@ instead of the TPU's lane-blocked ``[R, 128]`` view.  Pad entries
 On a CUDA tensor the wrapper launches the hand-written kernel in
 ``csrc/worker_grads.cu`` (built at first use, ops/_build.py) or raises.
 On a CPU tensor it runs ``worker_grads_plain``, the same function in
-plain torch.  ``worker_grads.launches`` counts kernel launches.
+plain torch.  ``worker_grads.launches`` counts kernel launches, under a
+lock: the async engines launch from several threads.
 
 A Python coefficient function cannot be traced into CUDA the way the JAX
 package traces ``coeff_fn`` into Pallas, so each model names its rule by
@@ -24,11 +25,13 @@ torch definition of each rule and the kernel mirrors it.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
 HINGE, LOGISTIC, LEAST_SQUARES = 0, 1, 2
 COEFF_KINDS = (HINGE, LOGISTIC, LEAST_SQUARES)
+_counts_lock = threading.Lock()
 
 
 def grad_coeff(kind: int, margins: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -99,7 +102,8 @@ def _launch(w, idx, val, y, coeff_kind):
                  g.data_ptr(), k, b, p, d, coeff_kind, stream)
     if err != 0:
         raise RuntimeError(f"worker_grads kernel launch failed: cudaError {err}")
-    worker_grads.launches += 1
+    with _counts_lock:
+        worker_grads.launches += 1
     return g
 
 

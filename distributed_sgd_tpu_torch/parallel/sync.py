@@ -264,6 +264,48 @@ class BoundSync:
         return reg + float(sums[0]) / n, float(sums[1]) / n
 
 
+class MeanSteps:
+    """The async engines' local steps over one worker's rows.
+
+    Each step with ids[B] is the JAX async step (hogwild.py, local_sgd.py):
+    ``grad_mean`` (the gradient sum over the batch, divided by B), the
+    model's regularizer, then ``w - lr*g`` (``local_update`` with no
+    optimizer).  Where w and dim_sparsity fit one cluster
+    (``cluster_plan(1, D)``: D up to 154,848), `run` is one
+    ``sync_epoch`` launch in the mean mode (K = 1, grad_divisor = B).
+    Otherwise each step is one ``worker_grads`` launch, with the mean, the
+    regularizer and the update in torch.  The route is picked by shape when
+    this is built, before any launch.
+    """
+
+    def __init__(self, model: LinearModel, indices: torch.Tensor, values: torch.Tensor,
+                 labels: torch.Tensor, learning_rate: float):
+        self.model = model
+        self.indices, self.values = indices, values
+        self.labels_f32 = labels.float().contiguous()
+        self.learning_rate = float(learning_rate)
+        self.fused = cluster_plan(1, model.n_features) is not None
+        if not self.fused:
+            log.info("w at D=%d does not fit one cluster's shared memory: the async "
+                     "steps run one worker_grads launch each", model.n_features)
+
+    def run(self, w: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        """The weights after the steps ids[S, 1, B] (rows of this worker's
+        data) from `w`, which is left untouched."""
+        m, b = self.model, ids.shape[2]
+        if self.fused:
+            return sync_epoch(
+                w, ids, self.indices, self.values, self.labels_f32,
+                coeff_kind=m.coeff_kind, reg_kind=m.reg_kind, lam=m.lam,
+                dim_sparsity=m.dim_sparsity, lr=self.learning_rate, n_total_workers=1,
+                grad_divisor=b)
+        for rows in ids:
+            g = worker_grads(w, self.indices[rows], self.values[rows], self.labels_f32[rows],
+                             m.coeff_kind)[0]
+            w = w - self.learning_rate * m.regularize(g / b, w)
+        return w
+
+
 def resolve_optimizer(optimizer) -> None:
     """None/'sgd' -> None (the reference's plain update w - lr*g).
     momentum and adam are not ported yet."""
@@ -272,7 +314,8 @@ def resolve_optimizer(optimizer) -> None:
     if optimizer in ("momentum", "adam"):
         raise NotImplementedError(
             f"optimizer={optimizer!r} is not ported yet (ROADMAP.md Queue A: "
-            f"'momentum and adam for the sync engine'); use 'sgd'")
+            f"'momentum and adam for the sync engine' and 'async momentum and "
+            f"adam'); use 'sgd'")
     raise ValueError(f"optimizer must be 'sgd', 'momentum' or 'adam', got {optimizer!r}")
 
 

@@ -37,7 +37,9 @@ def _is_jax_package(name: str) -> bool:
 
 def test_every_port_module_imports_with_jax_blocked():
     mods = _port_modules() + ["chip_smoke"]
-    assert "distributed_sgd_tpu_torch.ops.worker_grads" in mods
+    assert {"distributed_sgd_tpu_torch.ops.worker_grads", "distributed_sgd_tpu_torch.parallel.hogwild",
+            "distributed_sgd_tpu_torch.parallel.local_sgd",
+            "distributed_sgd_tpu_torch.core.loss_check"} <= set(mods)
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"

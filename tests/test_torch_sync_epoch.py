@@ -6,7 +6,9 @@ On the CPU the wrapper runs its plain torch version; the CUDA cluster
 kernel itself is held against that plain version on the card by
 chip_smoke.py.  Weights after one epoch are held to atol 1e-5 (f32
 gradient sums in another order over up to 82 steps); evaluate() to rtol
-1e-5 (chunk sums in another order)."""
+1e-5 (chunk sums in another order).  The mean mode (grad_divisor = B, the
+async engines' local step) is held to the JAX composition of grad_mean,
+regularize and local_update over the same ids, also to atol 1e-5."""
 
 import logging
 
@@ -19,12 +21,14 @@ import torch
 from distributed_sgd_tpu.data.rcv1 import dim_sparsity
 from distributed_sgd_tpu.data.synthetic import rcv1_like
 from distributed_sgd_tpu.models.linear import make_model as jax_make_model
+from distributed_sgd_tpu.ops.sparse import SparseBatch as JaxBatch
 from distributed_sgd_tpu.parallel import sync as jsync
 from distributed_sgd_tpu.parallel.mesh import make_mesh
 from distributed_sgd_tpu_torch import convert
 from distributed_sgd_tpu_torch.data.rcv1 import Dataset as TDataset
 from distributed_sgd_tpu_torch.ops import _build
 from distributed_sgd_tpu_torch.ops import sync_epoch as se
+from distributed_sgd_tpu_torch.ops.sparse import SparseBatch
 from distributed_sgd_tpu_torch.parallel import sync as tsync
 
 torch.set_num_threads(1)
@@ -113,7 +117,8 @@ def test_cpu_wrapper_runs_the_plain_version_without_launching():
 
 
 @pytest.mark.parametrize("bad", ["ids_dtype", "ids_shape", "values_shape", "device",
-                                 "reg_kind", "no_dim_sparsity", "coeff_kind", "workers"])
+                                 "reg_kind", "no_dim_sparsity", "coeff_kind", "workers",
+                                 "grad_divisor"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     _, tb = _engines("hinge", "dim_sparsity", 3, "mxu", n=300)
     (w, ids, idx, val, y), kw = _op_args(tb, _owned_ids(tb, steps=2))
@@ -132,6 +137,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         kw["dim_sparsity"] = None
     elif bad == "coeff_kind":
         kw["coeff_kind"] = 9
+    elif bad == "grad_divisor":
+        kw["grad_divisor"] = 0
     else:
         kw["n_total_workers"] = 0
     with pytest.raises(err):
@@ -187,3 +194,77 @@ def test_library_path_follows_the_included_header(tmp_path, monkeypatch):
     assert _build.library_path("sync_epoch") != after["sync_epoch"]
     assert _build.library_path("worker_grads") == after["worker_grads"]
 
+
+
+def _mean_case(model, reg, seed=3, steps=8):
+    """JAX and port models over the same data; ids[S, 1, B]; a random w0."""
+    data = rcv1_like(N, n_features=D, nnz=NNZ, seed=11, idf_values=True)
+    ds = dim_sparsity(data)
+    jm = jax_make_model(model, LAM, D, dim_sparsity=jnp.asarray(ds), regularizer=reg)
+    tm = convert.model_from_jax(model, LAM, D, ds, reg, device="cpu")
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, N, (steps, 1, B))
+    w0 = (rng.normal(size=D) * 0.1).astype(np.float32)
+    return data, jm, tm, ids, w0
+
+
+@pytest.mark.parametrize("reg", ["dim_sparsity", "l2", "none"])
+@pytest.mark.parametrize("model", ["hinge", "logistic", "least_squares"])
+def test_mean_mode_is_the_jax_async_local_step(model, reg):
+    data, jm, tm, ids, w0 = _mean_case(model, reg)
+    lr = LR[model]
+    w = jnp.asarray(w0)
+    for rows in ids[:, 0]:
+        batch = JaxBatch(jnp.asarray(data.indices[rows]), jnp.asarray(data.values[rows]))
+        g = jm.regularize(jm.grad_mean(w, batch, jnp.asarray(data.labels[rows])), w)
+        w, _, _ = jsync.local_update(None, lr, g, w, None)
+    want = np.asarray(w)
+    assert np.abs(want - w0).max() > 1e-3  # the steps moved the weights
+
+    y = torch.from_numpy(data.labels.astype(np.float32))
+    idx, val = torch.from_numpy(data.indices), torch.from_numpy(data.values)
+    got = se.sync_epoch(torch.from_numpy(w0), torch.from_numpy(ids), idx, val, y,
+                        coeff_kind=tm.coeff_kind, reg_kind=reg, lam=LAM,
+                        dim_sparsity=tm.dim_sparsity, lr=lr, n_total_workers=1,
+                        grad_divisor=B)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+    # the port's own grad_mean is the same step
+    w_t = torch.from_numpy(w0)
+    for rows in ids[:, 0]:
+        batch = SparseBatch(idx[rows], val[rows])
+        w_t = w_t - lr * tm.regularize(tm.grad_mean(w_t, batch, y[rows]), w_t)
+    np.testing.assert_allclose(got.numpy(), w_t.numpy(), atol=1e-6)
+    # grad_divisor 1 is the sync step, bit for bit
+    kw = dict(coeff_kind=tm.coeff_kind, reg_kind=reg, lam=LAM, dim_sparsity=tm.dim_sparsity,
+              lr=lr, n_total_workers=1)
+    args = (torch.from_numpy(w0), torch.from_numpy(ids), idx, val, y)
+    np.testing.assert_array_equal(se.sync_epoch_plain(*args, **kw, grad_divisor=1).numpy(),
+                                  se.sync_epoch_plain(*args, **kw).numpy())
+
+
+@pytest.mark.parametrize("fits", [True, False])
+def test_mean_steps_take_the_kernel_or_the_per_step_route_by_shape(fits, monkeypatch):
+    data, _, tm, ids, w0 = _mean_case("logistic", "dim_sparsity", seed=4, steps=5)
+    if not fits:
+        monkeypatch.setattr(tsync, "cluster_plan", lambda k, d: None)
+    calls = []
+    monkeypatch.setattr(tsync, "sync_epoch", lambda *a, **kw: calls.append(kw) or se.sync_epoch(*a, **kw))
+    idx, val = torch.from_numpy(data.indices), torch.from_numpy(data.values)
+    steps = tsync.MeanSteps(tm, idx, val, torch.from_numpy(data.labels), 0.5)
+    assert steps.fused == fits
+    w = torch.from_numpy(w0)
+    got = steps.run(w, torch.from_numpy(ids))
+    assert torch.equal(w, torch.from_numpy(w0))  # the input weights are left as they were
+    want = se.sync_epoch_plain(w, torch.from_numpy(ids), idx, val,
+                               torch.from_numpy(data.labels.astype(np.float32)),
+                               coeff_kind=tm.coeff_kind, reg_kind="dim_sparsity", lam=LAM,
+                               dim_sparsity=tm.dim_sparsity, lr=0.5, n_total_workers=1,
+                               grad_divisor=B)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert [(kw["grad_divisor"], kw["n_total_workers"]) for kw in calls] == ([(B, 1)] if fits else [])
+
+
+def test_cluster_plan_fits_one_worker_at_the_main_width():
+    plan = se.cluster_plan(1, 47236)
+    assert plan == se.ClusterPlan(blocks=8, slice=5908, smem_bytes=4 * (3 * 5908 + 34))
+    assert se.cluster_plan(1, 154848) is not None and se.cluster_plan(1, 154849) is None

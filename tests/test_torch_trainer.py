@@ -107,11 +107,43 @@ def test_config_reads_the_jax_env_names_and_refuses_what_is_not_ported(monkeypat
     cfg = Config.from_env()
     assert (cfg.batch_size, cfg.lam, cfg.exact_topology) == (64, 0.002, True)
     assert cfg.learning_rate == 0.5 and cfg.node_count == 3 and cfg.max_epochs == 10
+    monkeypatch.setenv("DSGD_ASYNC", "1")
+    monkeypatch.setenv("DSGD_ASYNC_MODE", "local_sgd")
+    monkeypatch.setenv("DSGD_SYNC_PERIOD", "256")
+    monkeypatch.setenv("DSGD_GOSSIP_TOPOLOGY", "random:2")
+    cfg = Config.from_env()
+    assert (cfg.use_async, cfg.async_mode, cfg.sync_period, cfg.gossip_topology) == (
+        True, "local_sgd", 256, "random:2")
+    assert (cfg.check_every, cfg.leaky_loss, cfg.steps_per_dispatch, cfg.compress) == (
+        100, 0.9, 1, "none")
+    assert (cfg.checkpoint_dir, cfg.checkpoint_every, cfg.profile_dir, cfg.feature_shards) == (
+        None, 1, None, 1)
     monkeypatch.setenv("DSGD_ENGINE", "rpc")
     with pytest.raises(ValueError, match="DSGD_ENGINE"):
         Config.from_env()
-    with pytest.raises(ValueError, match="DSGD_ASYNC"):
-        Config(use_async=True)
+    with pytest.raises(ValueError, match="async_mode"):
+        Config(use_async=True, async_mode="hogwild")
+    with pytest.raises(ValueError, match="DSGD_GOSSIP_TOPOLOGY"):
+        Config(gossip_topology="star")
+
+
+@pytest.mark.parametrize("env", [
+    {"DSGD_CHECKPOINT_DIR": "ckpt"},
+    {"DSGD_CHECKPOINT_DIR": "ckpt", "DSGD_ASYNC": "1"},
+    {"DSGD_PROFILE_DIR": "trace"},
+    {"DSGD_FEATURE_SHARDS": "2"},
+    {"DSGD_COMPRESS": "topk", "DSGD_ASYNC": "1"},
+    {"DSGD_COMPRESS": "qint8", "DSGD_ASYNC": "1", "DSGD_ASYNC_MODE": "local_sgd"},
+    {"DSGD_OPTIMIZER": "adam", "DSGD_ASYNC": "1"},
+    {"DSGD_OPTIMIZER": "momentum", "DSGD_ASYNC": "1", "DSGD_ASYNC_MODE": "local_sgd"},
+], ids=lambda env: "+".join(f"{k[5:].lower()}={v}" for k, v in env.items()))
+def test_settings_not_ported_raise_before_any_data_loads(env, monkeypatch):
+    # the JAX CLI acts on each of these; the port must not ignore one
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.setattr(tmain, "load_data", lambda cfg: pytest.fail("data was loaded"))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A"):
+        tmain.main(device="cpu")
 
 
 def test_the_optimizer_setting_reaches_the_trainer(monkeypatch):
