@@ -13,28 +13,35 @@ Phases, each fatal (a traceback and a non-zero exit):
    both (CUDA events, in turns: plain, kernel, kernel, plain) -- for
    ``sync_epoch`` over one full 2,146-step epoch, and for its mean mode
    (K = 1, grad_divisor = B, the async engines' local steps) over one
-   64-step Hogwild dispatch;
+   64-step Hogwild dispatch; then ``sync_epoch``'s momentum and adam modes
+   (w and every state vector held to the plain version over 64 steps, at
+   K = 3 and in the mean mode, and over a full epoch by its objective,
+   each timed over a full epoch beside the sgd mode);
 4. engines: one epoch of the sync engine, one Hogwild dispatch and a
    short local SGD fit on the card against the same on the CPU, fed the
    same sample ids; a 3-worker Hogwild fit whose replicas, less their
-   inboxes, must equal its coordinator's weights;
+   inboxes, must equal its coordinator's weights; the sync engine and the
+   async local steps with momentum and with adam, card against CPU;
 5. sync paths: ``main()`` of the port at full width (804,414 synthetic
    RCV1-shaped rows x 47,236 features, 3 epochs), checking that the test
    loss falls, the test accuracy, and that each epoch was one
-   ``sync_epoch`` launch and no step launched ``worker_grads``; then the
-   per-step path (8 workers, whose state does not fit one cluster; depth
-   cut to 100,000 rows and 1 epoch), checking that every step launched
-   ``worker_grads``; then a 2-epoch main-path run under ``torch.profiler``
-   for the device's busy share over one epoch;
+   ``sync_epoch`` launch and no step launched ``worker_grads``; the same
+   with DSGD_OPTIMIZER=adam (lr 0.001); then the per-step path (8
+   workers, whose state does not fit one cluster; depth cut to 100,000
+   rows and 1 epoch), with sgd and with momentum (lr 0.05), checking that
+   every step launched ``worker_grads``; then a 2-epoch main-path run
+   under ``torch.profiler`` for the device's busy share over one epoch;
 6. async paths: ``main()`` with DSGD_ASYNC=1 at full width, Hogwild with
    3 workers and 64 steps a dispatch, then local SGD with 256 steps a
    round, each checking one ``sync_epoch`` launch per dispatch or round,
    no ``worker_grads`` launch, a falling smoothed test loss, the test
    accuracy of the returned best weights, and that no worker thread is
-   left; Hogwild at the reference's one step a dispatch (depth cut to
-   50,000 rows); one local SGD round and one evaluation timed at the
-   default period of 16 steps; and a Hogwild run under ``torch.profiler``
-   (depth cut to 200,000 rows) for the device's busy share;
+   left; the same two with momentum (Hogwild, lr 0.05) and adam (local
+   SGD, lr 0.001); Hogwild at the reference's one step a dispatch (depth
+   cut to 50,000 rows); one local SGD round and one evaluation timed at
+   the default period of 16 steps; and a Hogwild run under
+   ``torch.profiler`` (depth cut to 200,000 rows) for the device's busy
+   share;
 7. summary: the card line, one JSON line of per-kernel numbers, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -99,6 +106,18 @@ HOGWILD_K1_ROWS = 50000  # the one-step-a-dispatch run: 40,000 train rows, a 40,
 LOCAL_SGD_PERIOD, LOCAL_SGD_CHECK_EVERY = 256, 65536
 TRACED_HOGWILD_ROWS = 200000
 ASYNC_ACC_FLOOR = 0.70  # the sync phase's floor, for the async fits' best weights
+# the optimizer fits' learning rates: at the CLI's 0.5, Adam's test loss
+# grows in the JAX package too, and momentum 0.9 multiplies the step by 10
+OPT_LR = {"momentum": 0.05, "adam": 0.001}
+# local SGD with adam at lr 0.001 can peak early and then climb (seen on
+# the CPU at a reduced size): its checks come every 8,192 steps so that
+# the best weights are seen
+ADAM_LOCAL_CHECK_EVERY = 8192
+OPT_STEPS = 64  # steps of the optimizer modes' checks: enough for Adam's bias correction to move
+# extra f32 operations per feature and step over sgd's update: momentum's
+# trace (a mul, an add); adam's two moments (5), two bias divisions, the
+# sqrt, the eps add, the division and the scaled add
+OPT_EXTRA_FLOPS = {"momentum": 2, "adam": 12}
 
 
 def phase(name: str) -> None:
@@ -421,6 +440,136 @@ def check_mean_mode(train: Dataset, main_data: dict) -> dict:
     }
 
 
+def random_state(opt: se.Optimizer, rng, count: int) -> se.OptState:
+    """A state as training leaves it: a signed trace or mu, and adam's nu
+    no smaller than 10 mu^2 (a step then moves an entry by under lr)."""
+    vecs = [rng.normal(size=D).astype(np.float32) * 0.01 for _ in range(opt.n_state)]
+    if opt.kind == "adam":
+        vecs[1] = 10 * vecs[0] ** 2 + vecs[1] ** 2
+    return se.OptState(tuple(torch.from_numpy(v).cuda() for v in vecs), count)
+
+
+def hold_opt_launch(label: str, args, kw, state) -> float:
+    """One launch in an optimizer mode against its plain version: w and
+    every state vector within SE_ATOL, the inputs untouched.  Returns the
+    largest difference."""
+    w_in, st_in = args[0].clone(), [v.clone() for v in state.vectors]
+    got_w, got = se.sync_epoch(*args, **kw, opt_state=state)
+    want_w, want = se.sync_epoch_plain(*args, **kw, opt_state=state)
+    torch.cuda.synchronize()
+    errs = [float((got_w - want_w).abs().max())] + [
+        float((a - b).abs().max()) for a, b in zip(got.vectors, want.vectors)]
+    moved = float((want_w - w_in).abs().max())
+    print(f"sync_epoch {label}: max_abs_err w={errs[0]:.3e} state={errs[1:]} "
+          f"weights moved {moved:.3e} count {got.count}", flush=True)
+    if not (torch.equal(args[0], w_in) and all(map(torch.equal, state.vectors, st_in))):
+        raise AssertionError(f"sync_epoch {label} wrote its input weights or state")
+    if got.count != want.count or not max(errs) <= SE_ATOL:
+        raise AssertionError(f"sync_epoch {label} disagrees with its plain version "
+                             f"(max abs errs {errs}, atol {SE_ATOL}; counts {got.count}, "
+                             f"{want.count})")
+    return max(errs)
+
+
+def check_opt_modes(train: Dataset, main_data: dict, se_row: dict) -> list:
+    """The momentum and adam modes against the plain version: at the main
+    shape (K = 3) and in the mean mode (K = 1, grad_divisor = B) over 64
+    steps, from a zero and from a trained-looking state, w and every state
+    vector to SE_ATOL; a full epoch by its objective, timed in turns beside
+    the sgd mode.  Returns the two modes' summary rows."""
+    rng = np.random.default_rng(5)
+    w_rand = torch.tensor(rng.normal(size=D).astype(np.float32) * 0.1, device="cuda")
+    sub = -(-TRAIN_ROWS // K)
+    epoch_ids = (rng.integers(0, sub, (STEPS, K, B))
+                 % np.minimum(sub, TRAIN_ROWS - np.arange(K) * sub)[:, None]
+                 + (np.arange(K) * sub)[:, None])
+    row_nnz = (train.values != 0).sum(axis=1)
+    rows = []
+    for kind in ("momentum", "adam"):
+        opt = se.Optimizer(kind)
+        lr = OPT_LR[kind]
+        max_err = 0.0
+        for reg in se.REG_KINDS:
+            for k, div in ((K, 1), (1, B)):
+                ids = rng.integers(0, TRAIN_ROWS, (OPT_STEPS, k, B))
+                mode = f"{kind} K={k}" + (" mean mode" if div != 1 else "")
+                for w0, state, start in (
+                        (None, se.init_opt_state(opt, D, "cuda"), "zero state"),
+                        (w_rand, random_state(opt, rng, 100), "a random state, count 100")):
+                    args, kw = sync_epoch_args(main_data, ids, wg.HINGE, reg, w0, lr=lr)
+                    kw.update(optimizer=opt, grad_divisor=div)
+                    max_err = max(max_err, hold_opt_launch(
+                        f"{mode} reg={reg} from {start}", args, kw, state))
+
+        # a full epoch at the main path's shape (hinge, dim_sparsity, K=3):
+        # timed in turns with the sgd mode's kernel beside it; held by its
+        # objective, as the sgd mode's full epoch is
+        args, kw = sync_epoch_args(main_data, epoch_ids, wg.HINGE, "dim_sparsity", lr=lr)
+        kw["optimizer"] = opt
+        state = se.init_opt_state(opt, D, "cuda")
+        sgd_kw = dict(kw, optimizer=None, lr=0.5)
+        kernel = lambda: se.sync_epoch(*args, **kw, opt_state=state)  # noqa: E731
+        plain = lambda: se.sync_epoch_plain(*args, **kw, opt_state=state)  # noqa: E731
+        sgd = lambda: se.sync_epoch(*args, **sgd_kw)  # noqa: E731
+        kernel()
+        sgd()
+        plain_ms = [time_ms(plain, iters=1, warmup=0)]
+        kernel_ms = [time_ms(kernel, iters=1, warmup=0), time_ms(kernel, iters=1, warmup=0)]
+        sgd_ms = time_ms(sgd, iters=1, warmup=0)
+        plain_ms.append(time_ms(plain, iters=1, warmup=0))
+        (w_k, st_k), (w_p, st_p) = kernel(), plain()
+        torch.cuda.synchronize()
+        obj_k, obj_p = (hinge_objective(w, main_data, 100000) for w in (w_k, w_p))
+        errs = [float((w_k - w_p).abs().max())] + [
+            float((a - b).abs().max()) for a, b in zip(st_k.vectors, st_p.vectors)]
+        print(f"sync_epoch {kind} full epoch: kernel {min(kernel_ms):.4f} ms (runs {kernel_ms}), "
+              f"plain {min(plain_ms):.4f} ms (runs {plain_ms}), the sgd mode's kernel in the "
+              f"same turns {sgd_ms:.4f} ms; kernel vs plain max_abs_err w and state {errs}; "
+              f"hinge objective on 100,000 rows kernel {obj_k:.7f} plain {obj_p:.7f}", flush=True)
+        if st_k.count != (STEPS if kind == "adam" else 0) or abs(obj_k - obj_p) > 1e-3 * abs(obj_p):
+            raise AssertionError(f"the {kind} full-epoch objective of the kernel and plain "
+                                 f"version differ, or its count is wrong ({st_k.count})")
+
+        # the bound: the sgd mode's bytes and operations, plus each state
+        # vector read once and written once (and adam's [S, 2] bias table),
+        # plus the update's extra operations per feature and step
+        bytes_moved = (len(np.unique(epoch_ids)) * (8 * P + 4) + epoch_ids.nbytes + 3 * 4 * D
+                       + 2 * opt.n_state * 4 * D + (8 * STEPS if kind == "adam" else 0))
+        flops = (4 * int(row_nnz[epoch_ids].sum())
+                 + STEPS * D * (2 * K + 5 + OPT_EXTRA_FLOPS[kind]))
+        bound_bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+        bound_ops_ms = flops / F32_FLOPS * 1e3
+        print(json.dumps({
+            "kernel": f"sync_epoch {kind}", "max_abs_err": max_err, "steps": STEPS,
+            "kernel_ms": min(kernel_ms), "plain_ms": min(plain_ms), "sgd_kernel_ms": sgd_ms,
+            "sgd_row_ms": se_row["ms"], "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+            "kernel_ms_runs": kernel_ms, "plain_ms_runs": plain_ms, "bytes": bytes_moved,
+            "flops": flops, "full_epoch_errs": errs}), flush=True)
+        rows.append({
+            "name": f"sync_epoch ({kind})", "route": "cuda",
+            "source": "distributed_sgd_tpu_torch/csrc/sync_epoch.cu",
+            "replaces": TPU_KERNEL,
+            "launches": None, "max_abs_err": max_err,
+            "ms": min(kernel_ms), "plain_ms": min(plain_ms),
+            "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+            "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
+            # no single PyTorch call runs the steps of an epoch
+            "library_ms": None,
+        })
+
+        # one 64-step Hogwild dispatch in the mean mode, timed as
+        # check_mean_mode times the sgd mode's
+        ids = rng.integers(0, sub, (HOGWILD_K, 1, B))
+        args, kw = sync_epoch_args(main_data, ids, wg.HINGE, "dim_sparsity", lr=lr)
+        kw.update(optimizer=opt, grad_divisor=B)
+        state = se.init_opt_state(opt, D, "cuda")
+        mean_ms = time_ms(lambda: se.sync_epoch(*args, **kw, opt_state=state), iters=50,
+                          warmup=5)
+        print(f"sync_epoch {kind} mean mode: {mean_ms:.4f} ms a {HOGWILD_K}-step dispatch",
+              flush=True)
+    return rows
+
+
 def check_engine() -> None:
     """One epoch on the card against the same epoch on the CPU."""
     data = rcv1_like(3000, n_features=2000, nnz=20, seed=5, idf_values=True)
@@ -448,6 +597,44 @@ def check_engine() -> None:
     # atol 1e-5 on weights (atomic sums reorder over 20 steps); rtol 1e-5 on evaluate
     if err > 1e-5 or not np.allclose(ev_gpu, ev_cpu, rtol=1e-5, atol=0):
         raise AssertionError("sync engine on the card disagrees with the CPU run")
+
+
+def check_opt_engines() -> None:
+    """The sync engine (two epochs, K=3) and the async local steps
+    (MeanSteps, 16 steps) with momentum and with adam, on the card against
+    the CPU, fed the same ids: weights and every state vector to 1e-5."""
+    data = rcv1_like(3000, n_features=2000, nnz=20, seed=7, idf_values=True)
+    ds = dim_sparsity(data)
+    mean_ids = torch.from_numpy(np.random.default_rng(4).integers(0, 3000, (16, 1, 50)))
+    for kind in ("momentum", "adam"):
+        out, counts = {}, {}
+        for dev in ("cuda", "cpu"):
+            model = make_model("hinge", 1e-4, 2000, dim_sparsity=ds, device=dev)
+            bound = SyncEngine(model, batch_size=50, learning_rate=OPT_LR[kind],
+                               virtual_workers=3, optimizer=kind, device=dev).bind(
+                Dataset(data.indices, data.values, data.labels, data.n_features))
+            if dev == "cuda" and not bound.epoch_kernel:
+                raise AssertionError(f"the {kind} engine at K=3, D=2000 did not pick sync_epoch")
+            sub, starts, sizes = bound._subshards()
+            sel = np.random.default_rng(0).integers(0, sub, (bound.steps_per_epoch, 3, 50))
+            ids = torch.from_numpy(sel % np.minimum(sub, sizes)[:, None] + starts[:, None])
+            bound._sample_ids = lambda key, ids=ids, dev=dev: ids.to(dev)
+            w = bound.epoch(bound.epoch(torch.zeros(2000, device=dev), 0), 1)
+            d = bound.data
+            steps = MeanSteps(model, d.indices, d.values, d.labels, OPT_LR[kind],
+                              se.Optimizer(kind))
+            if dev == "cuda" and not steps.fused:
+                raise AssertionError(f"the {kind} async steps at D=2000 did not pick sync_epoch")
+            mw, mstate = steps.run(torch.full((2000,), 0.01, device=dev), mean_ids.to(dev))
+            out[dev] = [x.cpu() for x in (w, *bound._opt_state.vectors, mw, *mstate.vectors)]
+            counts[dev] = (bound._opt_state.count, mstate.count)
+        torch.cuda.synchronize()
+        errs = [float((a - b).abs().max()) for a, b in zip(out["cuda"], out["cpu"])]
+        print(f"{kind} engines, card vs CPU: sync engine 2 epochs and MeanSteps 16 steps, "
+              f"max_abs_err (w, state..., mean w, mean state...) {errs}; counts "
+              f"{counts['cuda']} vs {counts['cpu']}", flush=True)
+        if max(errs) > 1e-5 or counts["cuda"] != counts["cpu"]:
+            raise AssertionError(f"the {kind} engines on the card disagree with the CPU run")
 
 
 def check_async_engines() -> None:
@@ -528,6 +715,7 @@ def cli_env(**env):
 def reset_counts() -> None:
     wg.worker_grads.launches = 0
     se.sync_epoch.launches = se.sync_epoch.steps = 0
+    se.sync_epoch.opt_launches = dict.fromkeys(se.OPT_KINDS, 0)
 
 
 def run_main_path() -> int:
@@ -574,20 +762,59 @@ def run_main_path() -> int:
     return launches
 
 
-def run_per_step_path() -> int:
+def run_main_path_optimizer(kind: str) -> int:
+    """The CLI at full width with DSGD_OPTIMIZER=`kind`: 3 epochs, each one
+    sync_epoch launch in that mode, no worker_grads; the test loss falls
+    every epoch from 1.0 (its value at w = 0), and the test accuracy is
+    >= 0.70.  Returns the launches."""
+    with cli_env(DSGD_SYNTHETIC=MAIN_ROWS, DSGD_MAX_EPOCHS=MAIN_EPOCHS, DSGD_OPTIMIZER=kind,
+                 DSGD_LEARNING_RATE=OPT_LR[kind]):
+        reset_counts()
+        t0 = time.perf_counter()
+        run = port_main.main()
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        launches, steps_run = se.sync_epoch.launches, se.sync_epoch.steps
+        mode_launches, wg_launches = se.sync_epoch.opt_launches[kind], wg.worker_grads.launches
+    fit = run.fit
+    print(f"main path, {kind} (lr {OPT_LR[kind]}): epoch seconds {fit.epoch_seconds}; "
+          f"{total_s:.3f} s in all; test losses {fit.test_losses} accuracies "
+          f"{fit.test_accuracies}; sync_epoch launches {launches} ({kind} {mode_launches}) "
+          f"over {steps_run} steps; worker_grads launches {wg_launches}", flush=True)
+    w = fit.weights
+    if w.shape != (D,) or not bool(torch.isfinite(w).all()):
+        raise AssertionError(f"{kind}: final weights not finite f32[{D}]: {w.shape}")
+    losses = [1.0] + fit.test_losses
+    if fit.epochs_run != MAIN_EPOCHS or not all(b < a for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"{kind}: the test loss did not fall below 1.0 every epoch for "
+                             f"{MAIN_EPOCHS} epochs: {fit.test_losses}")
+    if fit.test_accuracies[-1] < 0.70:
+        raise AssertionError(f"{kind}: test accuracy {fit.test_accuracies[-1]} < 0.70")
+    want = (MAIN_EPOCHS, MAIN_EPOCHS, MAIN_EPOCHS * STEPS, 0)
+    if (launches, mode_launches, steps_run, wg_launches) != want:
+        raise AssertionError(
+            f"{kind}: sync_epoch launched {launches} times ({mode_launches} in its mode) over "
+            f"{steps_run} steps and worker_grads {wg_launches} times; want {want}")
+    return launches
+
+
+def run_per_step_path(optimizer: str = "sgd") -> int:
     """The CLI with 8 workers, whose state does not fit one cluster: every
-    step launches worker_grads.  Returns those launches."""
+    step launches worker_grads, and the optimizer runs in torch after it.
+    Returns those launches."""
     if se.cluster_plan(PER_STEP_WORKERS, D) is not None:
         raise AssertionError(f"K={PER_STEP_WORKERS} at D={D} fits a cluster")
+    env = {} if optimizer == "sgd" else {"DSGD_OPTIMIZER": optimizer,
+                                         "DSGD_LEARNING_RATE": OPT_LR[optimizer]}
     with cli_env(DSGD_SYNTHETIC=PER_STEP_ROWS, DSGD_MAX_EPOCHS=1,
-                 DSGD_NODE_COUNT=PER_STEP_WORKERS):
+                 DSGD_NODE_COUNT=PER_STEP_WORKERS, **env):
         reset_counts()
         run = port_main.main()
         torch.cuda.synchronize()
         launches, se_launches = wg.worker_grads.launches, se.sync_epoch.launches
     fit = run.fit
     steps = steps_per_epoch_for(int(PER_STEP_ROWS * 0.8), 1, PER_STEP_WORKERS, 100)
-    print(f"per-step path: epoch seconds {fit.epoch_seconds[0]:.4f} "
+    print(f"per-step path, {optimizer}: epoch seconds {fit.epoch_seconds[0]:.4f} "
           f"steps/s {fit.steps_per_epoch / fit.epoch_seconds[0]:.1f}; test loss "
           f"{fit.test_losses[0]:.6f} accuracy {fit.test_accuracies[0]:.4f}; worker_grads "
           f"launches {launches}, sync_epoch launches {se_launches}", flush=True)
@@ -662,17 +889,18 @@ def live_worker_threads() -> list:
 
 def run_async_path(label: str, rows: int, per_launch: int, evaluate=None, **env) -> dict:
     """``main()`` with DSGD_ASYNC=1, one epoch's budget and `env`.  Checks
-    one sync_epoch launch of `per_launch` steps per Hogwild dispatch or
-    local SGD round and no worker_grads launch, that the smoothed test
-    loss fell below 1.0 (its value at w = 0), that no worker thread is
-    left, and with `evaluate` the test accuracy of the returned best
-    weights.  Returns the run's numbers."""
+    one sync_epoch launch of `per_launch` steps, in the optimizer's mode,
+    per Hogwild dispatch or local SGD round and no worker_grads launch,
+    that the smoothed test loss fell below 1.0 (its value at w = 0), that
+    no worker thread is left, and with `evaluate` the test accuracy of the
+    returned best weights.  Returns the run's numbers."""
     with cli_env(DSGD_SYNTHETIC=rows, DSGD_ASYNC=1, DSGD_MAX_EPOCHS=1, **env):
         before = async_counts()
         reset_counts()
         run = port_main.main()
         torch.cuda.synchronize()
         launches, steps_run = se.sync_epoch.launches, se.sync_epoch.steps
+        mode_launches = se.sync_epoch.opt_launches[env.get("DSGD_OPTIMIZER", "sgd")]
         wg_launches = wg.worker_grads.launches
     diff = {k: v - before[k] for k, v in async_counts().items()}
     fit = run.fit
@@ -698,10 +926,12 @@ def run_async_path(label: str, rows: int, per_launch: int, evaluate=None, **env)
     w = fit.weights
     if w.shape != (D,) or not bool(torch.isfinite(w).all()):
         raise AssertionError(f"{label}: best weights not finite f32[{D}]: {w.shape}")
-    if units < 1 or (launches, steps_run, wg_launches) != (units, units * per_launch, 0):
+    if units < 1 or (launches, mode_launches, steps_run, wg_launches) != (
+            units, units, units * per_launch, 0):
         raise AssertionError(
-            f"{label}: sync_epoch launched {launches} times over {steps_run} steps and "
-            f"worker_grads {wg_launches} times; want {units}, {units * per_launch} and 0")
+            f"{label}: sync_epoch launched {launches} times ({mode_launches} in the "
+            f"optimizer's mode) over {steps_run} steps and worker_grads {wg_launches} times; "
+            f"want {units}, {units}, {units * per_launch} and 0")
     if hogwild and fit.state.updates != diff["batch"]:
         raise AssertionError(f"{label}: the coordinator counted {fit.state.updates} updates, "
                              f"the workers ran {diff['batch']} steps")
@@ -730,7 +960,7 @@ def time_local_sgd_defaults(model, train_bound, test_bound) -> None:
     round_s = []
     for r in range(40):
         t0 = time.perf_counter()
-        w = steps.run(w, eng._sample_ids(r, train_bound.shard_n))
+        w, _ = steps.run(w, eng._sample_ids(r, train_bound.shard_n))
         torch.cuda.synchronize()
         round_s.append(time.perf_counter() - t0)
     eval_s = []
@@ -767,7 +997,7 @@ def async_busy_share() -> None:
           f"clusters at once on average", flush=True)
 
 
-def run_async_paths(mean_row: dict) -> None:
+def run_async_paths(mean_row: dict, opt_rows: dict) -> None:
     t0 = time.perf_counter()
     full = rcv1_like(MAIN_ROWS, seed=0, idf_values=True)
     train, test = train_test_split(full)
@@ -782,7 +1012,22 @@ def run_async_paths(mean_row: dict) -> None:
                            evaluate=test_bound.evaluate, DSGD_ASYNC_MODE="local_sgd",
                            DSGD_SYNC_PERIOD=LOCAL_SGD_PERIOD,
                            DSGD_CHECK_EVERY=LOCAL_SGD_CHECK_EVERY)
-    print(json.dumps({"hogwild": hog, "hogwild_k1": hog1, "local_sgd": local}), flush=True)
+    hog_m = run_async_path("Hogwild momentum", MAIN_ROWS, HOGWILD_K, evaluate=test_bound.evaluate,
+                           DSGD_STEPS_PER_DISPATCH=HOGWILD_K, DSGD_OPTIMIZER="momentum",
+                           DSGD_LEARNING_RATE=OPT_LR["momentum"])
+    local_a = run_async_path("local SGD adam", MAIN_ROWS, LOCAL_SGD_PERIOD,
+                             evaluate=test_bound.evaluate, DSGD_ASYNC_MODE="local_sgd",
+                             DSGD_SYNC_PERIOD=LOCAL_SGD_PERIOD,
+                             DSGD_CHECK_EVERY=ADAM_LOCAL_CHECK_EVERY, DSGD_OPTIMIZER="adam",
+                             DSGD_LEARNING_RATE=OPT_LR["adam"])
+    print(json.dumps({"hogwild": hog, "hogwild_k1": hog1, "local_sgd": local,
+                      "hogwild_momentum": hog_m, "local_sgd_adam": local_a}), flush=True)
+    opt_rows["momentum"]["launches"] = hog_m["launches"]
+    opt_rows["momentum"]["path"] = (f"async: Hogwild momentum (k={HOGWILD_K}, one launch a "
+                                    f"dispatch); the per-step path (K={PER_STEP_WORKERS}) runs "
+                                    f"momentum in torch after worker_grads")
+    opt_rows["adam"]["path"] = (f"main path with DSGD_OPTIMIZER=adam (one launch an epoch); "
+                                f"local SGD adam (one launch a round) {local_a['launches']}")
     mean_row["launches"] = hog["launches"]
     mean_row["path"] = (f"async: Hogwild (k={HOGWILD_K}, one launch a dispatch); local SGD "
                         f"(one launch a round) {local['launches']}; Hogwild k=1 "
@@ -816,25 +1061,31 @@ def main() -> None:
     print(f"kernel data seconds: {time.perf_counter() - t0:.2f}", flush=True)
     se_row = check_sync_epoch(train, main_data)
     mean_row = check_mean_mode(train, main_data)
+    opt_rows = dict(zip(("momentum", "adam"), check_opt_modes(train, main_data, se_row)))
     del train, main_data
 
     phase("4 engines on the card against the CPU")
     check_engine()
     check_async_engines()
+    check_opt_engines()
 
     phase("5 sync paths: main path and per-step path")
     se_row["launches"] = run_main_path()
     se_row["path"] = "main"
+    opt_rows["adam"]["launches"] = run_main_path_optimizer("adam")
     wg_row["launches"] = run_per_step_path()
-    wg_row["path"] = f"per-step (K={PER_STEP_WORKERS}); 0 launches on the main path"
+    momentum_launches = run_per_step_path("momentum")
+    wg_row["path"] = (f"per-step (K={PER_STEP_WORKERS}); 0 launches on the main path; "
+                      f"{momentum_launches} more with momentum")
     busy_share()
 
     phase("6 async paths: Hogwild and local SGD")
-    run_async_paths(mean_row)
+    run_async_paths(mean_row, opt_rows)
 
     phase("7 summary")
     print(card)
-    print(json.dumps({"kernels": [wg_row, se_row, mean_row]}))
+    print(json.dumps({"kernels": [wg_row, se_row, mean_row, opt_rows["momentum"],
+                                  opt_rows["adam"]]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

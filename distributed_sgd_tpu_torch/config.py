@@ -5,8 +5,8 @@ that the port's in-process engines read, under the same ``DSGD_*`` names
 and with the same defaults: the sync trainer, and with ``use_async`` the
 Hogwild gossip (``async_mode='gossip'``) or local SGD
 (``async_mode='local_sgd'``).  ``engine`` must be 'mesh'.  ``optimizer``
-is read and handed to the engines, which refuse 'momentum' and 'adam'
-until they are ported.  Settings that change what the JAX CLI does but are
+('sgd', 'momentum' or 'adam') and ``momentum`` are handed to every engine.
+Settings that change what the JAX CLI does but are
 not ported (checkpoints, the profiler trace, the dp x tp engine, gossip
 compression) are read and refused here, before any data is loaded.
 ``DSGD_KERNEL`` is not read: in the JAX package it picks among XLA

@@ -69,6 +69,7 @@ class SyncTrainer:
         seed: int = 0,
         virtual_workers: int = 1,
         optimizer=None,
+        momentum: float = 0.9,
         checkpointer=None,
         profile_dir: Optional[str] = None,
         device: DeviceLike = None,
@@ -83,7 +84,8 @@ class SyncTrainer:
                 "trace of an epoch')")
         self.engine = SyncEngine(
             model, batch_size, learning_rate, sampling=sampling,
-            virtual_workers=virtual_workers, optimizer=optimizer, device=device,
+            virtual_workers=virtual_workers, optimizer=optimizer, momentum=momentum,
+            device=device,
         )
         self.model = model
         self.seed = seed

@@ -8,13 +8,25 @@
 //     g_k  = sum_b coeff(x_b . w, y_b) * x_b          per worker k
 //     g_k  = g_k / grad_divisor
 //     g_k += reg(g_k, w)                              dim_sparsity | l2 | none
-//     w    = w - lr * (sum_k g_k) / n_total_workers
+//     g    = (sum_k g_k) / n_total_workers
+//     w    = update(w, g)                             sgd | momentum | adam
 //
 // where reg is 1[g_k != 0] * 2*lam*(w . dim_sparsity) for dim_sparsity and
 // 2*lam*w for l2.  grad_divisor is 1 on the sync path.  The async engines
 // (Hogwild, local SGD) run it in a mean mode, K = 1 and grad_divisor = B:
 // each step is then the JAX async step, grad_mean (models/linear.py) then
-// regularize then w - lr*g (parallel/sync.py local_update).
+// regularize then the update (parallel/sync.py local_update).
+//
+// The update is the JAX engines' optimizer (optax 0.2.6), on every entry
+// every step, the entries whose g is 0 included:
+//     sgd       w = w - lr*g
+//     momentum  t = g + m*t;  w = w + (-lr)*t          optax.sgd(lr, momentum=m)
+//     adam      mu = (1-b1)*g + b1*mu;  nu = (1-b2)*g*g + b2*nu;
+//               w = w + (-lr) * (mu/bc1) / (sqrt(nu/bc2) + eps)    optax.adam(lr)
+// The optimizer state (momentum: t; adam: mu, nu) lives in shared memory
+// beside w for the whole launch.  Adam's bias corrections bc1 = 1 - b1^c,
+// bc2 = 1 - b2^c at step count c come from a per-step table the caller
+// makes, so the kernel and the plain version divide by the same floats.
 //
 // Bound on the H100 (3.35 TB/s HBM, 67 TFLOP/s f32).  At the main path's
 // shape (K=3, B=100, P=76, D=47,236, 2,146 steps an epoch) the state a step
@@ -23,13 +35,16 @@
 // HBM: 300 rows x 76 x 8 B plus ids and labels, about 186 KB a step and
 // 400 MB an epoch, or about 0.12 ms; the operations (about 1.4 GFLOP, most
 // of it the dense update sweep) take about 21 us.  So the bound is bytes.
+// The optimizer state adds a read and a write of one (momentum) or two
+// (adam) [D] vectors a launch, and a few operations per entry and step.
 // One step of the per-step path is about 12 small launches, each costing
 // host time, and round trips the dense [K, D] sums through HBM.
 //
 // Design.  One thread-block cluster of 8 blocks runs the whole epoch.
 // Block r owns the features i with i % 8 == r: its entries of w,
-// dim_sparsity and each g[k, .].  It loads them into shared memory once,
-// keeps them there for every step, and writes w_out once at the end.
+// dim_sparsity, the optimizer state and each g[k, .].  It loads them into
+// shared memory once, keeps them there for every step, and writes w_out
+// and the state once at the end.
 // Other blocks reach them through distributed shared memory
 // (cluster.map_shared_rank).  Ownership is cyclic, not by contiguous
 // slices: where feature popularity follows the index (term ids ranked by
@@ -46,14 +61,15 @@
 //            visible to their owners);
 //   phase B  each block sweeps its own entries densely, four at a time:
 //            the regularizer, the sum over workers, the mean and the
-//            update; it zeroes g and sums its partial of w . dim_sparsity
+//            optimizer's update; it zeroes g and sums its partial of w . dim_sparsity
 //            for the next step's scalar.  Every block adds the cluster's
 //            partials in rank order, so the scalar is the same in every
 //            block;
 //   cluster.sync().
 // w is read only from shared memory, never through the non-coherent
-// (__ldg) path: the kernel writes it between steps.  The input w is never
-// written; the caller allocates w_out.  The time goes to latency, not to
+// (__ldg) path: the kernel writes it between steps.  The input w and state
+// are never written; the caller allocates w_out and the state's outputs.
+// The time goes to latency, not to
 // the bound: the two cluster barriers, the remote loads and the remote
 // atomics of each step (PERF.md).
 //
@@ -81,6 +97,10 @@ constexpr int kHeld = 8;                   // row entries a lane holds: P <= 128
 // reg_kind, as ops/sync_epoch.py::REG_KINDS orders them
 constexpr int kRegDimSparsity = 0;
 constexpr int kRegL2 = 1;
+// opt_kind, as ops/sync_epoch.py::OPT_KINDS orders them
+constexpr int kOptMomentum = 1;
+constexpr int kOptAdam = 2;
+constexpr int kMaxState = 2;  // state vectors: momentum 1, adam 2
 
 // returned when the cluster cannot be scheduled on this card
 constexpr int kErrClusterUnschedulable = 100000;
@@ -93,14 +113,20 @@ struct Params {
   const float* val;           // [N, P]
   const float* y;             // [N]
   float* w_out;               // [D]
+  const float* st_in[kMaxState];  // [D] each: momentum's trace; adam's mu, nu
+  float* st_out[kMaxState];
+  const float* bias;          // [steps, 2]: adam's 1 - b1^c, 1 - b2^c at each step
   int64_t n_rows;             // N
   int steps, K, B, P, D;
   int slice;                  // entries of w each block holds: ceil(D / kCluster)
-  int coeff_kind, reg_kind;
+  int coeff_kind, reg_kind, opt_kind, n_state;
   float lam2;                 // 2 * lam
   float lr;
   float n_total;              // workers over all cards
   float grad_div;             // each worker's sum is divided by it: 1 (sync) or B (mean mode)
+  float decay1, decay2;       // momentum: m, unused; adam: b1, b2
+  float keep1, keep2;         // adam: 1 - b1, 1 - b2, rounded from double as JAX does
+  float eps;                  // adam
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -221,11 +247,12 @@ __global__ void __launch_bounds__(kThreads, 1) sync_epoch_kernel(const Params p)
   const bool dim_sp = p.reg_kind == kRegDimSparsity;
   const bool mean = p.grad_div != 1.f;  // the sync path skips a division by 1
 
-  // shared layout: w | dim_sparsity | g[K] | partial[2] | red[kWarps]
+  // shared layout: w | dim_sparsity | state[n_state] | g[K] | partial[2] | red[kWarps]
   extern __shared__ float smem[];
   float* w_s = smem;
   float* ds_s = w_s + slice;
-  float* g_s = ds_s + slice;
+  float* st_s = ds_s + slice;  // state vector v at st_s + v * slice
+  float* g_s = st_s + (size_t)p.n_state * slice;
   float* part_s = g_s + (size_t)p.K * slice;  // w . ds partial, by step parity
   float* red_s = part_s + 2;
 
@@ -239,6 +266,10 @@ __global__ void __launch_bounds__(kThreads, 1) sync_epoch_kernel(const Params p)
     w_s[j] = wv;
     ds_s[j] = dv;
     part += wv * dv;
+#pragma unroll
+    for (int v = 0; v < kMaxState; ++v)  // pad entries stay 0 under every update
+      if (v < p.n_state)
+        st_s[(size_t)v * slice + j] = j < n_own ? p.st_in[v][j * kCluster + rank] : 0.f;
   }
   for (int j = threadIdx.x; j < p.K * slice; j += kThreads) g_s[j] = 0.f;
   if (dim_sp) block_sum(part, red_s, &part_s[0]);
@@ -270,6 +301,11 @@ __global__ void __launch_bounds__(kThreads, 1) sync_epoch_kernel(const Params p)
       for (int r = 0; r < kCluster; ++r) dot += __shfl_sync(0xffffffffu, mine, r);
       scalar = __fmul_rn(p.lam2, dot);
     }
+    float bc1 = 1.f, bc2 = 1.f;
+    if (p.opt_kind == kOptAdam) {
+      bc1 = __ldg(p.bias + 2 * s);
+      bc2 = __ldg(p.bias + 2 * s + 1);
+    }
     // four entries at a time over the whole slice: the entries past the
     // block's last feature are zero in w, dim_sparsity and g, and stay so
     float next = 0.f;
@@ -295,41 +331,84 @@ __global__ void __launch_bounds__(kThreads, 1) sync_epoch_kernel(const Params p)
         }
         *gp = make_float4(0.f, 0.f, 0.f, 0.f);
       }
+      // the _rn intrinsics keep the plain version's rounding (no fused FMA)
+      if (p.opt_kind == kOptMomentum) {
+        float4* tp = reinterpret_cast<float4*>(st_s + j);
+        float4 t4 = *tp;
+        float* t = reinterpret_cast<float*>(&t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float g = __fdiv_rn(upd[e], p.n_total);
+          t[e] = __fadd_rn(g, __fmul_rn(p.decay1, t[e]));
+          wv[e] = __fadd_rn(wv[e], __fmul_rn(-p.lr, t[e]));
+        }
+        *tp = t4;
+      } else if (p.opt_kind == kOptAdam) {
+        float4* mp = reinterpret_cast<float4*>(st_s + j);
+        float4* np = reinterpret_cast<float4*>(st_s + slice + j);
+        float4 m4 = *mp, n4 = *np;
+        float* mu = reinterpret_cast<float*>(&m4);
+        float* nu = reinterpret_cast<float*>(&n4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float g = __fdiv_rn(upd[e], p.n_total);
+          mu[e] = __fadd_rn(__fmul_rn(p.keep1, g), __fmul_rn(p.decay1, mu[e]));
+          nu[e] = __fadd_rn(__fmul_rn(p.keep2, __fmul_rn(g, g)), __fmul_rn(p.decay2, nu[e]));
+          const float den = __fadd_rn(__fsqrt_rn(__fdiv_rn(nu[e], bc2)), p.eps);
+          wv[e] = __fadd_rn(wv[e], __fmul_rn(-p.lr, __fdiv_rn(__fdiv_rn(mu[e], bc1), den)));
+        }
+        *mp = m4;
+        *np = n4;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          wv[e] = __fsub_rn(wv[e], __fmul_rn(p.lr, __fdiv_rn(upd[e], p.n_total)));
+      }
+      // dim_sparsity is read after the update, which needs the registers
       const float4 d4 = *reinterpret_cast<const float4*>(ds_s + j);
       const float* dv = reinterpret_cast<const float*>(&d4);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        // the _rn intrinsics keep the plain version's rounding (no fused FMA)
-        wv[e] = __fsub_rn(wv[e], __fmul_rn(p.lr, __fdiv_rn(upd[e], p.n_total)));
-        next += wv[e] * dv[e];
-      }
+      for (int e = 0; e < 4; ++e) next += wv[e] * dv[e];
       *reinterpret_cast<float4*>(w_s + j) = w4;
     }
     if (dim_sp) block_sum(next, red_s, &part_s[(s + 1) & 1]);
     cluster.sync();
   }
 
-  for (int j = threadIdx.x; j < n_own; j += kThreads) p.w_out[j * kCluster + rank] = w_s[j];
+  for (int j = threadIdx.x; j < n_own; j += kThreads) {
+    p.w_out[j * kCluster + rank] = w_s[j];
+#pragma unroll
+    for (int v = 0; v < kMaxState; ++v)
+      if (v < p.n_state) p.st_out[v][j * kCluster + rank] = st_s[(size_t)v * slice + j];
+  }
 }
 
 }  // namespace
 
 // Launch one cluster of `cluster` blocks on `stream` (PyTorch's current
 // stream), each with `smem_bytes` of dynamic shared memory holding a slice
-// of `slice` entries.  Returns 0 on success, a cudaError_t, or
-// kErrClusterUnschedulable when the card cannot run such a cluster; the
-// caller raises on anything but 0.
+// of `slice` entries.  opt_kind 0 (sgd) reads no state; 1 (momentum) the
+// trace st_in0 -> st_out0 with decay1 = m; 2 (adam) mu st_in0 -> st_out0,
+// nu st_in1 -> st_out1 and the [steps, 2] table `bias`.  Returns 0 on
+// success, a cudaError_t, or kErrClusterUnschedulable when the card cannot
+// run such a cluster; the caller raises on anything but 0.
 extern "C" int dsgd_sync_epoch(const float* w, const float* ds, const int64_t* ids,
                                const int32_t* idx, const float* val, const float* y,
-                               float* w_out, int64_t n_rows, int steps, int K, int B,
-                               int P, int D, int cluster, int slice, int smem_bytes,
-                               int coeff_kind, int reg_kind, float lam2, float lr,
-                               float n_total, float grad_div, void* stream) {
+                               float* w_out, const float* st_in0, const float* st_in1,
+                               float* st_out0, float* st_out1, const float* bias,
+                               int64_t n_rows, int steps, int K, int B, int P, int D,
+                               int cluster, int slice, int smem_bytes, int coeff_kind,
+                               int reg_kind, int opt_kind, float lam2, float lr,
+                               float n_total, float grad_div, float decay1, float decay2,
+                               float keep1, float keep2, float eps, void* stream) {
   // the sweep reads the slices as float4s
-  if (cluster != kCluster || slice % 4 != 0 || (int64_t)slice * kCluster < D)
+  if (cluster != kCluster || slice % 4 != 0 || (int64_t)slice * kCluster < D ||
+      opt_kind < 0 || opt_kind > kOptAdam)
     return (int)cudaErrorInvalidValue;
-  const Params p{w, ds, ids, idx, val, y, w_out, n_rows, steps, K, B, P, D,
-                 slice, coeff_kind, reg_kind, lam2, lr, n_total, grad_div};
+  const int n_state = opt_kind;  // sgd 0, momentum 1, adam 2
+  const Params p{w, ds, ids, idx, val, y, w_out, {st_in0, st_in1}, {st_out0, st_out1}, bias,
+                 n_rows, steps, K, B, P, D, slice, coeff_kind, reg_kind, opt_kind, n_state,
+                 lam2, lr, n_total, grad_div, decay1, decay2, keep1, keep2, eps};
   cudaError_t err = cudaFuncSetAttribute(
       sync_epoch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;

@@ -7,8 +7,9 @@ split's dim-sparsity regularizer, and fit on the card, early-stopping on
 the test loss.  The fit is the sync engine with K virtual workers, or with
 DSGD_ASYNC=1 the Hogwild gossip engine with node_count workers
 (DSGD_ASYNC_MODE=gossip, the default) or local SGD
-(DSGD_ASYNC_MODE=local_sgd).  Behaviour is driven by DSGD_* env config
-(config.py).
+(DSGD_ASYNC_MODE=local_sgd).  Every engine takes DSGD_OPTIMIZER
+(sgd | momentum | adam) with DSGD_MOMENTUM.  Behaviour is driven by
+DSGD_* env config (config.py).
 
 Run: ``python -m distributed_sgd_tpu_torch``
 """
@@ -33,7 +34,6 @@ from distributed_sgd_tpu_torch.models.linear import make_model
 from distributed_sgd_tpu_torch.parallel.hogwild import HogwildEngine
 from distributed_sgd_tpu_torch.parallel.local_sgd import LocalSGDEngine
 from distributed_sgd_tpu_torch.parallel.mesh import DeviceLike, resolve_device, world_size
-from distributed_sgd_tpu_torch.parallel.sync import resolve_optimizer
 from distributed_sgd_tpu_torch.utils.log import setup as setup_logging
 
 log = logging.getLogger("dsgd.main")
@@ -124,20 +124,21 @@ def scenario_mesh(cfg: Config, train: Dataset, test: Dataset, model,
             learning_rate=cfg.learning_rate, check_every=cfg.check_every,
             leaky_loss=cfg.leaky_loss, seed=cfg.seed,
             steps_per_dispatch=cfg.steps_per_dispatch, optimizer=cfg.optimizer,
-            compress=cfg.compress, gossip_topology=cfg.gossip_topology, device=device)
+            momentum=cfg.momentum, compress=cfg.compress,
+            gossip_topology=cfg.gossip_topology, device=device)
         res = eng.fit(train, test, cfg.max_epochs, criterion)
     elif cfg.use_async:
         eng = LocalSGDEngine(
             model, batch_size=cfg.batch_size, learning_rate=cfg.learning_rate,
             sync_period=cfg.sync_period, check_every=cfg.check_every,
             leaky_loss=cfg.leaky_loss, seed=cfg.seed, optimizer=cfg.optimizer,
-            device=device)
+            momentum=cfg.momentum, device=device)
         res = eng.fit(train, test, cfg.max_epochs, criterion)
     else:
         trainer = SyncTrainer(
             model, batch_size=cfg.batch_size, learning_rate=cfg.learning_rate,
             seed=cfg.seed, virtual_workers=virtual, optimizer=cfg.optimizer,
-            device=device)
+            momentum=cfg.momentum, device=device)
         res = trainer.fit(train, test, cfg.max_epochs, criterion)
     _finish(res)
     return res
@@ -153,7 +154,6 @@ def main(device: DeviceLike = None) -> Run:
     device = resolve_device(device)
     setup_logging()
     cfg = Config.from_env()
-    resolve_optimizer(cfg.optimizer)  # refuse an unported optimizer before loading data
     log.info("host: %s (%s)", socket.gethostname(), sys.platform)
     log.info("config: %s", cfg.to_json())
     np.random.seed(cfg.seed)

@@ -7,39 +7,54 @@ each step s with sample ids ``ids[s]`` (``[K, B]`` rows of the data),
     g_k = sum_b grad_coeff(x_b . w, y_b) * x_b      for each worker k
     g_k = g_k / grad_divisor
     g_k = regularize(g_k, w)                         per worker, by reg_kind
-    w   = w - lr * (sum_k g_k) / n_total_workers
+    g   = (sum_k g_k) / n_total_workers
+    w   = update(w, g)                               by the optimizer
 
 — with ``grad_divisor`` 1, what the sync engine's per-step path
 (parallel/sync.py ``_one_step``) computes ``S`` times over, and through it
 the JAX engine's step (the Pallas ``worker_grads``, ``regularize_blocked``
-per worker, the sum, the mean and the update).  In the mean mode (K = 1,
-``grad_divisor`` = B) each step is the JAX async engines' local step:
-``grad_mean``, ``regularize``, ``w - lr*g``.  The input ``w`` is left
-untouched.
+per worker, the sum, the mean and the optax update).  In the mean mode
+(K = 1, ``grad_divisor`` = B) each step is the JAX async engines' local
+step: ``grad_mean``, ``regularize``, ``local_update``.  The input ``w``
+and optimizer state are left untouched.
+
+The update (`apply_update`) is the reference's ``w - lr*g`` ('sgd'), or
+one of the JAX package's optax optimizers: 'momentum' is
+``optax.sgd(lr, momentum=m)`` with a trace ``[D]``, 'adam' is
+``optax.adam(lr)`` with ``mu``, ``nu`` ``[D]`` and a step count.  The
+kernel keeps that state in shared memory beside w.  Adam divides by
+``1 - b^count``; JAX takes that power in float32, the port from a table
+(`bias_corrections`) that the kernel and the plain version share.
 
 On a CUDA tensor the wrapper launches the hand-written kernel in
 ``csrc/sync_epoch.cu`` (one thread-block cluster holding w, dim_sparsity
 and g in distributed shared memory for the whole run; built at first use,
 ops/_build.py) or raises.  On a CPU tensor it runs ``sync_epoch_plain``.
-``sync_epoch.launches`` counts kernel launches and ``sync_epoch.steps`` the
-steps they ran; the async engines launch from several threads, so both are
-added under a lock.
+``sync_epoch.launches`` counts kernel launches, ``sync_epoch.steps`` the
+steps they ran and ``sync_epoch.opt_launches`` the launches of each
+optimizer; the async engines launch from several threads, so all are added
+under a lock.
 
-``cluster_plan(K, D)`` says whether that state fits the cluster's shared
-memory; the engine picks its path by it, before any launch.
+``cluster_plan(K, D, n_state)`` says whether that state fits the
+cluster's shared memory; the engine picks its path by it, before any
+launch.
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from distributed_sgd_tpu_torch.ops.worker_grads import COEFF_KINDS, worker_grads_plain
 
 REG_KINDS = ("dim_sparsity", "l2", "none")  # the kernel's reg_kind is the index
+# the kernel's opt_kind is the index, which is also the number of [D] state vectors
+OPT_KINDS = ("sgd", "momentum", "adam")
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults (eps_root 0)
 CLUSTER_BLOCKS = 8  # the portable cluster size
 SMEM_BYTES_PER_BLOCK = 232_448  # what one Hopper block may use (227 KB)
 _SCRATCH_FLOATS = 2 + 32  # the w . dim_sparsity partial by step parity, one sum per warp
@@ -53,14 +68,15 @@ class ClusterPlan(NamedTuple):
     smem_bytes: int  # dynamic shared memory per block
 
 
-def cluster_plan(k: int, d: int) -> Optional[ClusterPlan]:
-    """The cluster that holds w, dim_sparsity and g[K, D] in shared memory,
-    or None when that state does not fit (at D=47,236: K <= 7)."""
+def cluster_plan(k: int, d: int, n_state: int = 0) -> Optional[ClusterPlan]:
+    """The cluster that holds w, dim_sparsity, `n_state` optimizer state
+    vectors and g[K, D] in shared memory, or None when that does not fit
+    (at D=47,236: K <= 7 for sgd, 6 for momentum, 5 for adam)."""
     if k < 1 or d < 1:
         return None
     owned = -(-d // CLUSTER_BLOCKS)
     owned = -(-owned // 4) * 4  # 16-byte aligned sub-arrays
-    smem = 4 * ((2 + k) * owned + _SCRATCH_FLOATS)
+    smem = 4 * ((2 + n_state + k) * owned + _SCRATCH_FLOATS)
     if smem > SMEM_BYTES_PER_BLOCK:
         return None
     return ClusterPlan(CLUSTER_BLOCKS, owned, smem)
@@ -80,20 +96,87 @@ def regularize(gk: torch.Tensor, w: torch.Tensor, reg_kind: str, lam: float,
     raise ValueError(f"reg_kind must be one of {REG_KINDS}, got {reg_kind!r}")
 
 
+class Optimizer(NamedTuple):
+    """The update after the mean gradient, as the JAX package's optimizers
+    compute it (optax 0.2.6): 'sgd' is the reference's ``w - lr*g``;
+    'momentum' is ``optax.sgd(lr, momentum=momentum)``; 'adam' is
+    ``optax.adam(lr)``."""
+
+    kind: str = "sgd"
+    momentum: float = 0.9
+
+    @property
+    def n_state(self) -> int:
+        """[D] state vectors: sgd 0, momentum 1 (the trace), adam 2 (mu, nu)."""
+        return OPT_KINDS.index(self.kind)
+
+
+class OptState(NamedTuple):
+    """An optimizer's state: its [D] vectors (momentum: the trace; adam:
+    mu, nu) and adam's step count, kept on the host."""
+
+    vectors: Tuple[torch.Tensor, ...] = ()
+    count: int = 0
+
+
+def init_opt_state(optimizer: Optimizer, n_features: int, device) -> OptState:
+    """Zeros and count 0, as optax's ``init``."""
+    return OptState(tuple(torch.zeros(n_features, dtype=torch.float32, device=device)
+                          for _ in range(optimizer.n_state)), 0)
+
+
+def bias_corrections(count: int, steps: int) -> np.ndarray:
+    """Adam's ``1 - b1**c`` and ``1 - b2**c`` for the step counts
+    c = count+1 .. count+steps, as f32 [steps, 2].  b1 and b2 are taken as
+    JAX takes them, rounded to float32; the power is computed in double and
+    rounded once.  JAX computes it in float32 and lands up to about 7e-6
+    (relative) away at b2 = 0.999 over the first 3,000 steps; the kernel
+    and the plain version read this same table."""
+    c = np.arange(count + 1, count + steps + 1, dtype=np.float64)[:, None]
+    b = np.array([np.float32(ADAM_B1), np.float32(ADAM_B2)], dtype=np.float64)
+    return (1.0 - b ** c).astype(np.float32)
+
+
+def apply_update(w: torch.Tensor, g: torch.Tensor, lr: float, optimizer: Optimizer,
+                 state: OptState) -> Tuple[torch.Tensor, OptState]:
+    """One update of `w` by the mean gradient `g`; returns (w, the new
+    state).  The constants enter as JAX's weakly typed Python floats do:
+    rounded to f32, ``1 - b`` computed in double first."""
+    vectors, count = state
+    if optimizer.kind == "sgd":
+        return w - lr * g, state
+    if optimizer.kind == "momentum":
+        t = g + optimizer.momentum * vectors[0]
+        return w + (-lr) * t, OptState((t,), count)
+    mu, nu = vectors
+    b1, b2 = ADAM_B1, ADAM_B2
+    bc1, bc2 = bias_corrections(count, 1)[0].tolist()
+    mu = (1 - b1) * g + b1 * mu
+    nu = (1 - b2) * (g * g) + b2 * nu
+    u = (mu / bc1) / (torch.sqrt(nu / bc2) + ADAM_EPS)
+    return w + (-lr) * u, OptState((mu, nu), count + 1)
+
+
 def sync_epoch_plain(w, ids, indices, values, labels_f32, *, coeff_kind, reg_kind,
-                     lam, dim_sparsity, lr, n_total_workers,
-                     grad_divisor: float = 1) -> torch.Tensor:
+                     lam, dim_sparsity, lr, n_total_workers, grad_divisor: float = 1,
+                     optimizer: Optional[Optimizer] = None,
+                     opt_state: Optional[OptState] = None):
     """The kernel's function in plain torch: the per-step path's arithmetic
-    in a loop over ``ids[S, K, B]``."""
+    in a loop over ``ids[S, K, B]``.  Returns w, or with an `optimizer`
+    (w, its new OptState)."""
+    opt = optimizer or Optimizer()
+    state = init_opt_state(opt, w.shape[0], w.device) if opt_state is None else opt_state
     for rows in ids:
         gk = worker_grads_plain(w, indices[rows], values[rows], labels_f32[rows], coeff_kind)
         gk = regularize(gk / grad_divisor, w, reg_kind, lam, dim_sparsity)  # / 1 is exact
-        w = w - lr * (gk.sum(dim=0) / n_total_workers)
-    return w.clone() if ids.shape[0] == 0 else w
+        w, state = apply_update(w, gk.sum(dim=0) / n_total_workers, lr, opt, state)
+    if ids.shape[0] == 0:
+        w, state = w.clone(), OptState(tuple(v.clone() for v in state.vectors), state.count)
+    return w if optimizer is None else (w, state)
 
 
 def _check(w, ids, indices, values, labels_f32, coeff_kind, reg_kind, dim_sparsity,
-           n_total_workers, grad_divisor):
+           n_total_workers, grad_divisor, optimizer, opt_state):
     if coeff_kind not in COEFF_KINDS:
         raise ValueError(f"coeff_kind must be one of {COEFF_KINDS}, got {coeff_kind!r}")
     if reg_kind not in REG_KINDS:
@@ -118,6 +201,22 @@ def _check(w, ids, indices, values, labels_f32, coeff_kind, reg_kind, dim_sparsi
         if dim_sparsity is None or dim_sparsity.shape != w.shape:
             raise ValueError(f"reg_kind='dim_sparsity' needs dim_sparsity f32{list(w.shape)}")
         tensors.append(("dim_sparsity", dim_sparsity, torch.float32))
+    if optimizer is not None:
+        if not isinstance(optimizer, Optimizer) or optimizer.kind not in OPT_KINDS:
+            raise ValueError(f"optimizer must be an Optimizer of a kind in {OPT_KINDS}, "
+                             f"got {optimizer!r}")
+        vectors, count = opt_state or OptState()
+        if len(vectors) != optimizer.n_state or not (
+                isinstance(count, (int, np.integer)) and count >= 0):
+            raise ValueError(f"a {optimizer.kind!r} state is {optimizer.n_state} [D] vectors "
+                             f"and a count >= 0, got {len(vectors)} and {count!r}")
+        for i, v in enumerate(vectors):
+            if v.shape != w.shape:
+                raise ValueError(f"optimizer state vector {i} is {list(v.shape)}, "
+                                 f"w {list(w.shape)}")
+            tensors.append((f"optimizer state vector {i}", v, torch.float32))
+    elif opt_state is not None:
+        raise ValueError("opt_state given without an optimizer")
     for name, t, dtype in tensors:
         if t.dtype != dtype:
             raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
@@ -135,31 +234,43 @@ def _kernel():
     fn = _build.load("sync_epoch").dsgd_sync_epoch
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int64] + [ctypes.c_int] * 10
-                       + [ctypes.c_float] * 4 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int64] + [ctypes.c_int] * 11
+                       + [ctypes.c_float] * 9 + [ctypes.c_void_p])
     return fn
 
 
 def _launch(w, ids, indices, values, labels_f32, coeff_kind, reg_kind, lam,
-            dim_sparsity, lr, n_total_workers, grad_divisor):
+            dim_sparsity, lr, n_total_workers, grad_divisor, optimizer, opt_state):
     s, k, b = ids.shape
     n, p = indices.shape
     d = w.shape[0]
-    plan = cluster_plan(k, d)
+    opt = optimizer or Optimizer()
+    vectors, count = opt_state or OptState()
+    plan = cluster_plan(k, d, opt.n_state)
     if plan is None:
         raise ValueError(
-            f"K={k} workers at D={d} do not fit one cluster's shared memory "
-            f"(cluster_plan); run the per-step path")
+            f"K={k} workers at D={d} with {opt.kind}'s {opt.n_state} state vectors do not "
+            f"fit one cluster's shared memory (cluster_plan); run the per-step path")
     fn = _kernel()
     ds_ptr = dim_sparsity.data_ptr() if reg_kind == "dim_sparsity" else 0
+    # decay1, decay2, keep1, keep2: 1 - b in double, then f32, as JAX's
+    # weakly typed constants
+    consts = {"sgd": (0.0, 0.0, 0.0, 0.0), "momentum": (opt.momentum, 0.0, 0.0, 0.0),
+              "adam": (ADAM_B1, ADAM_B2, 1 - ADAM_B1, 1 - ADAM_B2)}[opt.kind]
     with torch.cuda.device(w.device):
         w_out = torch.empty_like(w)
+        outs = tuple(torch.empty_like(v) for v in vectors)
+        bias = (torch.from_numpy(bias_corrections(count, s)).to(w.device)
+                if opt.kind == "adam" and s > 0 else None)
+        ins_ptr = [v.data_ptr() for v in vectors] + [0] * (2 - len(vectors))
+        outs_ptr = [v.data_ptr() for v in outs] + [0] * (2 - len(outs))
         stream = torch.cuda.current_stream(w.device).cuda_stream
         err = fn(w.data_ptr(), ds_ptr, ids.data_ptr(), indices.data_ptr(),
-                 values.data_ptr(), labels_f32.data_ptr(), w_out.data_ptr(), n, s, k, b,
-                 p, d, plan.blocks, plan.slice, plan.smem_bytes, coeff_kind,
-                 REG_KINDS.index(reg_kind), 2.0 * lam, lr, float(n_total_workers),
-                 float(grad_divisor), stream)
+                 values.data_ptr(), labels_f32.data_ptr(), w_out.data_ptr(), *ins_ptr,
+                 *outs_ptr, 0 if bias is None else bias.data_ptr(), n, s, k, b, p, d,
+                 plan.blocks, plan.slice, plan.smem_bytes, coeff_kind,
+                 REG_KINDS.index(reg_kind), OPT_KINDS.index(opt.kind), 2.0 * lam, lr,
+                 float(n_total_workers), float(grad_divisor), *consts, ADAM_EPS, stream)
     if err == _CLUSTER_UNSCHEDULABLE:
         raise RuntimeError(
             f"sync_epoch: a cluster of {plan.blocks} blocks with {plan.smem_bytes} B of "
@@ -169,22 +280,31 @@ def _launch(w, ids, indices, values, labels_f32, coeff_kind, reg_kind, lam,
     with _counts_lock:
         sync_epoch.launches += 1
         sync_epoch.steps += s
-    return w_out
+        sync_epoch.opt_launches[opt.kind] += 1
+    if optimizer is None:
+        return w_out
+    return w_out, OptState(outs, count + s if opt.kind == "adam" else count)  # adam counts steps
 
 
 def sync_epoch(w: torch.Tensor, ids: torch.Tensor, indices: torch.Tensor,
                values: torch.Tensor, labels_f32: torch.Tensor, *, coeff_kind: int,
                reg_kind: str, lam: float, dim_sparsity: Optional[torch.Tensor],
-               lr: float, n_total_workers: int, grad_divisor: float = 1) -> torch.Tensor:
+               lr: float, n_total_workers: int, grad_divisor: float = 1,
+               optimizer: Optional[Optimizer] = None, opt_state: Optional[OptState] = None):
     """The weights after ``ids.shape[0]`` sync steps from `w` (f32[D]) over
     the data ``indices`` i32[N, P], ``values`` f32[N, P], ``labels_f32``
-    f32[N]; ``grad_divisor`` B gives the async mean mode.  CUDA tensors
-    launch the kernel (or raise); CPU tensors run `sync_epoch_plain`."""
+    f32[N]; ``grad_divisor`` B gives the async mean mode.  With an
+    `optimizer` (and its `opt_state`, zeros when None) it returns (w, the
+    new OptState).  CUDA tensors launch the kernel (or raise); CPU tensors
+    run `sync_epoch_plain`."""
     _check(w, ids, indices, values, labels_f32, coeff_kind, reg_kind, dim_sparsity,
-           n_total_workers, grad_divisor)
+           n_total_workers, grad_divisor, optimizer, opt_state)
+    if optimizer is not None and opt_state is None:
+        opt_state = init_opt_state(optimizer, w.shape[0], w.device)
     args = (w, ids, indices, values, labels_f32)
     kw = dict(coeff_kind=coeff_kind, reg_kind=reg_kind, lam=lam, dim_sparsity=dim_sparsity,
-              lr=lr, n_total_workers=n_total_workers, grad_divisor=grad_divisor)
+              lr=lr, n_total_workers=n_total_workers, grad_divisor=grad_divisor,
+              optimizer=optimizer, opt_state=opt_state)
     if w.device.type == "cuda":
         return _launch(*args, **kw)
     if w.device.type == "cpu":
@@ -194,3 +314,4 @@ def sync_epoch(w: torch.Tensor, ids: torch.Tensor, indices: torch.Tensor,
 
 sync_epoch.launches = 0
 sync_epoch.steps = 0
+sync_epoch.opt_launches = dict.fromkeys(OPT_KINDS, 0)  # launches by optimizer

@@ -14,11 +14,15 @@ asynchrony lives on the host, as in the JAX engine:
   applies the summed delta ``snapshot - w_k`` and gossips it to the
   topology's peers and always to the coordinator.  The k local steps are
   one ``sync_epoch`` launch in the mean mode (``MeanSteps``): each step
-  draws B ids uniformly from the shard, with replacement, and applies
-  ``lr * regularize(mean of backwards)`` (Slave.scala:93-99; a MEAN here,
-  where the sync mode sums);
+  draws B ids uniformly from the shard, with replacement, and applies the
+  optimizer's update of ``regularize(mean of backwards)`` (Slave.scala:93-99;
+  a MEAN here, where the sync mode sums; 'sgd' is ``w - lr*g``);
+- with a stateful optimizer (momentum, adam) each worker's state is its
+  own: made with zeros at StartAsync, carried from dispatch to dispatch,
+  and never gossiped, as in the JAX engine;
 - every weight mutation is a delta subtraction, so a step from a stale
-  snapshot composes with the deltas that arrive meanwhile;
+  snapshot composes with the deltas that arrive meanwhile; the gossiped
+  delta stays in weight space (``snapshot - w_k``) whatever the optimizer;
 - a delta crosses to its peers and the coordinator through host memory
   (``delta.cpu()``, the JAX engine's wire hop): each receiver uploads it
   on its own stream, so no tensor is shared between streams.  Inboxes are
@@ -32,8 +36,7 @@ asynchrony lives on the host, as in the JAX engine:
 - a watchdog restarts dead worker threads with the current weights, up to
   `max_restarts` times each, and raises when the fit stalls for good.
 
-Not ported yet: a stateful local optimizer (momentum, adam) and the
-compressed gossip (``compress``); both raise.
+Not ported yet: the compressed gossip (``compress``); it raises.
 """
 
 from __future__ import annotations
@@ -54,6 +57,7 @@ from distributed_sgd_tpu_torch.core.trainer import FitResult
 from distributed_sgd_tpu_torch.data.rcv1 import Dataset
 from distributed_sgd_tpu_torch.models.linear import LinearModel
 from distributed_sgd_tpu_torch.ops import _build
+from distributed_sgd_tpu_torch.ops.sync_epoch import Optimizer
 from distributed_sgd_tpu_torch.parallel.mesh import DeviceLike, resolve_device
 from distributed_sgd_tpu_torch.parallel.sync import (
     MeanSteps,
@@ -88,8 +92,10 @@ class _Worker:
         max_inbox: int = 1024,
         steps_per_dispatch: int = 1,
         gossip_topology: str = "all",
+        optimizer: Optional[Optimizer] = None,
     ):
-        """`shard` holds this worker's rows on the device, unpadded."""
+        """`shard` holds this worker's rows on the device, unpadded;
+        `optimizer` shapes its local steps (sgd when None)."""
         self.wid = wid
         self.metrics = metrics
         self._topo_mode, self._topo_k = parse_topology(gossip_topology)
@@ -108,8 +114,10 @@ class _Worker:
         self._gen.manual_seed(seed + 1000 * (wid + 1))
         self.shard_n = shard.n_true
         self._steps = MeanSteps(model, shard.indices, shard.values, shard.labels,
-                                learning_rate)
+                                learning_rate, optimizer)
         self.w: Optional[torch.Tensor] = None
+        with torch.cuda.stream(self._stream):
+            self._opt_state = self._steps.init_state()  # made anew at each StartAsync
         self._peers: List["_Worker"] = []
         self._master: Optional["HogwildEngine"] = None
 
@@ -140,9 +148,11 @@ class _Worker:
             self.metrics.counter("slave.async.grad.dropped").increment()
 
     def start_async(self, w0: np.ndarray) -> None:
-        """StartAsync (Slave.scala:159-175): the replica from host weights."""
+        """StartAsync (Slave.scala:159-175): the replica from host weights
+        and a fresh optimizer state, as the JAX worker's ``opt.init``."""
         with torch.cuda.stream(self._stream):
             self.w = torch.as_tensor(np.asarray(w0, dtype=np.float32)).to(self.device)
+            self._opt_state = self._steps.init_state()
         self._running.set()
         self._thread = threading.Thread(target=self._loop, name=f"hogwild-{self.wid}",
                                         daemon=True)
@@ -164,8 +174,10 @@ class _Worker:
                              generator=self._gen, device=self.device)
 
     def _step(self, snapshot: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-        """The summed delta of the local steps ids[k, 1, B] from `snapshot`."""
-        return snapshot - self._steps.run(snapshot, ids)
+        """The summed delta of the local steps ids[k, 1, B] from `snapshot`
+        (the JAX worker's sum of ``-updates``); advances the optimizer state."""
+        w, self._opt_state = self._steps.run(snapshot, ids, self._opt_state)
+        return snapshot - w
 
     def _drain_inbox(self) -> None:
         # deltas commute (w <- w - d), so the queued ones sum on the host
@@ -230,22 +242,25 @@ class HogwildEngine:
         steps_per_dispatch: int = 1,
         checkpointer=None,
         optimizer=None,
+        momentum: float = 0.9,
         compress: str = "none",
         gossip_topology: str = "all",
         device: DeviceLike = None,
     ):
         """steps_per_dispatch=k: each worker runs k local steps in one
         launch and gossips their summed delta; k=1 is the reference's
-        per-step gossip (Slave.scala:103-105).  gossip_topology: all |
-        ring | random:k (parallel/topology.py); the coordinator receives
-        every delta whatever the topology."""
+        per-step gossip (Slave.scala:103-105).  `optimizer` ('sgd' |
+        'momentum' | 'adam', `momentum` its decay) shapes each worker's
+        local steps; its state stays with the worker.  gossip_topology:
+        all | ring | random:k (parallel/topology.py); the coordinator
+        receives every delta whatever the topology."""
         if not (0.0 <= leaky_loss <= 1.0):
             raise ValueError("leaking coefficient must be between 0 and 1")
         if steps_per_dispatch < 1:
             raise ValueError("steps_per_dispatch must be >= 1")
         if n_workers < 1:
             raise ValueError("n_workers must be >= 1")
-        resolve_optimizer(optimizer)
+        self.optimizer = resolve_optimizer(optimizer, momentum)
         if compress != "none":
             raise NotImplementedError(
                 f"compress={compress!r} is not ported yet (ROADMAP.md Queue A 13: "
@@ -340,7 +355,7 @@ class HogwildEngine:
         workers = [
             _Worker(i, self.model, shard, self.batch_size, self.learning_rate, self.seed,
                     self.metrics, steps_per_dispatch=self.steps_per_dispatch,
-                    gossip_topology=self.gossip_topology)
+                    gossip_topology=self.gossip_topology, optimizer=self.optimizer)
             for i, shard in enumerate(self._shards(train))
         ]
         for w in workers:

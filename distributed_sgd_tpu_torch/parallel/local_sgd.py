@@ -9,6 +9,12 @@ their count) is the identity; once the port spans several cards it is the
 JAX engine's ``pmean``.  A round's h steps are one ``sync_epoch`` launch
 in the mean mode (``MeanSteps``).
 
+The optimizer ('sgd', or the JAX engine's optax 'momentum' or 'adam')
+keeps its state across rounds.  After each round, as in the JAX engine,
+the state's float vectors are averaged like the weights and adam's step
+count is kept as the maximum over the cards (``all_reduce_max``); on one
+card both are the identity.
+
 Sampling is the JAX engine's: each step draws B ids uniformly, with
 replacement, over this card's PADDED shard as ``SyncEngine.bind`` lays it
 out.  Pad rows carry label 0: they add nothing to the gradient sum and
@@ -36,8 +42,10 @@ from distributed_sgd_tpu_torch.core.loss_check import LossChecker, async_fit_res
 from distributed_sgd_tpu_torch.core.trainer import FitResult
 from distributed_sgd_tpu_torch.data.rcv1 import Dataset
 from distributed_sgd_tpu_torch.models.linear import LinearModel
+from distributed_sgd_tpu_torch.ops.sync_epoch import OptState
 from distributed_sgd_tpu_torch.parallel.mesh import (
     DeviceLike,
+    all_reduce_max,
     all_reduce_sum,
     resolve_device,
     world_size,
@@ -66,13 +74,14 @@ class LocalSGDEngine:
         metrics: Optional[metrics_mod.Metrics] = None,
         checkpointer=None,
         optimizer=None,
+        momentum: float = 0.9,
         device: DeviceLike = None,
     ):
         if not (0.0 <= leaky_loss <= 1.0):
             raise ValueError("leaking coefficient must be between 0 and 1")
         if sync_period < 1:
             raise ValueError("sync_period must be >= 1")
-        resolve_optimizer(optimizer)
+        self.optimizer = resolve_optimizer(optimizer, momentum)
         if checkpointer is not None:
             raise NotImplementedError(
                 "async checkpoints are not ported yet (ROADMAP.md Queue A: "
@@ -111,7 +120,8 @@ class LocalSGDEngine:
         eval_bound = engine.bind(test)
         data = bound.data
         steps = MeanSteps(self.model, data.indices, data.values, data.labels,
-                          self.learning_rate)
+                          self.learning_rate, self.optimizer)
+        state = steps.init_state()  # made once, averaged at every sync point
         h = self.sync_period
         n = len(train)
         max_steps = n * max_epochs  # MasterAsync.scala:83
@@ -127,8 +137,10 @@ class LocalSGDEngine:
 
         while steps_done < max_steps:
             t0 = time.perf_counter()
-            w = steps.run(w, self._sample_ids(rnd, bound.shard_n))
+            w, state = steps.run(w, self._sample_ids(rnd, bound.shard_n), state)
             w = all_reduce_sum(w) / self.n_workers  # the replicas' average
+            state = OptState(tuple(all_reduce_sum(v) / self.n_workers for v in state.vectors),
+                             all_reduce_max(state.count))
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             round_seconds.record(time.perf_counter() - t0)

@@ -47,6 +47,12 @@ def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
+def all_reduce_max(n: int) -> int:
+    """Maximum over cards of a per-card integer (the JAX engines' ``pmax``).
+    Identity at world size 1."""
+    return n
+
+
 def pad_rows(data: Dataset, rem: int) -> Dataset:
     """Append `rem` inert rows (all-zero features, label 0).
 

@@ -9,16 +9,21 @@ same step on one card (world size 1):
 2. every worker's sum ``sum_b grad_coeff(x_b . w, y_b) * x_b``;
 3. each worker's sum gets the model's regularizer (the ``g != 0`` mask is
    per worker, before the sum over workers);
-4. mean over all workers and ``w -= lr * g``.
+4. mean over all workers and the optimizer's update: ``w -= lr * g``
+   ('sgd', the reference's), or the JAX engine's optax ``momentum`` or
+   ``adam`` (`resolve_optimizer`).  Their state is the engine's, made at
+   bind time (zeros, count 0) and carried from call to call, as the JAX
+   engine's ``_opt_state``.
 
-Where the state (w, dim_sparsity and the K workers' sums) fits one
-thread-block cluster's shared memory (``cluster_plan``, checked when the
-engine is bound), a whole epoch's steps are one launch of the
-``sync_epoch`` kernel (ops/sync_epoch.py).  Otherwise each step runs on its
-own (``_one_step``): one ``worker_grads`` launch (ops/worker_grads.py), then
-the regularizer, the cross-card reduce (`all_reduce_sum`, identity on one
-card) and the update in torch.  The path is picked by shape alone, before
-any launch.
+Where the state (w, dim_sparsity, the optimizer's vectors and the K
+workers' sums) fits one thread-block cluster's shared memory
+(``cluster_plan``, checked when the engine is bound), a whole epoch's steps
+are one launch of the ``sync_epoch`` kernel (ops/sync_epoch.py).  Otherwise
+each step runs on its own (``_one_step``): one ``worker_grads`` launch
+(ops/worker_grads.py), then the regularizer, the cross-card reduce
+(`all_reduce_sum`, identity on one card) and the update in torch, as the
+JAX engine applies optax outside its Pallas kernel.  The path is picked by
+shape alone, before any launch.
 
 Sampling mirrors the JAX engine's index arithmetic exactly; only the
 random source differs.  An epoch's draws come from one ``torch.Generator``
@@ -42,10 +47,18 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from distributed_sgd_tpu_torch import convert
 from distributed_sgd_tpu_torch.data.rcv1 import Dataset
 from distributed_sgd_tpu_torch.models.linear import LinearModel
 from distributed_sgd_tpu_torch.ops.sparse import SparseBatch
-from distributed_sgd_tpu_torch.ops.sync_epoch import cluster_plan, sync_epoch
+from distributed_sgd_tpu_torch.ops.sync_epoch import (
+    Optimizer,
+    OptState,
+    apply_update,
+    cluster_plan,
+    init_opt_state,
+    sync_epoch,
+)
 from distributed_sgd_tpu_torch.ops.worker_grads import worker_grads
 from distributed_sgd_tpu_torch.parallel.mesh import (
     DeviceLike,
@@ -105,12 +118,13 @@ class BoundSync:
         eval_chunk: int = 4096,
         virtual_workers: int = 1,
         optimizer=None,
+        momentum: float = 0.9,
     ):
         if sampling not in ("fresh", "epoch"):
             raise ValueError(f"sampling must be 'fresh' or 'epoch', got {sampling!r}")
         if virtual_workers < 1:
             raise ValueError("virtual_workers must be >= 1")
-        resolve_optimizer(optimizer)
+        self.optimizer = resolve_optimizer(optimizer, momentum)
         self.model = model
         self.data = data
         self.device = data.indices.device
@@ -130,9 +144,10 @@ class BoundSync:
             data.n_true, self.n_workers, self.virtual_workers, self.batch_size)
         # labels enter the kernels as f32 (pads stay 0)
         self._labels_f32 = data.labels.float().contiguous()
+        self._opt_state = self._init_opt_state()
         # the epoch kernel reduces over this card's workers only
         self.epoch_kernel = (self.n_workers == 1 and cluster_plan(
-            self.virtual_workers, model.n_features) is not None)
+            self.virtual_workers, model.n_features, self.optimizer.n_state) is not None)
         self._told_per_step = False
 
     def _subshards(self):
@@ -171,14 +186,17 @@ class BoundSync:
         return self._place(sel)
 
     def _one_step(self, w: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-        """One sync DP step with ids[K, B]; returns the new weights."""
+        """One sync DP step with ids[K, B]; returns the new weights and
+        advances the optimizer state."""
         d = self.data
         gk = worker_grads(w, d.indices[ids], d.values[ids], self._labels_f32[ids],
                           self.model.coeff_kind)  # [K, D], one launch for every worker
         gk = self.model.regularize(gk, w)
         # master mean over ALL workers
         g = all_reduce_sum(gk.sum(dim=0)) / (self.n_workers * self.virtual_workers)
-        return w - self.learning_rate * g
+        w, self._opt_state = apply_update(w, g, self.learning_rate, self.optimizer,
+                                          self._opt_state)
+        return w
 
     def _check_trainable(self) -> None:
         """Checked at train-call time, not bind time: an eval-only binding
@@ -200,18 +218,21 @@ class BoundSync:
 
     def _run(self, w: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
         """The weights after the steps ids[S, K, B]: one sync_epoch launch
-        where the shape fits the cluster, else one `_one_step` per step."""
+        where the shape fits the cluster, else one `_one_step` per step.
+        Either way the optimizer state advances with them."""
         if self.epoch_kernel:
             m, d = self.model, self.data
-            return sync_epoch(
+            w, self._opt_state = sync_epoch(
                 w, ids.contiguous(), d.indices, d.values, self._labels_f32,
                 coeff_kind=m.coeff_kind, reg_kind=m.reg_kind, lam=m.lam,
                 dim_sparsity=m.dim_sparsity, lr=self.learning_rate,
-                n_total_workers=self.n_workers * self.virtual_workers)
+                n_total_workers=self.n_workers * self.virtual_workers,
+                optimizer=self.optimizer, opt_state=self._opt_state)
+            return w
         if not self._told_per_step:
-            log.info("K=%d workers at D=%d do not fit one cluster's shared memory: "
-                     "running the per-step path (worker_grads per step)",
-                     self.virtual_workers, self.model.n_features)
+            log.info("K=%d workers at D=%d with optimizer %s do not fit one cluster's shared "
+                     "memory: running the per-step path (worker_grads per step)",
+                     self.virtual_workers, self.model.n_features, self.optimizer.kind)
             self._told_per_step = True
         for rows in ids:
             w = self._one_step(w, rows)
@@ -231,6 +252,28 @@ class BoundSync:
         """One step: the first step of the epoch keyed by `key`."""
         self._check_trainable()
         return self._run(w, self._sample_ids(fold_in(key, rank()))[:1])
+
+    def _init_opt_state(self) -> OptState:
+        return init_opt_state(self.optimizer, self.model.n_features, self.device)
+
+    def reset_optimizer(self) -> None:
+        """Zero the optimizer state (momentum trace, adam moments and count)."""
+        self._opt_state = self._init_opt_state()
+
+    def opt_state_leaves(self) -> list:
+        """The optimizer state in the JAX engine's leaf order (checkpoint
+        form): momentum [trace], adam [count (int32, shape ()), mu, nu],
+        sgd []; flat [D] tensors on the engine's device."""
+        vectors, count = self._opt_state
+        if self.optimizer.kind == "adam":
+            return [torch.tensor(count, dtype=torch.int32), *vectors]
+        return list(vectors)
+
+    def load_opt_state_leaves(self, leaves) -> None:
+        """Restore the optimizer state from `opt_state_leaves()` output (or
+        the JAX engine's, flat or lane-blocked)."""
+        self._opt_state = convert.opt_state_from_jax(
+            leaves, self.optimizer.kind, self.model.n_features, self.device)
 
     def _chunks(self):
         d, c = self.data, self.eval_chunk
@@ -269,9 +312,10 @@ class MeanSteps:
 
     Each step with ids[B] is the JAX async step (hogwild.py, local_sgd.py):
     ``grad_mean`` (the gradient sum over the batch, divided by B), the
-    model's regularizer, then ``w - lr*g`` (``local_update`` with no
-    optimizer).  Where w and dim_sparsity fit one cluster
-    (``cluster_plan(1, D)``: D up to 154,848), `run` is one
+    model's regularizer, then the optimizer's update (``local_update``:
+    ``w - lr*g`` for 'sgd').  Where w, dim_sparsity and the optimizer's
+    state fit one cluster (``cluster_plan(1, D, n_state)``: D up to
+    154,848 for sgd, 116,128 for momentum, 92,896 for adam), `run` is one
     ``sync_epoch`` launch in the mean mode (K = 1, grad_divisor = B).
     Otherwise each step is one ``worker_grads`` launch, with the mean, the
     regularizer and the update in torch.  The route is picked by shape when
@@ -279,44 +323,58 @@ class MeanSteps:
     """
 
     def __init__(self, model: LinearModel, indices: torch.Tensor, values: torch.Tensor,
-                 labels: torch.Tensor, learning_rate: float):
+                 labels: torch.Tensor, learning_rate: float,
+                 optimizer: Optional[Optimizer] = None):
         self.model = model
         self.indices, self.values = indices, values
         self.labels_f32 = labels.float().contiguous()
         self.learning_rate = float(learning_rate)
-        self.fused = cluster_plan(1, model.n_features) is not None
+        self.optimizer = optimizer or Optimizer()
+        self.fused = cluster_plan(1, model.n_features, self.optimizer.n_state) is not None
         if not self.fused:
-            log.info("w at D=%d does not fit one cluster's shared memory: the async "
-                     "steps run one worker_grads launch each", model.n_features)
+            log.info("w at D=%d with optimizer %s does not fit one cluster's shared memory: "
+                     "the async steps run one worker_grads launch each", model.n_features,
+                     self.optimizer.kind)
 
-    def run(self, w: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-        """The weights after the steps ids[S, 1, B] (rows of this worker's
-        data) from `w`, which is left untouched."""
+    def init_state(self) -> OptState:
+        """The optimizer's state before any step: zeros, count 0."""
+        return init_opt_state(self.optimizer, self.model.n_features, self.indices.device)
+
+    def run(self, w: torch.Tensor, ids: torch.Tensor,
+            state: Optional[OptState] = None) -> Tuple[torch.Tensor, OptState]:
+        """(weights, optimizer state) after the steps ids[S, 1, B] (rows of
+        this worker's data) from `w` and `state` (`init_state()` when None),
+        which are left untouched."""
         m, b = self.model, ids.shape[2]
+        state = self.init_state() if state is None else state
         if self.fused:
             return sync_epoch(
                 w, ids, self.indices, self.values, self.labels_f32,
                 coeff_kind=m.coeff_kind, reg_kind=m.reg_kind, lam=m.lam,
                 dim_sparsity=m.dim_sparsity, lr=self.learning_rate, n_total_workers=1,
-                grad_divisor=b)
+                grad_divisor=b, optimizer=self.optimizer, opt_state=state)
         for rows in ids:
             g = worker_grads(w, self.indices[rows], self.values[rows], self.labels_f32[rows],
                              m.coeff_kind)[0]
-            w = w - self.learning_rate * m.regularize(g / b, w)
-        return w
+            w, state = apply_update(w, m.regularize(g / b, w), self.learning_rate,
+                                    self.optimizer, state)
+        return w, state
 
 
-def resolve_optimizer(optimizer) -> None:
-    """None/'sgd' -> None (the reference's plain update w - lr*g).
-    momentum and adam are not ported yet."""
-    if optimizer is None or optimizer == "sgd":
-        return None
-    if optimizer in ("momentum", "adam"):
-        raise NotImplementedError(
-            f"optimizer={optimizer!r} is not ported yet (ROADMAP.md Queue A: "
-            f"'momentum and adam for the sync engine' and 'async momentum and "
-            f"adam'); use 'sgd'")
-    raise ValueError(f"optimizer must be 'sgd', 'momentum' or 'adam', got {optimizer!r}")
+def resolve_optimizer(optimizer, momentum: float = 0.9) -> Optimizer:
+    """None/'sgd' -> the reference's plain update w - lr*g; 'momentum' ->
+    ``optax.sgd(lr, momentum=momentum)``; 'adam' -> ``optax.adam(lr)``, as
+    the JAX package's resolve_optimizer, in the port's own form.  The port
+    has no optax, so an optax transformation (any other object) raises
+    TypeError."""
+    if optimizer is None or isinstance(optimizer, str):
+        kind = optimizer or "sgd"
+        if kind not in ("sgd", "momentum", "adam"):
+            raise ValueError(f"optimizer must be 'sgd', 'momentum' or 'adam', got {optimizer!r}")
+        return Optimizer(kind, momentum=float(momentum))
+    raise TypeError(
+        f"optimizer must be 'sgd', 'momentum' or 'adam', got {type(optimizer).__name__}: "
+        f"the port has no optax, so it takes no optax transformation")
 
 
 class SyncEngine:
@@ -331,12 +389,13 @@ class SyncEngine:
         eval_chunk: int = 4096,
         virtual_workers: int = 1,
         optimizer=None,
+        momentum: float = 0.9,
         device: DeviceLike = None,
     ):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine on {self.device}")
-        resolve_optimizer(optimizer)
+        resolve_optimizer(optimizer, momentum)  # a bad name fails here, not at bind
         self.model = model
         self.batch_size = batch_size
         self.learning_rate = learning_rate
@@ -344,6 +403,7 @@ class SyncEngine:
         self.eval_chunk = eval_chunk
         self.virtual_workers = virtual_workers
         self.optimizer = optimizer
+        self.momentum = momentum
 
     def bind(self, data: Dataset, steps_per_epoch: Optional[int] = None) -> BoundSync:
         if data.is_dense:
@@ -372,7 +432,7 @@ class SyncEngine:
             self.model, sharded, self.batch_size, self.learning_rate,
             sampling=self.sampling, steps_per_epoch=steps_per_epoch,
             eval_chunk=chunk, virtual_workers=self.virtual_workers,
-            optimizer=self.optimizer,
+            optimizer=self.optimizer, momentum=self.momentum,
         )
 
 

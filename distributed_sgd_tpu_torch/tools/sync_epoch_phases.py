@@ -26,9 +26,13 @@ says so (at lr 0 no variant moves w).
   own shared memory instead of the owner's: the cost of the remote path;
 - ``contiguous_owner``: block r owns features [r*slice, (r+1)*slice)
   instead of every 8th: the ownership that puts the most popular features
-  on one block.
+  on one block;
+- ``sgd_only``: the momentum and adam branches of the sweep compiled out,
+  the kernel as it was before the optimizer modes: what their presence
+  (registers, spills) costs the sgd mode.  It computes the right weights.
 
-Prints the card's name and power limit, then one JSON line per run.
+Prints the card's name and power limit, each variant's register and
+spill report from ptxas, then one JSON line per run.
 Needs one CUDA card and nvcc.
 """
 
@@ -65,6 +69,8 @@ def variants(slice_: int):
         "local_atomics": [(HELD_ATOMIC, "atomicAdd(g_k + r.i[t] / kCluster, c * r.v[t]);")],
         "contiguous_owner": [(OWNER, (
             f"return cluster.map_shared_rank(base + i % {slice_}, i / {slice_});"))],
+        "sgd_only": [("if (p.opt_kind == kOptMomentum) {", "if (false) {"),
+                     ("} else if (p.opt_kind == kOptAdam) {", "} else if (false) {")],
     }
 
 
@@ -89,9 +95,11 @@ def build(tmp: Path, slice_: int):
         report, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"variant {name} did not build:\n{report}")
+        regs = [ln.strip() for ln in report.splitlines() if "registers" in ln or "spill" in ln]
+        print(json.dumps({"variant": name, "ptxas": regs}), flush=True)
         fn = ctypes.CDLL(str(tmp / f"lib{name}.so")).dsgd_sync_epoch
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int64] + [ctypes.c_int] * 10
-                       + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int64] + [ctypes.c_int] * 11
+                       + [ctypes.c_float] * 9 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         libs[name] = fn
     return libs
@@ -114,10 +122,11 @@ def main() -> None:
 
     def run(fn, steps, lr):
         out = torch.empty_like(w)
+        # sgd: no optimizer state, no bias table
         err = fn(w.data_ptr(), ds.data_ptr(), ids.data_ptr(), idx.data_ptr(), val.data_ptr(),
-                 y.data_ptr(), out.data_ptr(), N, steps, K, B, P, D, plan.blocks, plan.slice,
-                 plan.smem_bytes, 0, 0, 2e-5, lr, float(K),
-                 torch.cuda.current_stream().cuda_stream)
+                 y.data_ptr(), out.data_ptr(), 0, 0, 0, 0, 0, N, steps, K, B, P, D,
+                 plan.blocks, plan.slice, plan.smem_bytes, 0, 0, 0, 2e-5, lr, float(K), 1.0,
+                 0.0, 0.0, 0.0, 0.0, 0.0, torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"launch failed: {err}")
         return out

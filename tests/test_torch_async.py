@@ -250,8 +250,12 @@ def test_hogwild_replicas_agree_with_the_coordinator(hogwild_setup, monkeypatch)
 
 def test_hogwild_refuses_what_is_not_ported():
     tm = tmain.make_model("hinge", 1e-4, 10, device="cpu")
-    with pytest.raises(NotImplementedError, match="adam"):
-        thog.HogwildEngine(tm, 2, 8, 0.5, optimizer="adam", device="cpu")
+    # momentum and adam are ported; an unknown name or an optax object is not
+    assert thog.HogwildEngine(tm, 2, 8, 0.5, optimizer="adam", device="cpu").optimizer.kind == "adam"
+    with pytest.raises(ValueError, match="optimizer"):
+        thog.HogwildEngine(tm, 2, 8, 0.5, optimizer="adagrad", device="cpu")
+    with pytest.raises(TypeError, match="optax"):
+        thog.HogwildEngine(tm, 2, 8, 0.5, optimizer=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="compress"):
         thog.HogwildEngine(tm, 2, 8, 0.5, compress="topk", device="cpu")
     with pytest.raises(ValueError, match="DSGD_GOSSIP_TOPOLOGY"):

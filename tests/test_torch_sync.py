@@ -141,8 +141,11 @@ def test_bind_pads_to_the_eval_chunk_and_checks_trainability():
                              sampling="epoch", device="cpu").bind(_torch_dataset(data.slice(slice(0, 90))))
     with pytest.raises(ValueError, match="sampling='epoch'"):
         small.epoch(torch.zeros(D), 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsync.SyncEngine(tm, batch_size=50, learning_rate=LR, optimizer="adam", device="cpu")
+    adam = tsync.SyncEngine(tm, batch_size=50, learning_rate=LR, optimizer="adam",
+                            device="cpu").bind(_torch_dataset(data))
+    assert [tuple(x.shape) for x in adam.opt_state_leaves()] == [(), (D,), (D,)]
+    with pytest.raises(ValueError, match="optimizer"):
+        tsync.SyncEngine(tm, batch_size=50, learning_rate=LR, optimizer="rmsprop", device="cpu")
 
 
 @pytest.mark.parametrize("n", [12, 13, 16])

@@ -246,14 +246,15 @@ def test_mean_mode_is_the_jax_async_local_step(model, reg):
 def test_mean_steps_take_the_kernel_or_the_per_step_route_by_shape(fits, monkeypatch):
     data, _, tm, ids, w0 = _mean_case("logistic", "dim_sparsity", seed=4, steps=5)
     if not fits:
-        monkeypatch.setattr(tsync, "cluster_plan", lambda k, d: None)
+        monkeypatch.setattr(tsync, "cluster_plan", lambda k, d, n_state=0: None)
     calls = []
     monkeypatch.setattr(tsync, "sync_epoch", lambda *a, **kw: calls.append(kw) or se.sync_epoch(*a, **kw))
     idx, val = torch.from_numpy(data.indices), torch.from_numpy(data.values)
     steps = tsync.MeanSteps(tm, idx, val, torch.from_numpy(data.labels), 0.5)
     assert steps.fused == fits
     w = torch.from_numpy(w0)
-    got = steps.run(w, torch.from_numpy(ids))
+    got, state = steps.run(w, torch.from_numpy(ids))
+    assert state == ((), 0)  # sgd keeps no state
     assert torch.equal(w, torch.from_numpy(w0))  # the input weights are left as they were
     want = se.sync_epoch_plain(w, torch.from_numpy(ids), idx, val,
                                torch.from_numpy(data.labels.astype(np.float32)),

@@ -134,8 +134,6 @@ def test_config_reads_the_jax_env_names_and_refuses_what_is_not_ported(monkeypat
     {"DSGD_FEATURE_SHARDS": "2"},
     {"DSGD_COMPRESS": "topk", "DSGD_ASYNC": "1"},
     {"DSGD_COMPRESS": "qint8", "DSGD_ASYNC": "1", "DSGD_ASYNC_MODE": "local_sgd"},
-    {"DSGD_OPTIMIZER": "adam", "DSGD_ASYNC": "1"},
-    {"DSGD_OPTIMIZER": "momentum", "DSGD_ASYNC": "1", "DSGD_ASYNC_MODE": "local_sgd"},
 ], ids=lambda env: "+".join(f"{k[5:].lower()}={v}" for k, v in env.items()))
 def test_settings_not_ported_raise_before_any_data_loads(env, monkeypatch):
     # the JAX CLI acts on each of these; the port must not ignore one
@@ -147,25 +145,36 @@ def test_settings_not_ported_raise_before_any_data_loads(env, monkeypatch):
 
 
 def test_the_optimizer_setting_reaches_the_trainer(monkeypatch):
-    # the JAX CLI trains Adam under DSGD_OPTIMIZER=adam; the port must not
-    # silently train SGD instead
+    # the JAX CLI trains momentum or Adam under DSGD_OPTIMIZER; so does the
+    # port, with DSGD_MOMENTUM as the trace's decay
     monkeypatch.setenv("DSGD_SYNTHETIC", "600")
     monkeypatch.setenv("DSGD_MAX_EPOCHS", "1")
     monkeypatch.setenv("DSGD_OPTIMIZER", "adam")
     monkeypatch.setenv("DSGD_MOMENTUM", "0.5")
     cfg = Config.from_env()
     assert (cfg.optimizer, cfg.momentum) == ("adam", 0.5)
-    with pytest.raises(NotImplementedError, match="adam"):
-        tmain.main(device="cpu")
+    from distributed_sgd_tpu_torch.ops import sync_epoch as se
+
+    seen, real = [], se.apply_update
+    monkeypatch.setattr(se, "apply_update", lambda w, g, lr, opt, state: seen.append(
+        (opt, state.count)) or real(w, g, lr, opt, state))
+    run = tmain.main(device="cpu")
+    assert run.fit.epochs_run == 1 and run.fit.steps_per_epoch == 2
+    assert [(opt.kind, count) for opt, count in seen] == [("adam", 0), ("adam", 1)]
+    assert np.isfinite(run.fit.test_losses).all()
     monkeypatch.setenv("DSGD_OPTIMIZER", "momentum")
-    with pytest.raises(NotImplementedError, match="momentum"):
-        tmain.main(device="cpu")
+    seen.clear()
+    run = tmain.main(device="cpu")
+    assert [(opt.kind, opt.momentum) for opt, _ in seen] == [("momentum", 0.5)] * 2
+    assert run.fit.epochs_run == 1 and np.isfinite(run.fit.test_losses).all()
     monkeypatch.setenv("DSGD_OPTIMIZER", "rmsprop")
     with pytest.raises(ValueError, match="optimizer"):
         Config.from_env()
     monkeypatch.setenv("DSGD_OPTIMIZER", "sgd")
+    seen.clear()
     run = tmain.main(device="cpu")
     assert run.fit.epochs_run == 1 and run.fit.steps_per_epoch == 2
+    assert [opt.kind for opt, _ in seen] == ["sgd"] * 2
     assert Config().optimizer == "sgd"
 
 
