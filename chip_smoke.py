@@ -42,7 +42,21 @@ Phases, each fatal (a traceback and a non-zero exit):
    the default period of 16 steps; and a Hogwild run under
    ``torch.profiler`` (depth cut to 200,000 rows) for the device's busy
    share;
-7. summary: the card line, one JSON line of per-kernel numbers, and last
+7. checkpoints, resume and the profile, at full width in a temporary
+   directory: a sync fit of 1 epoch resumed to 3 by a new trainer on a new
+   Checkpointer (2 ``sync_epoch`` launches) against 3 epochs run through,
+   with sgd and with adam (lr 0.001), the run through repeated until one
+   matches (an adam fit lands at one of two places), and adam resumed with
+   its optimizer state zeroed, which must not match; the resume with nothing left to
+   run (0 launches); Hogwild and local SGD through ``main()`` with
+   DSGD_CHECKPOINT_DIR, a fit and then a second one on the same directory
+   (the restored best weights, the update counter, a resume past the
+   budget with 0 launches, no worker thread left); a 2-epoch main-path run
+   of ``python -m distributed_sgd_tpu_torch`` with DSGD_PROFILE_DIR, in a
+   process of its own, whose trace holds one ``sync_epoch`` kernel; and
+   the host times of a save and a restore, and of Hogwild with and without
+   a checkpointer;
+8. summary: the card line, one JSON line of per-kernel numbers, and last
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits non-zero before printing any result.
@@ -52,6 +66,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -64,6 +79,11 @@ import numpy as np
 import torch
 
 from distributed_sgd_tpu_torch import main as port_main
+from distributed_sgd_tpu_torch.checkpoint import Checkpointer, sync_fit_extra
+from distributed_sgd_tpu_torch.config import Config
+from distributed_sgd_tpu_torch.core.early_stopping import no_improvement
+from distributed_sgd_tpu_torch.core.loss_check import LossChecker
+from distributed_sgd_tpu_torch.core.trainer import SyncTrainer, profile_trace_path
 from distributed_sgd_tpu_torch.data.rcv1 import Dataset, dim_sparsity, train_test_split
 from distributed_sgd_tpu_torch.data.synthetic import rcv1_like
 from distributed_sgd_tpu_torch.models.linear import make_model
@@ -71,6 +91,7 @@ from distributed_sgd_tpu_torch.ops import _build
 from distributed_sgd_tpu_torch.ops import sync_epoch as se
 from distributed_sgd_tpu_torch.ops import worker_grads as wg
 from distributed_sgd_tpu_torch.parallel import hogwild as hw
+from distributed_sgd_tpu_torch.parallel import sync as psync
 from distributed_sgd_tpu_torch.parallel.local_sgd import LocalSGDEngine
 from distributed_sgd_tpu_torch.parallel.sync import (
     MeanSteps,
@@ -1036,6 +1057,310 @@ def run_async_paths(mean_row: dict, opt_rows: dict) -> None:
     async_busy_share()
 
 
+# -- phase 7: checkpoints, resume and the profile ------------------------------
+
+RESUME_LOSS_RTOL = 5e-6  # test losses of a resumed fit: equal to 6 significant digits
+RESUME_W_ATOL = 1e-5  # its weights: atomics may reorder f32 sums between launches
+# runs through a resumed fit is held against, at most: atomics reorder the
+# sums, and a hinge margin within rounding of 0 can then take either side,
+# so an adam fit lands at one of two places (PERF.md: 7 of 40 launches of
+# one epoch apart); 20 leave 0.2 * 0.8^20 (0.2%) to chance
+RUN_THROUGHS = 20
+
+
+def sync_trainer(model, kind: str, **kw) -> SyncTrainer:
+    """The main path's trainer (3 virtual workers, batch 100, seed 0)."""
+    return SyncTrainer(model, B, OPT_LR.get(kind, 0.5), seed=0, virtual_workers=K,
+                       optimizer=kind, device="cuda", **kw)
+
+
+def resume_gap(resumed, full):
+    """(largest relative test-loss difference, largest weight difference)
+    of a fit resumed at epoch 1 against the same fit run through."""
+    rel = max(abs(a - b) / abs(b) for a, b in zip(resumed.test_losses, full.test_losses[1:]))
+    return rel, float((resumed.weights - full.weights).abs().max())
+
+
+def within(gap) -> bool:
+    return gap[0] <= RESUME_LOSS_RTOL and gap[1] <= RESUME_W_ATOL
+
+
+def check_sync_resume(train, test, model, tmp: str, kind: str) -> dict:
+    """1 epoch with a checkpointer, then a new trainer on a new Checkpointer
+    resumes to 3: exactly 2 sync_epoch launches in `kind`'s mode and none of
+    worker_grads, and the same fit run through to the bounds (test losses
+    to 6 digits, weights to RESUME_W_ATOL), the run through repeated until
+    one matches, up to RUN_THROUGHS times.  For adam, a resume with the
+    optimizer state zeroed must match none of them.  Returns the numbers."""
+    d = os.path.join(tmp, f"sync-{kind}")
+    sync_trainer(model, kind, checkpointer=Checkpointer(d)).fit(train, test, 1)
+    if kind == "adam":
+        shutil.copytree(d, d + "-zeroed")
+    reset_counts()
+    resumed = sync_trainer(model, kind, checkpointer=Checkpointer(d)).fit(train, test, MAIN_EPOCHS)
+    torch.cuda.synchronize()
+    launches = (se.sync_epoch.launches, se.sync_epoch.opt_launches[kind], wg.worker_grads.launches)
+    print(f"sync {kind} resumed at epoch 1 to {MAIN_EPOCHS}: sync_epoch launches {launches[0]} "
+          f"({kind} {launches[1]}), worker_grads {launches[2]}; test losses "
+          f"{resumed.test_losses}", flush=True)
+    if launches != (MAIN_EPOCHS - 1, MAIN_EPOCHS - 1, 0) or resumed.epochs_run != MAIN_EPOCHS:
+        raise AssertionError(f"sync {kind} resume: launches {launches}, epochs_run "
+                             f"{resumed.epochs_run}; want ({MAIN_EPOCHS - 1}, "
+                             f"{MAIN_EPOCHS - 1}, 0) and {MAIN_EPOCHS}")
+    fulls, gaps = [], []
+    while not (gaps and within(gaps[-1])):
+        if len(fulls) == RUN_THROUGHS:
+            raise AssertionError(f"sync {kind} resume matches none of {RUN_THROUGHS} runs "
+                                 f"through (relative test-loss and weight gaps {gaps}; rtol "
+                                 f"{RESUME_LOSS_RTOL}, atol {RESUME_W_ATOL})")
+        fulls.append(sync_trainer(model, kind).fit(train, test, MAIN_EPOCHS))
+        gaps.append(resume_gap(resumed, fulls[-1]))
+        exact = bool(torch.equal(resumed.weights, fulls[-1].weights))
+        print(f"sync {kind} run through {len(fulls)}: test losses {fulls[-1].test_losses[1:]}; "
+              f"against the resumed fit: largest relative difference {gaps[-1][0]:.3e}, weights "
+              f"max_abs_err {gaps[-1][1]:.3e}, bitwise equal: {exact}", flush=True)
+    out = {"launches": launches[0], "loss_rel": gaps[-1][0], "w_err": gaps[-1][1],
+           "runs_through": len(fulls), "gaps": gaps}
+    if kind == "adam":
+        real = psync.BoundSync.load_opt_state_leaves
+        psync.BoundSync.load_opt_state_leaves = lambda self, leaves: self.reset_optimizer()
+        try:
+            zeroed = sync_trainer(model, kind, checkpointer=Checkpointer(d + "-zeroed")).fit(
+                train, test, MAIN_EPOCHS)
+        finally:
+            psync.BoundSync.load_opt_state_leaves = real
+        zgaps = [resume_gap(zeroed, f) for f in fulls]
+        out["zeroed_gaps"] = zgaps
+        print(f"sync adam resumed with its optimizer state zeroed: test losses "
+              f"{zeroed.test_losses}; against each run through (relative, weights) {zgaps}",
+              flush=True)
+        if any(map(within, zgaps)):
+            raise AssertionError("a resume with the adam state zeroed matched a run through: "
+                                 "the check cannot see a lost state")
+    return out
+
+
+def check_nothing_to_run(train, test, model, tmp: str) -> None:
+    """A resume with max_epochs equal to the saved epoch: no launch, and the
+    restored weights evaluated."""
+    d = os.path.join(tmp, "sync-sgd")
+    step, state = Checkpointer(d).restore_latest()
+    reset_counts()
+    res = sync_trainer(model, "sgd", checkpointer=Checkpointer(d)).fit(train, test, step)
+    torch.cuda.synchronize()
+    want, _ = SyncEngine(model, B, 0.0).bind(train).evaluate(
+        torch.from_numpy(state["weights"]).cuda())
+    print(f"nothing to run (checkpoint at epoch {step}, max_epochs {step}): sync_epoch launches "
+          f"{se.sync_epoch.launches}, epochs_run {res.epochs_run}, loss of the restored weights "
+          f"{res.state.loss:.7f} (evaluated apart {want:.7f})", flush=True)
+    if (se.sync_epoch.launches, wg.worker_grads.launches, res.epochs_run) != (0, 0, step) or (
+            abs(res.state.loss - want) > 1e-6 * abs(want)):
+        raise AssertionError("the resume with nothing to run launched a kernel, or did not "
+                             "report the restored weights' loss")
+
+
+def check_async_resume(label: str, tmp: str, per_launch: int, **env) -> dict:
+    """``main()`` with DSGD_ASYNC=1 and DSGD_CHECKPOINT_DIR: a fit, then a
+    second one on the same directory, then one resumed past its budget."""
+    d = os.path.join(tmp, label.replace(" ", "-"))
+    hogwild = env.get("DSGD_ASYNC_MODE", "gossip") == "gossip"
+    with cli_env(DSGD_SYNTHETIC=MAIN_ROWS, DSGD_ASYNC=1, DSGD_MAX_EPOCHS=1,
+                 DSGD_CHECKPOINT_DIR=d, **env):
+        first = port_main.main().fit
+        step, state = Checkpointer(d).restore_latest()
+        same = bool(np.array_equal(state["weights"], first.weights.cpu().numpy()))
+        restored, n_hist = int(state["updates"]), len(state["smoothed_nf"])
+        before = async_counts()
+        reset_counts()
+        second = port_main.main().fit
+        torch.cuda.synchronize()
+        launches, steps_run = se.sync_epoch.launches, se.sync_epoch.steps
+        diff = {k: v - before[k] for k, v in async_counts().items()}
+        left = live_worker_threads()
+        # a snapshot at the budget, as a fit that spent it leaves one
+        ck = LossChecker(0.9, checkpointer=Checkpointer(d), save_every=1, device="cuda")
+        ck.check(ck.best_loss, 0.0, ck.best_weights, step=TRAIN_ROWS)
+        budget_spent = ck._updates_seen  # TRAIN_ROWS, or more if the second fit passed it
+        reset_counts()
+        third = port_main.main().fit
+        torch.cuda.synchronize()
+        past = (se.sync_epoch.launches, third.state.updates,
+                bool(torch.equal(third.weights, ck.best_weights)))
+    new = second.test_losses[n_hist:]
+    units = diff["batch"] // per_launch if hogwild else diff["rounds"]
+    out = {"first_updates": first.state.updates, "restored_updates": restored,
+           "second_updates": second.state.updates, "second_launches": launches,
+           "second_first_loss": new[0] if new else None, "past_budget": past}
+    print(f"{label} with a checkpoint directory: first fit {first.state.updates} updates, best "
+          f"{first.state.loss:.7f}; latest snapshot step {step} ({restored} updates, {n_hist} "
+          f"checks), its weights equal the fit's best weights: {same}; second fit from "
+          f"{restored} to {second.state.updates} updates, {launches} sync_epoch launches over "
+          f"{steps_run} steps, first smoothed loss {new[:1]}, best {second.state.loss:.7f}; "
+          f"resumed past the budget: {past[0]} launches, {past[1]} updates, the restored best "
+          f"weights returned: {past[2]}", flush=True)
+    if not same:
+        raise AssertionError(f"{label}: the restored best weights differ from the fit's")
+    if second.test_losses[:n_hist] != [float(x) for x in state["smoothed_nf"][::-1]]:
+        raise AssertionError(f"{label}: the second fit did not go on from the restored history")
+    if not new or not new[0] < 1.0:
+        raise AssertionError(f"{label}: the second fit's first smoothed loss is {new[:1]}")
+    if (second.state.updates - restored != steps_run or launches != units
+            or wg.worker_grads.launches != 0):
+        raise AssertionError(f"{label}: {second.state.updates} updates from {restored} restored, "
+                             f"{steps_run} steps in {launches} launches ({units} {per_launch}-step "
+                             f"units); the counter must start at the restored count")
+    if left or live_worker_threads():
+        raise AssertionError(f"{label}: worker threads left: {left or live_worker_threads()}")
+    if past != (0, budget_spent, True):
+        raise AssertionError(f"{label}: a resume past the budget gave {past}; want 0 launches, "
+                             f"{budget_spent} updates and the restored best weights")
+    return out
+
+
+def check_profile(tmp: str, train, test, model) -> dict:
+    """``python -m distributed_sgd_tpu_torch`` with DSGD_PROFILE_DIR on a
+    2-epoch main-path run, in a process of its own as a user runs it (in
+    this process the busy-share phases' torch.profiler sessions came first,
+    and a later session can lose kernel records): the trace of epoch 1
+    holds exactly one sync_epoch kernel.  Its duration is printed beside
+    the same two epochs run here, each timed by CUDA events (the id draw
+    and the launch)."""
+    d = os.path.join(tmp, "profile")
+    env = {**os.environ, "DSGD_SYNTHETIC": str(MAIN_ROWS), "DSGD_MAX_EPOCHS": "2",
+           "DSGD_PROFILE_DIR": d}
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "distributed_sgd_tpu_torch"], cwd=root, env=env,
+                         capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    if cli.returncode != 0:
+        raise AssertionError(f"the profiled CLI run failed ({cli.returncode}):\n"
+                             f"{cli.stdout[-3000:]}\n{cli.stderr[-3000:]}")
+    files = sorted(os.listdir(d))
+    with open(profile_trace_path(d, 1)) as f:
+        trace = json.load(f)["traceEvents"]
+    kernels = [e for e in trace if e.get("ph") == "X" and e.get("cat") == "kernel"
+               and "sync_epoch" in e.get("name", "")]
+
+    events, real = [], psync.BoundSync.epoch
+
+    def timed(self, w, key):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        w = real(self, w, key)
+        end.record()
+        events.append((start, end))
+        return w
+
+    psync.BoundSync.epoch = timed
+    try:
+        sync_trainer(model, "sgd").fit(train, test, 2)
+    finally:
+        psync.BoundSync.epoch = real
+    torch.cuda.synchronize()
+    event_ms = [s.elapsed_time(e) for s, e in events]
+    out = {"files": files, "sync_epoch_kernels": len(kernels),
+           "kernel_ms": float(kernels[0]["dur"]) / 1e3 if kernels else None,
+           "epoch_event_ms": event_ms, "trace_events": len(trace), "cli_seconds": cli_s}
+    print(f"profile: {files} in DSGD_PROFILE_DIR after a {cli_s:.1f} s CLI run, {len(trace)} "
+          f"events, {len(kernels)} sync_epoch kernel(s) of {out['kernel_ms']} ms; the same epoch "
+          f"here by CUDA events {event_ms[1]:.4f} ms (the id draw and the launch; epoch 0 "
+          f"{event_ms[0]:.4f} ms)", flush=True)
+    if files != [os.path.basename(profile_trace_path(d, 1))] or len(kernels) != 1:
+        raise AssertionError(f"profile: files {files}, {len(kernels)} sync_epoch kernels; want "
+                             f"the epoch-1 trace with exactly one")
+    return out
+
+
+def time_checkpoints(tmp: str) -> dict:
+    """Host milliseconds of a save (the device-to-host copy included) and of
+    restore_latest at D = 47,236: a sync sgd snapshot, an adam one and a
+    LossChecker one (median of 15, after 3 unrecorded)."""
+    rng = np.random.default_rng(11)
+    w = torch.from_numpy(rng.normal(size=D).astype(np.float32)).cuda()
+    adam = [torch.tensor(4292, dtype=torch.int32).cuda(),
+            *(torch.from_numpy(rng.random(D).astype(np.float32)).cuda() for _ in range(2))]
+    hist = list(rng.random(12).astype(np.float32))
+    snapshots = {
+        "sync sgd": sync_fit_extra(hist[:3], "sgd", []),
+        "sync adam": sync_fit_extra(hist[:3], "adam", adam),
+        "LossChecker": {"best_loss": 0.2646753, "smoothed_nf": np.asarray(hist, np.float32),
+                        "smoothed_accs_nf": np.asarray(hist, np.float32), "updates": 207552},
+    }
+    out = {}
+    for label, extra in snapshots.items():
+        ck = Checkpointer(os.path.join(tmp, "timing-" + label.replace(" ", "-")))
+        save_ms, restore_ms = [], []
+        for step in range(18):
+            t0 = time.perf_counter()
+            ck.save(step, w, extra=extra)
+            t1 = time.perf_counter()
+            ck.restore_latest()
+            t2 = time.perf_counter()
+            if step >= 3:
+                save_ms.append((t1 - t0) * 1e3)
+                restore_ms.append((t2 - t1) * 1e3)
+        size = os.path.getsize(os.path.join(ck.directory, f"{ck.latest_step()}.npz"))
+        out[label] = {"bytes": size, "save_ms": statistics.median(save_ms),
+                      "restore_ms": statistics.median(restore_ms)}
+        print(f"checkpoint {label}: {size} B a snapshot; save {out[label]['save_ms']:.4f} ms, "
+              f"restore_latest {out[label]['restore_ms']:.4f} ms (host clock, median of 15)",
+              flush=True)
+    return out
+
+
+def time_hogwild_checkpointer(train, test, model, tmp: str) -> list:
+    """Hogwild fits (3 workers, 64 steps a dispatch, the CLI's criterion)
+    without and with a checkpointer, in turns: updates/s of each."""
+    rows = []
+    for i, with_ckpt in enumerate((False, True, True, False)):
+        ck = Checkpointer(os.path.join(tmp, f"hogwild-timing-{i}")) if with_ckpt else None
+        eng = hw.HogwildEngine(model, 3, B, 0.5, steps_per_dispatch=HOGWILD_K, checkpointer=ck,
+                               metrics=Metrics(), device="cuda")
+        res = eng.fit(train, test, 1, no_improvement(patience=5, min_delta=0.01))
+        saves = len(os.listdir(ck.directory)) if ck else 0
+        rows.append({"checkpointer": with_ckpt, "updates": res.state.updates,
+                     "seconds": res.state.duration,
+                     "updates_per_s": res.state.updates / res.state.duration,
+                     "checks": len(res.test_losses), "snapshots_kept": saves})
+        print(f"Hogwild {'with' if with_ckpt else 'without'} a checkpointer: "
+              f"{res.state.updates} updates in {res.state.duration:.3f} s "
+              f"({rows[-1]['updates_per_s']:.1f} updates/s), {len(res.test_losses)} checks",
+              flush=True)
+    return rows
+
+
+def run_checkpoint_phase() -> None:
+    """Phase 7.  Its rows are generated once: every ``main()`` of the phase
+    gets the same synthetic rows it would generate from the same seed."""
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-ckpt-")
+    t0 = time.perf_counter()
+    with cli_env(DSGD_SYNTHETIC=MAIN_ROWS):
+        cfg = Config.from_env()
+        rows = port_main.load_data(cfg)
+    real_load = port_main.load_data
+    port_main.load_data = lambda cfg: rows
+    try:
+        train, test, model = port_main.build(cfg, "cuda")
+        print(f"checkpoint phase data seconds: {time.perf_counter() - t0:.2f}", flush=True)
+        out = {"sync_sgd": check_sync_resume(train, test, model, tmp, "sgd"),
+               "sync_adam": check_sync_resume(train, test, model, tmp, "adam")}
+        check_nothing_to_run(train, test, model, tmp)
+        out["hogwild"] = check_async_resume("Hogwild", tmp, HOGWILD_K,
+                                            DSGD_STEPS_PER_DISPATCH=HOGWILD_K)
+        out["local_sgd"] = check_async_resume("local SGD", tmp, LOCAL_SGD_PERIOD,
+                                              DSGD_ASYNC_MODE="local_sgd",
+                                              DSGD_SYNC_PERIOD=LOCAL_SGD_PERIOD,
+                                              DSGD_CHECK_EVERY=LOCAL_SGD_CHECK_EVERY)
+        out["profile"] = check_profile(tmp, train, test, model)
+        out["checkpoint_ms"] = time_checkpoints(tmp)
+        out["hogwild_checkpointer"] = time_hogwild_checkpointer(train, test, model, tmp)
+        print(json.dumps({"checkpoints": out}), flush=True)
+    finally:
+        port_main.load_data = real_load
+        shutil.rmtree(tmp)
+
+
 def main() -> None:
     phase("1 device")
     if not torch.cuda.is_available():
@@ -1082,7 +1407,10 @@ def main() -> None:
     phase("6 async paths: Hogwild and local SGD")
     run_async_paths(mean_row, opt_rows)
 
-    phase("7 summary")
+    phase("7 checkpoints, resume and the profile")
+    run_checkpoint_phase()
+
+    phase("8 summary")
     print(card)
     print(json.dumps({"kernels": [wg_row, se_row, mean_row, opt_rows["momentum"],
                                   opt_rows["adam"]]}))

@@ -5,10 +5,11 @@ that the port's in-process engines read, under the same ``DSGD_*`` names
 and with the same defaults: the sync trainer, and with ``use_async`` the
 Hogwild gossip (``async_mode='gossip'``) or local SGD
 (``async_mode='local_sgd'``).  ``engine`` must be 'mesh'.  ``optimizer``
-('sgd', 'momentum' or 'adam') and ``momentum`` are handed to every engine.
-Settings that change what the JAX CLI does but are
-not ported (checkpoints, the profiler trace, the dp x tp engine, gossip
-compression) are read and refused here, before any data is loaded.
+('sgd', 'momentum' or 'adam') and ``momentum`` are handed to every engine,
+``checkpoint_dir`` (with ``checkpoint_every``) to every engine and
+``profile_dir`` to the sync trainer.  Settings that change what the JAX
+CLI does but are not ported (the dp x tp engine, gossip compression) are
+read and refused here, before any data is loaded.
 ``DSGD_KERNEL`` is not read: in the JAX package it picks among XLA
 formulations of the same function, so ignoring it changes no result.
 """
@@ -60,11 +61,11 @@ class Config:
     sync_period: int = 16  # local-SGD averaging period (steps)
     steps_per_dispatch: int = 1  # gossip: k local steps per dispatch
     gossip_topology: str = "all"  # all | ring | random:k
+    checkpoint_dir: Optional[str] = None  # snapshots: checkpoint.Checkpointer
+    checkpoint_every: int = 1  # sync: epochs between snapshots
+    profile_dir: Optional[str] = None  # sync: the trace of one epoch
     # read so that none is ignored without a word; each raises when set
     compress: str = "none"  # none | topk | qint8
-    checkpoint_dir: Optional[str] = None
-    checkpoint_every: int = 1
-    profile_dir: Optional[str] = None
     feature_shards: int = 1
 
     def __post_init__(self):
@@ -84,14 +85,6 @@ class Config:
             raise NotImplementedError(
                 f"DSGD_COMPRESS={self.compress}: gossip compression is not ported yet "
                 f"(ROADMAP.md Queue A 13: compress/)")
-        if self.checkpoint_dir:
-            raise NotImplementedError(
-                "DSGD_CHECKPOINT_DIR: checkpoints are not ported yet (ROADMAP.md "
-                "Queue A: 'sync checkpoints' and 'async checkpoint resume')")
-        if self.profile_dir:
-            raise NotImplementedError(
-                "DSGD_PROFILE_DIR: the profiler trace is not ported yet (ROADMAP.md "
-                "Queue A: 'profiler trace of an epoch')")
         if self.feature_shards < 1:
             raise ValueError("feature_shards must be >= 1")
         if self.feature_shards > 1:

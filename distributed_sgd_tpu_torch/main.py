@@ -8,8 +8,11 @@ the test loss.  The fit is the sync engine with K virtual workers, or with
 DSGD_ASYNC=1 the Hogwild gossip engine with node_count workers
 (DSGD_ASYNC_MODE=gossip, the default) or local SGD
 (DSGD_ASYNC_MODE=local_sgd).  Every engine takes DSGD_OPTIMIZER
-(sgd | momentum | adam) with DSGD_MOMENTUM.  Behaviour is driven by
-DSGD_* env config (config.py).
+(sgd | momentum | adam) with DSGD_MOMENTUM.  DSGD_CHECKPOINT_DIR saves
+and resumes every engine (checkpoint.py: the sync trainer every
+DSGD_CHECKPOINT_EVERY epochs, the async engines' best weights), and
+DSGD_PROFILE_DIR writes a torch.profiler trace of one sync epoch.
+Behaviour is driven by DSGD_* env config (config.py).
 
 Run: ``python -m distributed_sgd_tpu_torch``
 """
@@ -25,6 +28,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from distributed_sgd_tpu_torch.checkpoint import Checkpointer
 from distributed_sgd_tpu_torch.config import Config
 from distributed_sgd_tpu_torch.core.early_stopping import no_improvement
 from distributed_sgd_tpu_torch.core.trainer import FitResult, SyncTrainer
@@ -68,6 +72,24 @@ def build(cfg: Config, device: DeviceLike = None):
     model = make_model(cfg.model, cfg.lam, train.n_features,
                        dim_sparsity=dim_sparsity(train), device=device)
     return train, test, model
+
+
+def _make_checkpointer(cfg: Config):
+    """cfg.checkpoint_dir -> a Checkpointer, or None: the sync trainer saves
+    every cfg.checkpoint_every epochs and resumes from the latest snapshot;
+    the async engines' loss checkers save each new best and resume from
+    the latest."""
+    return Checkpointer(cfg.checkpoint_dir) if cfg.checkpoint_dir else None
+
+
+def _restore_weights(ckpt):
+    """The latest snapshot's weights (an async fit's warm start), or None."""
+    restored = ckpt.restore_latest() if ckpt is not None else None
+    if restored is None:
+        return None
+    step, state = restored
+    log.info("warm start from checkpoint at step %d", step)
+    return np.asarray(state["weights"])
 
 
 def select_topology(
@@ -118,27 +140,32 @@ def scenario_mesh(cfg: Config, train: Dataset, test: Dataset, model,
                     "(async_mode=gossip) has a peer fan-out", cfg.gossip_topology)
     log.info("engine=mesh devices=%d virtual_workers=%d model=%s async=%s device=%s",
              n, virtual, cfg.model, cfg.use_async, resolve_device(device))
+    ckpt = _make_checkpointer(cfg)
     if cfg.use_async and cfg.async_mode == "gossip":
         eng = HogwildEngine(
             model, n_workers=cfg.node_count, batch_size=cfg.batch_size,
             learning_rate=cfg.learning_rate, check_every=cfg.check_every,
-            leaky_loss=cfg.leaky_loss, seed=cfg.seed,
+            leaky_loss=cfg.leaky_loss, seed=cfg.seed, checkpointer=ckpt,
             steps_per_dispatch=cfg.steps_per_dispatch, optimizer=cfg.optimizer,
             momentum=cfg.momentum, compress=cfg.compress,
             gossip_topology=cfg.gossip_topology, device=device)
-        res = eng.fit(train, test, cfg.max_epochs, criterion)
+        res = eng.fit(train, test, cfg.max_epochs, criterion,
+                      initial_weights=_restore_weights(ckpt))
     elif cfg.use_async:
         eng = LocalSGDEngine(
             model, batch_size=cfg.batch_size, learning_rate=cfg.learning_rate,
             sync_period=cfg.sync_period, check_every=cfg.check_every,
-            leaky_loss=cfg.leaky_loss, seed=cfg.seed, optimizer=cfg.optimizer,
-            momentum=cfg.momentum, device=device)
-        res = eng.fit(train, test, cfg.max_epochs, criterion)
+            leaky_loss=cfg.leaky_loss, seed=cfg.seed, checkpointer=ckpt,
+            optimizer=cfg.optimizer, momentum=cfg.momentum, device=device)
+        res = eng.fit(train, test, cfg.max_epochs, criterion,
+                      initial_weights=_restore_weights(ckpt))
     else:
         trainer = SyncTrainer(
             model, batch_size=cfg.batch_size, learning_rate=cfg.learning_rate,
             seed=cfg.seed, virtual_workers=virtual, optimizer=cfg.optimizer,
-            momentum=cfg.momentum, device=device)
+            momentum=cfg.momentum, checkpointer=ckpt,
+            checkpoint_every=cfg.checkpoint_every, profile_dir=cfg.profile_dir,
+            device=device)
         res = trainer.fit(train, test, cfg.max_epochs, criterion)
     _finish(res)
     return res

@@ -36,7 +36,11 @@ asynchrony lives on the host, as in the JAX engine:
 - a watchdog restarts dead worker threads with the current weights, up to
   `max_restarts` times each, and raises when the fit stalls for good.
 
-Not ported yet: the compressed gossip (``compress``); it raises.
+With a checkpointer the loss checker saves the best weights and its
+history and the fit resumes from them, spending only the rest of the
+lifetime budget (core/loss_check.py); the workers' optimizer state is not
+saved, as in the JAX engine.  Not ported yet: the compressed gossip
+(``compress``); it raises.
 """
 
 from __future__ import annotations
@@ -265,10 +269,6 @@ class HogwildEngine:
             raise NotImplementedError(
                 f"compress={compress!r} is not ported yet (ROADMAP.md Queue A 13: "
                 f"compress/); use 'none'")
-        if checkpointer is not None:
-            raise NotImplementedError(
-                "async checkpoints are not ported yet (ROADMAP.md Queue A: "
-                "'async checkpoint resume')")
         parse_topology(gossip_topology)  # fail typos at construction
         self.device = resolve_device(device)
         if model.device != self.device:
@@ -283,6 +283,7 @@ class HogwildEngine:
         self.backoff_s = backoff_s
         self.steps_per_dispatch = int(steps_per_dispatch)
         self.seed = seed
+        self.checkpointer = checkpointer  # persists the best weights (LossChecker)
         self.metrics = metrics or metrics_mod.global_metrics()
         # the coordinator's weights and the checker's evaluations are ordered
         # on this one stream
@@ -342,15 +343,23 @@ class HogwildEngine:
         n = len(train)
         w0 = (np.zeros(self.model.n_features, dtype=np.float32) if initial_weights is None
               else np.asarray(initial_weights, dtype=np.float32))
-        checker = LossChecker(self.leaky_loss, criterion)
+        # the checker restores any snapshot, the lifetime update count with
+        # it: maxSteps is a lifetime budget (MasterAsync.scala:83), so a
+        # resumed fit seeds its counter and spends only what is left
+        checker = LossChecker(self.leaky_loss, criterion, checkpointer=self.checkpointer,
+                              device=self.device)
         t_start = time.time()
         with torch.cuda.stream(self._stream):
             w_init = self._w_master = torch.as_tensor(w0).to(self.device)
-        self._updates = 0
+        self._updates = checker.restored_updates
         self._max_steps = n * max_epochs  # MasterAsync.scala:83
         self._stop.clear()
-        if self._max_steps <= 0:
-            return async_fit_result(checker, w_init, t_start, 0, self.batch_size, n)
+        if self._updates >= self._max_steps:
+            if self._updates > 0:
+                log.info("resumed past the %d-step budget (%d updates done): nothing to run",
+                         self._max_steps, self._updates)
+            return async_fit_result(checker, w_init, t_start, self._updates,
+                                    self.batch_size, n)
 
         workers = [
             _Worker(i, self.model, shard, self.batch_size, self.learning_rate, self.seed,
@@ -421,7 +430,7 @@ class HogwildEngine:
                         self._stop.wait(self.backoff_s)
                         continue
                     raw_loss, raw_acc = eval_bound.evaluate(w_now)
-                    stop = checker.check(raw_loss, raw_acc, w_now)
+                    stop = checker.check(raw_loss, raw_acc, w_now, step=updates)
                     # the reference's toLong truncation (MasterAsync.scala:126),
                     # and the real value beside it
                     self.metrics.counter("master.async.loss").increment(int(checker.smoothed[0]))

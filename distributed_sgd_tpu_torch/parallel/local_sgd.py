@@ -25,7 +25,10 @@ put the JAX engine's own draws.
 Around the rounds runs the reference's async loss checker: the leaky
 smoothed test loss every `check_every` local steps, the best weights, the
 early stop on the smoothed history and the budget of ``n_samples *
-max_epochs`` steps (MasterAsync.scala:83,96-162).
+max_epochs`` steps (MasterAsync.scala:83,96-162).  With a checkpointer the
+checker saves the best weights and its history, and a resumed fit spends
+only the rest of the lifetime budget; the optimizer state is not saved,
+as in the JAX engine.
 """
 
 from __future__ import annotations
@@ -82,10 +85,6 @@ class LocalSGDEngine:
         if sync_period < 1:
             raise ValueError("sync_period must be >= 1")
         self.optimizer = resolve_optimizer(optimizer, momentum)
-        if checkpointer is not None:
-            raise NotImplementedError(
-                "async checkpoints are not ported yet (ROADMAP.md Queue A: "
-                "'async checkpoint resume')")
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine on {self.device}")
@@ -96,6 +95,7 @@ class LocalSGDEngine:
         self.check_every = check_every
         self.leaky_loss = leaky_loss
         self.seed = seed
+        self.checkpointer = checkpointer  # persists the best weights (LossChecker)
         self.metrics = metrics or metrics_mod.global_metrics()
         self.n_workers = world_size()
 
@@ -128,8 +128,11 @@ class LocalSGDEngine:
         w = (torch.zeros(self.model.n_features, dtype=torch.float32, device=self.device)
              if initial_weights is None
              else torch.as_tensor(np.asarray(initial_weights, dtype=np.float32)).to(self.device))
-        checker = LossChecker(self.leaky_loss, criterion)
-        steps_done = 0
+        checker = LossChecker(self.leaky_loss, criterion, checkpointer=self.checkpointer,
+                              device=self.device)
+        # maxSteps is a lifetime budget (MasterAsync.scala:83): a resumed fit
+        # seeds its step counter from the snapshot and runs only the rest
+        steps_done = checker.restored_updates
         last_check = steps_done - self.check_every
         t_start = time.time()
         rnd = 0
@@ -149,7 +152,7 @@ class LocalSGDEngine:
             if steps_done - last_check < self.check_every:
                 continue
             raw_loss, raw_acc = eval_bound.evaluate(w)
-            stop = checker.check(raw_loss, raw_acc, w)
+            stop = checker.check(raw_loss, raw_acc, w, step=steps_done)
             log.info("loss computed at %d updates: test_loss=%.6f test_acc=%.4f",
                      steps_done, checker.smoothed[0], checker.smoothed_accs[0])
             last_check = steps_done

@@ -5,13 +5,17 @@ metrics.py), after the reference's Kamon metrics: the async engines count
 ``slave.async.batch`` (local steps), ``slave.async.grad.update`` (peer
 deltas merged), ``slave.async.grad.dropped`` (inbox overflows) and
 ``master.async.loss``, and record ``master.async.loss.value`` and
-``slave.async.round.seconds``.  The Prometheus and InfluxDB exporters are
+``slave.async.round.seconds``; the sync trainer records
+``master.sync.loss``, ``master.sync.acc`` (x100) and
+``master.sync.epoch.seconds``, and times each epoch with the timer
+``master.sync.batch.duration``.  The Prometheus and InfluxDB exporters are
 not ported yet (ROADMAP.md Queue A 6).
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import Dict
 
 
@@ -49,6 +53,21 @@ class Histogram:
             self.sum += float(v)
 
 
+class Timer:
+    """A histogram of elapsed seconds with a context-manager interface."""
+
+    def __init__(self, hist: Histogram):
+        self._hist = hist
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self._hist.record(time.perf_counter() - self._t0)
+        return False
+
+
 class Metrics:
     """Named instruments, each made at its first use."""
 
@@ -64,6 +83,10 @@ class Metrics:
     def histogram(self, name: str) -> Histogram:
         with self._lock:
             return self._hists.setdefault(name, Histogram(name))
+
+    def timer(self, name: str) -> Timer:
+        """A timer recording into the histogram `name`."""
+        return Timer(self.histogram(name))
 
 
 _GLOBAL = Metrics()

@@ -1,5 +1,5 @@
 """The port (distributed_sgd_tpu_torch/) and chip_smoke.py stand alone:
-they import no jax and nothing of the JAX package, its entry points refuse
+they import no jax, no orbax and nothing of the JAX package, its entry points refuse
 to run without a device choice when there is no CUDA, and chip_smoke.py
 fails without a card or without the rest of the repo."""
 
@@ -39,16 +39,19 @@ def test_every_port_module_imports_with_jax_blocked():
     mods = _port_modules() + ["chip_smoke"]
     assert {"distributed_sgd_tpu_torch.ops.worker_grads", "distributed_sgd_tpu_torch.parallel.hogwild",
             "distributed_sgd_tpu_torch.parallel.local_sgd",
-            "distributed_sgd_tpu_torch.core.loss_check"} <= set(mods)
+            "distributed_sgd_tpu_torch.core.loss_check", "distributed_sgd_tpu_torch.checkpoint",
+            "distributed_sgd_tpu_torch.utils.measure",
+            "distributed_sgd_tpu_torch.utils.fsio"} <= set(mods)
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['orbax'] = None\n"
         "import importlib\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m, mod in sys.modules.items() if mod is not None and (\n"
         "    m == 'distributed_sgd_tpu' or m.startswith('distributed_sgd_tpu.')\n"
-        "    or m == 'jax' or m.startswith('jax.')))\n"
+        "    or m == 'jax' or m.startswith('jax.') or m.split('.')[0] == 'orbax'))\n"
         "print('BAD', bad)\n"
     )
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
@@ -70,7 +73,8 @@ def test_no_source_line_imports_jax_or_the_jax_package(path):
             continue
         for name in names:
             top = name.split(".")[0]
-            assert top != "jax" and not _is_jax_package(name), f"{path}: imports {name}"
+            assert top not in ("jax", "orbax") and not _is_jax_package(name), (
+                f"{path}: imports {name}")
 
 
 def test_entry_points_without_a_device_refuse_to_run_on_a_host_without_cuda():

@@ -91,8 +91,15 @@ def test_the_best_weights_are_a_copy():
     assert torch.equal(tc.best_weights, torch.ones(D))
 
 
-def test_checker_refuses_a_bad_leak_and_a_checkpointer():
+def test_checker_refuses_a_bad_leak_and_a_checkpointer(tmp_path):
     with pytest.raises(ValueError, match="leaking"):
         LossChecker(1.5)
-    with pytest.raises(NotImplementedError, match="async checkpoint resume"):
-        LossChecker(0.9, checkpointer=object())
+    # a checkpointer on the JAX package's orbax format (a step directory
+    # with its metadata file) is refused before a checker could start
+    # from nothing beside it
+    from distributed_sgd_tpu_torch.checkpoint import Checkpointer
+
+    (tmp_path / "7").mkdir()
+    (tmp_path / "7" / "_CHECKPOINT_METADATA").write_text("{}")
+    with pytest.raises(ValueError, match="orbax"):
+        LossChecker(0.9, checkpointer=Checkpointer(str(tmp_path)), device="cpu")

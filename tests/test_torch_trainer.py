@@ -7,6 +7,7 @@ own random source, the port's main scenario lands within 0.03 test
 accuracy of the JAX trainer at the same config and one-card topology."""
 
 import logging
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -128,9 +129,6 @@ def test_config_reads_the_jax_env_names_and_refuses_what_is_not_ported(monkeypat
 
 
 @pytest.mark.parametrize("env", [
-    {"DSGD_CHECKPOINT_DIR": "ckpt"},
-    {"DSGD_CHECKPOINT_DIR": "ckpt", "DSGD_ASYNC": "1"},
-    {"DSGD_PROFILE_DIR": "trace"},
     {"DSGD_FEATURE_SHARDS": "2"},
     {"DSGD_COMPRESS": "topk", "DSGD_ASYNC": "1"},
     {"DSGD_COMPRESS": "qint8", "DSGD_ASYNC": "1", "DSGD_ASYNC_MODE": "local_sgd"},
@@ -178,9 +176,57 @@ def test_the_optimizer_setting_reaches_the_trainer(monkeypatch):
     assert Config().optimizer == "sgd"
 
 
-def test_trainer_refuses_the_parts_not_ported_yet():
-    model = tmain.make_model("hinge", 1e-4, 10, device="cpu")
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        SyncTrainer(model, 10, 0.5, checkpointer=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="profile"):
-        SyncTrainer(model, 10, 0.5, profile_dir="x", device="cpu")
+@pytest.mark.parametrize("mode", ["sync", "gossip", "local_sgd"])
+def test_the_checkpoint_dir_saves_and_resumes_through_main(mode, tmp_path, monkeypatch, caplog):
+    # DSGD_CHECKPOINT_DIR, which the port refused before, now leaves a
+    # snapshot that a second run resumes, in every engine
+    from distributed_sgd_tpu_torch.checkpoint import Checkpointer
+
+    monkeypatch.setenv("DSGD_SYNTHETIC", "600")
+    monkeypatch.setenv("DSGD_MAX_EPOCHS", "1")
+    monkeypatch.setenv("DSGD_CHECKPOINT_DIR", str(tmp_path))
+    if mode != "sync":
+        monkeypatch.setenv("DSGD_ASYNC", "1")
+        monkeypatch.setenv("DSGD_ASYNC_MODE", mode)
+        monkeypatch.setenv("DSGD_STEPS_PER_DISPATCH", "8")
+        monkeypatch.setenv("DSGD_SYNC_PERIOD", "4")
+        monkeypatch.setenv("DSGD_CHECK_EVERY", "120")
+        monkeypatch.setenv("DSGD_PATIENCE", "1000")  # the budget ends each fit
+    first = tmain.main(device="cpu").fit
+    step, state = Checkpointer(str(tmp_path)).restore_latest()
+    monkeypatch.setenv("DSGD_MAX_EPOCHS", "2")
+    with caplog.at_level(logging.INFO, logger="dsgd"):
+        second = tmain.main(device="cpu").fit
+    if mode == "sync":
+        assert step == 1 and state["test_losses_nf"].tolist() == pytest.approx(first.test_losses)
+        np.testing.assert_array_equal(state["weights"], first.weights.numpy())
+        assert "resumed from checkpoint at epoch 1" in caplog.text
+        assert second.epochs_run == 2 and len(second.losses) == 1
+        assert Checkpointer(str(tmp_path)).latest_step() == 2
+        monkeypatch.delenv("DSGD_CHECKPOINT_DIR")
+        whole = tmain.main(device="cpu").fit
+        assert second.test_losses == whole.test_losses[1:]
+        assert torch.equal(second.weights, whole.weights)
+    else:
+        np.testing.assert_array_equal(state["weights"], first.weights.numpy())
+        assert int(state["updates"]) <= first.state.updates
+        assert "warm start from checkpoint at step %d" % step in caplog.text
+        n = 480  # train rows: the budget is n a max epoch, counted over both runs
+        assert first.state.updates >= n and second.state.updates >= 2 * n
+        assert second.test_losses[:len(state["smoothed_nf"])] == pytest.approx(
+            state["smoothed_nf"][::-1].tolist())
+
+
+def test_the_profile_dir_leaves_a_trace_through_main(tmp_path, monkeypatch):
+    # DSGD_PROFILE_DIR, which the port refused before, now writes the
+    # torch.profiler trace of the second epoch
+    import json
+
+    monkeypatch.setenv("DSGD_SYNTHETIC", "600")
+    monkeypatch.setenv("DSGD_MAX_EPOCHS", "2")
+    monkeypatch.setenv("DSGD_PROFILE_DIR", str(tmp_path))
+    run = tmain.main(device="cpu")
+    assert run.fit.epochs_run == 2
+    assert os.listdir(tmp_path) == ["trainer-epoch1.trace.json"]
+    with open(tmp_path / "trainer-epoch1.trace.json") as f:
+        assert any(e.get("name") == "aten::randint" for e in json.load(f)["traceEvents"])
