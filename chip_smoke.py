@@ -11,6 +11,8 @@ Phases, each fatal (a traceback and a non-zero exit):
 3. kernels: hold each kernel against its plain torch version on the same
    CUDA tensors, at the main path's shapes and at edge shapes, and time
    both (CUDA events, in turns: plain, kernel, kernel, plain) -- for
+   ``worker_grads`` also 40 launches on one input, bitwise identical (its
+   fixed-order sum), timed at the RPC reply's shape (K=1) and at K=8; for
    ``sync_epoch`` over one full 2,146-step epoch, and for its mean mode
    (K = 1, grad_divisor = B, the async engines' local steps) over one
    64-step Hogwild dispatch; then ``sync_epoch``'s momentum and adam modes
@@ -56,7 +58,23 @@ Phases, each fatal (a traceback and a non-zero exit):
    process of its own, whose trace holds one ``sync_epoch`` kernel; and
    the host times of a save and a restore, and of Hogwild with and without
    a checkpointer;
-8. summary: the card line, one JSON line of per-kernel numbers, and last
+8. the RPC engine: ``grpc`` and ``protobuf`` import (their versions
+   printed); a DevCluster of 3 workers on the card at full width (B=100,
+   lr 0.5, 1 epoch), checking that each window launched ``worker_grads``
+   once a worker and ``sync_epoch`` never ran, that the test loss fell
+   from its value at w = 0 and the test accuracy is >= 0.70, printing
+   windows/s and the parts of a window, and scraping the fit's registry
+   through a ``PrometheusExporter``; the same fit under torch.profiler for
+   the device's busy share, which must give bitwise the same weights; a
+   100,000-row fit with the nodes on the card against the same on the
+   CPU; the CLI as one master and 3 workers in processes of their own on
+   loopback with DSGD_TRACE=1, all exiting 0, whose merged trace puts the
+   master's windows and the workers' Gradient spans under the same trace
+   ids; and two torch.profiler sessions back to back in one process of
+   their own (``tools/profiler_sessions.py``), each over one
+   ``sync_epoch`` launch, each holding its kernel event, and a third
+   after a 12 s gap, printed whatever it holds;
+9. summary: the card line, one JSON line of per-kernel numbers, and last
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits non-zero before printing any result.
@@ -67,12 +85,14 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import urllib.request
 from contextlib import contextmanager
 
 import numpy as np
@@ -107,6 +127,7 @@ F32_FLOPS = 67e12
 # the bound tests/test_pallas_kernels.py holds the Pallas kernel to
 # against the blocked path; atomics reorder f32 sums the same way
 RTOL, ATOL = 1e-4, 1e-5
+WG_REPEATS = 40  # launches of worker_grads on one input that must agree bit for bit
 K, B, P, D = 3, 100, 76, 47236  # the main path's worker_grads shape
 MAIN_ROWS, MAIN_EPOCHS = 804414, 3
 TRAIN_ROWS, STEPS = 643531, 2146  # the main path's train split and steps per epoch
@@ -188,7 +209,10 @@ def edge_batch(k: int, b: int, p: int, seed: int, dups: bool = False, pad_rows: 
 
 
 def check_worker_grads() -> dict:
-    """Kernel against plain version; returns the kernel's summary row."""
+    """Kernel against plain version, and 40 launches on one input bitwise
+    identical (the fixed-order sum); times it at the RPC reply's shape
+    (K=1, B=100) and at the per-step path's (K=8, B=100).  Returns the
+    kernel's summary row, its time and bound at K=1."""
     rng = np.random.default_rng(0)
     cases = [(f"main-shape kind={kind}", main_path_batch(kind), kind) for kind in wg.COEFF_KINDS]
     cases += [
@@ -197,6 +221,8 @@ def check_worker_grads() -> dict:
         ("duplicate ids", edge_batch(3, B, P, 3, dups=True), wg.LEAST_SQUARES),
         ("all-pad rows", edge_batch(3, B, P, 4, pad_rows=True), wg.HINGE),
         ("K=1", edge_batch(1, B, P, 5), wg.HINGE),
+        ("K=8 B=1024", edge_batch(8, 1024, P, 6), wg.HINGE),
+        ("K=8 B=1024 logistic", edge_batch(8, 1024, P, 7), wg.LOGISTIC),
     ]
     max_err = 0.0
     for label, (idx, val, y), kind in cases:
@@ -204,50 +230,66 @@ def check_worker_grads() -> dict:
         args = [torch.from_numpy(a).cuda() for a in (idx, val, y)]
         got = wg.worker_grads(w, *args, kind)
         want = wg.worker_grads_plain(w, *args, kind)
+        same = all(torch.equal(got, wg.worker_grads(w, *args, kind))
+                   for _ in range(WG_REPEATS - 1))
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         ok = bool(((got - want).abs() <= ATOL + RTOL * want.abs()).all())
-        print(f"worker_grads {label}: max_abs_err={err:.3e} nonzero={int((want != 0).sum())}",
-              flush=True)
+        print(f"worker_grads {label}: max_abs_err={err:.3e} nonzero={int((want != 0).sum())} "
+              f"bitwise identical over {WG_REPEATS} launches: {same}", flush=True)
         if not ok:
             raise AssertionError(f"worker_grads {label} disagrees with its plain version "
                                  f"(max abs err {err}, rtol {RTOL}, atol {ATOL})")
+        if not same:
+            raise AssertionError(f"worker_grads {label}: {WG_REPEATS} launches on one input "
+                                 f"are not bitwise identical")
         max_err = max(max_err, err)
 
-    # timing at the main path's shape, hinge (the main path's model)
-    idx, val, y = main_path_batch(0)
-    w = torch.tensor(rng.normal(size=D).astype(np.float32) * 0.1, device="cuda")
-    args = [w] + [torch.from_numpy(a).cuda() for a in (idx, val, y)] + [wg.HINGE]
-    kernel = lambda: wg.worker_grads(*args)  # noqa: E731
-    plain = lambda: wg.worker_grads_plain(*args)  # noqa: E731
-    plain_ms = [time_ms(plain)]
-    kernel_ms = [time_ms(kernel), time_ms(kernel)]
-    plain_ms.append(time_ms(plain))
-    nz = val != 0
-    n_nz = int(nz.sum())
-    bytes_moved = idx.nbytes + val.nbytes + y.nbytes + 4 * len(np.unique(idx[nz])) + 4 * K * D
-    flops = 4 * n_nz + 8 * K * B  # margin mul+add, scatter mul+add; the coefficient
-    bound_bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    bound_ops_ms = flops / F32_FLOPS * 1e3
-    row = {
-        "kernel": "worker_grads", "max_abs_err": max_err,
-        "kernel_us": min(kernel_ms) * 1e3, "plain_us": min(plain_ms) * 1e3,
-        "bound_us": max(bound_bytes_ms, bound_ops_ms) * 1e3,
-        "kernel_us_runs": [t * 1e3 for t in kernel_ms],
-        "plain_us_runs": [t * 1e3 for t in plain_ms],
-        "bytes": bytes_moved, "flops": flops,
-    }
-    print(json.dumps(row), flush=True)
+    rows = {}
+    for k in (1, 8):
+        # RCV1-like rows at the main path's P, hinge (the main path's model)
+        ds = rcv1_like(k * B, n_features=D, nnz=P, seed=10 + k, idf_values=True)
+        idx, val = ds.indices.reshape(k, B, P), ds.values.reshape(k, B, P)
+        y = ds.labels.reshape(k, B).astype(np.float32)
+        w = torch.tensor(rng.normal(size=D).astype(np.float32) * 0.1, device="cuda")
+        args = [w] + [torch.from_numpy(a).cuda() for a in (idx, val, y)] + [wg.HINGE]
+        kernel = lambda: wg.worker_grads(*args)  # noqa: E731
+        plain = lambda: wg.worker_grads_plain(*args)  # noqa: E731
+        plain_ms = [time_ms(plain)]
+        kernel_ms = [time_ms(kernel), time_ms(kernel)]
+        plain_ms.append(time_ms(plain))
+        nz = val != 0
+        n_nz = int(nz.sum())
+        bytes_moved = idx.nbytes + val.nbytes + y.nbytes + 4 * len(np.unique(idx[nz])) + 4 * k * D
+        flops = 4 * n_nz + 8 * k * B  # margin mul+add, scatter mul+add; the coefficient
+        bound_bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+        bound_ops_ms = flops / F32_FLOPS * 1e3
+        rows[k] = {
+            "kernel": "worker_grads", "K": k, "B": B, "max_abs_err": max_err,
+            "kernel_us": min(kernel_ms) * 1e3, "plain_us": min(plain_ms) * 1e3,
+            "bound_us": max(bound_bytes_ms, bound_ops_ms) * 1e3,
+            "kernel_us_runs": [t * 1e3 for t in kernel_ms],
+            "plain_us_runs": [t * 1e3 for t in plain_ms],
+            "bytes": bytes_moved, "flops": flops,
+            "ms": min(kernel_ms), "plain_ms": min(plain_ms),
+            "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+            "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
+        }
+        print(json.dumps({k2: v for k2, v in rows[k].items()
+                          if k2 not in ("ms", "plain_ms", "bound_ms", "bound_by")}), flush=True)
+    one = rows[1]
     return {
         "name": "worker_grads", "route": "cuda",
         "source": "distributed_sgd_tpu_torch/csrc/worker_grads.cu",
         "replaces": TPU_KERNEL,
         "launches": None, "max_abs_err": max_err,
-        "ms": min(kernel_ms), "plain_ms": min(plain_ms),
-        "bound_ms": max(bound_bytes_ms, bound_ops_ms),
-        "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
+        # at the RPC reply's shape, K=1 B=100: this slice's main path
+        "ms": one["ms"], "plain_ms": one["plain_ms"],
+        "bound_ms": one["bound_ms"], "bound_by": one["bound_by"],
         # no single PyTorch call computes the fused gather + coefficient + scatter
         "library_ms": None,
+        "k8_ms": rows[8]["ms"], "k8_plain_ms": rows[8]["plain_ms"],
+        "k8_bound_ms": rows[8]["bound_ms"],
     }
 
 
@@ -1361,6 +1403,237 @@ def run_checkpoint_phase() -> None:
         shutil.rmtree(tmp)
 
 
+# -- phase 8: the RPC engine ----------------------------------------------------
+
+RPC_WORKERS = 3
+RPC_LR = 0.5  # the CLI's default
+RPC_SMALL_ROWS = 100000  # the card-against-CPU fit and the CLI run
+RPC_ACC_FLOOR = 0.70
+RPC_PART_HISTS = (  # the host-side parts of one window, as the fit records them
+    ("master encode and fan-out", "master.sync.fanout.seconds"),
+    ("worker slave.grad.compute", "span.slave.grad.compute"),
+    ("master barrier wait", "master.sync.barrier.seconds"),
+    ("master decode", "master.sync.decode.seconds"),
+    ("master apply", "master.sync.apply.seconds"),
+    ("window", "master.sync.batch.duration"),
+)
+
+
+def rpc_versions() -> None:
+    """The committed check that the GPU host has the RPC plane's packages."""
+    import google.protobuf
+    import grpc
+
+    print(f"grpc {grpc.__version__} protobuf {google.protobuf.__version__}", flush=True)
+
+
+def rpc_fit(model, train, test, metrics=None, profile: bool = False):
+    """One epoch of the sync fit of a DevCluster of RPC_WORKERS workers on
+    `model`'s device; returns (fit, initial test loss, worker_grads and
+    sync_epoch launches, device events or None)."""
+    from distributed_sgd_tpu_torch.core.cluster import DevCluster
+
+    with DevCluster(model, train, test, n_workers=RPC_WORKERS, seed=0, metrics=metrics) as c:
+        loss0 = c.master.local_loss(np.zeros(D, np.float32), test=True)[0]
+        out = []
+        reset_counts()
+        fit = lambda: out.append(c.master.fit_sync(1, B, RPC_LR))  # noqa: E731
+        dev = device_events(fit) if profile else fit()
+        launches = (wg.worker_grads.launches, se.sync_epoch.launches)
+    return out[0], loss0, launches, dev
+
+
+def check_rpc_full_width() -> int:
+    """The full-width RPC fit: worker_grads launches = windows x workers, no
+    sync_epoch; the loss falls, accuracy >= 0.70; windows/s and the parts
+    of a window; a scrape of the fit's registry; the same fit under
+    torch.profiler for the busy share, with bitwise the same weights.
+    Returns the launches of the first fit."""
+    from distributed_sgd_tpu_torch.utils.metrics import PrometheusExporter
+
+    t0 = time.perf_counter()
+    with cli_env(DSGD_SYNTHETIC=MAIN_ROWS):
+        train, test, model = port_main.build(Config.from_env(), "cuda")
+    print(f"rpc data seconds: {time.perf_counter() - t0:.2f}", flush=True)
+    m = Metrics()
+    exporter = PrometheusExporter(m, 0, host="127.0.0.1").start()
+    try:
+        fit, loss0, (launches, se_launches), _ = rpc_fit(model, train, test, m)
+        with urllib.request.urlopen(f"http://127.0.0.1:{exporter.port}/metrics",
+                                    timeout=30) as r:
+            scrape = r.read().decode()
+    finally:
+        exporter.stop()
+    windows = m.counter("master.sync.rounds").value
+    epoch_s = fit.epoch_seconds[0]
+    parts = {label: m.histogram(name).mean * 1e3 for label, name in RPC_PART_HISTS}
+    print(f"rpc fit (full width, {RPC_WORKERS} workers, B={B}, lr {RPC_LR}, 1 epoch): "
+          f"initial test loss {loss0:.6f}; test loss {fit.test_losses[0]:.6f} accuracy "
+          f"{fit.test_accuracies[0]:.4f}; {windows} windows in {epoch_s:.3f} s = "
+          f"{windows / epoch_s:.1f} windows/s; worker_grads launches {launches}, sync_epoch "
+          f"launches {se_launches}", flush=True)
+    print("rpc ms a window: " + json.dumps({k: round(v, 4) for k, v in parts.items()}),
+          flush=True)
+    counters = {}
+    for line in scrape.splitlines():
+        name, _, value = line.partition(" ")
+        if name in ("master_sync_rounds_total", "master_sync_grad_bytes_total",
+                    "master_sync_bcast_bytes_total"):
+            counters[name] = float(value)
+    print(f"rpc scrape: {counters}", flush=True)
+    if launches != windows * RPC_WORKERS or se_launches != 0 or windows == 0:
+        raise AssertionError(f"rpc: {launches} worker_grads and {se_launches} sync_epoch "
+                             f"launches over {windows} windows; want {windows * RPC_WORKERS} "
+                             f"and 0")
+    if not fit.test_losses[0] < loss0 or fit.test_accuracies[0] < RPC_ACC_FLOOR:
+        raise AssertionError(f"rpc: test loss {fit.test_losses[0]} from {loss0}, accuracy "
+                             f"{fit.test_accuracies[0]} (want lower, and >= {RPC_ACC_FLOOR})")
+    w = np.asarray(fit.weights)
+    if w.shape != (D,) or not np.isfinite(w).all():
+        raise AssertionError("rpc: final weights not finite f32[D]")
+    if (counters.get("master_sync_rounds_total", 0) <= 0
+            or counters.get("master_sync_grad_bytes_total", 0) <= 0):
+        raise AssertionError(f"rpc: the scrape shows no rounds or gradient bytes: {counters}")
+
+    again, _, _, dev = rpc_fit(model, train, test, profile=True)
+    same = np.array_equal(np.asarray(again.weights), w)
+    kernels = [(t0_, t1_) for t0_, t1_, name in dev if "worker_grads" in name
+               or "margins_kernel" in name or "scatter_kernel" in name
+               or "convert_kernel" in name]
+    if dev:
+        lo, hi = dev[0][0], max(t1_ for _, t1_, _ in dev)
+        busy = union_us(dev, lo, hi)
+        kernel_us = sum(t1_ - t0_ for t0_, t1_ in kernels)
+        print(f"rpc device busy share over the profiled fit ({(hi - lo) / 1e3:.1f} ms from its "
+              f"first device event to its last): {busy / (hi - lo):.4f}; worker_grads' "
+              f"{len(kernels)} kernels (3 a call) {kernel_us / 1e3:.1f} ms, other device work "
+              f"{(busy - kernel_us) / 1e3:.1f} ms", flush=True)
+    else:
+        print("rpc device busy share: not measured (no device events in the trace)", flush=True)
+    print(f"rpc: the same fit run again (under torch.profiler) gives bitwise equal weights: "
+          f"{same} (max abs diff {float(np.abs(np.asarray(again.weights) - w).max()):.3e})",
+          flush=True)
+    if not same:
+        raise AssertionError("rpc: two runs of one fit gave different weights")
+    return launches
+
+
+def check_rpc_card_against_cpu() -> None:
+    """A RPC_SMALL_ROWS-row fit with the nodes on the card and again on the
+    CPU: test losses rtol 1e-5, weights atol 1e-5."""
+    data = rcv1_like(RPC_SMALL_ROWS, seed=0, idf_values=True)
+    train, test = train_test_split(data)
+    ds = dim_sparsity(train)
+    fits = {}
+    for dev in ("cuda", "cpu"):
+        model = make_model("hinge", LAM, train.n_features, dim_sparsity=ds, device=dev)
+        t0 = time.perf_counter()
+        fits[dev] = rpc_fit(model, train, test)[0]
+        print(f"rpc {RPC_SMALL_ROWS}-row fit on {dev}: {time.perf_counter() - t0:.2f} s, test "
+              f"loss {fits[dev].test_losses[0]:.7f}", flush=True)
+    err = float(np.abs(np.asarray(fits["cuda"].weights) - np.asarray(fits["cpu"].weights)).max())
+    print(f"rpc card against CPU: weights max_abs_err={err:.3e}", flush=True)
+    if err > 1e-5 or not np.allclose(fits["cuda"].test_losses, fits["cpu"].test_losses,
+                                     rtol=1e-5, atol=0):
+        raise AssertionError("rpc: the fit on the card disagrees with the fit on the CPU")
+
+
+def check_rpc_cli() -> None:
+    """``python -m distributed_sgd_tpu_torch`` as one master and
+    RPC_WORKERS workers on loopback, traced: all exit 0, the master logs
+    its test losses, and the merged trace has the master's sync.window
+    spans and the workers' Gradient spans under the same trace ids."""
+    import socket
+
+    from distributed_sgd_tpu_torch.trace import merge
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-rpc-")
+    base = {**os.environ, "DSGD_SYNTHETIC": str(RPC_SMALL_ROWS), "DSGD_MAX_EPOCHS": "1",
+            "DSGD_NODE_COUNT": str(RPC_WORKERS), "DSGD_TRACE": "1", "DSGD_TRACE_DIR": tmp,
+            "DSGD_MASTER_HOST": "127.0.0.1", "DSGD_MASTER_PORT": str(port),
+            "DSGD_NODE_HOST": "127.0.0.1"}
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "distributed_sgd_tpu_torch"]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd, cwd=root, env={**base, "DSGD_NODE_PORT": str(port)},
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)]
+    procs += [subprocess.Popen(cmd, cwd=root, env={**base, "DSGD_NODE_PORT": "0"},
+                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+              for _ in range(RPC_WORKERS)]
+    outs = [None] * len(procs)
+    try:
+        outs[0], _ = procs[0].communicate(timeout=600)
+        for p in procs[1:]:
+            p.send_signal(signal.SIGTERM)
+        for i, p in enumerate(procs[1:], 1):
+            outs[i], _ = p.communicate(timeout=120)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    cli_s = time.perf_counter() - t0
+    codes = [p.returncode for p in procs]
+    losses = [line for line in outs[0].splitlines() if "test losses:" in line]
+    epochs = [line.split(" - ", 1)[-1] for line in outs[0].splitlines() if "epoch 0:" in line]
+    print(f"rpc CLI: master and {RPC_WORKERS} workers exited {codes} after {cli_s:.1f} s; "
+          f"{losses[-1].strip() if losses else 'no test losses logged'}; master "
+          f"{epochs[-1] if epochs else 'logged no epoch'}", flush=True)
+    if codes != [0] * len(procs) or not losses:
+        tails = "\n".join(f"== process {i} ({c}):\n{(o or '')[-2000:]}"
+                           for i, (c, o) in enumerate(zip(codes, outs)))
+        raise AssertionError(f"rpc CLI run failed:\n{tails}")
+    merged = os.path.join(tmp, "merged.json")
+    if merge.main([tmp, "-o", merged]) != 0:
+        raise AssertionError(f"trace.merge found no trace files in {os.listdir(tmp)}")
+    with open(merged) as f:
+        events = json.load(f)["traceEvents"]
+    windows = {e["args"]["trace_id"] for e in events if e.get("name") == "sync.window"}
+    grads = {e["args"]["trace_id"] for e in events
+             if e.get("name") == "Gradient" and e.get("ph") == "X"}
+    files = sorted(n for n in os.listdir(tmp) if n.startswith("trace-"))
+    window_ms = [e["dur"] / 1e3 for e in events if e.get("name") == "sync.window"]
+    print(f"rpc trace: {len(files)} files {files}; {len(windows)} sync.window trace ids, "
+          f"{len(grads)} with worker Gradient spans, {len(windows & grads)} shared; a "
+          f"window across processes {statistics.median(window_ms or [0.0]):.3f} ms "
+          f"(median of {len(window_ms)} traced)", flush=True)
+    shutil.rmtree(tmp)
+    if not windows or windows != grads or len(files) != 1 + RPC_WORKERS:
+        raise AssertionError("rpc trace: the master's windows and the workers' Gradient spans "
+                             "do not share their trace ids")
+
+
+def check_profiler_sessions() -> None:
+    """Two torch.profiler sessions in one process, each over one sync_epoch
+    launch, must each hold its kernel event: ``python -m
+    distributed_sgd_tpu_torch.tools.profiler_sessions`` in a process of
+    its own (here, a short session long after this process's first one
+    holds no device event: the trace's kernel timestamps drift from the
+    host's, and the tool's third session, run after a gap, shows it)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = subprocess.run([sys.executable, "-m", "distributed_sgd_tpu_torch.tools.profiler_sessions"],
+                         cwd=root, capture_output=True, text=True, timeout=300)
+    lines = [line for line in out.stdout.splitlines() if line.startswith("{")]
+    print(f"profiler sessions in one process: {lines[-1] if lines else out.stdout[-2000:]}",
+          flush=True)
+    if out.returncode != 0 or not lines:
+        raise AssertionError(f"a torch.profiler session lost its kernel record "
+                             f"({out.returncode}):\n{out.stdout[-2000:]}\n{out.stderr[-2000:]}")
+
+
+def run_rpc_phase() -> int:
+    """Phase 8; returns the full-width fit's worker_grads launches."""
+    rpc_versions()
+    launches = check_rpc_full_width()
+    check_rpc_card_against_cpu()
+    check_rpc_cli()
+    check_profiler_sessions()
+    return launches
+
+
 def main() -> None:
     phase("1 device")
     if not torch.cuda.is_available():
@@ -1398,10 +1671,8 @@ def main() -> None:
     se_row["launches"] = run_main_path()
     se_row["path"] = "main"
     opt_rows["adam"]["launches"] = run_main_path_optimizer("adam")
-    wg_row["launches"] = run_per_step_path()
+    per_step_launches = run_per_step_path()
     momentum_launches = run_per_step_path("momentum")
-    wg_row["path"] = (f"per-step (K={PER_STEP_WORKERS}); 0 launches on the main path; "
-                      f"{momentum_launches} more with momentum")
     busy_share()
 
     phase("6 async paths: Hogwild and local SGD")
@@ -1410,7 +1681,13 @@ def main() -> None:
     phase("7 checkpoints, resume and the profile")
     run_checkpoint_phase()
 
-    phase("8 summary")
+    phase("8 the RPC engine: a master and workers over gRPC")
+    wg_row["launches"] = run_rpc_phase()
+    wg_row["path"] = (f"rpc (K=1 a reply, {RPC_WORKERS} workers); 0 launches on the mesh main "
+                      f"path; {per_step_launches} on the per-step path (K={PER_STEP_WORKERS}), "
+                      f"{momentum_launches} more with momentum")
+
+    phase("9 summary")
     print(card)
     print(json.dumps({"kernels": [wg_row, se_row, mean_row, opt_rows["momentum"],
                                   opt_rows["adam"]]}))

@@ -1,17 +1,31 @@
 """Typed configuration with ``DSGD_*`` environment overrides.
 
 The fields of the JAX package's Config (distributed_sgd_tpu/config.py)
-that the port's in-process engines read, under the same ``DSGD_*`` names
-and with the same defaults: the sync trainer, and with ``use_async`` the
-Hogwild gossip (``async_mode='gossip'``) or local SGD
-(``async_mode='local_sgd'``).  ``engine`` must be 'mesh'.  ``optimizer``
-('sgd', 'momentum' or 'adam') and ``momentum`` are handed to every engine,
-``checkpoint_dir`` (with ``checkpoint_every``) to every engine and
-``profile_dir`` to the sync trainer.  Settings that change what the JAX
-CLI does but are not ported (the dp x tp engine, gossip compression) are
-read and refused here, before any data is loaded.
-``DSGD_KERNEL`` is not read: in the JAX package it picks among XLA
-formulations of the same function, so ignoring it changes no result.
+that the port reads, under the same ``DSGD_*`` names and with the same
+defaults.
+
+Role selection follows the reference (Main.scala:122-159) as the JAX
+package does: with ``DSGD_MASTER_HOST``/``DSGD_MASTER_PORT`` unset the
+process runs the dev role; when they equal the node's own
+``DSGD_NODE_HOST``/``DSGD_NODE_PORT`` it is the master; otherwise a
+worker.  ``DSGD_ROLE`` overrides the derivation.  The dev role runs the
+in-process engines (``engine='mesh'``: the sync trainer, or with
+``use_async`` the Hogwild gossip or local SGD) or the in-process gRPC
+cluster (``engine='rpc'``, the sync fit).  ``optimizer`` ('sgd',
+'momentum' or 'adam') and ``momentum`` reach every engine,
+``checkpoint_dir`` (with ``checkpoint_every``) every engine and
+``profile_dir`` the sync trainer and the worker role.  ``trace``,
+``trace_dir``, ``trace_sample``, ``flight_recorder``, ``record``,
+``metrics_port`` and ``influx_url`` drive the observability planes
+(main.py).
+
+Settings that change what the JAX CLI does but are not ported are read
+and refused with NotImplementedError before any data is loaded: here the
+ones the JAX CLI acts on in every role, and in `refuse_for_role` the ones
+it acts on in the rpc roles only (on the mesh engine main.py warns about
+them, as the JAX mesh scenario does).  ``DSGD_KERNEL`` and
+``DSGD_SCATTER`` are not read: in the JAX package they pick among XLA
+formulations of the same function, so ignoring them changes no result.
 """
 
 from __future__ import annotations
@@ -34,8 +48,17 @@ def _env(name: str, default, cast):
     return cast(raw)
 
 
+def _not_ported(setting: str, where: str) -> NotImplementedError:
+    return NotImplementedError(f"{setting}: not ported yet (ROADMAP.md Queue A {where})")
+
+
 @dataclass
 class Config:
+    host: str = "127.0.0.1"
+    port: int = 4000
+    master_host: Optional[str] = None
+    master_port: Optional[int] = None
+    role_override: Optional[str] = None  # DSGD_ROLE
     batch_size: int = 100
     learning_rate: float = 0.5
     lam: float = 1e-5  # `lambda` in the reference; keyword in Python
@@ -64,15 +87,68 @@ class Config:
     checkpoint_dir: Optional[str] = None  # snapshots: checkpoint.Checkpointer
     checkpoint_every: int = 1  # sync: epochs between snapshots
     profile_dir: Optional[str] = None  # sync: the trace of one epoch
-    # read so that none is ignored without a word; each raises when set
+    # observability (trace/, utils/metrics.py)
+    record: bool = False  # ship metrics (with metrics_port and/or influx_url)
+    metrics_port: Optional[int] = None
+    influx_url: Optional[str] = None
+    trace: bool = False
+    trace_dir: Optional[str] = None
+    trace_sample: float = 1.0
+    flight_recorder: int = 512
+    # read so that none is ignored without a word; each raises (or, on the
+    # mesh engine, warns) when set
     compress: str = "none"  # none | topk | qint8
     feature_shards: int = 1
+    heartbeat_s: Optional[float] = None
+    quorum: Optional[int] = None
+    straggler_soft_s: Optional[float] = None
+    local_steps: int = 1
+    delta_broadcast: bool = False
+    stream: bool = False
+    fanin_lanes: int = 0
+    stage_pool: int = 0
+    agg_tree: str = ""
+    master_shards: int = 0
+    elastic: bool = False
+    async_drain: bool = False
+    fit_ckpt_every: int = 0
+    host_devices: int = 1
+    row_store: Optional[str] = None
+    chaos: Optional[str] = None
+    telemetry: bool = False
+    health_action: Optional[str] = None
+    resource_probe_s: float = 0.0
+    blackbox_dir: Optional[str] = None
+    autopilot: bool = False
+    serve_push: Optional[str] = None
 
     def __post_init__(self):
-        if self.engine != "mesh":
-            raise ValueError(
-                f"DSGD_ENGINE={self.engine!r}: the port runs the in-process "
-                f"engines only ('mesh'); the rpc topology is not ported yet")
+        if self.engine not in ("mesh", "rpc"):
+            raise ValueError(f"DSGD_ENGINE={self.engine!r} must be 'mesh' or 'rpc'")
+        if self.role_override not in (None, "dev", "master", "worker", "serve", "route"):
+            raise ValueError(f"DSGD_ROLE={self.role_override!r} must be one of "
+                             f"dev | master | worker | serve | route")
+        if self.role_override in ("serve", "route"):
+            raise _not_ported(f"DSGD_ROLE={self.role_override}", "[A12], serving/")
+        if self.serve_push:
+            raise _not_ported("DSGD_SERVE_PUSH", "[A12], serving/push.py")
+        for bad, setting in ((self.autopilot, "DSGD_AUTOPILOT"),
+                             (self.chaos, "DSGD_CHAOS"),
+                             (self.telemetry, "DSGD_TELEMETRY"),
+                             (self.health_action, "DSGD_HEALTH_ACTION"),
+                             (self.resource_probe_s > 0, "DSGD_RESOURCE_PROBE_S > 0"),
+                             (self.blackbox_dir, "DSGD_BLACKBOX_DIR")):
+            if bad:
+                raise _not_ported(setting, "[A13], item 2 (telemetry/) and item 8")
+        if self.host_devices < 0:
+            raise ValueError("host_devices must be >= 0")
+        if self.host_devices > 1:
+            raise _not_ported(f"DSGD_HOST_DEVICES={self.host_devices}",
+                              "[A10], torch.distributed")
+        if not 0.0 <= self.trace_sample <= 1.0:
+            raise ValueError("trace_sample must be a probability in [0, 1]")
+        if self.flight_recorder < 0:
+            raise ValueError("flight_recorder must be >= 0 (0 disables)")
         if self.async_mode not in ("gossip", "local_sgd"):
             raise ValueError(
                 f"config field async_mode={self.async_mode!r} must be 'gossip' or 'local_sgd'")
@@ -110,6 +186,11 @@ class Config:
     def from_env(cls, **overrides) -> "Config":
         """Build from DSGD_* env vars."""
         cfg = cls(
+            host=_env("DSGD_NODE_HOST", cls.host, str),
+            port=_env("DSGD_NODE_PORT", cls.port, int),
+            master_host=_env("DSGD_MASTER_HOST", None, str),
+            master_port=_env("DSGD_MASTER_PORT", None, int),
+            role_override=_env("DSGD_ROLE", None, str),
             batch_size=_env("DSGD_BATCH_SIZE", cls.batch_size, int),
             learning_rate=_env("DSGD_LEARNING_RATE", cls.learning_rate, float),
             lam=_env("DSGD_LAMBDA", cls.lam, float),
@@ -139,8 +220,83 @@ class Config:
             checkpoint_every=_env("DSGD_CHECKPOINT_EVERY", cls.checkpoint_every, int),
             profile_dir=_env("DSGD_PROFILE_DIR", None, str),
             feature_shards=_env("DSGD_FEATURE_SHARDS", cls.feature_shards, int),
+            record=_env("DSGD_RECORD", cls.record, bool),
+            metrics_port=_env("DSGD_METRICS_PORT", None, int),
+            influx_url=_env("DSGD_INFLUX_URL", None, str),
+            trace=_env("DSGD_TRACE", cls.trace, bool),
+            trace_dir=_env("DSGD_TRACE_DIR", None, str),
+            trace_sample=_env("DSGD_TRACE_SAMPLE", cls.trace_sample, float),
+            flight_recorder=_env("DSGD_FLIGHT_RECORDER", cls.flight_recorder, int),
+            heartbeat_s=_env("DSGD_HEARTBEAT_S", None, float),
+            quorum=_env("DSGD_QUORUM", None, int),
+            straggler_soft_s=_env("DSGD_STRAGGLER_SOFT_S", None, float),
+            local_steps=_env("DSGD_LOCAL_STEPS", cls.local_steps, int),
+            delta_broadcast=_env("DSGD_DELTA_BROADCAST", cls.delta_broadcast, bool),
+            stream=_env("DSGD_STREAM", cls.stream, bool),
+            fanin_lanes=_env("DSGD_FANIN_LANES", cls.fanin_lanes, int),
+            stage_pool=_env("DSGD_STAGE_POOL", cls.stage_pool, int),
+            agg_tree=_env("DSGD_AGG_TREE", cls.agg_tree, str),
+            master_shards=_env("DSGD_MASTER_SHARDS", cls.master_shards, int),
+            elastic=_env("DSGD_ELASTIC", cls.elastic, bool),
+            async_drain=_env("DSGD_ASYNC_DRAIN", cls.async_drain, bool),
+            fit_ckpt_every=_env("DSGD_FIT_CKPT_EVERY", cls.fit_ckpt_every, int),
+            host_devices=_env("DSGD_HOST_DEVICES", cls.host_devices, int),
+            row_store=_env("DSGD_ROW_STORE", None, str),
+            chaos=_env("DSGD_CHAOS", None, str),
+            telemetry=_env("DSGD_TELEMETRY", cls.telemetry, bool),
+            health_action=_env("DSGD_HEALTH_ACTION", None, str),
+            resource_probe_s=_env("DSGD_RESOURCE_PROBE_S", cls.resource_probe_s, float),
+            blackbox_dir=_env("DSGD_BLACKBOX_DIR", None, str),
+            autopilot=_env("DSGD_AUTOPILOT", cls.autopilot, bool),
+            serve_push=_env("DSGD_SERVE_PUSH", None, str),
         )
         return dataclasses.replace(cfg, **overrides)
+
+    @property
+    def role(self) -> str:
+        """'dev' | 'master' | 'worker' per Main.scala:122-159, or DSGD_ROLE."""
+        if self.role_override is not None:
+            return self.role_override
+        if self.master_host is None or self.master_port is None:
+            return "dev"
+        if (self.master_host, self.master_port) == (self.host, self.port):
+            return "master"
+        return "worker"
+
+    def refuse_for_role(self) -> None:
+        """Raise NotImplementedError for a setting the JAX CLI acts on in
+        this run's role that the port does not serve yet: on the rpc sync
+        fit (the dev role with engine 'rpc', and the master) the async RPC
+        engine, the heartbeat and the pipelined, quorum and elastic levers;
+        on the worker role the elastic master watch and the row store.
+        The mesh engine ignores them (main.py warns, as the JAX CLI does)."""
+        role = self.role
+        if role == "worker":
+            for bad, setting, where in (
+                    (self.elastic, "DSGD_ELASTIC (the master watch)", "[A8] 3.3"),
+                    (self.row_store, "DSGD_ROW_STORE", "[A8] 3.4, data/row_store.py")):
+                if bad:
+                    raise _not_ported(f"{setting} on the worker role", where)
+            return
+        if role == "dev" and self.engine == "mesh":
+            return
+        for bad, setting, where in (
+                (self.use_async, "DSGD_ASYNC=1 (fit_async over RPC)", "[A8] 3.2"),
+                (self.heartbeat_s, "DSGD_HEARTBEAT_S (the heartbeat loop)", "[A8] 3.3"),
+                (self.quorum is not None, "DSGD_QUORUM", "[A8] 3.3"),
+                (self.straggler_soft_s is not None, "DSGD_STRAGGLER_SOFT_S", "[A8] 3.3"),
+                (self.elastic, "DSGD_ELASTIC", "[A8] 3.3"),
+                (self.async_drain, "DSGD_ASYNC_DRAIN", "[A8] 3.2"),
+                (self.fit_ckpt_every, "DSGD_FIT_CKPT_EVERY", "[A8] 3.3"),
+                (self.local_steps > 1, "DSGD_LOCAL_STEPS", "[A8] 3.4"),
+                (self.delta_broadcast, "DSGD_DELTA_BROADCAST", "[A8] 3.4"),
+                (self.stream, "DSGD_STREAM", "[A8] 3.4"),
+                (self.fanin_lanes, "DSGD_FANIN_LANES", "[A8] 3.4"),
+                (self.stage_pool, "DSGD_STAGE_POOL", "[A8] 3.4"),
+                (self.agg_tree, "DSGD_AGG_TREE", "[A13] item 8, aggtree/"),
+                (self.master_shards, "DSGD_MASTER_SHARDS", "[A13] item 8, shardedps/")):
+            if bad:
+                raise _not_ported(f"{setting} on the {role} role", where)
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), sort_keys=True)

@@ -1,0 +1,71 @@
+"""In-process development cluster over real loopback gRPC.
+
+The port of the JAX package's DevCluster (distributed_sgd_tpu/core/
+cluster.py, after the reference's dev mode, Main.scala:143-158): one
+master and `n_workers` workers in one process, on OS-assigned loopback
+ports, with real sockets, real proto marshalling and real registration
+and peer introduction.  Every node runs on the caller's device: the
+workers' gradients are ``worker_grads`` launches on the card, or its
+plain version with ``device="cpu"``.
+
+The JAX cluster's hierarchical, host-local, chaos and telemetry arguments
+have no counterpart here (ROADMAP.md Queue A [A8] 3.3-3.4, [A10], [A13]).
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import List, Optional
+
+from distributed_sgd_tpu_torch.core.master import MasterNode
+from distributed_sgd_tpu_torch.core.worker import WorkerNode
+from distributed_sgd_tpu_torch.data.rcv1 import Dataset
+from distributed_sgd_tpu_torch.models.linear import LinearModel
+from distributed_sgd_tpu_torch.utils import metrics as metrics_mod
+
+log = logging.getLogger("dsgd.cluster")
+
+
+class DevCluster:
+    def __init__(
+        self,
+        model: LinearModel,
+        train: Dataset,
+        test: Dataset,
+        n_workers: int,
+        host: str = "127.0.0.1",
+        base_port: int = 0,
+        seed: int = 0,
+        metrics: Optional[metrics_mod.Metrics] = None,
+    ):
+        """The nodes run on the model's device (`make_model(...,
+        device=...)`; the card unless the caller asks for the CPU).  All
+        share `metrics` (the process's registry when None)."""
+        self.master = MasterNode(host, base_port, train, test, model,
+                                 expected_workers=n_workers, seed=seed,
+                                 metrics=metrics).start()
+        self.workers: List[WorkerNode] = []
+        try:
+            for i in range(n_workers):
+                port = 0 if base_port == 0 else base_port + 1 + i
+                self.workers.append(WorkerNode(
+                    host, port, host, self.master.port, train, model,
+                    seed=seed + i, metrics=metrics))
+            for w in self.workers:
+                w.start(wait_registered=True)
+            self.master.await_ready()
+        except BaseException:
+            self.stop()
+            raise
+        log.info("dev cluster ready: master :%d + %d workers", self.master.port, n_workers)
+
+    def stop(self) -> None:
+        for w in self.workers:
+            w.stop()
+        self.master.stop()
+
+    def __enter__(self) -> "DevCluster":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.stop()

@@ -1,18 +1,33 @@
-"""Application entry point: the dev-mode scenario on one CUDA card.
+"""Application entry point: config-driven role selection and scenario.
 
-The port of the JAX package's CLI run with no DSGD_ENGINE
-(distributed_sgd_tpu/main.py): load RCV1 (or synthetic RCV1-shaped rows
-with DSGD_SYNTHETIC=<n>), split 80/20, build the model with the train
-split's dim-sparsity regularizer, and fit on the card, early-stopping on
-the test loss.  The fit is the sync engine with K virtual workers, or with
-DSGD_ASYNC=1 the Hogwild gossip engine with node_count workers
-(DSGD_ASYNC_MODE=gossip, the default) or local SGD
-(DSGD_ASYNC_MODE=local_sgd).  Every engine takes DSGD_OPTIMIZER
-(sgd | momentum | adam) with DSGD_MOMENTUM.  DSGD_CHECKPOINT_DIR saves
-and resumes every engine (checkpoint.py: the sync trainer every
-DSGD_CHECKPOINT_EVERY epochs, the async engines' best weights), and
-DSGD_PROFILE_DIR writes a torch.profiler trace of one sync epoch.
-Behaviour is driven by DSGD_* env config (config.py).
+The port of the JAX package's CLI (distributed_sgd_tpu/main.py, after the
+reference's Main.scala): no flags, DSGD_* env config (config.py).  The
+role (config.py ``Config.role``) picks what runs:
+
+- dev (DSGD_MASTER_HOST/PORT unset): load RCV1 (or synthetic RCV1-shaped
+  rows with DSGD_SYNTHETIC=<n>), split 80/20, build the model with the
+  train split's dim-sparsity regularizer, and fit, early-stopping on the
+  test loss.  With DSGD_ENGINE=mesh (the default) the fit is the sync
+  engine with K virtual workers, or with DSGD_ASYNC=1 the Hogwild gossip
+  engine (DSGD_ASYNC_MODE=gossip) or local SGD (local_sgd).  With
+  DSGD_ENGINE=rpc it is the sync fit of an in-process gRPC cluster
+  (core/cluster.py: a master and DSGD_NODE_COUNT workers on loopback);
+- master (DSGD_MASTER_HOST/PORT equal DSGD_NODE_HOST/PORT): load the
+  data, serve on DSGD_NODE_PORT, wait for DSGD_NODE_COUNT workers, run
+  the sync fit and exit;
+- worker (any other DSGD_MASTER_HOST/PORT): load the data, serve on
+  DSGD_NODE_PORT, register with the master and answer its Gradient and
+  Forward calls until SIGTERM.
+
+Every engine takes DSGD_OPTIMIZER (sgd | momentum | adam) with
+DSGD_MOMENTUM.  DSGD_CHECKPOINT_DIR saves and resumes every fit
+(checkpoint.py), DSGD_PROFILE_DIR writes a torch.profiler trace of one
+sync epoch (or, on the worker role, of its first dispatches).  DSGD_TRACE
+writes per-process span timelines under DSGD_TRACE_DIR (merge them with
+``python -m distributed_sgd_tpu_torch.trace.merge``), DSGD_FLIGHT_RECORDER
+sizes the post-mortem ring (SIGUSR2 dumps it), and DSGD_RECORD ships the
+metrics registry to DSGD_METRICS_PORT (Prometheus) and/or
+DSGD_INFLUX_URL.
 
 Run: ``python -m distributed_sgd_tpu_torch``
 """
@@ -21,13 +36,17 @@ from __future__ import annotations
 
 import logging
 import os
+import signal
 import socket
 import sys
+import threading
 import time
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 
+from distributed_sgd_tpu_torch import trace as trace_mod
 from distributed_sgd_tpu_torch.checkpoint import Checkpointer
 from distributed_sgd_tpu_torch.config import Config
 from distributed_sgd_tpu_torch.core.early_stopping import no_improvement
@@ -38,6 +57,8 @@ from distributed_sgd_tpu_torch.models.linear import make_model
 from distributed_sgd_tpu_torch.parallel.hogwild import HogwildEngine
 from distributed_sgd_tpu_torch.parallel.local_sgd import LocalSGDEngine
 from distributed_sgd_tpu_torch.parallel.mesh import DeviceLike, resolve_device, world_size
+from distributed_sgd_tpu_torch.trace import flight
+from distributed_sgd_tpu_torch.utils import metrics as metrics_mod
 from distributed_sgd_tpu_torch.utils.log import setup as setup_logging
 
 log = logging.getLogger("dsgd.main")
@@ -45,9 +66,10 @@ log = logging.getLogger("dsgd.main")
 
 @dataclass
 class Run:
-    """What `main` ran: the fit, and the seconds spent loading data."""
+    """What `main` ran: the fit (None on the worker role), and the seconds
+    spent loading data."""
 
-    fit: FitResult
+    fit: Optional[FitResult]
     data_seconds: float
 
 
@@ -135,9 +157,7 @@ def scenario_mesh(cfg: Config, train: Dataset, test: Dataset, model,
         cfg.node_count, world_size(), cfg.use_async,
         cfg.virtual_workers, cfg.exact_topology)
     criterion = no_improvement(patience=cfg.patience, min_delta=cfg.conv_delta)
-    if cfg.gossip_topology != "all" and not (cfg.use_async and cfg.async_mode == "gossip"):
-        log.warning("DSGD_GOSSIP_TOPOLOGY=%s ignored: only the gossip engine "
-                    "(async_mode=gossip) has a peer fan-out", cfg.gossip_topology)
+    warn_mesh_ignored(cfg)
     log.info("engine=mesh devices=%d virtual_workers=%d model=%s async=%s device=%s",
              n, virtual, cfg.model, cfg.use_async, resolve_device(device))
     ckpt = _make_checkpointer(cfg)
@@ -171,24 +191,204 @@ def scenario_mesh(cfg: Config, train: Dataset, test: Dataset, model,
     return res
 
 
-def _finish(res: FitResult) -> None:
+def warn_mesh_ignored(cfg: Config) -> None:
+    """The JAX mesh scenario's warnings (distributed_sgd_tpu/main.py:
+    152-206), in its words, for the settings of the rpc topology that the
+    in-process engines ignore.  The JAX scenario also warns about
+    DSGD_CHAOS, DSGD_TELEMETRY, DSGD_HEALTH_ACTION and DSGD_HOST_DEVICES
+    > 1, which the port refuses in every role (config.py)."""
+    if (cfg.local_steps > 1 or cfg.delta_broadcast or cfg.stream
+            or cfg.fanin_lanes or cfg.stage_pool or cfg.agg_tree
+            or cfg.master_shards):
+        log.warning(
+            "DSGD_LOCAL_STEPS/DSGD_DELTA_BROADCAST/DSGD_STREAM/"
+            "DSGD_FANIN_LANES/DSGD_STAGE_POOL/DSGD_AGG_TREE/"
+            "DSGD_MASTER_SHARDS ignored: the pipelined sync engine is "
+            "the rpc topology's (use engine=rpc; the mesh local-SGD "
+            "equivalent is async_mode=local_sgd / sync_period)")
+    if cfg.quorum is not None:
+        log.warning(
+            "DSGD_QUORUM/DSGD_CHAOS ignored: the quorum barrier and the "
+            "fault-injection layer live on the rpc topology's wire "
+            "(use engine=rpc)")
+    if cfg.elastic or cfg.async_drain or cfg.fit_ckpt_every:
+        log.warning(
+            "DSGD_ELASTIC/DSGD_ASYNC_DRAIN/DSGD_FIT_CKPT_EVERY ignored: "
+            "the elastic + crash-recovery subsystem is the rpc topology's "
+            "(use engine=rpc; docs/ELASTICITY.md)")
+    if (cfg.gossip_topology != "all"
+            and not (cfg.use_async and cfg.async_mode == "gossip")):
+        log.warning(
+            "DSGD_GOSSIP_TOPOLOGY=%s ignored: only the gossip engines "
+            "(async_mode=gossip or engine=rpc async) have a peer fan-out",
+            cfg.gossip_topology)
+    if cfg.host_devices != 1:
+        log.warning(
+            "DSGD_HOST_DEVICES ignored: the mesh engine already spans "
+            "every device — the hierarchical in-host layer is the rpc "
+            "topology's (use engine=rpc; docs/HIERARCHY.md)")
+
+
+def scenario_rpc(cfg: Config, train: Dataset, test: Dataset, model,
+                 metrics: Optional[metrics_mod.Metrics] = None) -> FitResult:
+    """Dev-mode reference-parity path: the sync fit of an in-process gRPC
+    cluster (core/cluster.py), every node on the model's device."""
+    from distributed_sgd_tpu_torch.core.cluster import DevCluster
+
+    criterion = no_improvement(patience=cfg.patience, min_delta=cfg.conv_delta)
+    log.info("engine=rpc workers=%d model=%s device=%s", cfg.node_count, cfg.model,
+             model.device)
+    with DevCluster(model, train, test, n_workers=cfg.node_count, seed=cfg.seed,
+                    metrics=metrics) as c:
+        w0 = np.zeros(model.n_features, dtype=np.float32)
+        loss0, acc0 = c.master.local_loss(w0, test=False)
+        log.info("initial loss=%.6f acc=%.4f", loss0, acc0)
+        res = c.master.fit_sync(
+            cfg.max_epochs, cfg.batch_size, cfg.learning_rate, criterion,
+            checkpointer=_make_checkpointer(cfg), checkpoint_every=cfg.checkpoint_every,
+            optimizer=cfg.optimizer, momentum=cfg.momentum)
+        _finish(res, evaluator=lambda w: c.master.local_loss(w, test=True))
+    return res
+
+
+def _finish(res: FitResult, evaluator=None) -> None:
     log.info("fit done: %d epochs, final loss=%.6f, %d updates",
              res.epochs_run, res.state.loss, res.state.updates)
     log.info("test losses: %s", ", ".join(f"{x:.6f}" for x in res.test_losses))
+    if evaluator is not None:
+        tl, ta = evaluator(np.asarray(res.state.weights))
+        log.info("final test loss=%.6f acc=%.4f", tl, ta)
 
 
-def main(device: DeviceLike = None) -> Run:
+def _run_master(cfg: Config, train: Dataset, test: Dataset, model) -> FitResult:
+    """The master role: serve on DSGD_NODE_PORT, wait for DSGD_NODE_COUNT
+    workers, run the sync fit, stop."""
+    from distributed_sgd_tpu_torch.core.master import MasterNode
+
+    master = MasterNode(cfg.host, cfg.port, train, test, model,
+                        expected_workers=cfg.node_count, seed=cfg.seed).start()
+    try:
+        master.await_ready()
+        criterion = no_improvement(patience=cfg.patience, min_delta=cfg.conv_delta)
+        res = master.fit_sync(
+            cfg.max_epochs, cfg.batch_size, cfg.learning_rate, criterion,
+            checkpointer=_make_checkpointer(cfg), checkpoint_every=cfg.checkpoint_every,
+            optimizer=cfg.optimizer, momentum=cfg.momentum)
+        _finish(res, evaluator=lambda w: master.local_loss(w, test=True))
+    finally:
+        master.stop()
+    return res
+
+
+_live_workers: list = []  # the worker role's nodes in this process
+_live_lock = threading.Lock()
+
+
+def stop_workers() -> None:
+    """Stop every worker-role node of this process (what SIGTERM and
+    SIGINT do): each unregisters, its server stops and its `main` returns."""
+    with _live_lock:
+        nodes = list(_live_workers)
+    for node in nodes:
+        node.stop()
+
+
+def _run_worker(cfg: Config, train: Dataset, model) -> None:
+    """The worker role: serve on DSGD_NODE_PORT and register with the
+    master at DSGD_MASTER_HOST:DSGD_MASTER_PORT; answer its calls until
+    SIGTERM or SIGINT (or `stop_workers`), then unregister and return."""
+    from distributed_sgd_tpu_torch.core.worker import WorkerNode
+
+    worker = WorkerNode(cfg.host, cfg.port, cfg.master_host, cfg.master_port, train, model,
+                        seed=cfg.seed, profile_dir=cfg.profile_dir)
+
+    def _on_signal(signum, _frame):
+        log.info("signal %d: stopping the worker", signum)
+        threading.Thread(target=stop_workers, name="worker-stop", daemon=True).start()
+
+    if threading.current_thread() is threading.main_thread():
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            signal.signal(sig, _on_signal)
+    with _live_lock:
+        _live_workers.append(worker)
+    try:
+        worker.start(wait_registered=False)
+        worker.await_termination()
+    finally:
+        with _live_lock:
+            _live_workers.remove(worker)
+
+
+def _observability(cfg: Config, role: str):
+    """DSGD_TRACE / DSGD_FLIGHT_RECORDER / DSGD_RECORD wiring, as the JAX
+    CLI's (distributed_sgd_tpu/main.py:420-481), before any channel or
+    server exists.  Returns the started (exporter, pusher), each or None."""
+    trace_dir = cfg.trace_dir or ("dsgd-traces" if cfg.trace else None)
+    if cfg.trace:
+        trace_mod.configure(enabled=True, dir=trace_dir, sample=cfg.trace_sample,
+                            service=f"{role}-{cfg.port}")
+        log.info("tracing on: sample=%g dir=%s (merge with "
+                 "`python -m distributed_sgd_tpu_torch.trace.merge %s`)",
+                 cfg.trace_sample, trace_dir, trace_dir)
+    flight.configure(capacity=cfg.flight_recorder, service=f"{role}-{cfg.port}",
+                     dir=trace_dir or ".")
+    flight.install_signal_handler()
+    exporter = pusher = None
+    if cfg.record:
+        if cfg.metrics_port is not None:
+            exporter = metrics_mod.PrometheusExporter(
+                metrics_mod.global_metrics(), cfg.metrics_port).start()
+            log.info("metrics exporter on :%d", exporter.port)
+        if cfg.influx_url:
+            pusher = metrics_mod.InfluxPusher(metrics_mod.global_metrics(),
+                                              cfg.influx_url).start()
+            log.info("influx pusher -> %s", cfg.influx_url)
+        if exporter is None and pusher is None:
+            log.warning("DSGD_RECORD=1 but neither DSGD_METRICS_PORT nor "
+                        "DSGD_INFLUX_URL is set: metrics are collected but not shipped")
+    return exporter, pusher
+
+
+def main(device: DeviceLike = None, cfg: Optional[Config] = None) -> Run:
+    """Run this process's role (see the module docstring) with `cfg`
+    (default: the DSGD_* environment).  Every setting the port does not
+    serve in that role raises before any data loads."""
     device = resolve_device(device)
     setup_logging()
-    cfg = Config.from_env()
+    cfg = Config.from_env() if cfg is None else cfg
+    role = cfg.role
+    cfg.refuse_for_role()
     log.info("host: %s (%s)", socket.gethostname(), sys.platform)
     log.info("config: %s", cfg.to_json())
+    log.info("role: %s", role)
     np.random.seed(cfg.seed)
-    t0 = time.perf_counter()
-    train, test, model = build(cfg, device)
-    data_s = time.perf_counter() - t0
-    log.info("data loaded: %d train + %d test rows in %.2fs", len(train), len(test), data_s)
-    return Run(fit=scenario_mesh(cfg, train, test, model, device), data_seconds=data_s)
+    exporter, pusher = _observability(cfg, role)
+    try:
+        t0 = time.perf_counter()
+        train, test, model = build(cfg, device)
+        data_s = time.perf_counter() - t0
+        log.info("data loaded: %d train + %d test rows in %.2fs", len(train), len(test),
+                 data_s)
+        if role == "worker":
+            _run_worker(cfg, train, model)
+            return Run(fit=None, data_seconds=data_s)
+        if role == "master":
+            return Run(fit=_run_master(cfg, train, test, model), data_seconds=data_s)
+        if cfg.engine == "rpc":
+            return Run(fit=scenario_rpc(cfg, train, test, model), data_seconds=data_s)
+        return Run(fit=scenario_mesh(cfg, train, test, model, device), data_seconds=data_s)
+    except Exception:
+        # an uncaught exception leaves flight-recorder evidence
+        flight.dump("exception")
+        raise
+    finally:
+        # flush and stop on every exit path: a crashed run's tail metrics
+        # and trace are the ones that matter
+        trace_mod.flush()
+        if exporter is not None:
+            exporter.stop()
+        if pusher is not None:
+            pusher.stop()
 
 
 if __name__ == "__main__":

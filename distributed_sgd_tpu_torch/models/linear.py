@@ -83,6 +83,14 @@ class LinearModel:
     def margins(self, w: torch.Tensor, batch: SparseBatch) -> torch.Tensor:
         return matvec(batch, w)
 
+    def forward(self, w: torch.Tensor, batch: SparseBatch) -> torch.Tensor:
+        """Predictions of the rows of `batch` (the worker's Forward body)."""
+        return self.predict(self.margins(w, batch))
+
+    def sample_losses(self, w: torch.Tensor, batch: SparseBatch, y: torch.Tensor) -> torch.Tensor:
+        """Per-sample losses (no regularization term)."""
+        return self.losses_from_margins(self.margins(w, batch), y)
+
     def losses_from_margins(self, margins: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         """Per-sample losses given precomputed margins."""
         return self.sample_loss(self.predict(margins), y)
@@ -97,6 +105,17 @@ class LinearModel:
         gradient (plain torch; on the card the sync_epoch kernel's mean
         mode computes it)."""
         return self.grad_sum(w, batch, y) / batch.batch_size
+
+    def grad_regularized(self, w: torch.Tensor, batch: SparseBatch,
+                         y: torch.Tensor) -> torch.Tensor:
+        """The RPC worker's Gradient body (Slave.scala:142-157): the sum of
+        per-sample backwards over `batch`, then `regularize`.  The sum is
+        ``ops.worker_grads`` at K=1: the CUDA kernel on a CUDA tensor, its
+        plain version on a CPU tensor."""
+        g = wg.worker_grads(w, batch.indices[None].contiguous(),
+                            batch.values[None].float().contiguous(),
+                            y.float()[None].contiguous(), self.coeff_kind)[0]
+        return self.regularize(g, w)
 
     def regularize(self, grad: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """Add the regularizer to gradient sums `grad` — [D], or [K, D] for

@@ -12,9 +12,12 @@ instead of the TPU's lane-blocked ``[R, 128]`` view.  Pad entries
 
 On a CUDA tensor the wrapper launches the hand-written kernel in
 ``csrc/worker_grads.cu`` (built at first use, ops/_build.py) or raises.
-On a CPU tensor it runs ``worker_grads_plain``, the same function in
-plain torch.  ``worker_grads.launches`` counts kernel launches, under a
-lock: the async engines launch from several threads.
+The kernel sums each g_k in 64-bit integers at a power-of-two scale, so
+one input always gives one output bit for bit (csrc/worker_grads.cu says
+how).  On a CPU tensor it runs ``worker_grads_plain``, the same function
+in plain torch.  ``worker_grads.launches`` counts calls that launched the
+kernel (three kernels on the current stream), under
+a lock: the RPC workers of one process call it from several threads.
 
 A Python coefficient function cannot be traced into CUDA the way the JAX
 package traces ``coeff_fn`` into Pallas, so each model names its rule by
@@ -91,15 +94,20 @@ def _launch(w, idx, val, y, coeff_kind):
     lib = _build.load("worker_grads")
     fn = lib.dsgd_worker_grads
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     k, b, p = idx.shape
     d = w.shape[0]
     with torch.cuda.device(w.device):
-        g = torch.zeros((k, d), dtype=torch.float32, device=w.device)
+        g = torch.empty((k, d), dtype=torch.float32, device=w.device)  # zeroed by the kernel
+        # scratch: the integer sums; the coefficients, the sample maxima and
+        # each worker's maximum (float bits)
+        acc = torch.empty((k, d), dtype=torch.int64, device=w.device)
+        scratch = torch.empty((2 * k * b + k,), dtype=torch.float32, device=w.device)
         stream = torch.cuda.current_stream(w.device).cuda_stream
         err = fn(w.data_ptr(), idx.data_ptr(), val.data_ptr(), y.data_ptr(),
-                 g.data_ptr(), k, b, p, d, coeff_kind, stream)
+                 g.data_ptr(), acc.data_ptr(), scratch.data_ptr(),
+                 k, b, p, d, coeff_kind, stream)
     if err != 0:
         raise RuntimeError(f"worker_grads kernel launch failed: cudaError {err}")
     with _counts_lock:
@@ -113,6 +121,8 @@ def worker_grads(w: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
     val f32[K,B,P], y f32[K,B].  CUDA tensors launch the kernel (or raise);
     CPU tensors run `worker_grads_plain`."""
     _check(w, idx, val, y, coeff_kind)
+    if idx.shape[1] == 0:  # no rows: nothing to launch, every g_k is zero
+        return torch.zeros((idx.shape[0], w.shape[0]), dtype=torch.float32, device=w.device)
     if w.device.type == "cuda":
         return _launch(w, idx, val, y, coeff_kind)
     if w.device.type == "cpu":

@@ -1,5 +1,6 @@
 """Logging setup: the reference's logback pattern (ISO timestamps to
-stdout), as in the JAX package's utils/log.py."""
+stdout), and its node tags (``mastr-<host:port>``, ``slave-<host:port>``,
+core/package.scala:23-27), as in the JAX package's utils/log.py."""
 
 from __future__ import annotations
 
@@ -21,3 +22,13 @@ def setup(level: int = logging.INFO) -> None:
     root.addHandler(handler)
     root.setLevel(level)
 
+
+
+def pretty(host: str, port: int, master: bool) -> str:
+    """Node log tag, core/package.scala:23-27."""
+    kind = "mastr" if master else "slave"
+    return f"{kind}-{host}:{port}"
+
+
+def node_logger(host: str, port: int, master: bool) -> logging.Logger:
+    return logging.getLogger(pretty(host, port, master))

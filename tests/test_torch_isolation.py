@@ -41,7 +41,13 @@ def test_every_port_module_imports_with_jax_blocked():
             "distributed_sgd_tpu_torch.parallel.local_sgd",
             "distributed_sgd_tpu_torch.core.loss_check", "distributed_sgd_tpu_torch.checkpoint",
             "distributed_sgd_tpu_torch.utils.measure",
-            "distributed_sgd_tpu_torch.utils.fsio"} <= set(mods)
+            "distributed_sgd_tpu_torch.utils.fsio", "distributed_sgd_tpu_torch.utils.metrics",
+            "distributed_sgd_tpu_torch.trace", "distributed_sgd_tpu_torch.trace.flight",
+            "distributed_sgd_tpu_torch.trace.merge", "distributed_sgd_tpu_torch.rpc",
+            "distributed_sgd_tpu_torch.rpc.codec", "distributed_sgd_tpu_torch.rpc.service",
+            "distributed_sgd_tpu_torch.rpc.dsgd_pb2", "distributed_sgd_tpu_torch.core.worker",
+            "distributed_sgd_tpu_torch.core.master", "distributed_sgd_tpu_torch.core.cluster",
+            "distributed_sgd_tpu_torch.core.split"} <= set(mods)
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"

@@ -59,6 +59,26 @@ def test_margins_predict_losses_and_coeff_match_jax(name):
                                rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("regularizer", ["dim_sparsity", "l2", "none"])
+@pytest.mark.parametrize("name", NAMES)
+def test_forward_sample_losses_and_grad_regularized_match_jax(name, regularizer):
+    # the RPC worker's bodies: Forward's predictions, and Gradient's
+    # regularized sum (ops.worker_grads at K=1, its plain version here)
+    idx, val, y, w, ds = _inputs(2)
+    jm, tm = _pair(name, ds, regularizer)
+    jb, tb = JBatch(jnp.asarray(idx), jnp.asarray(val)), TBatch(torch.from_numpy(idx), torch.from_numpy(val))
+    jw, tw = jnp.asarray(w), torch.from_numpy(w)
+    np.testing.assert_allclose(tm.forward(tw, tb).numpy(), np.asarray(jm.forward(jw, jb)),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(tm.sample_losses(tw, tb, torch.from_numpy(y)).numpy(),
+                               np.asarray(jm.sample_losses(jw, jb, jnp.asarray(y))),
+                               rtol=1e-5, atol=1e-6)
+    got = tm.grad_regularized(tw, tb, torch.from_numpy(y)).numpy()
+    want = np.asarray(jm.grad_regularized(jw, jb, jnp.asarray(y)))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(got == 0, want == 0)
+
+
 def test_hinge_predict_keeps_the_reference_sign_quirk():
     _, tm = _pair("hinge", np.ones(D, np.float32), "dim_sparsity")
     m = torch.tensor([2.0, -0.5, 0.0])

@@ -120,7 +120,22 @@ def test_config_reads_the_jax_env_names_and_refuses_what_is_not_ported(monkeypat
     assert (cfg.checkpoint_dir, cfg.checkpoint_every, cfg.profile_dir, cfg.feature_shards) == (
         None, 1, None, 1)
     monkeypatch.setenv("DSGD_ENGINE", "rpc")
+    assert Config.from_env().engine == "rpc"  # the in-process gRPC cluster
+    monkeypatch.setenv("DSGD_ENGINE", "grpc")
     with pytest.raises(ValueError, match="DSGD_ENGINE"):
+        Config.from_env()
+    monkeypatch.setenv("DSGD_ENGINE", "mesh")
+    # the role, as the JAX Config derives it (config.py:683-693)
+    assert Config.from_env().role == "dev"
+    monkeypatch.setenv("DSGD_MASTER_HOST", "10.0.0.1")
+    monkeypatch.setenv("DSGD_MASTER_PORT", "4000")
+    assert Config.from_env().role == "worker"
+    monkeypatch.setenv("DSGD_NODE_HOST", "10.0.0.1")
+    assert Config.from_env().role == "master"
+    monkeypatch.setenv("DSGD_ROLE", "worker")
+    assert Config.from_env().role == "worker"
+    monkeypatch.setenv("DSGD_ROLE", "leader")
+    with pytest.raises(ValueError, match="DSGD_ROLE"):
         Config.from_env()
     with pytest.raises(ValueError, match="async_mode"):
         Config(use_async=True, async_mode="hogwild")
@@ -128,11 +143,50 @@ def test_config_reads_the_jax_env_names_and_refuses_what_is_not_ported(monkeypat
         Config(gossip_topology="star")
 
 
+_MASTER = {"DSGD_MASTER_HOST": "127.0.0.1", "DSGD_MASTER_PORT": "4000",
+           "DSGD_NODE_HOST": "127.0.0.1", "DSGD_NODE_PORT": "4000"}
+_WORKER = {"DSGD_MASTER_HOST": "127.0.0.1", "DSGD_MASTER_PORT": "4000",
+           "DSGD_NODE_PORT": "4001"}
+_RPC = {"DSGD_ENGINE": "rpc"}
+
+
 @pytest.mark.parametrize("env", [
     {"DSGD_FEATURE_SHARDS": "2"},
     {"DSGD_COMPRESS": "topk", "DSGD_ASYNC": "1"},
     {"DSGD_COMPRESS": "qint8", "DSGD_ASYNC": "1", "DSGD_ASYNC_MODE": "local_sgd"},
-], ids=lambda env: "+".join(f"{k[5:].lower()}={v}" for k, v in env.items()))
+    # every role: the serving roles and push, the telemetry planes, chaos
+    {"DSGD_ROLE": "serve"},
+    {"DSGD_ROLE": "route"},
+    {"DSGD_SERVE_PUSH": "127.0.0.1:9000"},
+    {"DSGD_AUTOPILOT": "1"},
+    {"DSGD_CHAOS": "seed=7;drop=0.05"},
+    {"DSGD_TELEMETRY": "1"},
+    {"DSGD_HEALTH_ACTION": "warn"},
+    {"DSGD_RESOURCE_PROBE_S": "0.2"},
+    {"DSGD_BLACKBOX_DIR": "bb"},
+    {"DSGD_HOST_DEVICES": "2"},
+    # the rpc sync fit (dev engine=rpc, and the master role)
+    {**_RPC, "DSGD_ASYNC": "1"},
+    {**_RPC, "DSGD_HEARTBEAT_S": "0.5"},
+    {**_RPC, "DSGD_LOCAL_STEPS": "4"},
+    {**_RPC, "DSGD_DELTA_BROADCAST": "1"},
+    {**_RPC, "DSGD_STREAM": "1"},
+    {**_RPC, "DSGD_FANIN_LANES": "2"},
+    {**_RPC, "DSGD_STAGE_POOL": "2"},
+    {**_RPC, "DSGD_AGG_TREE": "fanout:2"},
+    {**_RPC, "DSGD_MASTER_SHARDS": "2"},
+    {**_RPC, "DSGD_QUORUM": "2"},
+    {**_RPC, "DSGD_STRAGGLER_SOFT_S": "1.0"},
+    {**_RPC, "DSGD_ELASTIC": "1"},
+    {**_RPC, "DSGD_ASYNC_DRAIN": "1"},
+    {**_RPC, "DSGD_FIT_CKPT_EVERY": "10"},
+    {**_MASTER, "DSGD_ASYNC": "1"},
+    {**_MASTER, "DSGD_HEARTBEAT_S": "0.5"},
+    {**_MASTER, "DSGD_QUORUM": "2"},
+    {**_WORKER, "DSGD_ELASTIC": "1"},
+    {**_WORKER, "DSGD_ROW_STORE": "store"},
+], ids=lambda env: "+".join(f"{k[5:].lower()}={v}" for k, v in env.items()
+                            if k not in ("DSGD_MASTER_HOST", "DSGD_NODE_HOST")))
 def test_settings_not_ported_raise_before_any_data_loads(env, monkeypatch):
     # the JAX CLI acts on each of these; the port must not ignore one
     for k, v in env.items():
@@ -140,6 +194,38 @@ def test_settings_not_ported_raise_before_any_data_loads(env, monkeypatch):
     monkeypatch.setattr(tmain, "load_data", lambda cfg: pytest.fail("data was loaded"))
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A"):
         tmain.main(device="cpu")
+
+
+@pytest.mark.parametrize("env,words", [
+    ({"DSGD_LOCAL_STEPS": "4"}, "DSGD_LOCAL_STEPS/DSGD_DELTA_BROADCAST/DSGD_STREAM/"),
+    ({"DSGD_DELTA_BROADCAST": "1"}, "DSGD_MASTER_SHARDS ignored"),
+    ({"DSGD_STREAM": "1"}, "the pipelined sync engine is the rpc topology's"),
+    ({"DSGD_FANIN_LANES": "2"}, "DSGD_FANIN_LANES/DSGD_STAGE_POOL"),
+    ({"DSGD_STAGE_POOL": "2"}, "DSGD_FANIN_LANES/DSGD_STAGE_POOL"),
+    ({"DSGD_AGG_TREE": "fanout:2"}, "DSGD_STAGE_POOL/DSGD_AGG_TREE/"),
+    ({"DSGD_MASTER_SHARDS": "2"}, "DSGD_MASTER_SHARDS ignored"),
+    ({"DSGD_QUORUM": "2"}, "DSGD_QUORUM/DSGD_CHAOS ignored"),
+    ({"DSGD_ELASTIC": "1"}, "DSGD_ELASTIC/DSGD_ASYNC_DRAIN/DSGD_FIT_CKPT_EVERY ignored"),
+    ({"DSGD_ASYNC_DRAIN": "1"}, "the elastic + crash-recovery subsystem"),
+    ({"DSGD_FIT_CKPT_EVERY": "5"}, "DSGD_FIT_CKPT_EVERY ignored"),
+    ({"DSGD_HOST_DEVICES": "0"}, "DSGD_HOST_DEVICES ignored"),
+    ({"DSGD_GOSSIP_TOPOLOGY": "ring"}, "DSGD_GOSSIP_TOPOLOGY=ring ignored"),
+], ids=lambda x: x if isinstance(x, str) and " " not in x else None)
+def test_the_mesh_engine_warns_about_the_rpc_settings_it_ignores(env, words, monkeypatch,
+                                                                 caplog):
+    # the JAX mesh scenario's warnings, in its words (main.py:152-206)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    cfg = Config.from_env()
+    assert (cfg.role, cfg.engine) == ("dev", "mesh")
+    cfg.refuse_for_role()  # the mesh engine ignores them: no refusal
+    with caplog.at_level(logging.WARNING, logger="dsgd"):
+        tmain.warn_mesh_ignored(cfg)
+    assert words in caplog.text
+    caplog.clear()
+    with caplog.at_level(logging.WARNING, logger="dsgd"):
+        tmain.warn_mesh_ignored(Config())
+    assert caplog.text == ""
 
 
 def test_the_optimizer_setting_reaches_the_trainer(monkeypatch):
