@@ -18,7 +18,9 @@ Phases, each fatal (a traceback and a non-zero exit):
    64-step Hogwild dispatch; then ``sync_epoch``'s momentum and adam modes
    (w and every state vector held to the plain version over 64 steps, at
    K = 3 and in the mean mode, and over a full epoch by its objective,
-   each timed over a full epoch beside the sgd mode);
+   each timed over a full epoch beside the sgd mode); and 40 launches of
+   ``sync_epoch`` from one input, bitwise identical (its fixed-order
+   sums), at K = 3 in each optimizer's mode and in the mean mode in each;
 4. engines: one epoch of the sync engine, one Hogwild dispatch and a
    short local SGD fit on the card against the same on the CPU, fed the
    same sample ids; a 3-worker Hogwild fit whose replicas, less their
@@ -46,9 +48,8 @@ Phases, each fatal (a traceback and a non-zero exit):
    share;
 7. checkpoints, resume and the profile, at full width in a temporary
    directory: a sync fit of 1 epoch resumed to 3 by a new trainer on a new
-   Checkpointer (2 ``sync_epoch`` launches) against 3 epochs run through,
-   with sgd and with adam (lr 0.001), the run through repeated until one
-   matches (an adam fit lands at one of two places), and adam resumed with
+   Checkpointer (2 ``sync_epoch`` launches) against 3 epochs run through
+   once, bitwise, with sgd and with adam (lr 0.001), and adam resumed with
    its optimizer state zeroed, which must not match; the resume with nothing left to
    run (0 launches); Hogwild and local SGD through ``main()`` with
    DSGD_CHECKPOINT_DIR, a fit and then a second one on the same directory
@@ -57,7 +58,9 @@ Phases, each fatal (a traceback and a non-zero exit):
    of ``python -m distributed_sgd_tpu_torch`` with DSGD_PROFILE_DIR, in a
    process of its own, whose trace holds one ``sync_epoch`` kernel; and
    the host times of a save and a restore, and of Hogwild with and without
-   a checkpointer;
+   a checkpointer; then a local SGD fit run twice (100,000 rows; sgd, then
+   adam), bitwise equal, and ``tools/sync_repeatability.py`` in a process
+   of its own, one landing place for each optimizer;
 8. the RPC engine: ``grpc`` and ``protobuf`` import (their versions
    printed); a DevCluster of 3 workers on the card at full width (B=100,
    lr 0.5, 1 epoch), checking that each window launched ``worker_grads``
@@ -74,7 +77,19 @@ Phases, each fatal (a traceback and a non-zero exit):
    their own (``tools/profiler_sessions.py``), each over one
    ``sync_epoch`` launch, each holding its kernel event, and a third
    after a 12 s gap, printed whatever it holds;
-9. summary: the card line, one JSON line of per-kernel numbers, and last
+9. the async fit over RPC: ``main()`` with DSGD_ENGINE=rpc DSGD_ASYNC=1,
+   a DevCluster of 3 workers on the card at full width (B=100, lr 0.5, 64
+   steps a dispatch, 1 epoch's budget, early stop on), checking one
+   ``sync_epoch`` launch in the mean mode a dispatch and no
+   ``worker_grads``, the best weights' test accuracy >= 0.70, no async
+   worker thread left and StopAsync at every worker, and printing
+   updates/s, dispatches/s, the gossip sent and dropped and the stop
+   reason; the same at 100,000 rows (its budget run out, early stop off)
+   under torch.profiler for the device's busy share, and with momentum
+   (lr 0.05) and adam (lr 0.001); and
+   the CLI as one master and 3 workers in processes of their own with
+   DSGD_ASYNC=1 (100,000 rows), all exiting 0;
+10. summary: the card line, one JSON line of per-kernel numbers, and last
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits non-zero before printing any result.
@@ -82,6 +97,7 @@ Without a CUDA device it exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import shutil
@@ -128,6 +144,7 @@ F32_FLOPS = 67e12
 # against the blocked path; atomics reorder f32 sums the same way
 RTOL, ATOL = 1e-4, 1e-5
 WG_REPEATS = 40  # launches of worker_grads on one input that must agree bit for bit
+SE_REPEATS = 40  # launches of sync_epoch on one input, in each mode, that must agree
 K, B, P, D = 3, 100, 76, 47236  # the main path's worker_grads shape
 MAIN_ROWS, MAIN_EPOCHS = 804414, 3
 TRAIN_ROWS, STEPS = 643531, 2146  # the main path's train split and steps per epoch
@@ -135,7 +152,11 @@ LAM = 1e-5  # the CLI's default lambda
 # per-rule step for the 20-step cases: least squares sums B squared-error
 # gradients per worker and diverges at the CLI's 0.5
 LR_FOR = {wg.HINGE: 0.5, wg.LOGISTIC: 0.5, wg.LEAST_SQUARES: 0.05}
-SE_ATOL = 1e-5  # weights after 20 steps: atomics reorder the f32 sums of g
+# weights after 20 steps: the kernel's integer sums of g are exact, the
+# plain version's f32 sums are not, and where a feature's terms cancel the
+# kernel's g is 0.0 and the plain version's a residue, so dim_sparsity's
+# g != 0 mask can add one 2 lam (w . dim_sparsity) more or less there
+SE_ATOL = 1e-5
 PER_STEP_TEST_ACC = 0.8080  # the main path's final test accuracy with the per-step path
 PER_STEP_ROWS, PER_STEP_WORKERS = 100000, 8
 # the main path's test losses and accuracies after each of its 3 epochs, as
@@ -357,7 +378,7 @@ def check_sync_epoch(train: Dataset, main_data: dict) -> dict:
         ("all-pad rows", edge_card, rng.choice(pad_rows, (20, K, B)), wg.HINGE, "l2",
          w_rand, None),
         # more samples than the cluster holds at once (512): two rounds a step
-        ("K=7", main_data, rng.integers(0, TRAIN_ROWS, (20, 7, B)), wg.HINGE,
+        ("K=4 B=150", main_data, rng.integers(0, TRAIN_ROWS, (20, 4, 150)), wg.HINGE,
          "dim_sparsity", w_rand, None),
         # rows wider than the 128 entries the lanes hold in registers
         ("P=200", on_card(edge_data(3000, 8, p=200)), rng.integers(0, 3000, (20, K, B)),
@@ -365,6 +386,23 @@ def check_sync_epoch(train: Dataset, main_data: dict) -> dict:
         ("P=1", on_card(edge_data(3000, 9, p=1)), rng.integers(0, 3000, (20, K, B)),
          wg.HINGE, "none", w_rand, None),
     ]
+    # a non-finite term: one value inf in a sampled row, one step from w = 0
+    # (later steps would read the inf weight into margins, and the plain
+    # version multiplies pad entries by it where the kernel skips them)
+    inf_data = dict(edge_card, values=edge_card["values"].clone())
+    inf_data["values"][1, 0] = float("inf")
+    args, kw = sync_epoch_args(inf_data, np.array([[[1, 2, 4, 5]] * K]).reshape(1, K, 4),
+                               wg.HINGE, "l2")
+    got, want = se.sync_epoch(*args, **kw), se.sync_epoch_plain(*args, **kw)
+    fin = torch.isfinite(want)
+    inf_err = float((got[fin] - want[fin]).abs().max())
+    print(f"sync_epoch non-finite term: non-finite entries {int((~fin).sum())}, the same "
+          f"as the plain version's: {bool(torch.equal(torch.isfinite(got), fin))}; finite "
+          f"entries max_abs_err={inf_err:.3e}", flush=True)
+    if not (torch.equal(torch.isfinite(got), fin) and torch.equal(got[~fin], want[~fin])
+            and inf_err <= SE_ATOL and int((~fin).sum()) > 0):
+        raise AssertionError("sync_epoch: a non-finite term came out other than the plain "
+                             "version's")
     max_err = 0.0
     for label, data, ids, kind, reg, w0, lr in cases:
         args, kw = sync_epoch_args(data, ids, kind, reg, w0, lr)
@@ -631,6 +669,50 @@ def check_opt_modes(train: Dataset, main_data: dict, se_row: dict) -> list:
         print(f"sync_epoch {kind} mean mode: {mean_ms:.4f} ms a {HOGWILD_K}-step dispatch",
               flush=True)
     return rows
+
+
+def digest(*tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def check_sync_epoch_repeats(main_data: dict) -> dict:
+    """SE_REPEATS launches from one input give one output bit for bit (w
+    and every state vector): one full epoch at K = 3 in the sgd, momentum
+    and adam modes, and one 64-step dispatch in the mean mode (K = 1,
+    grad_divisor = B) in each, each from the state one kernel epoch leaves.
+    Prints the number of distinct outputs of each; returns them."""
+    rng = np.random.default_rng(6)
+    sub = -(-TRAIN_ROWS // K)
+    thirds = np.minimum(sub, TRAIN_ROWS - np.arange(K) * sub)[:, None]
+
+    def epoch_ids():
+        return (rng.integers(0, sub, (STEPS, K, B)) % thirds + (np.arange(K) * sub)[:, None])
+
+    counts = {}
+    for kind in se.OPT_KINDS:
+        opt = se.Optimizer(kind)
+        args, kw = sync_epoch_args(main_data, epoch_ids(), wg.HINGE, "dim_sparsity",
+                                   lr=OPT_LR.get(kind, 0.5))
+        kw["optimizer"] = opt
+        w1, st1 = se.sync_epoch(*args, **kw, opt_state=se.init_opt_state(opt, D, "cuda"))
+        for mode, ids, extra in (
+                (f"{kind} K={K}", torch.from_numpy(epoch_ids()).cuda(), {}),
+                (f"{kind} mean mode K=1 ({HOGWILD_K} steps)",
+                 torch.from_numpy(rng.integers(0, sub, (HOGWILD_K, 1, B))).cuda(),
+                 {"n_total_workers": 1, "grad_divisor": B})):
+            outs = set()
+            for _ in range(SE_REPEATS):
+                w, st = se.sync_epoch(w1, ids, *args[2:], **dict(kw, **extra), opt_state=st1)
+                outs.add(digest(w, *st.vectors))
+            counts[mode] = len(outs)
+    print(f"sync_epoch distinct outputs of {SE_REPEATS} launches from one input: "
+          f"{json.dumps(counts)}", flush=True)
+    if set(counts.values()) != {1}:
+        raise AssertionError(f"sync_epoch is not repeatable: {counts}")
+    return counts
 
 
 def check_engine() -> None:
@@ -941,6 +1023,7 @@ def async_counts() -> dict:
     m = global_metrics()
     return {"batch": m.counter("slave.async.batch").value,
             "merged": m.counter("slave.async.grad.update").value,
+            "sent": m.counter("slave.async.grad.sent").value,
             "dropped": m.counter("slave.async.grad.dropped").value,
             "rounds": m.histogram("slave.async.round.seconds").count}
 
@@ -1101,13 +1184,29 @@ def run_async_paths(mean_row: dict, opt_rows: dict) -> None:
 
 # -- phase 7: checkpoints, resume and the profile ------------------------------
 
-RESUME_LOSS_RTOL = 5e-6  # test losses of a resumed fit: equal to 6 significant digits
-RESUME_W_ATOL = 1e-5  # its weights: atomics may reorder f32 sums between launches
-# runs through a resumed fit is held against, at most: atomics reorder the
-# sums, and a hinge margin within rounding of 0 can then take either side,
-# so an adam fit lands at one of two places (PERF.md: 7 of 40 launches of
-# one epoch apart); 20 leave 0.2 * 0.8^20 (0.2%) to chance
-RUN_THROUGHS = 20
+
+@contextmanager
+def rows_of(n: int):
+    """Every ``main()`` inside gets the same `n` synthetic rows, generated
+    once (the rows it would generate from the same seed); yields the
+    (train, test, model) that ``main()`` builds from them, on the card."""
+    with cli_env(DSGD_SYNTHETIC=n):
+        cfg = Config.from_env()
+        rows = port_main.load_data(cfg)
+    real_load = port_main.load_data
+    port_main.load_data = lambda cfg: rows
+    try:
+        yield port_main.build(cfg, "cuda")
+    finally:
+        port_main.load_data = real_load
+
+
+# a resume with adam's state zeroed must land outside these of the run
+# through (the resumed fit itself must equal the run through bit for bit)
+RESUME_LOSS_RTOL = 5e-6
+RESUME_W_ATOL = 1e-5
+LOCAL_TWICE_ROWS = 100000  # the local SGD fit run twice
+REPEAT_FITS = 4  # fits of sync_repeatability: each lands at one place
 
 
 def sync_trainer(model, kind: str, **kw) -> SyncTrainer:
@@ -1130,10 +1229,11 @@ def within(gap) -> bool:
 def check_sync_resume(train, test, model, tmp: str, kind: str) -> dict:
     """1 epoch with a checkpointer, then a new trainer on a new Checkpointer
     resumes to 3: exactly 2 sync_epoch launches in `kind`'s mode and none of
-    worker_grads, and the same fit run through to the bounds (test losses
-    to 6 digits, weights to RESUME_W_ATOL), the run through repeated until
-    one matches, up to RUN_THROUGHS times.  For adam, a resume with the
-    optimizer state zeroed must match none of them.  Returns the numbers."""
+    worker_grads, and the same fit run through once: the same test losses
+    and bitwise the same weights (the kernel sums in a fixed order).  For
+    adam, a resume with the optimizer state zeroed must land outside the
+    bounds (test losses to 6 digits, weights to RESUME_W_ATOL).  Returns
+    the numbers."""
     d = os.path.join(tmp, f"sync-{kind}")
     sync_trainer(model, kind, checkpointer=Checkpointer(d)).fit(train, test, 1)
     if kind == "adam":
@@ -1149,20 +1249,17 @@ def check_sync_resume(train, test, model, tmp: str, kind: str) -> dict:
         raise AssertionError(f"sync {kind} resume: launches {launches}, epochs_run "
                              f"{resumed.epochs_run}; want ({MAIN_EPOCHS - 1}, "
                              f"{MAIN_EPOCHS - 1}, 0) and {MAIN_EPOCHS}")
-    fulls, gaps = [], []
-    while not (gaps and within(gaps[-1])):
-        if len(fulls) == RUN_THROUGHS:
-            raise AssertionError(f"sync {kind} resume matches none of {RUN_THROUGHS} runs "
-                                 f"through (relative test-loss and weight gaps {gaps}; rtol "
-                                 f"{RESUME_LOSS_RTOL}, atol {RESUME_W_ATOL})")
-        fulls.append(sync_trainer(model, kind).fit(train, test, MAIN_EPOCHS))
-        gaps.append(resume_gap(resumed, fulls[-1]))
-        exact = bool(torch.equal(resumed.weights, fulls[-1].weights))
-        print(f"sync {kind} run through {len(fulls)}: test losses {fulls[-1].test_losses[1:]}; "
-              f"against the resumed fit: largest relative difference {gaps[-1][0]:.3e}, weights "
-              f"max_abs_err {gaps[-1][1]:.3e}, bitwise equal: {exact}", flush=True)
-    out = {"launches": launches[0], "loss_rel": gaps[-1][0], "w_err": gaps[-1][1],
-           "runs_through": len(fulls), "gaps": gaps}
+    full = sync_trainer(model, kind).fit(train, test, MAIN_EPOCHS)
+    gap = resume_gap(resumed, full)
+    exact = (bool(torch.equal(resumed.weights, full.weights))
+             and resumed.test_losses == full.test_losses[1:])
+    print(f"sync {kind} run through: test losses {full.test_losses[1:]}; against the resumed "
+          f"fit: largest relative difference {gap[0]:.3e}, weights max_abs_err {gap[1]:.3e}, "
+          f"bitwise equal: {exact}", flush=True)
+    if not exact:
+        raise AssertionError(f"sync {kind}: the resumed fit differs from the run through "
+                             f"(relative test-loss and weight gaps {gap})")
+    out = {"launches": launches[0], "loss_rel": gap[0], "w_err": gap[1], "bitwise": exact}
     if kind == "adam":
         real = psync.BoundSync.load_opt_state_leaves
         psync.BoundSync.load_opt_state_leaves = lambda self, leaves: self.reset_optimizer()
@@ -1171,15 +1268,68 @@ def check_sync_resume(train, test, model, tmp: str, kind: str) -> dict:
                 train, test, MAIN_EPOCHS)
         finally:
             psync.BoundSync.load_opt_state_leaves = real
-        zgaps = [resume_gap(zeroed, f) for f in fulls]
-        out["zeroed_gaps"] = zgaps
+        zgap = resume_gap(zeroed, full)
+        out["zeroed_gap"] = zgap
         print(f"sync adam resumed with its optimizer state zeroed: test losses "
-              f"{zeroed.test_losses}; against each run through (relative, weights) {zgaps}",
+              f"{zeroed.test_losses}; against the run through (relative, weights) {zgap}",
               flush=True)
-        if any(map(within, zgaps)):
-            raise AssertionError("a resume with the adam state zeroed matched a run through: "
+        if within(zgap):
+            raise AssertionError("a resume with the adam state zeroed matched the run through: "
                                  "the check cannot see a lost state")
     return out
+
+
+def check_local_sgd_twice() -> dict:
+    """A local SGD fit through ``main()`` run twice (LOCAL_TWICE_ROWS rows,
+    1 epoch's budget; sgd, then adam at lr 0.001): the same best weights
+    bit for bit, the same update counts and smoothed losses.  Only a
+    fixed-order kernel (and a repeatable evaluation and early stop) can
+    pass.  Returns what each pair gave."""
+    out = {}
+    for kind, env in (("sgd", {}), ("adam", {"DSGD_OPTIMIZER": "adam",
+                                             "DSGD_LEARNING_RATE": OPT_LR["adam"]})):
+        with cli_env(DSGD_SYNTHETIC=LOCAL_TWICE_ROWS, DSGD_ASYNC=1, DSGD_MAX_EPOCHS=1,
+                     DSGD_ASYNC_MODE="local_sgd", DSGD_SYNC_PERIOD=LOCAL_SGD_PERIOD, **env):
+            fits = [port_main.main().fit for _ in range(2)]
+        same_w = bool(torch.equal(fits[0].weights, fits[1].weights))
+        same_run = (fits[0].state.updates == fits[1].state.updates
+                    and fits[0].test_losses == fits[1].test_losses)
+        out[kind] = {"updates": [f.state.updates for f in fits], "best_weights_equal": same_w,
+                     "checks": [len(f.test_losses) for f in fits],
+                     "max_abs_diff": float((fits[0].weights - fits[1].weights).abs().max())}
+        print(f"local SGD {kind} run twice ({LOCAL_TWICE_ROWS} rows): updates "
+              f"{out[kind]['updates']}, checks {out[kind]['checks']}, smoothed losses equal: "
+              f"{same_run}; best weights bitwise equal: {same_w} (max abs diff "
+              f"{out[kind]['max_abs_diff']:.3e})", flush=True)
+        if not same_run:
+            first = next((i for i, (a, b) in enumerate(zip(fits[0].test_losses,
+                                                           fits[1].test_losses)) if a != b),
+                         None)
+            print(f"local SGD {kind}: the two runs part at check {first}: "
+                  f"{fits[0].test_losses[first:first + 3] if first is not None else []} against "
+                  f"{fits[1].test_losses[first:first + 3] if first is not None else []}",
+                  flush=True)
+        if not (same_w and same_run):
+            raise AssertionError(f"local SGD {kind}: two runs of one fit differ")
+    return out
+
+
+def check_sync_repeatability() -> dict:
+    """``python -m distributed_sgd_tpu_torch.tools.sync_repeatability`` in
+    a process of its own: one landing place for each optimizer."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = subprocess.run([sys.executable, "-m",
+                          "distributed_sgd_tpu_torch.tools.sync_repeatability",
+                          "--runs", str(REPEAT_FITS), "--launches", str(SE_REPEATS)],
+                         cwd=root, capture_output=True, text=True, timeout=600)
+    lines = [json.loads(x) for x in out.stdout.splitlines() if x.startswith("{")]
+    for line in lines:
+        print("sync_repeatability: " + json.dumps(line), flush=True)
+    places = {x["optimizer"]: x["landing_places"] for x in lines}
+    if out.returncode != 0 or places != {"sgd": 1, "adam": 1}:
+        raise AssertionError(f"sync_repeatability: landing places {places} "
+                             f"({out.returncode}):\n{out.stdout[-2000:]}\n{out.stderr[-2000:]}")
+    return places
 
 
 def check_nothing_to_run(train, test, model, tmp: str) -> None:
@@ -1373,34 +1523,30 @@ def time_hogwild_checkpointer(train, test, model, tmp: str) -> list:
 
 
 def run_checkpoint_phase() -> None:
-    """Phase 7.  Its rows are generated once: every ``main()`` of the phase
-    gets the same synthetic rows it would generate from the same seed."""
+    """Phase 7, on rows generated once (`rows_of`)."""
     tmp = tempfile.mkdtemp(prefix="chip-smoke-ckpt-")
     t0 = time.perf_counter()
-    with cli_env(DSGD_SYNTHETIC=MAIN_ROWS):
-        cfg = Config.from_env()
-        rows = port_main.load_data(cfg)
-    real_load = port_main.load_data
-    port_main.load_data = lambda cfg: rows
     try:
-        train, test, model = port_main.build(cfg, "cuda")
-        print(f"checkpoint phase data seconds: {time.perf_counter() - t0:.2f}", flush=True)
-        out = {"sync_sgd": check_sync_resume(train, test, model, tmp, "sgd"),
-               "sync_adam": check_sync_resume(train, test, model, tmp, "adam")}
-        check_nothing_to_run(train, test, model, tmp)
-        out["hogwild"] = check_async_resume("Hogwild", tmp, HOGWILD_K,
-                                            DSGD_STEPS_PER_DISPATCH=HOGWILD_K)
-        out["local_sgd"] = check_async_resume("local SGD", tmp, LOCAL_SGD_PERIOD,
-                                              DSGD_ASYNC_MODE="local_sgd",
-                                              DSGD_SYNC_PERIOD=LOCAL_SGD_PERIOD,
-                                              DSGD_CHECK_EVERY=LOCAL_SGD_CHECK_EVERY)
-        out["profile"] = check_profile(tmp, train, test, model)
-        out["checkpoint_ms"] = time_checkpoints(tmp)
-        out["hogwild_checkpointer"] = time_hogwild_checkpointer(train, test, model, tmp)
-        print(json.dumps({"checkpoints": out}), flush=True)
+        with rows_of(MAIN_ROWS) as (train, test, model):
+            print(f"checkpoint phase data seconds: {time.perf_counter() - t0:.2f}", flush=True)
+            out = {"sync_sgd": check_sync_resume(train, test, model, tmp, "sgd"),
+                   "sync_adam": check_sync_resume(train, test, model, tmp, "adam")}
+            check_nothing_to_run(train, test, model, tmp)
+            out["hogwild"] = check_async_resume("Hogwild", tmp, HOGWILD_K,
+                                                DSGD_STEPS_PER_DISPATCH=HOGWILD_K)
+            out["local_sgd"] = check_async_resume("local SGD", tmp, LOCAL_SGD_PERIOD,
+                                                  DSGD_ASYNC_MODE="local_sgd",
+                                                  DSGD_SYNC_PERIOD=LOCAL_SGD_PERIOD,
+                                                  DSGD_CHECK_EVERY=LOCAL_SGD_CHECK_EVERY)
+            out["profile"] = check_profile(tmp, train, test, model)
+            out["checkpoint_ms"] = time_checkpoints(tmp)
+            out["hogwild_checkpointer"] = time_hogwild_checkpointer(train, test, model, tmp)
+            print(json.dumps({"checkpoints": out}), flush=True)
     finally:
-        port_main.load_data = real_load
         shutil.rmtree(tmp)
+    print(json.dumps({"repeats": {"local_sgd_twice": check_local_sgd_twice(),
+                                  "sync_repeatability": check_sync_repeatability()}}),
+          flush=True)
 
 
 # -- phase 8: the RPC engine ----------------------------------------------------
@@ -1634,6 +1780,190 @@ def run_rpc_phase() -> int:
     return launches
 
 
+# -- phase 9: the async fit over RPC ---------------------------------------------
+
+ASYNC_RPC_SMALL_ROWS = 100000  # the profiled fit, the momentum and adam fits, the CLI run
+# their early stop, off: with momentum or adam the smoothed test loss of 3
+# workers gossiping swings by more than the early stop's patience between
+# checks (in the JAX package's async RPC fit too, on the CPU), and a test
+# evaluation at 100,000 rows is cheap enough that checks every 100 updates
+# come about 2,000 updates apart, so the early stop would end these fits
+# at a random point of a swing; they run their budget and return the best
+# weights their checks saw
+ASYNC_RPC_SMALL_PATIENCE = 10 ** 6
+
+
+def async_rpc_threads() -> list:
+    return [t.name for t in threading.enumerate()
+            if t.name.startswith("async-") and t.is_alive()]
+
+
+
+
+def run_async_rpc(label: str, n_train: int, test_bound, profile: bool = False,
+                  **env) -> dict:
+    """``main()`` with DSGD_ENGINE=rpc DSGD_ASYNC=1: a DevCluster of
+    RPC_WORKERS workers on the card, HOGWILD_K steps a dispatch, 1 epoch's
+    budget, early stop on, and `env`.  Checks one sync_epoch launch in the
+    optimizer's mean mode a dispatch and no worker_grads launch, that the
+    smoothed test loss fell below 1.0, the best weights' test accuracy,
+    that no async worker thread is left and every worker got StopAsync.
+    With `profile`, under torch.profiler: the device's busy share from the
+    first sync_epoch kernel to the end of the last.  Returns the numbers."""
+    from distributed_sgd_tpu_torch.core.worker import WorkerNode
+
+    kind = env.get("DSGD_OPTIMIZER", "sgd")
+    stopped = []
+    real_stop = WorkerNode.stop_async
+
+    def counted_stop(node):
+        stopped.append(node.port)
+        return real_stop(node)
+
+    WorkerNode.stop_async = counted_stop
+    runs, dev = [], None
+    try:
+        with cli_env(DSGD_ENGINE="rpc", DSGD_ASYNC=1, DSGD_MAX_EPOCHS=1,
+                     DSGD_NODE_COUNT=RPC_WORKERS, DSGD_STEPS_PER_DISPATCH=HOGWILD_K, **env):
+            before = async_counts()
+            reset_counts()
+            if profile:
+                dev = device_events(lambda: runs.append(port_main.main()))
+            else:
+                runs.append(port_main.main())
+            torch.cuda.synchronize()
+            launches, steps_run = se.sync_epoch.launches, se.sync_epoch.steps
+            mode_launches = se.sync_epoch.opt_launches[kind]
+            wg_launches = wg.worker_grads.launches
+    finally:
+        WorkerNode.stop_async = real_stop
+    fit = runs[0].fit
+    diff = {k: v - before[k] for k, v in async_counts().items()}
+    dispatches = diff["batch"] // HOGWILD_K
+    fit_s = fit.state.duration
+    stop = "budget" if fit.state.updates >= n_train else "early stop"
+    loss, acc = test_bound.evaluate(torch.from_numpy(np.asarray(fit.weights)).cuda())
+    losses = fit.test_losses
+    out = {"updates": fit.state.updates, "fit_s": fit_s,
+           "updates_per_s": fit.state.updates / fit_s, "dispatches": dispatches,
+           "dispatches_per_s": dispatches / fit_s, "launches": launches, "steps": steps_run,
+           "worker_grads_launches": wg_launches, "gossip_sent": diff["sent"],
+           "gossip_dropped": diff["dropped"], "merged": diff["merged"], "stop": stop,
+           "checks": len(losses), "best_smoothed_loss": fit.state.loss,
+           "best_test_loss": loss, "best_test_acc": acc, "stop_async": len(set(stopped))}
+    print(f"async rpc {label}: {fit.state.updates} updates in {fit_s:.3f} s "
+          f"({out['updates_per_s']:.1f} updates/s); {dispatches} dispatches "
+          f"({out['dispatches_per_s']:.1f}/s); sync_epoch launches {launches} ({kind} "
+          f"{mode_launches}) over {steps_run} steps; worker_grads launches {wg_launches}; "
+          f"gossip sent {diff['sent']}, dropped {diff['dropped']}, merged by peers "
+          f"{diff['merged']}; stopped by {stop} after {len(losses)} checks; StopAsync "
+          f"reached {len(set(stopped))} workers", flush=True)
+    print(f"async rpc {label} smoothed test losses: first {losses[:3]} last {losses[-3:]} "
+          f"best {fit.state.loss}; best weights: raw test loss {loss:.7f} accuracy {acc:.7f}",
+          flush=True)
+    if dev is not None:
+        kernels = [e for e in dev if "sync_epoch" in e[2]]
+        if len(kernels) >= 2:
+            lo, hi = kernels[0][0], max(t1 for _, t1, _ in kernels)
+            out["busy_share"] = union_us(dev, lo, hi) / (hi - lo)
+            out["kernel_share"] = union_us(kernels, lo, hi) / (hi - lo)
+            print(f"async rpc {label} device busy share ({(hi - lo) / 1e3:.1f} ms from the "
+                  f"first sync_epoch kernel to the end of the last, under torch.profiler): "
+                  f"{out['busy_share']:.4f}; sync_epoch kernels cover "
+                  f"{out['kernel_share']:.4f}, {len(kernels)} of them", flush=True)
+        else:
+            print(f"async rpc {label} device busy share: not measured ({len(dev)} device "
+                  f"events, {len(kernels)} sync_epoch kernels)", flush=True)
+    if dispatches < 1 or (launches, mode_launches, steps_run, wg_launches) != (
+            dispatches, dispatches, dispatches * HOGWILD_K, 0):
+        raise AssertionError(
+            f"async rpc {label}: sync_epoch launched {launches} times ({mode_launches} in "
+            f"its mode) over {steps_run} steps and worker_grads {wg_launches} times; want "
+            f"{dispatches}, {dispatches}, {dispatches * HOGWILD_K} and 0")
+    if not fit.state.updates <= diff["batch"] or not min(losses) < 1.0:
+        raise AssertionError(f"async rpc {label}: the master counted {fit.state.updates} of "
+                             f"{diff['batch']} steps; smoothed losses {losses}")
+    if acc < ASYNC_ACC_FLOOR:
+        raise AssertionError(f"async rpc {label}: best weights reach test accuracy {acc}, "
+                             f"want >= {ASYNC_ACC_FLOOR}")
+    if async_rpc_threads() or len(set(stopped)) != RPC_WORKERS:
+        raise AssertionError(f"async rpc {label}: threads left {async_rpc_threads()}; "
+                             f"StopAsync reached {len(set(stopped))} workers")
+    return out
+
+
+def check_async_rpc_cli() -> dict:
+    """``python -m distributed_sgd_tpu_torch`` as one master and
+    RPC_WORKERS workers on loopback with DSGD_ASYNC=1 (HOGWILD_K steps a
+    dispatch, ASYNC_RPC_SMALL_ROWS rows, 1 epoch's budget): all exit 0 and
+    the master logs its test losses and its update count."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    base = {**os.environ, "DSGD_SYNTHETIC": str(ASYNC_RPC_SMALL_ROWS), "DSGD_MAX_EPOCHS": "1",
+            "DSGD_ASYNC": "1", "DSGD_STEPS_PER_DISPATCH": str(HOGWILD_K),
+            "DSGD_NODE_COUNT": str(RPC_WORKERS), "DSGD_MASTER_HOST": "127.0.0.1",
+            "DSGD_MASTER_PORT": str(port), "DSGD_NODE_HOST": "127.0.0.1"}
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "distributed_sgd_tpu_torch"]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd, cwd=root, env={**base, "DSGD_NODE_PORT": str(port)},
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)]
+    procs += [subprocess.Popen(cmd, cwd=root, env={**base, "DSGD_NODE_PORT": "0"},
+                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+              for _ in range(RPC_WORKERS)]
+    outs = [None] * len(procs)
+    try:
+        outs[0], _ = procs[0].communicate(timeout=600)
+        for p in procs[1:]:
+            p.send_signal(signal.SIGTERM)
+        for i, p in enumerate(procs[1:], 1):
+            outs[i], _ = p.communicate(timeout=120)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    cli_s = time.perf_counter() - t0
+    codes = [p.returncode for p in procs]
+    lines = outs[0].splitlines()
+    losses = [x.split(" - ", 1)[-1] for x in lines if "test losses:" in x]
+    done = [x.split(" - ", 1)[-1] for x in lines if "fit done:" in x]
+    checks = [x for x in lines if "loss computed at" in x]
+    print(f"async rpc CLI: master and {RPC_WORKERS} workers exited {codes} after {cli_s:.1f} s; "
+          f"{done[-1] if done else 'no fit logged'}; {len(checks)} checks; "
+          f"{losses[-1][:300] if losses else 'no test losses logged'}", flush=True)
+    if codes != [0] * len(procs) or not losses or not done or not checks:
+        tails = "\n".join(f"== process {i} ({c}):\n{(o or '')[-2000:]}"
+                           for i, (c, o) in enumerate(zip(codes, outs)))
+        raise AssertionError(f"async rpc CLI run failed:\n{tails}")
+    return {"codes": codes, "seconds": cli_s, "checks": len(checks)}
+
+
+def run_async_rpc_phase() -> int:
+    """Phase 9; returns the full-width sgd fit's sync_epoch launches."""
+    t0 = time.perf_counter()
+    out = {}
+    with rows_of(MAIN_ROWS) as (train, test, model):
+        test_bound = SyncEngine(model, B, 0.0).bind(test)
+        print(f"async rpc data seconds: {time.perf_counter() - t0:.2f}", flush=True)
+        out["sgd"] = run_async_rpc("sgd (full width)", len(train), test_bound)
+    with rows_of(ASYNC_RPC_SMALL_ROWS) as (train, test, model):
+        test_bound = SyncEngine(model, B, 0.0).bind(test)
+        small = dict(DSGD_PATIENCE=ASYNC_RPC_SMALL_PATIENCE)
+        out["sgd_profiled"] = run_async_rpc(f"sgd ({ASYNC_RPC_SMALL_ROWS} rows, profiled)",
+                                            len(train), test_bound, profile=True, **small)
+        for kind in ("momentum", "adam"):
+            out[kind] = run_async_rpc(f"{kind} ({ASYNC_RPC_SMALL_ROWS} rows)", len(train),
+                                      test_bound, DSGD_OPTIMIZER=kind,
+                                      DSGD_LEARNING_RATE=OPT_LR[kind], **small)
+    out["cli"] = check_async_rpc_cli()
+    print(json.dumps({"async_rpc": out}), flush=True)
+    return out["sgd"]["launches"]
+
+
 def main() -> None:
     phase("1 device")
     if not torch.cuda.is_available():
@@ -1660,6 +1990,7 @@ def main() -> None:
     se_row = check_sync_epoch(train, main_data)
     mean_row = check_mean_mode(train, main_data)
     opt_rows = dict(zip(("momentum", "adam"), check_opt_modes(train, main_data, se_row)))
+    check_sync_epoch_repeats(main_data)
     del train, main_data
 
     phase("4 engines on the card against the CPU")
@@ -1687,7 +2018,13 @@ def main() -> None:
                       f"path; {per_step_launches} on the per-step path (K={PER_STEP_WORKERS}), "
                       f"{momentum_launches} more with momentum")
 
-    phase("9 summary")
+    phase("9 the async fit over RPC: Hogwild gossip between worker nodes")
+    rpc_async_launches = run_async_rpc_phase()
+    mean_row["path"] = (f"async rpc (k={HOGWILD_K}, one launch a dispatch, full width) "
+                        f"{rpc_async_launches}; " + mean_row["path"])
+    mean_row["launches"] = rpc_async_launches
+
+    phase("10 summary")
     print(card)
     print(json.dumps({"kernels": [wg_row, se_row, mean_row, opt_rows["momentum"],
                                   opt_rows["adam"]]}))

@@ -11,7 +11,8 @@ process runs the dev role; when they equal the node's own
 worker.  ``DSGD_ROLE`` overrides the derivation.  The dev role runs the
 in-process engines (``engine='mesh'``: the sync trainer, or with
 ``use_async`` the Hogwild gossip or local SGD) or the in-process gRPC
-cluster (``engine='rpc'``, the sync fit).  ``optimizer`` ('sgd',
+cluster (``engine='rpc'``, the sync fit, or with ``use_async`` the async
+fit over RPC, ``async_drain`` its batch-drain inbox).  ``optimizer`` ('sgd',
 'momentum' or 'adam') and ``momentum`` reach every engine,
 ``checkpoint_dir`` (with ``checkpoint_every``) every engine and
 ``profile_dir`` the sync trainer and the worker role.  ``trace``,
@@ -265,9 +266,9 @@ class Config:
 
     def refuse_for_role(self) -> None:
         """Raise NotImplementedError for a setting the JAX CLI acts on in
-        this run's role that the port does not serve yet: on the rpc sync
-        fit (the dev role with engine 'rpc', and the master) the async RPC
-        engine, the heartbeat and the pipelined, quorum and elastic levers;
+        this run's role that the port does not serve yet: on the rpc fits
+        (the dev role with engine 'rpc', and the master) the heartbeat, the
+        crash-safe fit state and the pipelined, quorum and elastic levers;
         on the worker role the elastic master watch and the row store.
         The mesh engine ignores them (main.py warns, as the JAX CLI does)."""
         role = self.role
@@ -281,12 +282,10 @@ class Config:
         if role == "dev" and self.engine == "mesh":
             return
         for bad, setting, where in (
-                (self.use_async, "DSGD_ASYNC=1 (fit_async over RPC)", "[A8] 3.2"),
                 (self.heartbeat_s, "DSGD_HEARTBEAT_S (the heartbeat loop)", "[A8] 3.3"),
                 (self.quorum is not None, "DSGD_QUORUM", "[A8] 3.3"),
                 (self.straggler_soft_s is not None, "DSGD_STRAGGLER_SOFT_S", "[A8] 3.3"),
                 (self.elastic, "DSGD_ELASTIC", "[A8] 3.3"),
-                (self.async_drain, "DSGD_ASYNC_DRAIN", "[A8] 3.2"),
                 (self.fit_ckpt_every, "DSGD_FIT_CKPT_EVERY", "[A8] 3.3"),
                 (self.local_steps > 1, "DSGD_LOCAL_STEPS", "[A8] 3.4"),
                 (self.delta_broadcast, "DSGD_DELTA_BROADCAST", "[A8] 3.4"),

@@ -5,8 +5,9 @@ cluster.py, after the reference's dev mode, Main.scala:143-158): one
 master and `n_workers` workers in one process, on OS-assigned loopback
 ports, with real sockets, real proto marshalling and real registration
 and peer introduction.  Every node runs on the caller's device: the
-workers' gradients are ``worker_grads`` launches on the card, or its
-plain version with ``device="cpu"``.
+workers' sync gradients are ``worker_grads`` launches on the card and
+their async dispatches ``sync_epoch`` launches in the mean mode, or the
+plain versions with ``device="cpu"``.
 
 The JAX cluster's hierarchical, host-local, chaos and telemetry arguments
 have no counterpart here (ROADMAP.md Queue A [A8] 3.3-3.4, [A10], [A13]).
@@ -37,10 +38,14 @@ class DevCluster:
         base_port: int = 0,
         seed: int = 0,
         metrics: Optional[metrics_mod.Metrics] = None,
+        steps_per_dispatch: int = 1,
+        gossip_topology: str = "all",
     ):
         """The nodes run on the model's device (`make_model(...,
         device=...)`; the card unless the caller asks for the CPU).  All
-        share `metrics` (the process's registry when None)."""
+        share `metrics` (the process's registry when None).  The workers'
+        async dispatches run `steps_per_dispatch` local steps each and
+        gossip along `gossip_topology`."""
         self.master = MasterNode(host, base_port, train, test, model,
                                  expected_workers=n_workers, seed=seed,
                                  metrics=metrics).start()
@@ -50,7 +55,8 @@ class DevCluster:
                 port = 0 if base_port == 0 else base_port + 1 + i
                 self.workers.append(WorkerNode(
                     host, port, host, self.master.port, train, model,
-                    seed=seed + i, metrics=metrics))
+                    seed=seed + i, metrics=metrics, steps_per_dispatch=steps_per_dispatch,
+                    gossip_topology=gossip_topology))
             for w in self.workers:
                 w.start(wait_registered=True)
             self.master.await_ready()

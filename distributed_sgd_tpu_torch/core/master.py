@@ -25,14 +25,29 @@ core/Master.scala and core/MasterSync.scala):
   resume through checkpoint.py's sync-fit snapshot, the JAX package's
   format.
 
+- `fit_async` (MasterAsync.scala, with the JAX master's superset): each
+  worker gets its split of the train rows in a StartAsync and gossips
+  weight-space deltas; the master applies each delta (UpdateGrad) to its
+  own weights on its device, counts local steps against the lifetime
+  budget ``len(train) * max_epochs``, resumed from the checker's count,
+  evaluates the smoothed test loss every `check_every` updates with the
+  LossChecker and its checkpointer, and returns the BEST weights.  A stall
+  watchdog probes the workers when no update arrives for the stall window,
+  evicts the dead and re-issues their rows to survivors with the current
+  weights; a worker that leaves mid-fit has its rows re-issued at once.
+  With `batch_drain` the deltas go through a bounded inbox and one summed
+  apply per drain.  Every worker that ever held rows gets StopAsync when
+  the fit ends.
+
 The workers compute on their own devices; the master only encodes,
 decodes and applies, and evaluates on its device.  Every lever of the JAX
-fit_sync that is not ported raises NotImplementedError naming the ROADMAP
-item that holds it; so do `fit_async` and the heartbeat.
+fits that is not ported raises NotImplementedError naming the ROADMAP
+item that holds it (the heartbeat, fit_async's elastic membership).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import threading
 import time
@@ -52,6 +67,7 @@ from distributed_sgd_tpu_torch.checkpoint import (
 from distributed_sgd_tpu_torch.convert import opt_state_from_jax, opt_state_to_jax
 from distributed_sgd_tpu_torch.core.early_stopping import Criterion
 from distributed_sgd_tpu_torch.core.grad_state import GradState
+from distributed_sgd_tpu_torch.core.loss_check import LossChecker, async_fit_result
 from distributed_sgd_tpu_torch.core.split import vanilla_split
 from distributed_sgd_tpu_torch.core.trainer import FitResult, record_epoch
 from distributed_sgd_tpu_torch.data.rcv1 import Dataset
@@ -175,6 +191,18 @@ class MasterNode:
         engine = SyncEngine(model, batch_size=1, learning_rate=0.0, device=self.device)
         self._eval_train = engine.bind(train)
         self._eval_test = engine.bind(test)
+
+        # the async fit's state (MasterAsync.scala:28-40): the weights on
+        # this device, the update count, and the batch-drain inbox
+        self._async_lock = threading.Lock()
+        self._w_async: Optional[torch.Tensor] = None
+        self._updates = 0
+        self._max_steps = 0
+        self._async_running = threading.Event()
+        self._async_done = threading.Event()
+        self._inbox_cv = threading.Condition()
+        self._inbox: list = []
+        self._drain_on = False
 
         self.server = new_server(port, host="0.0.0.0")
         self.port = self.port or self.server.bound_port
@@ -362,10 +390,13 @@ class MasterNode:
         return float((preds == self.train.labels).mean())
 
     def local_loss(self, weights, test: bool = False) -> Tuple[float, float]:
-        """(objective, accuracy) of `weights` over the train (or test)
-        split, on the master's device."""
+        """(objective, accuracy) of `weights` (host array or tensor) over
+        the train (or test) split, on the master's device."""
         bound = self._eval_test if test else self._eval_train
-        w = torch.as_tensor(np.asarray(weights, dtype=np.float32), device=self.device)
+        if isinstance(weights, torch.Tensor):
+            w = weights.to(self.device, torch.float32)
+        else:
+            w = torch.as_tensor(np.asarray(weights, dtype=np.float32), device=self.device)
         return bound.evaluate(w)
 
     # -- the sync fit (MasterSync.scala) -------------------------------------
@@ -588,8 +619,350 @@ class MasterNode:
             weights=w, loss=result.losses[-1] if result.losses else float("nan")).finish()
         return result
 
-    def fit_async(self, *args, **kwargs):
-        raise not_ported("fit_async (DSGD_ASYNC=1 on the rpc engine)", "[A8] 3.2")
+    # -- the async fit (MasterAsync.scala) -----------------------------------
+
+    def fit_async(
+        self,
+        max_epochs: int,
+        batch_size: int,
+        learning_rate: float,
+        criterion: Optional[Criterion] = None,
+        check_every: int = 100,
+        leaky_loss: float = 0.9,
+        backoff_s: float = 2.5,
+        split: SplitFn = vanilla_split,
+        initial_weights: Optional[np.ndarray] = None,
+        checkpointer=None,
+        optimizer: Optional[str] = None,
+        momentum: float = 0.9,
+        stall_checks: int = 4,
+        max_stall_interventions: int = 3,
+        stall_window_s: Optional[float] = None,
+        startup_grace_s: Optional[float] = None,
+        elastic: bool = False,
+        batch_drain: bool = False,
+    ) -> FitResult:
+        """Async fit over the registered workers, with the JAX master's
+        stall watchdog: when no update arrives for the stall window, every
+        assigned worker is probed, the unresponsive are evicted and their
+        rows re-issued to survivors (StartAsync with the current weights),
+        so the lifetime budget completes on the survivors; with nobody left,
+        or after `max_stall_interventions` interventions without progress,
+        the fit raises RuntimeError.  `stall_window_s` defaults to
+        max(stall_checks * backoff_s, 60) and the window before the first
+        update to `startup_grace_s`, max(stall window, 180).
+
+        `optimizer` is a name ('sgd', 'momentum', 'adam'): it crosses the
+        wire in StartAsyncRequest.  `batch_drain` (DSGD_ASYNC_DRAIN) buffers
+        the deltas in an inbox of at most ASYNC_INBOX_CAP and applies one
+        sum per drain; a full inbox falls back to the per-message apply,
+        counted.  `elastic` (DSGD_ELASTIC) is not ported: it raises.
+
+        Returns the BEST weights (MasterAsync.scala:87-94) as a host array."""
+        if elastic:
+            raise not_ported("fit_async(elastic=True) (elastic membership, DSGD_ELASTIC)",
+                             "[A8] 3.3")
+        if optimizer is not None and not isinstance(optimizer, str):
+            raise ValueError(
+                "the RPC topology ships the optimizer by NAME in StartAsyncRequest; pass "
+                "'sgd'/'momentum'/'adam' (an optimizer object cannot cross the wire)")
+        # an unknown name fails here, before any worker starts
+        resolve_optimizer(optimizer, momentum)
+        self._require_ready()
+        if self._async_running.is_set():
+            raise RuntimeError("a computation is already running")  # MasterAsync.scala:42
+        members = self._members()
+        parts = split(len(self.train), len(members))
+        # each worker's rows, kept for the watchdog's re-issue
+        assignments = {key: part for (key, _), part in zip(members, parts)}
+        w0 = (np.zeros(self.model.n_features, dtype=np.float32) if initial_weights is None
+              else np.asarray(initial_weights, dtype=np.float32))
+        # the checker restores any snapshot with its lifetime update count:
+        # maxSteps is a LIFETIME budget (MasterAsync.scala:83), so a resumed
+        # fit spends only the rest
+        checker = LossChecker(leaky_loss, criterion, checkpointer=checkpointer,
+                              device=self.device)
+        t_start = time.time()
+        with self._async_lock:
+            self._w_async = torch.as_tensor(w0).to(self.device)
+            self._updates = checker.restored_updates
+            self._max_steps = len(self.train) * max_epochs  # MasterAsync.scala:83
+        if self._updates >= self._max_steps:
+            self.log.info("resumed past the %d-step budget (%d updates done): nothing to run",
+                          self._max_steps, self._updates)
+            return self._async_result(checker, w0, t_start, batch_size)
+        self._async_done.clear()
+        self._async_running.set()
+
+        last_step = self._updates - check_every  # the first check runs at once
+        if stall_window_s is None:
+            stall_window_s = max(max(1, stall_checks) * backoff_s, 60.0)
+        if startup_grace_s is None:
+            startup_grace_s = max(stall_window_s, 180.0)
+        start_updates = last_progress = self._updates
+        last_progress_t = time.monotonic()
+        interventions = 0
+        # every endpoint that ever held rows gets StopAsync at the end, even
+        # if evicted: a falsely evicted but live worker must stop training
+        ever_assigned = set(assignments)
+        drain_thread = None
+        if batch_drain:
+            with self._inbox_cv:
+                self._inbox.clear()  # never apply a prior fit's stragglers
+                self._drain_on = True
+            drain_thread = threading.Thread(target=self._drain_loop, daemon=True,
+                                            name="async-drain")
+            drain_thread.start()
+        try:
+            # the fan-out inside the try: a worker dying mid-fan-out still
+            # reaches the finally, which stops the ones started
+            for key, part in assignments.items():  # MasterAsync.scala:52-55
+                self._start_async_worker(key, part, w0, batch_size, learning_rate,
+                                         optimizer, momentum)
+            self.log.info("waiting for slaves updates")
+            while self._async_running.is_set():
+                with self._async_lock:
+                    updates, w_now = self._updates, self._w_async
+                window = startup_grace_s if updates == start_updates else stall_window_s
+                # a worker that left mid-fit has its rows re-issued at once
+                with self._members_lock:
+                    member_keys = set(self._order)
+                gone = [k for k in assignments if k not in member_keys]
+                if gone:
+                    self.log.warning("async fit: %d assigned worker(s) no longer members; "
+                                     "reassigning", len(gone))
+                    self._reassign_async(assignments, gone, w_now, batch_size,
+                                         learning_rate, optimizer, momentum)
+                if updates > last_progress:
+                    last_progress, last_progress_t = updates, time.monotonic()
+                    interventions = 0
+                elif time.monotonic() - last_progress_t > window:
+                    interventions += 1
+                    if interventions > max_stall_interventions:
+                        raise RuntimeError(
+                            f"async fit stalled: no update progress after "
+                            f"{interventions - 1} watchdog interventions "
+                            f"(budget {updates}/{self._max_steps})")
+                    self._async_watchdog(assignments, w_now, batch_size, learning_rate,
+                                         optimizer, momentum)
+                    last_progress_t = time.monotonic()
+                if updates - last_step < check_every:
+                    self._async_done.wait(backoff_s)
+                    continue
+                raw_loss, raw_acc = self.local_loss(w_now, test=True)
+                stop = checker.check(raw_loss, raw_acc, w_now, step=updates)
+                # the counter keeps the reference's toLong truncation
+                # (MasterAsync.scala:126); the histogram the real value
+                self.metrics.counter("master.async.loss").increment(int(checker.smoothed[0]))
+                self.metrics.histogram("master.async.loss.value").record(checker.smoothed[0])
+                self.log.info("loss computed at %d updates: test_loss=%.6f test_acc=%.4f",
+                              updates, checker.smoothed[0], checker.smoothed_accs[0])
+                last_step = updates
+                if stop:
+                    self.log.info("converged to target: stopping computation")
+                    break
+        finally:
+            self._end_async_endpoints(ever_assigned)
+            if drain_thread is not None:
+                # the drain stops after StopAsync: gossip in flight lands in
+                # the weights instead of staying in the inbox
+                with self._inbox_cv:
+                    self._drain_on = False
+                    self._inbox_cv.notify()
+                drain_thread.join(timeout=10.0)
+        return self._async_result(checker, w0, t_start, batch_size)
+
+    def _async_result(self, checker, w0, t_start: float, batch_size: int) -> FitResult:
+        """The async fit's FitResult: the best weights, as a host array."""
+        res = async_fit_result(checker, w0, t_start, self._updates, batch_size,
+                               len(self.train))
+        w = res.state.weights
+        if isinstance(w, torch.Tensor):
+            res.state = dataclasses.replace(res.state, weights=w.cpu().numpy())
+        return res
+
+    def _end_async_endpoints(self, endpoints) -> None:
+        """StopAsync to every endpoint that ever held rows: members through
+        their stubs, evicted ones through a short-lived channel (best
+        effort: a dead process refuses the connection)."""
+        self._async_running.clear()
+        self._async_done.set()
+        deadline = self.rpc_policy.deadline_s
+        for key in endpoints:
+            with self._members_lock:
+                stub = self._workers.get(key)
+            try:
+                if stub is not None:
+                    stub.StopAsync(pb.Empty(), timeout=deadline)
+                else:
+                    ch = new_channel(*key, origin=(self.host, self.port))
+                    try:
+                        WorkerStub(ch).StopAsync(pb.Empty(), timeout=deadline)
+                    finally:
+                        ch.close()
+            except (grpc.RpcError, ValueError):
+                pass
+
+    def _start_async_worker(self, key, part, w, batch_size, learning_rate, optimizer,
+                            momentum) -> None:
+        with self._members_lock:
+            stub = self._workers.get(key)
+        if stub is None:
+            raise RuntimeError(f"worker {key[0]}:{key[1]} vanished before StartAsync")
+        # a generous deadline: a re-issued StartAsync first joins the
+        # worker's running loop, which may finish a dispatch in flight
+        stub.StartAsync(
+            pb.StartAsyncRequest(
+                weights=codec.encode_tensor(_host(w)),
+                samples=np.asarray(part).astype(np.int32),
+                batch_size=batch_size,
+                learning_rate=learning_rate,
+                optimizer=optimizer or "",
+                momentum=momentum,
+            ),
+            timeout=60.0,
+        )
+
+    def _async_watchdog(self, assignments, w_now, batch_size, learning_rate, optimizer,
+                        momentum) -> None:
+        """No update for the stall window: probe every assigned worker,
+        evict the unresponsive and re-issue their rows; with every worker
+        answering, re-issue every assignment (their loops are gone).
+        RuntimeError when nobody is left."""
+        with self._members_lock:
+            member_keys = set(self._workers)
+        dead = [k for k in assignments if k not in member_keys]
+        for key in assignments:
+            if key in dead:
+                continue
+            with self._members_lock:
+                stub = self._workers.get(key)
+            try:
+                if stub is None:
+                    raise ValueError("channel closed")
+                stub.Ping(pb.Empty(), timeout=self.rpc_policy.deadline_s)
+            except (grpc.RpcError, ValueError) as e:
+                code = e.code() if isinstance(e, grpc.RpcError) else e
+                self.log.warning("async watchdog: worker %s:%d unresponsive (%s); "
+                                 "declaring dead", key[0], key[1], code)
+                self.unregister_worker(*key, evicted=True)
+                dead.append(key)
+        if not dead:
+            if not assignments:
+                raise RuntimeError("async fit: all workers lost mid-fit")
+            self.log.warning("async watchdog: stalled with %d live workers; re-issuing all "
+                             "StartAsync assignments", len(assignments))
+            for key in list(assignments):
+                self._try_start_async_worker(key, assignments[key], w_now, batch_size,
+                                             learning_rate, optimizer, momentum)
+            return
+        self._reassign_async(assignments, dead, w_now, batch_size, learning_rate, optimizer,
+                             momentum)
+
+    def _reassign_async(self, assignments, dead, w_now, batch_size, learning_rate,
+                        optimizer, momentum) -> None:
+        """Merge each dead worker's rows into a survivor's and re-issue
+        StartAsync there with the current weights.  RuntimeError when no
+        survivor is left."""
+        survivors = [k for k in assignments if k not in dead]
+        if not survivors:
+            raise RuntimeError("async fit: all workers lost mid-fit")
+        targets = []
+        for i, key in enumerate(dead):
+            target = survivors[i % len(survivors)]
+            part = assignments.pop(key)
+            assignments[target] = np.concatenate([assignments[target], part])
+            if target not in targets:
+                targets.append(target)
+            self.log.warning("async fit: re-issuing %d samples of dead worker %s:%d to "
+                             "%s:%d", len(part), key[0], key[1], *target)
+        for target in targets:
+            self._try_start_async_worker(target, assignments[target], w_now, batch_size,
+                                         learning_rate, optimizer, momentum)
+
+    def _try_start_async_worker(self, key, part, w, batch_size, learning_rate, optimizer,
+                                momentum) -> None:
+        """A re-issue whose target died since its probe evicts it instead of
+        ending the fit: the next tick reassigns its rows."""
+        try:
+            self._start_async_worker(key, part, w, batch_size, learning_rate, optimizer,
+                                     momentum)
+        except (grpc.RpcError, RuntimeError) as e:
+            code = e.code() if isinstance(e, grpc.RpcError) else e
+            self.log.warning("async fit: StartAsync re-issue to %s:%d failed (%s); evicting "
+                             "(its samples reassign next tick)", key[0], key[1], code)
+            self.unregister_worker(*key, evicted=True)
+
+    # -- the batch-drain inbox (DSGD_ASYNC_DRAIN) ----------------------------
+
+    # each entry is a dense [D] delta: past this many the per-message apply
+    # takes over, so the inbox cannot grow without bound
+    ASYNC_INBOX_CAP = 1024
+
+    def _inbox_put(self, delta: np.ndarray, n_steps: int) -> bool:
+        """Buffer a delta iff the drain is on and the inbox has room,
+        checked under the inbox lock (so no delta lands after the drain
+        ended).  False: the caller applies it itself; on a full inbox that
+        is counted under ASYNC_DRAIN_FALLBACK."""
+        with self._inbox_cv:
+            if not self._drain_on or len(self._inbox) >= self.ASYNC_INBOX_CAP:
+                if self._drain_on:
+                    self.metrics.counter(metrics_mod.ASYNC_DRAIN_FALLBACK).increment()
+                return False
+            self._inbox.append((delta, n_steps))
+            self.metrics.gauge(metrics_mod.HEALTH_DRAIN_BACKLOG).set(len(self._inbox))
+            self._inbox_cv.notify()
+            return True
+
+    def _drain_loop(self) -> None:
+        """Sum every buffered delta on the host and apply them at once
+        (deltas commute); ends once the fit turned the drain off and the
+        inbox is empty."""
+        drains = self.metrics.counter(metrics_mod.ASYNC_DRAINS)
+        sizes = self.metrics.histogram(metrics_mod.ASYNC_DRAIN_SIZE)
+        while True:
+            with self._inbox_cv:
+                while not self._inbox and self._drain_on:
+                    self._inbox_cv.wait(timeout=0.25)
+                batch, self._inbox = self._inbox, []
+                self.metrics.gauge(metrics_mod.HEALTH_DRAIN_BACKLOG).set(0)
+                if not batch and not self._drain_on:
+                    return
+            if not batch:
+                continue
+            acc = np.array(batch[0][0], dtype=np.float32, copy=True)
+            total = int(batch[0][1])
+            for delta, n in batch[1:]:
+                acc += delta
+                total += int(n)
+            self._update_grad(acc, n_steps=total)
+            drains.increment()
+            sizes.record(len(batch))
+
+    def _update_grad(self, delta: np.ndarray, n_steps: int = 1) -> None:
+        """One gossip message (MasterAsync.scala:164-177): w <- w - delta on
+        this device; `n_steps` local steps counted against the budget."""
+        d = torch.from_numpy(np.asarray(delta, dtype=np.float32)).to(self.device)
+        with self._async_lock:
+            if self._w_async is None:
+                return
+            self._w_async = self._w_async - d
+            stride = max(1, int(n_steps))
+            self._updates += stride
+            updates = self._updates
+        if updates % 1000 < stride:  # a crossing: strides of k
+            self.log.info("%d updates received", updates)
+        if updates >= self._max_steps and self._async_running.is_set():
+            self.log.info("max number of steps reached: stopping computation")
+            self._async_running.clear()
+            self._async_done.set()  # wake the check loop
+
+
+def _host(w) -> np.ndarray:
+    """Weights as a host f32 array (from a tensor on any device)."""
+    if isinstance(w, torch.Tensor):
+        return w.detach().cpu().numpy()
+    return np.asarray(w, dtype=np.float32)
 
 
 class _MasterServicer:
@@ -614,9 +987,15 @@ class _MasterServicer:
         return pb.Ack()
 
     def UpdateGrad(self, request, context):  # noqa: N802
-        context.abort(grpc.StatusCode.UNIMPLEMENTED,
-                      "the async RPC engine's delta gossip: not ported to the torch "
-                      "master yet (ROADMAP.md Queue A [A8] 3.2)")
+        # the gossip's bytes as received (the workers' sends are not counted)
+        self.m.metrics.counter("master.async.grad.bytes").increment(request.ByteSize())
+        delta = codec.decode_grad(request)
+        n_steps = request.n_steps or 1
+        # batch drain: decoded here, on the servicer's thread, and summed
+        # by the drain thread; declined when the drain is off or full
+        if not self.m._inbox_put(delta, n_steps):
+            self.m._update_grad(delta, n_steps=n_steps)
+        return pb.Ack()
 
     def Ping(self, request, context):  # noqa: N802
         # membership probe: a caller this master does not know gets NOT_FOUND

@@ -10,14 +10,18 @@ role (config.py ``Config.role``) picks what runs:
   test loss.  With DSGD_ENGINE=mesh (the default) the fit is the sync
   engine with K virtual workers, or with DSGD_ASYNC=1 the Hogwild gossip
   engine (DSGD_ASYNC_MODE=gossip) or local SGD (local_sgd).  With
-  DSGD_ENGINE=rpc it is the sync fit of an in-process gRPC cluster
-  (core/cluster.py: a master and DSGD_NODE_COUNT workers on loopback);
+  DSGD_ENGINE=rpc it is the fit of an in-process gRPC cluster
+  (core/cluster.py: a master and DSGD_NODE_COUNT workers on loopback):
+  the sync fit, or with DSGD_ASYNC=1 the async fit (Hogwild gossip
+  between the workers, DSGD_STEPS_PER_DISPATCH local steps a dispatch,
+  DSGD_GOSSIP_TOPOLOGY, DSGD_ASYNC_DRAIN);
 - master (DSGD_MASTER_HOST/PORT equal DSGD_NODE_HOST/PORT): load the
   data, serve on DSGD_NODE_PORT, wait for DSGD_NODE_COUNT workers, run
-  the sync fit and exit;
+  the sync fit (or with DSGD_ASYNC=1 the async one) and exit;
 - worker (any other DSGD_MASTER_HOST/PORT): load the data, serve on
-  DSGD_NODE_PORT, register with the master and answer its Gradient and
-  Forward calls until SIGTERM.
+  DSGD_NODE_PORT, register with the master and answer its calls
+  (Gradient and Forward; StartAsync, UpdateGrad and StopAsync, with
+  DSGD_STEPS_PER_DISPATCH and DSGD_GOSSIP_TOPOLOGY) until SIGTERM.
 
 Every engine takes DSGD_OPTIMIZER (sgd | momentum | adam) with
 DSGD_MOMENTUM.  DSGD_CHECKPOINT_DIR saves and resumes every fit
@@ -229,24 +233,40 @@ def warn_mesh_ignored(cfg: Config) -> None:
             "topology's (use engine=rpc; docs/HIERARCHY.md)")
 
 
+def _rpc_fit(cfg: Config, master) -> FitResult:
+    """The master's fit: the async one with DSGD_ASYNC=1, else the sync
+    one, with the JAX CLI's arguments."""
+    criterion = no_improvement(patience=cfg.patience, min_delta=cfg.conv_delta)
+    ckpt = _make_checkpointer(cfg)
+    if cfg.use_async:
+        return master.fit_async(
+            cfg.max_epochs, cfg.batch_size, cfg.learning_rate, criterion,
+            check_every=cfg.check_every, leaky_loss=cfg.leaky_loss,
+            initial_weights=_restore_weights(ckpt), checkpointer=ckpt,
+            optimizer=cfg.optimizer, momentum=cfg.momentum,
+            elastic=cfg.elastic, batch_drain=cfg.async_drain)
+    return master.fit_sync(
+        cfg.max_epochs, cfg.batch_size, cfg.learning_rate, criterion,
+        checkpointer=ckpt, checkpoint_every=cfg.checkpoint_every,
+        optimizer=cfg.optimizer, momentum=cfg.momentum)
+
+
 def scenario_rpc(cfg: Config, train: Dataset, test: Dataset, model,
                  metrics: Optional[metrics_mod.Metrics] = None) -> FitResult:
-    """Dev-mode reference-parity path: the sync fit of an in-process gRPC
-    cluster (core/cluster.py), every node on the model's device."""
+    """Dev-mode reference-parity path: the sync or async fit of an
+    in-process gRPC cluster (core/cluster.py), every node on the model's
+    device."""
     from distributed_sgd_tpu_torch.core.cluster import DevCluster
 
-    criterion = no_improvement(patience=cfg.patience, min_delta=cfg.conv_delta)
-    log.info("engine=rpc workers=%d model=%s device=%s", cfg.node_count, cfg.model,
-             model.device)
+    log.info("engine=rpc workers=%d model=%s async=%s device=%s", cfg.node_count, cfg.model,
+             cfg.use_async, model.device)
     with DevCluster(model, train, test, n_workers=cfg.node_count, seed=cfg.seed,
-                    metrics=metrics) as c:
+                    metrics=metrics, steps_per_dispatch=cfg.steps_per_dispatch,
+                    gossip_topology=cfg.gossip_topology) as c:
         w0 = np.zeros(model.n_features, dtype=np.float32)
         loss0, acc0 = c.master.local_loss(w0, test=False)
         log.info("initial loss=%.6f acc=%.4f", loss0, acc0)
-        res = c.master.fit_sync(
-            cfg.max_epochs, cfg.batch_size, cfg.learning_rate, criterion,
-            checkpointer=_make_checkpointer(cfg), checkpoint_every=cfg.checkpoint_every,
-            optimizer=cfg.optimizer, momentum=cfg.momentum)
+        res = _rpc_fit(cfg, c.master)
         _finish(res, evaluator=lambda w: c.master.local_loss(w, test=True))
     return res
 
@@ -262,18 +282,14 @@ def _finish(res: FitResult, evaluator=None) -> None:
 
 def _run_master(cfg: Config, train: Dataset, test: Dataset, model) -> FitResult:
     """The master role: serve on DSGD_NODE_PORT, wait for DSGD_NODE_COUNT
-    workers, run the sync fit, stop."""
+    workers, run the sync (or async) fit, stop."""
     from distributed_sgd_tpu_torch.core.master import MasterNode
 
     master = MasterNode(cfg.host, cfg.port, train, test, model,
                         expected_workers=cfg.node_count, seed=cfg.seed).start()
     try:
         master.await_ready()
-        criterion = no_improvement(patience=cfg.patience, min_delta=cfg.conv_delta)
-        res = master.fit_sync(
-            cfg.max_epochs, cfg.batch_size, cfg.learning_rate, criterion,
-            checkpointer=_make_checkpointer(cfg), checkpoint_every=cfg.checkpoint_every,
-            optimizer=cfg.optimizer, momentum=cfg.momentum)
+        res = _rpc_fit(cfg, master)
         _finish(res, evaluator=lambda w: master.local_loss(w, test=True))
     finally:
         master.stop()
@@ -300,7 +316,9 @@ def _run_worker(cfg: Config, train: Dataset, model) -> None:
     from distributed_sgd_tpu_torch.core.worker import WorkerNode
 
     worker = WorkerNode(cfg.host, cfg.port, cfg.master_host, cfg.master_port, train, model,
-                        seed=cfg.seed, profile_dir=cfg.profile_dir)
+                        seed=cfg.seed, profile_dir=cfg.profile_dir,
+                        steps_per_dispatch=cfg.steps_per_dispatch,
+                        gossip_topology=cfg.gossip_topology)
 
     def _on_signal(signum, _frame):
         log.info("signal %d: stopping the worker", signum)

@@ -27,9 +27,13 @@ kernel keeps that state in shared memory beside w.  Adam divides by
 (`bias_corrections`) that the kernel and the plain version share.
 
 On a CUDA tensor the wrapper launches the hand-written kernel in
-``csrc/sync_epoch.cu`` (one thread-block cluster holding w, dim_sparsity
-and g in distributed shared memory for the whole run; built at first use,
-ops/_build.py) or raises.  On a CPU tensor it runs ``sync_epoch_plain``.
+``csrc/sync_epoch.cu`` (one thread-block cluster holding w, the optimizer
+state and g in distributed shared memory for the whole run; built at
+first use, ops/_build.py) or raises.  On a CPU tensor it runs
+``sync_epoch_plain``.  The kernel sums g in a fixed order: each term is
+scaled by a power of two (`scale_exponent`, from the data's bounds,
+`data_bounds`) and added as a 64-bit integer, so one input gives one
+output bit for bit.
 ``sync_epoch.launches`` counts kernel launches, ``sync_epoch.steps`` the
 steps they ran and ``sync_epoch.opt_launches`` the launches of each
 optimizer; the async engines launch from several threads, so all are added
@@ -43,13 +47,19 @@ launch.
 from __future__ import annotations
 
 import ctypes
+import math
 import threading
-from typing import NamedTuple, Optional, Tuple
+import weakref
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from distributed_sgd_tpu_torch.ops.worker_grads import COEFF_KINDS, worker_grads_plain
+from distributed_sgd_tpu_torch.ops.worker_grads import (
+    COEFF_KINDS,
+    LEAST_SQUARES,
+    worker_grads_plain,
+)
 
 REG_KINDS = ("dim_sparsity", "l2", "none")  # the kernel's reg_kind is the index
 # the kernel's opt_kind is the index, which is also the number of [D] state vectors
@@ -57,7 +67,11 @@ OPT_KINDS = ("sgd", "momentum", "adam")
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults (eps_root 0)
 CLUSTER_BLOCKS = 8  # the portable cluster size
 SMEM_BYTES_PER_BLOCK = 232_448  # what one Hopper block may use (227 KB)
-_SCRATCH_FLOATS = 2 + 32  # the w . dim_sparsity partial by step parity, one sum per warp
+# the w . dim_sparsity partial and the largest |w| by step parity, one
+# value per warp, and the non-finite flag by step parity
+_SCRATCH_FLOATS = 2 + 2 + 32 + 2
+SUM_BITS = 62  # the integer sums of g stay within 2^62 < 2^63
+SCALE_LIMIT = 1000  # |e|: 2^e stays a normal double
 _CLUSTER_UNSCHEDULABLE = 100000  # the C function's code for that
 _counts_lock = threading.Lock()
 
@@ -69,17 +83,88 @@ class ClusterPlan(NamedTuple):
 
 
 def cluster_plan(k: int, d: int, n_state: int = 0) -> Optional[ClusterPlan]:
-    """The cluster that holds w, dim_sparsity, `n_state` optimizer state
-    vectors and g[K, D] in shared memory, or None when that does not fit
-    (at D=47,236: K <= 7 for sgd, 6 for momentum, 5 for adam)."""
+    """The cluster that holds w (4 B a feature), `n_state` optimizer state
+    vectors (4 B each) and the integer sums g[K, D] (8 B a worker) in
+    shared memory, or None when that does not fit: at D=47,236, K <= 4 for
+    sgd and K <= 3 for momentum and adam; at K=1 (the mean mode) D up to
+    154,848 for sgd, 116,128 for momentum and 92,896 for adam."""
     if k < 1 or d < 1:
         return None
     owned = -(-d // CLUSTER_BLOCKS)
     owned = -(-owned // 4) * 4  # 16-byte aligned sub-arrays
-    smem = 4 * ((2 + n_state + k) * owned + _SCRATCH_FLOATS)
+    smem = (8 * k + 4 * (1 + n_state)) * owned + 4 * _SCRATCH_FLOATS
     if smem > SMEM_BYTES_PER_BLOCK:
         return None
     return ClusterPlan(CLUSTER_BLOCKS, owned, smem)
+
+
+def scale_exponent(bound: float, count: int) -> int:
+    """The exponent e of the power-of-two scale at which `count` terms of
+    magnitude at most `bound`, each scaled by 2^e and rounded to an
+    integer, sum within 2^SUM_BITS: with bound < 2^E, a scaled term is at
+    most 2^(E + e) (an f32 term rounds to at most 2^E), and
+    e = SUM_BITS - E - ceil(log2(count)).  A bound that is not finite takes
+    2^128, above every finite f32; a zero bound (no nonzero term) takes 0.
+    The kernel's scale_exponent is the same rule."""
+    if not bound > 0 or count < 1:
+        return 0
+    if not math.isfinite(bound):
+        bound = 2.0 ** 128
+    e = SUM_BITS - math.frexp(bound)[1] - (int(count) - 1).bit_length()
+    return max(-SCALE_LIMIT, min(SCALE_LIMIT, e))
+
+
+class DataBounds(NamedTuple):
+    """The largest finite |label| and |value| of the data, and its largest
+    row sum of finite |value| (computed in double)."""
+
+    y_max: float
+    v_max: float
+    l1_max: float
+
+
+def term_bound(coeff_kind: int, bounds: DataBounds, w_max: float = 0.0) -> float:
+    """A bound on every finite term c * v a step can add: hinge and
+    logistic have |c| <= |y|; least squares, c = 2 (m - y), gets
+    4 (max|w| L1 + max|y|) max|v| from the step's largest |w| (twice the
+    exact bound, which covers the f32 rounding of the margin).  The
+    kernel computes the least-squares bound each step from the cluster's
+    max |w|; the others the wrapper computes once a launch."""
+    if coeff_kind == LEAST_SQUARES:
+        return 4.0 * (w_max * bounds.l1_max + bounds.y_max) * bounds.v_max
+    return bounds.y_max * bounds.v_max
+
+
+_bounds_lock = threading.Lock()
+# (id(values), id(labels)) -> (weakrefs, versions, DataBounds)
+_bounds_cache: Dict[Tuple[int, int], tuple] = {}
+
+
+def data_bounds(values: torch.Tensor, labels_f32: torch.Tensor) -> DataBounds:
+    """The data's `DataBounds`, computed once per (values, labels) pair and
+    kept while both tensors live and are not written to: an engine
+    launches over the same data every epoch or dispatch."""
+    key = (id(values), id(labels_f32))
+    version = (values._version, labels_f32._version)
+    with _bounds_lock:
+        hit = _bounds_cache.get(key)
+        if hit is not None and hit[0][0]() is values and hit[0][1]() is labels_f32 \
+                and hit[1] == version:
+            return hit[2]
+    av = values.abs()
+    av = torch.where(torch.isfinite(av), av, torch.zeros_like(av))
+    ay = labels_f32.abs()
+    ay = torch.where(torch.isfinite(ay), ay, torch.zeros_like(ay))
+    zero = torch.zeros((), dtype=torch.float64, device=values.device)
+    got = torch.stack([ay.max().double() if ay.numel() else zero,
+                       av.max().double() if av.numel() else zero,
+                       av.double().sum(dim=1).max() if av.numel() else zero]).tolist()
+    bounds = DataBounds(*got)
+    with _bounds_lock:
+        for k in [k for k, v in _bounds_cache.items() if v[0][0]() is None or v[0][1]() is None]:
+            del _bounds_cache[k]
+        _bounds_cache[key] = ((weakref.ref(values), weakref.ref(labels_f32)), version, bounds)
+    return bounds
 
 
 def regularize(gk: torch.Tensor, w: torch.Tensor, reg_kind: str, lam: float,
@@ -231,16 +316,21 @@ def _kernel():
     first use."""
     from distributed_sgd_tpu_torch.ops import _build
 
-    fn = _build.load("sync_epoch").dsgd_sync_epoch
+    return bind(_build.load("sync_epoch").dsgd_sync_epoch)
+
+
+def bind(fn):
+    """`fn`, the C entry point ``dsgd_sync_epoch`` of a built library, with
+    its argument types."""
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int64] + [ctypes.c_int] * 11
-                       + [ctypes.c_float] * 9 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int64] + [ctypes.c_int] * 13
+                       + [ctypes.c_double] * 3 + [ctypes.c_float] * 9 + [ctypes.c_void_p])
     return fn
 
 
 def _launch(w, ids, indices, values, labels_f32, coeff_kind, reg_kind, lam,
-            dim_sparsity, lr, n_total_workers, grad_divisor, optimizer, opt_state):
+            dim_sparsity, lr, n_total_workers, grad_divisor, optimizer, opt_state, fn=None):
     s, k, b = ids.shape
     n, p = indices.shape
     d = w.shape[0]
@@ -251,8 +341,11 @@ def _launch(w, ids, indices, values, labels_f32, coeff_kind, reg_kind, lam,
         raise ValueError(
             f"K={k} workers at D={d} with {opt.kind}'s {opt.n_state} state vectors do not "
             f"fit one cluster's shared memory (cluster_plan); run the per-step path")
-    fn = _kernel()
+    fn = _kernel() if fn is None else bind(fn)
     ds_ptr = dim_sparsity.data_ptr() if reg_kind == "dim_sparsity" else 0
+    bounds = data_bounds(values, labels_f32)
+    n_terms = b * p  # terms a step adds into one g[k, i], at most
+    scale_e = scale_exponent(term_bound(coeff_kind, bounds), n_terms)
     # decay1, decay2, keep1, keep2: 1 - b in double, then f32, as JAX's
     # weakly typed constants
     consts = {"sgd": (0.0, 0.0, 0.0, 0.0), "momentum": (opt.momentum, 0.0, 0.0, 0.0),
@@ -262,15 +355,20 @@ def _launch(w, ids, indices, values, labels_f32, coeff_kind, reg_kind, lam,
         outs = tuple(torch.empty_like(v) for v in vectors)
         bias = (torch.from_numpy(bias_corrections(count, s)).to(w.device)
                 if opt.kind == "adam" and s > 0 else None)
+        # dim_sparsity by owner, then the non-finite terms' f32 sums
+        scratch = torch.empty((1 + k) * plan.blocks * plan.slice, dtype=torch.float32,
+                              device=w.device)
         ins_ptr = [v.data_ptr() for v in vectors] + [0] * (2 - len(vectors))
         outs_ptr = [v.data_ptr() for v in outs] + [0] * (2 - len(outs))
         stream = torch.cuda.current_stream(w.device).cuda_stream
         err = fn(w.data_ptr(), ds_ptr, ids.data_ptr(), indices.data_ptr(),
                  values.data_ptr(), labels_f32.data_ptr(), w_out.data_ptr(), *ins_ptr,
-                 *outs_ptr, 0 if bias is None else bias.data_ptr(), n, s, k, b, p, d,
-                 plan.blocks, plan.slice, plan.smem_bytes, coeff_kind,
-                 REG_KINDS.index(reg_kind), OPT_KINDS.index(opt.kind), 2.0 * lam, lr,
-                 float(n_total_workers), float(grad_divisor), *consts, ADAM_EPS, stream)
+                 *outs_ptr, 0 if bias is None else bias.data_ptr(), scratch.data_ptr(), n, s,
+                 k, b, p, d, plan.blocks, plan.slice, plan.smem_bytes, coeff_kind,
+                 REG_KINDS.index(reg_kind), OPT_KINDS.index(opt.kind), scale_e,
+                 (n_terms - 1).bit_length(), bounds.l1_max, bounds.y_max, bounds.v_max,
+                 2.0 * lam, lr, float(n_total_workers), float(grad_divisor), *consts,
+                 ADAM_EPS, stream)
     if err == _CLUSTER_UNSCHEDULABLE:
         raise RuntimeError(
             f"sync_epoch: a cluster of {plan.blocks} blocks with {plan.smem_bytes} B of "

@@ -15,8 +15,8 @@ same step on one card (world size 1):
    bind time (zeros, count 0) and carried from call to call, as the JAX
    engine's ``_opt_state``.
 
-Where the state (w, dim_sparsity, the optimizer's vectors and the K
-workers' sums) fits one thread-block cluster's shared memory
+Where the state (w, the optimizer's vectors and the K workers' integer
+sums) fits one thread-block cluster's shared memory
 (``cluster_plan``, checked when the engine is bound), a whole epoch's steps
 are one launch of the ``sync_epoch`` kernel (ops/sync_epoch.py).  Otherwise
 each step runs on its own (``_one_step``): one ``worker_grads`` launch
@@ -313,8 +313,8 @@ class MeanSteps:
     Each step with ids[B] is the JAX async step (hogwild.py, local_sgd.py):
     ``grad_mean`` (the gradient sum over the batch, divided by B), the
     model's regularizer, then the optimizer's update (``local_update``:
-    ``w - lr*g`` for 'sgd').  Where w, dim_sparsity and the optimizer's
-    state fit one cluster (``cluster_plan(1, D, n_state)``: D up to
+    ``w - lr*g`` for 'sgd').  Where w, the optimizer's state and the
+    integer sums fit one cluster (``cluster_plan(1, D, n_state)``: D up to
     154,848 for sgd, 116,128 for momentum, 92,896 for adam), `run` is one
     ``sync_epoch`` launch in the mean mode (K = 1, grad_divisor = B).
     Otherwise each step is one ``worker_grads`` launch, with the mean, the

@@ -517,7 +517,9 @@ class GossipSender:
     `slave.async.grad.dropped` once it settles as actually-cancelled (a
     call already executing server-side may still be delivered despite the
     cancel) — the same drop-oldest-under-overload policy as the in-process
-    engine's bounded inbox (parallel/hogwild.py).
+    engine's bounded inbox (parallel/hogwild.py).  Every call made is
+    counted under `slave.async.grad.sent` (the port's counter; the JAX
+    sender counts only drops).
 
     With a `breaker` (CircuitBreaker), sends to a partitioned peer are
     SUPPRESSED while the breaker is open — one half-open probe per
@@ -587,6 +589,8 @@ class GossipSender:
             except ValueError:  # channel closed under us
                 return
             self._inflight.append(fut)
+            if self._metrics is not None:
+                self._metrics.counter("slave.async.grad.sent").increment()
             if self.breaker is not None:
                 fut.add_done_callback(self._report_to_breaker)
 

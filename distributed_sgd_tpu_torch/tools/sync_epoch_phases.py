@@ -19,11 +19,11 @@ says so (at lr 0 no variant moves w).
   stay);
 - ``no_phase_a``: no sample is gathered or scattered: the two cluster
   barriers, the w . dim_sparsity exchange and the dense sweep;
-- ``spread_atomics``: every atomic goes to the same owner block as in the
+- ``spread_atomics``: every term goes to the same owner block as in the
   kernel, but to a scrambled entry, so no two samples add into one
   address: the cost of same-address contention;
-- ``local_atomics``: every atomic goes to the same entry of the block's
-  own shared memory instead of the owner's: the cost of the remote path;
+- ``local_atomics``: every term goes to the same entry of the block's own
+  shared memory instead of the owner's: the cost of the remote path;
 - ``contiguous_owner``: block r owns features [r*slice, (r+1)*slice)
   instead of every 8th: the ownership that puts the most popular features
   on one block;
@@ -53,22 +53,25 @@ from distributed_sgd_tpu_torch.ops import _build
 from distributed_sgd_tpu_torch.ops import sync_epoch as se
 
 N, K, B, P, D, STEPS = 643531, 3, 100, 76, 47236, 2146
-HELD_ATOMIC = "atomicAdd(owned(cluster, g_k, r.i[t]), c * r.v[t]);"
+HELD_TERM = "add_term(cluster, p, sink, r.k, r.i[t], c * r.v[t]);"
+REMOTE_ADD = "cluster_add(sink.g + (size_t)k * p.slice + j, owner, (unsigned long long)q);"
 OWNER = "return cluster.map_shared_rank(base + i / kCluster, i % kCluster);"
+TERM_OWNER = "const int owner = i % kCluster, j = i / kCluster;"
 
 
 def variants(slice_: int):
     return {
         "kernel": [],
         "no_scatter": [("if (c == 0.f) return;", "if (c == c) return;")],
-        "no_phase_a": [("run_sample(cluster, p, first, sub, w_s, g_s);", ";")],
-        "spread_atomics": [(HELD_ATOMIC, (
-            "atomicAdd(cluster.map_shared_rank(g_k + (r.i[t] / kCluster + 613 * "
-            "(threadIdx.x / kLanes) + 97 * t) % (p.slice - 4), r.i[t] % kCluster), "
-            "c * r.v[t]);"))],
-        "local_atomics": [(HELD_ATOMIC, "atomicAdd(g_k + r.i[t] / kCluster, c * r.v[t]);")],
-        "contiguous_owner": [(OWNER, (
-            f"return cluster.map_shared_rank(base + i % {slice_}, i / {slice_});"))],
+        "no_phase_a": [("run_sample(cluster, p, first, sub, w_s, sink);", ";")],
+        "spread_atomics": [(HELD_TERM, (
+            "add_term(cluster, p, sink, r.k, (r.i[t] + kCluster * (613 * (threadIdx.x / "
+            "kLanes) + 97 * t)) % (p.D - p.D % kCluster), c * r.v[t]);"))],
+        "local_atomics": [(REMOTE_ADD, (
+            "atomicAdd(sink.g + (size_t)k * p.slice + j, (unsigned long long)q);"))],
+        "contiguous_owner": [
+            (OWNER, f"return cluster.map_shared_rank(base + i % {slice_}, i / {slice_});"),
+            (TERM_OWNER, f"const int owner = i / {slice_}, j = i % {slice_};")],
         "sgd_only": [("if (p.opt_kind == kOptMomentum) {", "if (false) {"),
                      ("} else if (p.opt_kind == kOptAdam) {", "} else if (false) {")],
     }
@@ -97,11 +100,7 @@ def build(tmp: Path, slice_: int):
             raise RuntimeError(f"variant {name} did not build:\n{report}")
         regs = [ln.strip() for ln in report.splitlines() if "registers" in ln or "spill" in ln]
         print(json.dumps({"variant": name, "ptxas": regs}), flush=True)
-        fn = ctypes.CDLL(str(tmp / f"lib{name}.so")).dsgd_sync_epoch
-        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int64] + [ctypes.c_int] * 11
-                       + [ctypes.c_float] * 9 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        libs[name] = fn
+        libs[name] = se.bind(ctypes.CDLL(str(tmp / f"lib{name}.so")).dsgd_sync_epoch)
     return libs
 
 
@@ -121,15 +120,9 @@ def main() -> None:
     w = torch.zeros(D, device="cuda")
 
     def run(fn, steps, lr):
-        out = torch.empty_like(w)
-        # sgd: no optimizer state, no bias table
-        err = fn(w.data_ptr(), ds.data_ptr(), ids.data_ptr(), idx.data_ptr(), val.data_ptr(),
-                 y.data_ptr(), out.data_ptr(), 0, 0, 0, 0, 0, N, steps, K, B, P, D,
-                 plan.blocks, plan.slice, plan.smem_bytes, 0, 0, 0, 2e-5, lr, float(K), 1.0,
-                 0.0, 0.0, 0.0, 0.0, 0.0, torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"launch failed: {err}")
-        return out
+        # the wrapper's launch with the variant's entry point: sgd, K=3
+        return se._launch(w, ids[:steps], idx, val, y, 0, "dim_sparsity", 1e-5, ds, lr, K, 1,
+                          None, None, fn=fn)
 
     with tempfile.TemporaryDirectory() as tmp:
         libs = build(Path(tmp), plan.slice)

@@ -2,23 +2,27 @@
 
     python -m distributed_sgd_tpu_torch.tools.sync_repeatability [--runs 8] [--launches 40]
 
-The sync_epoch kernel adds each sample's contribution into g with remote
-atomics, so the order of the float sums, and their last bits, change from
-run to run.  The reference's hinge subgradient is discontinuous at a zero
-margin (coefficient 0 where y * margin < 0, else y), so a sample whose
-margin lies within rounding of 0 can take either side; Adam, which scales
-each entry's step by that entry's own gradient history, spreads such a
-flip over many weights.  At the main path's shape (the CLI's 804,414
-synthetic rows, its 80/20 split, K=3, B=100, hinge, dim_sparsity), with
-sgd (lr 0.5) and adam (lr 0.001), the tool runs:
+The reference's hinge subgradient is discontinuous at a zero margin
+(coefficient 0 where y * margin < 0, else y), so a sample whose margin
+lies within rounding of 0 takes either side when the last bits of w
+change; Adam, which scales each entry's step by that entry's own
+gradient history, spreads such a flip over many weights.  A kernel that
+sums in a different order on every launch (f32 atomics) therefore lands
+an adam fit at more than one place; the fixed-order ``sync_epoch`` (64-bit
+integer sums) must land every run at one.  At the main path's shape (the
+CLI's 804,414 synthetic rows, its 80/20 split, K=3, B=100, hinge,
+dim_sparsity), with sgd (lr 0.5) and adam (lr 0.001), the tool runs:
 
 - `--runs` fits of 3 epochs from zero: the test loss after each epoch,
-  the largest weight difference from the first run, and how many runs
-  end at each final test loss (to 7 significant digits);
+  the largest weight difference from the first run, how many runs end at
+  each final test loss (to 7 significant digits) and how many distinct
+  final weights (bit for bit) they give;
 - `--launches` launches of the third epoch from one state: how many land
-  at each largest weight difference from the first launch (to 1e-6).
+  at each largest weight difference from the first launch (to 1e-6), and
+  how many distinct weights (bit for bit) they give.
 
-Prints the card's name and power limit, then one JSON line per optimizer.
+Prints the card's name and power limit, then one JSON line per optimizer;
+``landing_places`` is the larger of the two distinct counts.
 Needs one CUDA card and nvcc.
 """
 
@@ -26,6 +30,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import hashlib
 import json
 import subprocess
 import sys
@@ -53,7 +58,8 @@ def measure(kind: str, model, train, test_bound, runs: int, launches: int) -> di
             w = bound.epoch(w, fold_in(0, e))
             losses.append(test_bound.evaluate(w)[0])
         first = w if first is None else first
-        fits.append({"test_losses": losses, "max_w_diff": float((w - first).abs().max())})
+        fits.append({"test_losses": losses, "max_w_diff": float((w - first).abs().max()),
+                     "digest": hashlib.sha256(w.cpu().numpy().tobytes()).hexdigest()})
         print(f"{kind} fit: test losses {losses}; weights max |w - first run| "
               f"{fits[-1]['max_w_diff']:.3e}", flush=True)
     # the third epoch's launch, repeated from the state the second left
@@ -69,11 +75,15 @@ def measure(kind: str, model, train, test_bound, runs: int, launches: int) -> di
     outs = [se.sync_epoch(w, ids, d.indices, d.values, bound._labels_f32, **kw)[0]
             for _ in range(launches)]
     diffs = [round(float((o - outs[0]).abs().max()), 6) for o in outs]
+    fit_places = len({f.pop("digest") for f in fits})
+    launch_places = len({hashlib.sha256(o.cpu().numpy().tobytes()).hexdigest() for o in outs})
     return {
         "optimizer": kind, "lr": LR[kind], "fits": fits,
         "final_test_loss_counts": dict(collections.Counter(
             f"{f['test_losses'][-1]:.7g}" for f in fits)),
         "launch_diff_counts": dict(collections.Counter(diffs)),
+        "distinct_fit_weights": fit_places, "distinct_launch_weights": launch_places,
+        "landing_places": max(fit_places, launch_places),
     }
 
 

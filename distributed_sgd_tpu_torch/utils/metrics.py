@@ -17,7 +17,7 @@ recorded values.  Exporters:
 
 The instrument constants are those the port records: the sync trainer,
 the async engines, and the RPC master and worker (core/master.py,
-core/worker.py).  The serving, tree, shard and autopilot families wait
+core/worker.py), the async RPC fit included.  The serving, tree, shard and autopilot families wait
 for their modules (ROADMAP.md Queue A).
 """
 
@@ -376,6 +376,22 @@ SYNC_STALLED = "master.sync.barrier.stalled"       # soft-deadline overruns, no 
 SYNC_RESPLITS = "master.sync.resplit"            # counter: mid-fit membership resplits
 MASTER_EVICTIONS = "master.evictions"          # counter: involuntary unregisters
 BREAKER_OPEN = "rpc.breaker.open"                  # breaker trips (rpc/service.py)
+
+# -- the RPC async fit (core/master.py fit_async, core/worker.py) ---------------
+#
+# A worker counts its local steps under `slave.async.batch` (k a dispatch)
+# and the peer deltas it merged under `slave.async.grad.update`; its
+# bounded gossip senders count `slave.async.grad.dropped` and, past an
+# open breaker, GOSSIP_SUPPRESSED.  The master records each check's
+# smoothed test loss under `master.async.loss` (a counter, truncated as
+# the reference does) and `master.async.loss.value` (a histogram), and
+# with DSGD_ASYNC_DRAIN its inbox below.
+GOSSIP_SUPPRESSED = "slave.async.grad.suppressed"  # sends refused by an open breaker
+ASYNC_DRAINS = "master.async.drain.batches"        # inbox drains applied
+ASYNC_DRAIN_SIZE = "master.async.drain.size"       # histogram: messages per drain
+ASYNC_DRAIN_FALLBACK = "master.async.drain.fallback"  # full inbox -> per-message
+TOPOLOGY_RESELECT = "slave.async.topology.reselect"  # edges re-routed past breakers
+HEALTH_DRAIN_BACKLOG = "health.drain.backlog"       # gauge: async inbox depth (master)
 
 
 def record_broadcast(metrics: "Metrics", form: str, n_bytes: int) -> None:

@@ -47,7 +47,8 @@ def test_every_port_module_imports_with_jax_blocked():
             "distributed_sgd_tpu_torch.rpc.codec", "distributed_sgd_tpu_torch.rpc.service",
             "distributed_sgd_tpu_torch.rpc.dsgd_pb2", "distributed_sgd_tpu_torch.core.worker",
             "distributed_sgd_tpu_torch.core.master", "distributed_sgd_tpu_torch.core.cluster",
-            "distributed_sgd_tpu_torch.core.split"} <= set(mods)
+            "distributed_sgd_tpu_torch.core.split",
+            "distributed_sgd_tpu_torch.tools.sync_epoch_routes"} <= set(mods)
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"

@@ -241,7 +241,7 @@ def test_the_worker_gradient_is_worker_grads_plus_the_regularizer(data):
 
 @pytest.mark.parametrize("field", [
     "local_steps", "hedge", "ef_rollback_version", "shard_count", "agg_parent", "delta",
-    "StartAsync", "UpdateGrad", "Metrics", "AggregateGrad"])
+    "Metrics", "AggregateGrad"])
 def test_unserved_requests_answer_unimplemented_with_their_roadmap_item(data, field):
     train, test, _ = data
     with DevCluster(_models(data)[1], _torch(train), _torch(test), n_workers=1) as c:
@@ -263,10 +263,6 @@ def test_unserved_requests_answer_unimplemented_with_their_roadmap_item(data, fi
         elif field == "delta":
             req = pb.GradientRequest(samples=[0, 1], step_version=2,
                                      delta=pb.WeightDelta(base_version=1))
-        elif field == "StartAsync":
-            call, req = stub.StartAsync, pb.StartAsyncRequest()
-        elif field == "UpdateGrad":
-            call, req = stub.UpdateGrad, pb.GradUpdate()
         elif field == "Metrics":
             call, req = stub.Metrics, pb.Empty()
         else:
@@ -288,8 +284,8 @@ def test_fit_sync_levers_not_ported_raise(data, kw):
     with DevCluster(_models(data)[1], _torch(train), _torch(test), n_workers=1) as c:
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A"):
             c.master.fit_sync(1, B, 0.5, **kw)
-        with pytest.raises(NotImplementedError, match=r"\[A8\] 3.2"):
-            c.master.fit_async(1, B, 0.5)
+        with pytest.raises(NotImplementedError, match=r"\[A8\] 3.3"):
+            c.master.fit_async(1, B, 0.5, elastic=True)
 
 
 # -- fault tolerance (as tests/test_fault_tolerance.py) ---------------------

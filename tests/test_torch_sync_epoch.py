@@ -11,6 +11,7 @@ async engines' local step) is held to the JAX composition of grad_mean,
 regularize and local_update over the same ids, also to atol 1e-5."""
 
 import logging
+import math
 
 import jax
 import jax.numpy as jnp
@@ -146,17 +147,19 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
 
 
 def test_cluster_plan_fits_the_main_shape_and_refuses_past_the_budget():
+    # w at 4 B a feature and the integer sums at 8 B a worker and feature;
+    # dim_sparsity is read from global memory
     plan = se.cluster_plan(3, 47236)
-    assert plan == se.ClusterPlan(blocks=8, slice=5908, smem_bytes=4 * (5 * 5908 + 34))
+    assert plan == se.ClusterPlan(blocks=8, slice=5908, smem_bytes=(8 * 3 + 4) * 5908 + 4 * 38)
     assert plan.blocks * plan.slice >= 47236 and plan.smem_bytes <= se.SMEM_BYTES_PER_BLOCK
-    assert se.cluster_plan(7, 47236) is not None
-    assert se.cluster_plan(8, 47236) is None
+    assert se.cluster_plan(4, 47236) is not None
+    assert se.cluster_plan(5, 47236) is None
     assert se.cluster_plan(3, 10 ** 6) is None
     assert se.cluster_plan(0, 100) is None
 
 
 def test_an_engine_whose_shape_does_not_fit_takes_the_per_step_path(monkeypatch, caplog):
-    monkeypatch.setattr(se, "SMEM_BYTES_PER_BLOCK", 4096)  # (2+3) * 252 floats do not fit
+    monkeypatch.setattr(se, "SMEM_BYTES_PER_BLOCK", 4096)  # (8 * 3 + 4) * 252 B do not fit
     _, tb = _engines("hinge", "dim_sparsity", 3, "mxu", n=1200)
     assert not tb.epoch_kernel
     ids = _owned_ids(tb)
@@ -267,5 +270,76 @@ def test_mean_steps_take_the_kernel_or_the_per_step_route_by_shape(fits, monkeyp
 
 def test_cluster_plan_fits_one_worker_at_the_main_width():
     plan = se.cluster_plan(1, 47236)
-    assert plan == se.ClusterPlan(blocks=8, slice=5908, smem_bytes=4 * (3 * 5908 + 34))
+    assert plan == se.ClusterPlan(blocks=8, slice=5908, smem_bytes=12 * 5908 + 4 * 38)
     assert se.cluster_plan(1, 154848) is not None and se.cluster_plan(1, 154849) is None
+
+
+# -- the kernel's fixed-order sums: the scale of the integer accumulators ----
+
+def _scaled(t: float, e: int) -> int:
+    """A term as the kernel adds it: the f32 term times 2^e (exact in
+    double), rounded to the nearest integer."""
+    return round(math.ldexp(t, e))
+
+
+@pytest.mark.parametrize("case", ["random", "worst"])
+def test_scale_exponent_keeps_b_p_terms_at_the_bound_inside_int64(case):
+    rng = np.random.default_rng(11)
+    if case == "random":
+        shapes = [(int(rng.integers(1, 4097)), int(rng.integers(1, 1025)),
+                   float(np.float32(10.0 ** rng.uniform(-30, 30))),
+                   float(np.float32(10.0 ** rng.uniform(-30, 30)))) for _ in range(200)]
+    else:
+        big = float(np.finfo(np.float32).max)
+        tiny = float(np.finfo(np.float32).tiny)
+        shapes = [(4096, 1024, big, 1.0), (1, 1, 1.0, 1.0), (100, 76, 1.0, 1.0),
+                  (2 ** 20, 2 ** 10, 1.0, 1.0), (100, 76, 1.0, tiny),
+                  (100, 76, 2.0 ** 64, 2.0 ** 64),
+                  (100, 76, 1.0, float(np.nextafter(np.float32(1), np.float32(2))))]
+    for b, p, y_max, v_max in shapes:
+        e = se.scale_exponent(se.term_bound(0, se.DataBounds(y_max, v_max, 0.0)), b * p)
+        with np.errstate(over="ignore"):
+            t = float(np.float32(y_max) * np.float32(v_max))  # the f32 term at the bound
+        if not math.isfinite(t):
+            continue  # an overflowed term takes the non-finite path
+        q = _scaled(t, e)
+        assert b * p * abs(q) <= 2 ** se.SUM_BITS < 2 ** 63, (b, p, y_max, v_max, e)
+        if abs(e) < se.SCALE_LIMIT:
+            # a term at the bound converts back exactly: its last bit is
+            # coarser than 2^-e
+            assert math.ldexp(q, -e) == t, (b, p, y_max, v_max, e)
+    assert se.scale_exponent(0.0, 7600) == 0  # no nonzero term
+    assert se.scale_exponent(float("inf"), 7600) == se.SUM_BITS - 129 - 13
+    # the main path's rows (ltc values <= 1, labels +-1): terms at 2^-49 and finer
+    assert se.scale_exponent(1.0, 100 * 76) == 62 - 1 - 13
+
+
+def test_least_squares_bounds_every_term_from_the_step_largest_weight():
+    # least squares keeps the kernel: each step bounds c = 2 (m - y) from
+    # the cluster's largest |w|, and no term it computes in f32 exceeds it
+    rng = np.random.default_rng(12)
+    for trial in range(20):
+        n, p = 64, 24
+        val = (rng.normal(size=(n, p)) * 10.0 ** rng.uniform(-3, 3)).astype(np.float32)
+        y = (rng.normal(size=n) * 10.0 ** rng.uniform(-2, 2)).astype(np.float32)
+        w = (rng.normal(size=p) * 10.0 ** rng.uniform(-3, 3)).astype(np.float32)
+        bounds = se.data_bounds(torch.from_numpy(val), torch.from_numpy(y))
+        bound = se.term_bound(2, bounds, w_max=float(np.abs(w).max()))
+        m = np.zeros(n, np.float32)
+        for q in range(p):  # the margins summed in f32, as the kernel sums
+            m = m + w[q] * val[:, q]
+        c = np.float32(2) * (m - y)
+        terms = np.abs(c[:, None] * val)
+        assert terms.max() <= bound, trial
+        e = se.scale_exponent(bound, 100 * 76)
+        assert 100 * 76 * _scaled(float(terms.max()), e) <= 2 ** se.SUM_BITS
+
+
+def test_data_bounds_skip_non_finite_entries_and_follow_writes():
+    val = torch.tensor([[0.5, -3.0, 0.0], [float("inf"), 1.0, -1.0]])
+    y = torch.tensor([1.0, -2.0])
+    got = se.data_bounds(val, y)
+    assert got == se.DataBounds(2.0, 3.0, 3.5)
+    assert se.data_bounds(val, y) is got  # computed once for the same tensors
+    val[0, 0] = -7.0  # a write: computed anew
+    assert se.data_bounds(val, y) == se.DataBounds(2.0, 7.0, 10.0)

@@ -165,8 +165,8 @@ _RPC = {"DSGD_ENGINE": "rpc"}
     {"DSGD_RESOURCE_PROBE_S": "0.2"},
     {"DSGD_BLACKBOX_DIR": "bb"},
     {"DSGD_HOST_DEVICES": "2"},
-    # the rpc sync fit (dev engine=rpc, and the master role)
-    {**_RPC, "DSGD_ASYNC": "1"},
+    # the rpc fits (dev engine=rpc, and the master role); DSGD_ASYNC=1 and
+    # DSGD_ASYNC_DRAIN run there now (tests/test_torch_rpc_async.py)
     {**_RPC, "DSGD_HEARTBEAT_S": "0.5"},
     {**_RPC, "DSGD_LOCAL_STEPS": "4"},
     {**_RPC, "DSGD_DELTA_BROADCAST": "1"},
@@ -178,9 +178,7 @@ _RPC = {"DSGD_ENGINE": "rpc"}
     {**_RPC, "DSGD_QUORUM": "2"},
     {**_RPC, "DSGD_STRAGGLER_SOFT_S": "1.0"},
     {**_RPC, "DSGD_ELASTIC": "1"},
-    {**_RPC, "DSGD_ASYNC_DRAIN": "1"},
     {**_RPC, "DSGD_FIT_CKPT_EVERY": "10"},
-    {**_MASTER, "DSGD_ASYNC": "1"},
     {**_MASTER, "DSGD_HEARTBEAT_S": "0.5"},
     {**_MASTER, "DSGD_QUORUM": "2"},
     {**_WORKER, "DSGD_ELASTIC": "1"},
