@@ -89,7 +89,26 @@ Phases, each fatal (a traceback and a non-zero exit):
    (lr 0.05) and adam (lr 0.001); and
    the CLI as one master and 3 workers in processes of their own with
    DSGD_ASYNC=1 (100,000 rows), all exiting 0;
-10. summary: the card line, one JSON line of per-kernel numbers, and last
+10. fault tolerance over RPC, nodes on the card at full width (B=100) on
+   a 100,000-row slice: a quorum of 3 of 3 workers with no straggler,
+   bitwise equal to the plain barrier; worker 0 sleeping 1.0 s in its
+   first 20 Gradient bodies under a quorum of 2 with a 0.1 s soft
+   deadline, 2 epochs (the loss falls, accuracy >= 0.70, rounds degrade, hedges
+   are sent and win, the straggler stays a member, ``worker_grads``
+   launches equal the bodies run, hedges and late ones included), and
+   the plain barrier with the same straggler; the heartbeat (0.5 s, 3
+   misses) evicting a worker hard-killed mid-fit, the fit completing on
+   the survivors; a master that dies after its 3rd fit-state snapshot
+   (every 25 windows, 2 epochs), a new master on its port, the workers
+   registered again through their watch, and the resumed fit bitwise
+   equal to the run through, with sgd and adam (lr 0.001), 2 tokens in
+   the lineage; an elastic async fit (k=64) with a leave and a join (>= 2
+   resplits, one mean-mode launch a dispatch, no ``worker_grads``,
+   accuracy >= 0.70, no async thread left, StopAsync at every member);
+   and the CLI as one master and 3 workers with the heartbeat, a quorum,
+   DSGD_ELASTIC and fit-state snapshots, the master SIGKILLed mid-fit and
+   started again, the new master and the workers exiting 0;
+11. summary: the card line, one JSON line of per-kernel numbers, and last
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits non-zero before printing any result.
@@ -183,8 +202,11 @@ OPT_STEPS = 64  # steps of the optimizer modes' checks: enough for Adam's bias c
 OPT_EXTRA_FLOPS = {"momentum": 2, "adam": 12}
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - _T0:.1f} s)", flush=True)
 
 
 def card_line() -> str:
@@ -1964,6 +1986,498 @@ def run_async_rpc_phase() -> int:
     return out["sgd"]["launches"]
 
 
+# -- phase 10: fault tolerance over RPC --------------------------------------------
+
+FT_ROWS = 100000  # the slice phase 10 trains on (80,000 train rows)
+FT_STRAGGLER_S, FT_STRAGGLER_CALLS = 1.0, 20  # worker 0's first 20 bodies sleep 1.0 s
+FT_QUORUM, FT_SOFT_S = 2, 0.1  # 2 of 3; the soft deadline is about 6 healthy windows
+# epochs of the straggler fits: the test accuracy at 100,000 rows is 0.683
+# after 1 and 0.709 after 2 (the plain barrier's, which a quorum whose
+# hedges win lands on bit for bit)
+FT_STRAGGLER_EPOCHS = 2
+FT_HEARTBEAT_S, FT_MAX_MISSES = 0.5, 3
+FT_KILL_AT_WINDOW = 50  # the heartbeat run's victim dies after this many windows
+FT_SNAPSHOT_EVERY, FT_CRASH_AT, FT_CRASH_EPOCHS = 25, 3, 2
+FT_WATCH_S = 0.2  # the workers' master watch in the crash run
+FT_CLI_SNAPSHOT_EVERY = 50
+
+
+def ft_cluster(model, train, test, metrics, **kw):
+    from distributed_sgd_tpu_torch.core.cluster import DevCluster
+
+    return DevCluster(model, train, test, n_workers=RPC_WORKERS, seed=0, metrics=metrics,
+                      **kw)
+
+
+def ft_parts(m: Metrics) -> dict:
+    return {label: round(m.histogram(name).mean * 1e3, 4) for label, name in RPC_PART_HISTS}
+
+
+def check_quorum_in_full(model, train, test) -> None:
+    """A quorum of RPC_WORKERS over RPC_WORKERS workers and no straggler:
+    the weights equal the plain barrier's bit for bit, no round degraded
+    and no hedge sent."""
+    from distributed_sgd_tpu_torch.utils import metrics as mm
+
+    m = Metrics()
+    with ft_cluster(model, train, test, m) as c:
+        plain = c.master.fit_sync(1, B, RPC_LR)
+        reset_counts()
+        full = c.master.fit_sync(1, B, RPC_LR, quorum=RPC_WORKERS)
+        launches = wg.worker_grads.launches
+    diff = float(np.abs(np.asarray(full.weights) - np.asarray(plain.weights)).max())
+    same = np.array_equal(np.asarray(full.weights), np.asarray(plain.weights))
+    degraded, hedges = (m.counter(mm.QUORUM_DEGRADED).value, m.counter(mm.QUORUM_HEDGES).value)
+    print(f"ft quorum {RPC_WORKERS} of {RPC_WORKERS} ({FT_ROWS} rows, 1 epoch, sgd): weights "
+          f"bitwise equal to the plain barrier's: {same} (max abs diff {diff:.3e}); degraded "
+          f"{degraded}, hedges {hedges}; worker_grads launches {launches}; test accuracy "
+          f"{full.test_accuracies[-1]:.4f}", flush=True)
+    if not same or degraded or hedges:
+        raise AssertionError("ft: a full quorum differs from the plain barrier")
+
+
+def slow_first_calls(worker, seconds: float, calls: int, on_recovered=None) -> dict:
+    """Instance seam (as tests/test_quorum.py's): `worker`'s first `calls`
+    compute_gradient bodies sleep `seconds` first.  `on_recovered` runs
+    once the last of them has returned."""
+    real = worker.compute_gradient
+    lock = threading.Lock()
+    state = {"calls": 0, "slow_left": calls}
+
+    def slow(w, ids):
+        with lock:
+            state["calls"] += 1
+            is_slow = state["calls"] <= calls
+        if not is_slow:
+            return real(w, ids)
+        time.sleep(seconds)
+        out = real(w, ids)
+        with lock:
+            state["slow_left"] -= 1
+            last = state["slow_left"] == 0
+        if last and on_recovered is not None:
+            on_recovered()
+        return out
+
+    worker.compute_gradient = slow
+    return state
+
+
+def straggler_fit(model, train, test, **kw) -> dict:
+    """FT_STRAGGLER_EPOCHS epochs with worker 0 slowed; returns the numbers."""
+    from distributed_sgd_tpu_torch.utils import metrics as mm
+
+    m = Metrics()
+    names = {"degraded": mm.QUORUM_DEGRADED, "hedges": mm.QUORUM_HEDGES,
+             "hedge_wins": mm.QUORUM_HEDGE_WINS, "late": mm.QUORUM_LATE,
+             "stalled": mm.SYNC_STALLED, "evictions": mm.MASTER_EVICTIONS,
+             "windows": mm.SYNC_ROUNDS, "bodies": "slave.sync.backward",
+             "hedges_served": "slave.sync.hedge"}
+    at_recovery = {}
+
+    def recovered():
+        # windows from a quarter second after the straggler's last slow
+        # body returned see no straggler
+        def snap():
+            at_recovery.update({k: m.counter(v).value for k, v in names.items()})
+        threading.Timer(0.25, snap).start()
+
+    with ft_cluster(model, train, test, m) as c:
+        slowed = slow_first_calls(c.workers[0], FT_STRAGGLER_S, FT_STRAGGLER_CALLS, recovered)
+        reset_counts()
+        t0 = time.perf_counter()
+        fit = c.master.fit_sync(FT_STRAGGLER_EPOCHS, B, RPC_LR, grad_timeout_s=60.0, **kw)
+        fit_s = time.perf_counter() - t0
+        straggler_member = (c.workers[0].host, c.workers[0].port) in c.master.members
+        deadline = time.monotonic() + 30
+        while slowed["slow_left"] and time.monotonic() < deadline:
+            time.sleep(0.05)
+        time.sleep(0.5)  # the late bodies return; the last counters settle
+        launches = wg.worker_grads.launches
+        out = {k: m.counter(v).value for k, v in names.items()}
+    out.update(fit_s=fit_s, windows_per_s=out["windows"] / sum(fit.epoch_seconds),
+               launches=launches, straggler_member=straggler_member,
+               straggler_calls=slowed["calls"], test_loss=fit.test_losses[-1],
+               test_acc=fit.test_accuracies[-1], ms_a_window=ft_parts(m))
+    if at_recovery:
+        out["windows_after_recovery"] = out["windows"] - at_recovery["windows"]
+        out["degraded_after_recovery"] = out["degraded"] - at_recovery["degraded"]
+    return out
+
+
+def check_straggler(model, train, test, loss0: float) -> dict:
+    """Worker 0 sleeps FT_STRAGGLER_S in its first FT_STRAGGLER_CALLS
+    bodies: under a quorum of FT_QUORUM with a soft deadline of FT_SOFT_S
+    the fit completes, the loss falls, accuracy >= RPC_ACC_FLOOR, rounds
+    degrade, hedges are sent and win, the straggler stays a member, and
+    worker_grads launched once a Gradient body the workers ran (hedges and
+    late bodies included).  The plain barrier with the same straggler, for
+    comparison."""
+    q = straggler_fit(model, train, test, quorum=FT_QUORUM, straggler_soft_s=FT_SOFT_S)
+    plain = straggler_fit(model, train, test)
+    for label, out in (("quorum", q), ("plain barrier", plain)):
+        print(f"ft straggler, {label}: " + json.dumps(out), flush=True)
+    print(f"ft straggler: windows/s {q['windows_per_s']:.2f} under the quorum, "
+          f"{plain['windows_per_s']:.2f} under the plain barrier; windows degraded with no "
+          f"straggler present: {q.get('degraded_after_recovery')} of "
+          f"{q.get('windows_after_recovery')}", flush=True)
+    if not (q["test_loss"] < loss0 and q["test_acc"] >= RPC_ACC_FLOOR):
+        raise AssertionError(f"ft straggler: the quorum fit did not train: {q}")
+    if not (q["degraded"] > 0 and q["hedges"] > 0 and q["hedge_wins"] > 0):
+        raise AssertionError(f"ft straggler: no degraded round, hedge or hedge win: {q}")
+    if not q["straggler_member"] or q["evictions"]:
+        raise AssertionError("ft straggler: the straggler was evicted")
+    for label, out in (("quorum", q), ("plain barrier", plain)):
+        if out["launches"] != out["bodies"]:
+            raise AssertionError(f"ft straggler, {label}: {out['launches']} worker_grads "
+                                 f"launches for {out['bodies']} Gradient bodies")
+    if q["hedges_served"] != q["hedges"]:
+        raise AssertionError(f"ft straggler: {q['hedges']} hedges sent, "
+                             f"{q['hedges_served']} served")
+    return q
+
+
+def hard_kill(worker) -> None:
+    """A crash: the server goes with no unregistration."""
+    worker._stopped.set()
+    worker.server.stop(grace=0)
+
+
+def check_heartbeat(model, train, test, loss0: float) -> dict:
+    """The heartbeat (FT_HEARTBEAT_S, FT_MAX_MISSES) evicts a worker
+    hard-killed mid-fit; the fit, which retries its windows and never
+    evicts by itself here, completes on the survivors, its test loss
+    below `loss0`, its value at w = 0."""
+    from distributed_sgd_tpu_torch.utils import metrics as mm
+
+    m = Metrics()
+    box = {}
+    with ft_cluster(model, train, test, m, heartbeat_s=FT_HEARTBEAT_S,
+                    heartbeat_max_misses=FT_MAX_MISSES) as c:
+        victim = c.workers[0]
+        key = (victim.host, victim.port)
+
+        def run():
+            try:
+                box["fit"] = c.master.fit_sync(1, B, RPC_LR, grad_retries=10 ** 6,
+                                               grad_timeout_s=30.0)
+            except Exception as e:  # noqa: BLE001 - raised below
+                box["error"] = e
+
+        t = threading.Thread(target=run, daemon=True)
+        t.start()
+        while m.counter(mm.SYNC_ROUNDS).value < FT_KILL_AT_WINDOW and t.is_alive():
+            time.sleep(0.005)
+        t_kill = time.monotonic()
+        hard_kill(victim)
+        while key in c.master.members and time.monotonic() - t_kill < 60:
+            time.sleep(0.005)
+        latency = time.monotonic() - t_kill
+        t.join(timeout=600)
+        c.workers = c.workers[1:]
+        members = len(c.master.members)
+    if "error" in box or t.is_alive():
+        raise AssertionError(f"ft heartbeat: the fit did not complete: {box.get('error')}")
+    fit = box["fit"]
+    out = {"eviction_s": latency, "evictions": m.counter(mm.MASTER_EVICTIONS).value,
+           "windows": m.counter(mm.SYNC_ROUNDS).value, "resplits": m.counter(
+               mm.SYNC_RESPLITS).value, "members": members,
+           "test_loss": fit.test_losses[-1], "test_acc": fit.test_accuracies[-1]}
+    print(f"ft heartbeat ({FT_HEARTBEAT_S} s, {FT_MAX_MISSES} misses): worker killed after "
+          f"{FT_KILL_AT_WINDOW} windows, evicted {latency:.3f} s later; " + json.dumps(out),
+          flush=True)
+    bound = (FT_MAX_MISSES + 2) * FT_HEARTBEAT_S + 2.0
+    if out["evictions"] != 1 or members != RPC_WORKERS - 1 or latency > bound:
+        raise AssertionError(f"ft heartbeat: {out} (eviction bound {bound} s)")
+    if not out["test_loss"] < loss0:
+        raise AssertionError(f"ft heartbeat: the survivors' fit did not train: {out}")
+    return out
+
+
+def rebind_master(port: int, train, test, model):
+    """A new MasterNode on `port`: the OS may free it late, so retry."""
+    from distributed_sgd_tpu_torch.core.master import MasterNode
+
+    for _ in range(50):
+        try:
+            node = MasterNode("127.0.0.1", port, train, test, model,
+                              expected_workers=RPC_WORKERS, seed=0)
+        except RuntimeError:
+            node = None
+        if node is not None and node.server.bound_port:
+            return node
+        if node is not None:
+            node.server.stop(grace=0)
+        time.sleep(0.2)
+    raise AssertionError(f"ft crash: could not bind the master's port {port} again")
+
+
+def check_master_crash(model, train, test, kind: str, tmp: str) -> dict:
+    """The master dies after its FT_CRASH_AT-th snapshot (every
+    FT_SNAPSHOT_EVERY windows, FT_CRASH_EPOCHS epochs); a new MasterNode
+    binds its port, the workers register again through their watch, and
+    the fit resumes from the snapshot to weights bitwise equal to the run
+    through, with 2 tokens in the lineage."""
+    from distributed_sgd_tpu_torch.core import master as master_mod
+
+    lr = OPT_LR.get(kind, RPC_LR)
+    path = os.path.join(tmp, f"fit_state_{kind}.npz")
+    kw = dict(optimizer=kind, grad_timeout_s=60.0)
+    real_save, real_restore = master_mod.save_fit_state, master_mod.restore_fit_state
+    saves, restores = [], []
+
+    def timed_save(*a, **k):
+        t0 = time.perf_counter()
+        real_save(*a, **k)
+        saves.append(time.perf_counter() - t0)
+        if len(saves) == FT_CRASH_AT:
+            raise RuntimeError("injected master crash")
+
+    def timed_restore(*a, **k):
+        t0 = time.perf_counter()
+        out = real_restore(*a, **k)
+        restores.append(time.perf_counter() - t0)
+        return out
+
+    m = Metrics()
+    with ft_cluster(model, train, test, m, master_watch_s=FT_WATCH_S) as c:
+        ref = c.master.fit_sync(FT_CRASH_EPOCHS, B, lr, **kw)
+        master_mod.save_fit_state = timed_save
+        try:
+            c.master.fit_sync(FT_CRASH_EPOCHS, B, lr, fit_state_path=path,
+                              fit_state_every=FT_SNAPSHOT_EVERY, **kw)
+            raise AssertionError("ft crash: the injected crash did not happen")
+        except RuntimeError as e:
+            if "injected master crash" not in str(e):
+                raise
+        finally:
+            master_mod.save_fit_state = real_save
+        port = c.master.port
+        c.master._hb_stop.set()
+        c.master.server.stop(grace=0)  # the kill: no unregistration
+        t0 = time.monotonic()
+        m2 = rebind_master(port, train, test, model).start()
+        try:
+            if not m2.await_ready(timeout=120):
+                raise AssertionError("ft crash: the workers never registered again")
+            rereg_s = time.monotonic() - t0
+            master_mod.save_fit_state = timed_save  # past FT_CRASH_AT: no crash
+            master_mod.restore_fit_state = timed_restore
+            reset_counts()
+            res = m2.fit_sync(FT_CRASH_EPOCHS, B, lr, fit_state_path=path,
+                              fit_state_every=FT_SNAPSHOT_EVERY, **kw)
+            replay_launches = wg.worker_grads.launches
+        finally:
+            master_mod.save_fit_state = real_save
+            master_mod.restore_fit_state = real_restore
+            m2.stop()
+    with np.load(path) as z:
+        tokens = [int(x) for x in z["fit_tokens"]]
+    same = np.array_equal(np.asarray(res.weights), np.asarray(ref.weights))
+    diff = float(np.abs(np.asarray(res.weights) - np.asarray(ref.weights)).max())
+    out = {"bitwise": same, "max_abs_diff": diff, "tokens": len(tokens),
+           "save_ms_median": statistics.median(saves) * 1e3, "saves": len(saves),
+           "restore_ms": [round(x * 1e3, 3) for x in restores], "rereg_s": rereg_s,
+           "replay_launches": replay_launches, "test_acc": res.test_accuracies[-1]}
+    print(f"ft crash ({kind}, lr {lr}): crash after snapshot {FT_CRASH_AT} (every "
+          f"{FT_SNAPSHOT_EVERY} windows), resumed " + json.dumps(out), flush=True)
+    if not same or len(tokens) != 2 or tokens[0] == tokens[1]:
+        raise AssertionError(f"ft crash ({kind}): the resumed fit is not the run through: {out}")
+    return out
+
+
+def check_elastic_async(model, train, test) -> dict:
+    """``fit_async(elastic=True)`` over RPC_WORKERS workers, HOGWILD_K steps
+    a dispatch, 1 epoch's budget: mid-fit one worker leaves and a new one
+    joins.  At least 2 resplits; one mean-mode sync_epoch launch a
+    dispatch and no worker_grads; best accuracy >= ASYNC_ACC_FLOOR; no
+    async thread left and StopAsync at every member."""
+    from distributed_sgd_tpu_torch.core.worker import WorkerNode
+    from distributed_sgd_tpu_torch.utils import metrics as mm
+
+    m = Metrics()
+    stopped = []
+    real_stop = WorkerNode.stop_async
+
+    def counted_stop(node):
+        stopped.append(node.port)
+        return real_stop(node)
+
+    WorkerNode.stop_async = counted_stop
+    box = {}
+    try:
+        with ft_cluster(model, train, test, m, steps_per_dispatch=HOGWILD_K) as c:
+            budget = len(train)
+
+            def run():
+                try:
+                    box["fit"] = c.master.fit_async(1, B, RPC_LR, check_every=1000,
+                                                    elastic=True)
+                except Exception as e:  # noqa: BLE001 - raised below
+                    box["error"] = e
+
+            reset_counts()
+            t = threading.Thread(target=run, daemon=True)
+            t0 = time.perf_counter()
+            t.start()
+            while c.master._updates < budget // 5 and t.is_alive():
+                time.sleep(0.01)
+            c.leave_worker(0)
+            while m.counter(mm.ASYNC_RESPLITS).value < 1 and t.is_alive():
+                time.sleep(0.01)
+            joined = c.add_worker(seed=RPC_WORKERS)
+            while joined._assignment is None and t.is_alive():
+                time.sleep(0.01)
+            t.join(timeout=600)
+            fit_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            members = [w.port for w in c.workers]
+            launches = se.sync_epoch.opt_launches["sgd"]
+            all_launches, wg_launches = se.sync_epoch.launches, wg.worker_grads.launches
+    finally:
+        WorkerNode.stop_async = real_stop
+    if "error" in box or t.is_alive():
+        raise AssertionError(f"ft elastic: the fit did not complete: {box.get('error')}")
+    fit = box["fit"]
+    dispatches = m.counter("slave.async.batch").value // HOGWILD_K
+    loss, acc = SyncEngine(model, B, 0.0).bind(test).evaluate(
+        torch.from_numpy(np.asarray(fit.weights)).to(model.device))
+    out = {"updates": fit.state.updates, "fit_s": fit_s, "dispatches": dispatches,
+           "sync_epoch_launches": launches, "worker_grads_launches": wg_launches,
+           "resplits": m.counter(mm.ASYNC_RESPLITS).value, "best_test_loss": loss,
+           "best_test_acc": acc, "stop_async": sorted(set(stopped)), "members": members,
+           "threads_left": async_rpc_threads()}
+    print(f"ft elastic async (k={HOGWILD_K}, a leave and a join): " + json.dumps(out),
+          flush=True)
+    if out["resplits"] < 2 or fit.state.updates < budget:
+        raise AssertionError(f"ft elastic: {out}")
+    if (launches, all_launches, wg_launches) != (dispatches, dispatches, 0) or not dispatches:
+        raise AssertionError(f"ft elastic: launches {launches} ({all_launches} in all) and "
+                             f"{wg_launches} worker_grads for {dispatches} dispatches")
+    if acc < ASYNC_ACC_FLOOR or out["threads_left"] or not set(members) <= set(stopped):
+        raise AssertionError(f"ft elastic: {out}")
+    return out
+
+
+def check_fault_tolerance_cli(tmp: str) -> dict:
+    """``python -m distributed_sgd_tpu_torch`` as one master and
+    RPC_WORKERS workers on loopback with the heartbeat, a quorum, elastic
+    workers and snapshots every FT_CLI_SNAPSHOT_EVERY windows: the master
+    is SIGKILLed mid-fit after its first snapshot and started again with
+    the same settings; the workers register again, the fit resumes, and
+    the new master and the workers exit 0, with 2 tokens in the lineage."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    ckpt = os.path.join(tmp, "cli")
+    base = {**os.environ, "DSGD_SYNTHETIC": str(FT_ROWS), "DSGD_MAX_EPOCHS": "2",
+            "DSGD_NODE_COUNT": str(RPC_WORKERS), "DSGD_HEARTBEAT_S": "1",
+            "DSGD_QUORUM": str(FT_QUORUM), "DSGD_ELASTIC": "1", "DSGD_CHECKPOINT_DIR": ckpt,
+            "DSGD_FIT_CKPT_EVERY": str(FT_CLI_SNAPSHOT_EVERY),
+            "DSGD_MASTER_HOST": "127.0.0.1", "DSGD_MASTER_PORT": str(port),
+            "DSGD_NODE_HOST": "127.0.0.1"}
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "distributed_sgd_tpu_torch"]
+    state = os.path.join(ckpt, "fit_state.npz")
+
+    def start(node_port):
+        return subprocess.Popen(cmd, cwd=root, env={**base, "DSGD_NODE_PORT": str(node_port)},
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    t0 = time.perf_counter()
+    first = start(port)
+    workers = [start(0) for _ in range(RPC_WORKERS)]
+    procs = [first] + workers
+    outs = {}
+    try:
+        deadline = time.monotonic() + 600
+        while not os.path.exists(state) and first.poll() is None and time.monotonic() < deadline:
+            time.sleep(0.05)
+        t_kill = time.perf_counter()
+        first.kill()  # SIGKILL: no unregistration, no terminal snapshot
+        outs["killed"], _ = first.communicate(timeout=60)
+        while True:  # the restarted master binds the same port
+            with socket.socket() as sock:
+                # as gRPC binds: the killed master's connections linger in
+                # TIME_WAIT for a minute, which only a plain bind waits out
+                sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+                try:
+                    sock.bind(("127.0.0.1", port))
+                    break
+                except OSError:
+                    time.sleep(0.1)
+        t_restart = time.perf_counter()
+        second = start(port)
+        procs.append(second)
+        outs["master"], _ = second.communicate(timeout=900)
+        for p in workers:
+            p.send_signal(signal.SIGTERM)
+        for i, p in enumerate(workers):
+            outs[f"w{i}"], _ = p.communicate(timeout=120)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    cli_s = time.perf_counter() - t0
+    codes = [second.returncode] + [p.returncode for p in workers]
+    lines = outs["master"].splitlines()
+    killed_epochs = [x.split(" - ", 1)[-1] for x in outs["killed"].splitlines()
+                     if "epoch 0:" in x]
+    epochs = [x.split(" - ", 1)[-1] for x in lines if ": loss=" in x and "epoch " in x]
+    resumed = [x.split(" - ", 1)[-1] for x in lines if "resumed crash-safe fit state" in x]
+    losses = [x.split(" - ", 1)[-1] for x in lines if "test losses:" in x]
+    rereg = sum(outs[f"w{i}"].count("registered with master") for i in range(RPC_WORKERS))
+
+    def stamp(line):  # the log's ISO time of day, in seconds
+        hms, ms = line.split(" ", 1)[0].split("T")[1].split(".")
+        h, mi, sec = (int(x) for x in hms.split(":"))
+        return h * 3600 + mi * 60 + sec + int(ms) / 1e3
+
+    up = [stamp(x) for x in lines if "master started on" in x]
+    full = [stamp(x) for x in lines if f"({RPC_WORKERS}/{RPC_WORKERS})" in x]
+    tokens = []
+    if os.path.exists(state):
+        with np.load(state) as z:
+            tokens = [int(x) for x in z["fit_tokens"]]
+    out = {"codes": codes, "killed_code": first.returncode, "seconds": cli_s,
+           "kill_after_s": t_kill - t0, "port_free_after_s": t_restart - t_kill,
+           "tokens": len(tokens), "registrations": rereg,
+           "rereg_s": full[0] - up[0] if up and full else None,
+           "failed_registrations": [outs[f"w{i}"].count("registration failed")
+                                    for i in range(RPC_WORKERS)]}
+    print(f"ft CLI: {json.dumps(out)}; master: {resumed[-1] if resumed else 'no resume line'}; "
+          f"{losses[-1][:300] if losses else 'no test losses logged'}; its epochs {epochs}; "
+          f"the killed master's {killed_epochs}", flush=True)
+    if codes != [0] * (1 + RPC_WORKERS) or not resumed or not losses or len(tokens) != 2:
+        tails = "\n".join(f"== {k}:\n{(v or '')[-2000:]}" for k, v in outs.items())
+        raise AssertionError(f"ft CLI run failed: {out}\n{tails}")
+    return out
+
+
+def run_fault_tolerance_phase() -> dict:
+    """Phase 10; returns the numbers of its paths."""
+    t0 = time.perf_counter()
+    out = {}
+    with rows_of(FT_ROWS) as (train, test, model):
+        print(f"ft data seconds: {time.perf_counter() - t0:.2f}", flush=True)
+        loss0 = SyncEngine(model, B, 0.0).bind(test).evaluate(
+            torch.zeros(D, device=model.device))[0]
+        check_quorum_in_full(model, train, test)
+        out["straggler"] = check_straggler(model, train, test, loss0)
+        out["heartbeat"] = check_heartbeat(model, train, test, loss0)
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-ft-") as tmp:
+            for kind in ("sgd", "adam"):
+                out[f"crash_{kind}"] = check_master_crash(model, train, test, kind, tmp)
+        out["elastic"] = check_elastic_async(model, train, test)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-ft-cli-") as tmp:
+        out["cli"] = check_fault_tolerance_cli(tmp)
+    print(f"ft phase seconds: {time.perf_counter() - t0:.1f}", flush=True)
+    return out
+
+
 def main() -> None:
     phase("1 device")
     if not torch.cuda.is_available():
@@ -2024,7 +2538,18 @@ def main() -> None:
                         f"{rpc_async_launches}; " + mean_row["path"])
     mean_row["launches"] = rpc_async_launches
 
-    phase("10 summary")
+    phase("10 fault tolerance over RPC: quorum and hedges, heartbeat, crash and resume, "
+          "elastic membership")
+    ft = run_fault_tolerance_phase()
+    wg_row["path"] += (f"; phase 10 (100,000 rows): straggler fit under a quorum "
+                       f"{ft['straggler']['launches']} ({ft['straggler']['hedges']} hedges, "
+                       f"late bodies included), resumed fit's replayed windows "
+                       f"{ft['crash_sgd']['replay_launches']} (sgd), "
+                       f"{ft['crash_adam']['replay_launches']} (adam)")
+    mean_row["path"] = (f"elastic async rpc (a leave and a join, 100,000 rows) "
+                        f"{ft['elastic']['sync_epoch_launches']}; " + mean_row["path"])
+
+    phase("11 summary")
     print(card)
     print(json.dumps({"kernels": [wg_row, se_row, mean_row, opt_rows["momentum"],
                                   opt_rows["adam"]]}))

@@ -15,7 +15,12 @@ cluster (``engine='rpc'``, the sync fit, or with ``use_async`` the async
 fit over RPC, ``async_drain`` its batch-drain inbox).  ``optimizer`` ('sgd',
 'momentum' or 'adam') and ``momentum`` reach every engine,
 ``checkpoint_dir`` (with ``checkpoint_every``) every engine and
-``profile_dir`` the sync trainer and the worker role.  ``trace``,
+``profile_dir`` the sync trainer and the worker role.  On the rpc fits
+``heartbeat_s`` (with ``heartbeat_max_misses``) starts the master's
+heartbeat, ``quorum`` and ``straggler_soft_s`` the sync fit's quorum
+barrier, ``fit_ckpt_every`` its crash-safe fit state under
+``checkpoint_dir``, and ``elastic`` the async fit's elastic membership and,
+on the worker role, the watch of the master.  ``trace``,
 ``trace_dir``, ``trace_sample``, ``flight_recorder``, ``record``,
 ``metrics_port`` and ``influx_url`` drive the observability planes
 (main.py).
@@ -96,13 +101,17 @@ class Config:
     trace_dir: Optional[str] = None
     trace_sample: float = 1.0
     flight_recorder: int = 512
+    # the rpc engine's fault tolerance (core/master.py, core/worker.py)
+    heartbeat_s: Optional[float] = None  # the master's probe period
+    heartbeat_max_misses: int = 3  # misses in a row before an eviction
+    quorum: Optional[int] = None  # the sync fit's quorum barrier
+    straggler_soft_s: Optional[float] = None  # its soft deadline (None: adaptive)
+    elastic: bool = False  # elastic async membership; the worker's master watch
+    fit_ckpt_every: int = 0  # windows between crash-safe fit-state snapshots
     # read so that none is ignored without a word; each raises (or, on the
     # mesh engine, warns) when set
     compress: str = "none"  # none | topk | qint8
     feature_shards: int = 1
-    heartbeat_s: Optional[float] = None
-    quorum: Optional[int] = None
-    straggler_soft_s: Optional[float] = None
     local_steps: int = 1
     delta_broadcast: bool = False
     stream: bool = False
@@ -110,9 +119,7 @@ class Config:
     stage_pool: int = 0
     agg_tree: str = ""
     master_shards: int = 0
-    elastic: bool = False
     async_drain: bool = False
-    fit_ckpt_every: int = 0
     host_devices: int = 1
     row_store: Optional[str] = None
     chaos: Optional[str] = None
@@ -182,6 +189,17 @@ class Config:
             raise ValueError("virtual_workers must be >= 1")
         if self.seed < 0:
             raise ValueError("seed must be >= 0")
+        if self.heartbeat_max_misses < 1:
+            raise ValueError("heartbeat_max_misses must be >= 1")
+        if self.quorum is not None and self.quorum < 1:
+            raise ValueError("quorum must be >= 1 (or unset for a full barrier)")
+        if self.straggler_soft_s is not None and self.straggler_soft_s <= 0:
+            raise ValueError("straggler_soft_s must be > 0 (or unset for adaptive)")
+        if self.fit_ckpt_every < 0:
+            raise ValueError("fit_ckpt_every must be >= 0 (0 disables)")
+        if self.fit_ckpt_every > 0 and not self.checkpoint_dir:
+            raise ValueError("DSGD_FIT_CKPT_EVERY needs DSGD_CHECKPOINT_DIR: the crash "
+                             "snapshot lives under the checkpoint directory")
 
     @classmethod
     def from_env(cls, **overrides) -> "Config":
@@ -229,6 +247,8 @@ class Config:
             trace_sample=_env("DSGD_TRACE_SAMPLE", cls.trace_sample, float),
             flight_recorder=_env("DSGD_FLIGHT_RECORDER", cls.flight_recorder, int),
             heartbeat_s=_env("DSGD_HEARTBEAT_S", None, float),
+            heartbeat_max_misses=_env("DSGD_HEARTBEAT_MAX_MISSES", cls.heartbeat_max_misses,
+                                      int),
             quorum=_env("DSGD_QUORUM", None, int),
             straggler_soft_s=_env("DSGD_STRAGGLER_SOFT_S", None, float),
             local_steps=_env("DSGD_LOCAL_STEPS", cls.local_steps, int),
@@ -267,26 +287,19 @@ class Config:
     def refuse_for_role(self) -> None:
         """Raise NotImplementedError for a setting the JAX CLI acts on in
         this run's role that the port does not serve yet: on the rpc fits
-        (the dev role with engine 'rpc', and the master) the heartbeat, the
-        crash-safe fit state and the pipelined, quorum and elastic levers;
-        on the worker role the elastic master watch and the row store.
-        The mesh engine ignores them (main.py warns, as the JAX CLI does)."""
+        (the dev role with engine 'rpc', and the master) the pipelined
+        levers, the aggregation tree and the sharded master; on the worker
+        role the row store.  The mesh engine ignores them (main.py warns,
+        as the JAX CLI does)."""
         role = self.role
         if role == "worker":
-            for bad, setting, where in (
-                    (self.elastic, "DSGD_ELASTIC (the master watch)", "[A8] 3.3"),
-                    (self.row_store, "DSGD_ROW_STORE", "[A8] 3.4, data/row_store.py")):
-                if bad:
-                    raise _not_ported(f"{setting} on the worker role", where)
+            if self.row_store:
+                raise _not_ported("DSGD_ROW_STORE on the worker role",
+                                  "[A8] 3.4, data/row_store.py")
             return
         if role == "dev" and self.engine == "mesh":
             return
         for bad, setting, where in (
-                (self.heartbeat_s, "DSGD_HEARTBEAT_S (the heartbeat loop)", "[A8] 3.3"),
-                (self.quorum is not None, "DSGD_QUORUM", "[A8] 3.3"),
-                (self.straggler_soft_s is not None, "DSGD_STRAGGLER_SOFT_S", "[A8] 3.3"),
-                (self.elastic, "DSGD_ELASTIC", "[A8] 3.3"),
-                (self.fit_ckpt_every, "DSGD_FIT_CKPT_EVERY", "[A8] 3.3"),
                 (self.local_steps > 1, "DSGD_LOCAL_STEPS", "[A8] 3.4"),
                 (self.delta_broadcast, "DSGD_DELTA_BROADCAST", "[A8] 3.4"),
                 (self.stream, "DSGD_STREAM", "[A8] 3.4"),

@@ -9,8 +9,13 @@ workers' sync gradients are ``worker_grads`` launches on the card and
 their async dispatches ``sync_epoch`` launches in the mean mode, or the
 plain versions with ``device="cpu"``.
 
-The JAX cluster's hierarchical, host-local, chaos and telemetry arguments
-have no counterpart here (ROADMAP.md Queue A [A8] 3.3-3.4, [A10], [A13]).
+The master's heartbeat (`heartbeat_s`, `heartbeat_max_misses`) and the
+workers' master watch (`master_watch_s`) are the JAX cluster's; so are
+`add_worker` (a new worker joins the running cluster) and `leave_worker`
+(a worker leaves it gracefully), the churn of an elastic fit.  The JAX
+cluster's compression, hierarchical, host-local, chaos and telemetry
+arguments have no counterpart here (ROADMAP.md Queue A [A8] 3.4, [A10],
+[A13]).
 """
 
 from __future__ import annotations
@@ -40,23 +45,30 @@ class DevCluster:
         metrics: Optional[metrics_mod.Metrics] = None,
         steps_per_dispatch: int = 1,
         gossip_topology: str = "all",
+        heartbeat_s: Optional[float] = None,
+        heartbeat_max_misses: int = 3,
+        master_watch_s: Optional[float] = None,
     ):
         """The nodes run on the model's device (`make_model(...,
         device=...)`; the card unless the caller asks for the CPU).  All
         share `metrics` (the process's registry when None).  The workers'
         async dispatches run `steps_per_dispatch` local steps each and
-        gossip along `gossip_topology`."""
+        gossip along `gossip_topology`.  `heartbeat_s` starts the master's
+        heartbeat; `master_watch_s` the workers' watch of the master."""
+        self._host, self._seed, self._train, self._model = host, seed, train, model
+        self._worker_kwargs = dict(metrics=metrics, steps_per_dispatch=steps_per_dispatch,
+                                   gossip_topology=gossip_topology,
+                                   master_watch_s=master_watch_s)
         self.master = MasterNode(host, base_port, train, test, model,
                                  expected_workers=n_workers, seed=seed,
-                                 metrics=metrics).start()
+                                 metrics=metrics).start(
+            heartbeat_s=heartbeat_s, heartbeat_max_misses=heartbeat_max_misses)
         self.workers: List[WorkerNode] = []
         try:
             for i in range(n_workers):
                 port = 0 if base_port == 0 else base_port + 1 + i
-                self.workers.append(WorkerNode(
-                    host, port, host, self.master.port, train, model,
-                    seed=seed + i, metrics=metrics, steps_per_dispatch=steps_per_dispatch,
-                    gossip_topology=gossip_topology))
+                self.workers.append(WorkerNode(host, port, host, self.master.port, train,
+                                               model, seed=seed + i, **self._worker_kwargs))
             for w in self.workers:
                 w.start(wait_registered=True)
             self.master.await_ready()
@@ -64,6 +76,28 @@ class DevCluster:
             self.stop()
             raise
         log.info("dev cluster ready: master :%d + %d workers", self.master.port, n_workers)
+
+    def add_worker(self, seed: Optional[int] = None) -> WorkerNode:
+        """A new worker joins the running cluster: the same data and model,
+        an OS-assigned port, registered through the control plane.  The
+        master needs a free slot (an eviction or a leave frees one); an
+        elastic fit takes it in at its next tick, a sync fit at its next
+        window."""
+        i = len(self.workers)
+        w = WorkerNode(self._host, 0, self._host, self.master.port, self._train, self._model,
+                       seed=self._seed + i if seed is None else seed, **self._worker_kwargs)
+        self.workers.append(w)
+        w.start(wait_registered=True)
+        return w
+
+    def leave_worker(self, i: int) -> WorkerNode:
+        """Worker `i` leaves gracefully: it unregisters through the control
+        plane, its async loop ends and its server and channels close (a
+        scale-down, not a crash).  It is taken out of `workers`, so the
+        cluster's stop does not stop it twice."""
+        w = self.workers.pop(i)
+        w.stop()
+        return w
 
     def stop(self) -> None:
         for w in self.workers:

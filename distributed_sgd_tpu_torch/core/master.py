@@ -39,16 +39,39 @@ core/Master.scala and core/MasterSync.scala):
   apply per drain.  Every worker that ever held rows gets StopAsync when
   the fit ends.
 
+The JAX master's fault tolerance (docs/FAULT_TOLERANCE.md, docs/
+ELASTICITY.md), with its names:
+
+- the heartbeat (`start(heartbeat_s=)`): one probe per worker on the
+  shared deadline wheel (rpc/stream.py); `heartbeat_max_misses` misses in
+  a row evict the worker;
+- re-registration: a member that registers again during an async fit is
+  kicked with a fresh StartAsync and re-introduced to its peers;
+- the quorum barrier (`fit_sync(quorum=, straggler_soft_s=, hedge=)`,
+  `predict(quorum=)`): past a soft deadline with `quorum` replies in
+  hand, each missing slice is hedged to the fastest responders, the
+  replies are summed in canonical slice order over the contributors, and
+  below quorum the window falls back to the full barrier;
+- the crash-safe fit state (`fit_sync(fit_state_path=,
+  fit_state_every=)`): the full loop state every R windows, from which a
+  new master resumes bit for bit;
+- elastic membership (`fit_async(elastic=True)`): any change of members
+  re-splits the rows and re-issues StartAsync to the workers whose slice
+  changed.
+
 The workers compute on their own devices; the master only encodes,
 decodes and applies, and evaluates on its device.  Every lever of the JAX
 fits that is not ported raises NotImplementedError naming the ROADMAP
-item that holds it (the heartbeat, fit_async's elastic membership).
+item that holds it (the pipelined levers, the health monitor, the
+aggregation tree and the sharded master).
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import logging
+import random
 import threading
 import time
 from typing import Callable, Dict, List, Optional, Tuple
@@ -60,7 +83,9 @@ import torch
 from distributed_sgd_tpu_torch import trace as trace_mod
 from distributed_sgd_tpu_torch.checkpoint import (
     opt_kind_tag,
+    restore_fit_state,
     restore_sync_fit,
+    save_fit_state,
     save_sync_fit,
     save_sync_fit_final,
 )
@@ -143,6 +168,112 @@ def _await_futures(futs, bytes_counter=None):
     return ok, failed
 
 
+class _LatencyEwma:
+    """Per-worker reply-latency EWMA (mean and mean absolute deviation),
+    the quorum barrier's adaptive soft deadline.
+
+    `soft_deadline_s(keys, quorum)`: a p95 proxy per worker (mean + 3
+    deviations), then the quorum-th smallest of them, with slack, so that
+    a straggler's own tail does not stretch the deadline that cuts it
+    off.  None until `quorum` workers have history: the first windows run
+    as full barriers, and they seed the EWMA."""
+
+    SLACK = 1.5
+    FLOOR_S = 0.05
+
+    def __init__(self, alpha: float = 0.2):
+        self.alpha = float(alpha)
+        self._mean: Dict[Tuple[str, int], float] = {}
+        self._dev: Dict[Tuple[str, int], float] = {}
+        self._lock = threading.Lock()
+
+    def record(self, key: Tuple[str, int], seconds: float) -> None:
+        with self._lock:
+            m = self._mean.get(key)
+            if m is None:
+                self._mean[key] = seconds
+                self._dev[key] = 0.0
+                return
+            err = seconds - m
+            self._mean[key] = m + self.alpha * err
+            self._dev[key] = (1 - self.alpha) * self._dev[key] + self.alpha * abs(err)
+
+    def p95_s(self, key: Tuple[str, int]) -> Optional[float]:
+        with self._lock:
+            m = self._mean.get(key)
+            if m is None:
+                return None
+            return m + 3.0 * self._dev[key]
+
+    def soft_deadline_s(self, keys, quorum: int) -> Optional[float]:
+        ests = sorted(e for e in (self.p95_s(k) for k in keys) if e is not None)
+        if len(ests) < max(1, quorum):
+            return None
+        return max(self.FLOOR_S, self.SLACK * ests[max(1, quorum) - 1])
+
+
+def _reply_weight(reply) -> int:
+    """Quorum mass of one barrier reply: one worker's gradient.  (The JAX
+    master also weighs aggregation-tree replies by their contributors,
+    ROADMAP.md Queue A [A13] item 8; the port has no tree.)"""
+    del reply
+    return 1
+
+
+def _await_quorum(futs, quorum: int, soft_deadline: float, bytes_counter=None,
+                  latency: Optional[_LatencyEwma] = None):
+    """Quorum barrier over [(key, future-or-None)].
+
+    Waits until every future settles, or until `soft_deadline` (absolute
+    time.monotonic) has passed with `quorum` successful replies in hand.
+    Returns (ok, failed, pending): ok and failed as _await_futures,
+    pending = [(key, future)] still in flight, for the caller to hedge,
+    wait for or discard.  Bytes and each worker's latency are accounted as
+    the replies arrive, so a discarded straggler still feeds the EWMA."""
+    cv = threading.Condition()
+
+    def _notify(_):
+        with cv:
+            cv.notify()
+
+    t_sent = time.monotonic()
+    ok, failed, pending = [], [], []
+    ok_weight = 0
+    for key, fut in futs:
+        if fut is None:
+            failed.append((key, ValueError("channel closed")))
+        else:
+            pending.append((key, fut))
+            fut.add_done_callback(_notify)
+    while pending:
+        still = []
+        for key, fut in pending:
+            if not fut.done():
+                still.append((key, fut))
+                continue
+            try:
+                reply = fut.result()
+                if bytes_counter is not None:
+                    bytes_counter.increment(reply.ByteSize())
+                if latency is not None:
+                    latency.record(key, time.monotonic() - t_sent)
+                ok.append((key, reply))
+                ok_weight += _reply_weight(reply)
+            except grpc.RpcError as e:
+                failed.append((key, e.code()))
+        pending = still
+        if not pending:
+            break
+        remaining = soft_deadline - time.monotonic()
+        if remaining <= 0 and ok_weight >= quorum:
+            break
+        with cv:
+            # below quorum past the soft deadline: the per-call deadline
+            # is the hard bound; wake on each settle
+            cv.wait(timeout=0.25 if remaining <= 0 else max(0.005, min(0.25, remaining)))
+    return ok, failed, pending
+
+
 def _draw_ids(rng: np.random.Generator, part: np.ndarray, start: int,
               size: int) -> np.ndarray:
     """Uniform without-replacement draw of up to `size` sample ids from one
@@ -174,6 +305,10 @@ class MasterNode:
         self.log = node_logger(host, port, master=True)
         self.metrics = metrics or metrics_mod.global_metrics()
         self.rpc_policy = rpc_policy or RpcPolicy(seed=seed, metrics=self.metrics)
+        # reply latencies for the quorum barriers' adaptive soft deadlines,
+        # one tracker a fan-out: Gradient and Forward differ in scale
+        self._latency = _LatencyEwma()
+        self._fwd_latency = _LatencyEwma()
         self.model = model
         self.device = model.device
         self.train = train
@@ -203,24 +338,146 @@ class MasterNode:
         self._inbox_cv = threading.Condition()
         self._inbox: list = []
         self._drain_on = False
+        # members that registered again during an async fit (a worker
+        # process restarted on the same endpoint): the fit's loop re-kicks
+        # each with its slice, since no membership change shows it
+        self._rereg_pending: set = set()
 
         self.server = new_server(port, host="0.0.0.0")
         self.port = self.port or self.server.bound_port
         add_master_servicer(self.server, _MasterServicer(self), node="master")
 
+        self._hb_stop = threading.Event()
+        self._hb_wake = threading.Event()
+        self._hb_thread: Optional[threading.Thread] = None
+        # each fit_sync stamps its requests with a fresh token; the base is
+        # a nonce of this incarnation, so a restarted master never reuses
+        # a token its long-lived workers saw (48 bits + a 15-bit sequence)
+        self._fit_token_base = random.getrandbits(48) << 15
+        self._fit_seq = 0
+
     # -- lifecycle ---------------------------------------------------------
 
     def start(self, heartbeat_s: Optional[float] = None,
               heartbeat_max_misses: int = 3) -> "MasterNode":
-        if heartbeat_s:
-            raise not_ported(f"the heartbeat (DSGD_HEARTBEAT_S={heartbeat_s})",
-                             "[A8] 3.3, elastic membership")
+        """`heartbeat_s` (DSGD_HEARTBEAT_S) starts the heartbeat: every
+        member is probed at that period and evicted after
+        `heartbeat_max_misses` (DSGD_HEARTBEAT_MAX_MISSES) misses in a
+        row."""
         self.server.start()
         self.log.info("master started on %s:%d, expecting %d workers",
                       self.host, self.port, self.expected_workers)
+        if heartbeat_s:
+            self._hb_thread = threading.Thread(
+                target=self._heartbeat_loop,
+                args=(heartbeat_s, max(1, int(heartbeat_max_misses))),
+                daemon=True, name="heartbeat")
+            self._hb_thread.start()
         return self
 
+    # at most this many probes in flight at once; a probe past the cap
+    # waits for the next wake
+    HB_PROBE_POOL = 16
+
+    def _heartbeat_loop(self, interval_s: float, max_failures: int = 3) -> None:
+        """Per-worker liveness probes on the shared deadline wheel: each
+        worker's probe fires at its own due time, settles on its own
+        deadline (the interval, capped by the policy's), and re-arms
+        `interval_s` after it settles, so a slow peer delays only itself.
+        New members' first probes are staggered across one interval.  The
+        decisions (`max_failures` misses in a row, a success resets, then
+        ``unregister_worker(evicted=True)``) run on this thread; the gRPC
+        callbacks only queue what they saw.  (The JAX master also scrapes
+        the workers' metrics at this cadence: ROADMAP.md Queue A [A13]
+        item 8.)"""
+        from distributed_sgd_tpu_torch.rpc.stream import Wheel
+
+        tracker = _FailureTracker(max_failures)
+        probe_timeout = min(interval_s, self.rpc_policy.deadline_s)
+        wheel = Wheel(name="heartbeat-wheel")
+        due_ready: collections.deque = collections.deque()  # keys due now
+        completions: collections.deque = collections.deque()  # (key, ok)
+        wake = self._hb_wake
+        scheduled: set = set()  # keys with a wheel entry or a probe in flight
+        in_flight: set = set()
+        deferred: List[Tuple[str, int]] = []  # due past the probe pool's cap
+
+        def _fire(key):
+            due_ready.append(key)
+            wake.set()
+
+        def _probe(key, stub):
+            in_flight.add(key)
+            try:
+                fut = stub.Ping.future(pb.Empty(), timeout=probe_timeout)
+            except ValueError:  # the channel closed under us
+                completions.append((key, False))
+                wake.set()
+                return
+
+            def _done(f, key=key):
+                try:
+                    f.result()
+                    completions.append((key, True))
+                except Exception:  # noqa: BLE001 - any failure is a miss
+                    completions.append((key, False))
+                wake.set()
+
+            fut.add_done_callback(_done)
+
+        while not self._hb_stop.is_set():
+            now = time.monotonic()
+            members = self._members()
+            stub_by_key = dict(members)
+            fresh = [k for k, _ in members if k not in scheduled]
+            for i, key in enumerate(fresh):
+                scheduled.add(key)
+                wheel.watch(now + interval_s * (i + 1) / (len(fresh) + 1),
+                            lambda key=key: _fire(key))
+            while completions:
+                key, ok = completions.popleft()
+                in_flight.discard(key)
+                with self._members_lock:
+                    still_member = key in self._workers
+                if not still_member:
+                    scheduled.discard(key)
+                    tracker.record_ok(key)  # drop a departed member's count
+                    continue
+                if ok:
+                    tracker.record_ok(key)
+                else:
+                    n, evict = tracker.record_failure(key)
+                    self.log.warning("heartbeat miss %d/%d for %s:%d", n, max_failures, *key)
+                    if evict:
+                        self.log.warning("worker %s:%d declared dead", *key)
+                        self.unregister_worker(*key, evicted=True)
+                        scheduled.discard(key)
+                        continue
+                wheel.watch(time.monotonic() + interval_s, lambda key=key: _fire(key))
+            pending = deferred + [due_ready.popleft() for _ in range(len(due_ready))]
+            deferred = []
+            for key in pending:
+                stub = stub_by_key.get(key)
+                if stub is None or key not in scheduled:
+                    # a departed member: a later registration on the same
+                    # endpoint starts with no misses
+                    scheduled.discard(key)
+                    tracker.record_ok(key)
+                    continue
+                if len(in_flight) >= self.HB_PROBE_POOL:
+                    deferred.append(key)
+                    continue
+                _probe(key, stub)
+            wake.wait(timeout=min(interval_s, 0.5) if deferred else interval_s)
+            wake.clear()
+
     def stop(self) -> None:
+        self._hb_stop.set()
+        self._hb_wake.set()
+        self._async_running.clear()
+        self._async_done.set()
+        if self._hb_thread is not None:
+            self._hb_thread.join(timeout=10.0)
         self.server.stop(grace=1.0)
         with self._members_lock:
             channels = list(self._channels.values())
@@ -241,22 +498,44 @@ class MasterNode:
     def register_worker(self, host: str, port: int) -> None:
         """At most `expected_workers` members at any instant (the
         reference `require`s the same cap, Master.scala:224); the cap is on
-        current membership, so an unregistration frees a slot.  A new
-        member is introduced to every other member and they to it."""
+        current membership, so an eviction or a leave frees a slot, and a
+        running fit absorbs a new member at its next window (sync) or tick
+        (elastic async).  A new member is introduced to every other member
+        and they to it.  A member that registers again (a lost reply's
+        retry, or a process restarted on the same endpoint) is re-introduced
+        to its peers, and during an async fit re-kicked with a fresh
+        StartAsync: the restarted process passes every heartbeat, so
+        nothing else would re-issue its slice."""
         key = (host, port)
+        rereg_stub = None
         with self._members_lock:
             if key in self._workers:
-                # a registration retry whose first reply was lost: no-op
-                return
-            if len(self._workers) >= self.expected_workers:
+                if self._async_running.is_set():
+                    self._rereg_pending.add(key)
+                rereg_stub = self._workers[key]
+                rereg_others = [k for k in self._workers if k != key]
+            elif len(self._workers) >= self.expected_workers:
                 raise ValueError("cluster already at expected node count")
-            others = list(self._workers.keys())
-            ch = new_channel(host, port, origin=(self.host, self.port))
-            stub = WorkerStub(ch)
-            self._workers[key] = stub
-            self._channels[key] = ch
-            self._order.append(key)
-            count = len(self._workers)
+            else:
+                others = list(self._workers.keys())
+                ch = new_channel(host, port, origin=(self.host, self.port))
+                stub = WorkerStub(ch)
+                self._workers[key] = stub
+                self._channels[key] = ch
+                self._order.append(key)
+                count = len(self._workers)
+        if rereg_stub is not None:
+            # a restarted process starts with no peers; add_peer is
+            # idempotent, so a live worker's retry costs a no-op fan-out
+            for oh, op in rereg_others:
+                try:
+                    self.rpc_policy.call_with_retry(
+                        rereg_stub.RegisterSlave, pb.Node(host=oh, port=op),
+                        peer=key, retries=1)
+                except (grpc.RpcError, ValueError) as e:
+                    self.log.warning("peer re-introduction failed for %s:%d (%s)", oh, op,
+                                     e.code() if isinstance(e, grpc.RpcError) else "closed")
+            return
         self.log.info("worker registered: %s:%d (%d/%d)",
                       host, port, count, self.expected_workers)
         # full-mesh introduction, both directions (Master.scala:229-233)
@@ -268,7 +547,7 @@ class MasterNode:
                     peer=(oh, op), retries=1)
                 self.rpc_policy.call_with_retry(
                     stub.RegisterSlave, pb.Node(host=oh, port=op), peer=key, retries=1)
-            except (grpc.RpcError, KeyError) as e:
+            except (grpc.RpcError, KeyError, ValueError) as e:
                 self.log.warning("peer introduction failed for %s:%d (%s)", oh, op,
                                  e.code() if isinstance(e, grpc.RpcError) else "left")
         if count >= self.expected_workers:
@@ -317,9 +596,14 @@ class MasterNode:
         gather predictions (and with `return_margins` the margins).  A
         worker that fails `retries + 1` times in a row is unregistered and
         the fan-out re-split over the survivors; RuntimeError when every
-        worker is lost."""
-        if quorum is not None or straggler_soft_s is not None:
-            raise not_ported("predict with a quorum barrier (DSGD_QUORUM)", "[A8] 3.3")
+        worker is lost.
+
+        With `quorum`, once `quorum` replies are in hand and the soft
+        deadline (`straggler_soft_s`, or adaptive from the Forward latency
+        EWMA) has passed, each missing worker's slice is sent again to the
+        fastest responders.  Evaluation never drops a slice: the quorum
+        only bounds how long a straggler holds the fan-out, and a slice no
+        hedge covers goes to the retry and evict loop."""
         self._require_ready()
         wmsg = codec.encode_tensor(weights)
         tracker = _FailureTracker(retries + 1)
@@ -342,7 +626,12 @@ class MasterNode:
                     except ValueError:
                         fut = None
                     futs.append((key, fut))
-                ok, failed = _await_futures(futs)
+                if quorum is None:
+                    ok, failed = _await_futures(futs)
+                else:
+                    ok, failed = self._forward_quorum(
+                        futs, members, part_by_key, quorum, straggler_soft_s, timeout_s,
+                        wmsg, return_margins)
             if not failed:
                 out = np.zeros(len(self.train), dtype=np.float32)
                 margins = np.zeros(len(self.train), dtype=np.float32)
@@ -366,6 +655,73 @@ class MasterNode:
                 else:
                     self.log.warning("worker %s:%d failed Forward (%s); retry %d/%d",
                                      key[0], key[1], code, n, retries)
+
+    def _forward_quorum(self, futs, members, part_by_key, quorum, straggler_soft_s,
+                        timeout_s, wmsg, want_margins):
+        """predict's quorum barrier with hedges.  Returns (ok, failed), each
+        keyed by the SLICE's worker: a winning hedge's reply stands under
+        the straggler's key, so the assembly and the failure tracker need
+        not know who computed it."""
+        quorum_n = min(quorum, len(members))
+        soft_s = straggler_soft_s
+        if soft_s is None:
+            soft_s = self._fwd_latency.soft_deadline_s(part_by_key.keys(), quorum_n)
+        soft_s = min(soft_s, timeout_s) if soft_s else timeout_s
+        ok, failed, pending = _await_quorum(futs, quorum_n, time.monotonic() + soft_s,
+                                            latency=self._fwd_latency)
+        uncovered = [k for k, _ in pending] + [k for k, _ in failed]
+        if uncovered and len(ok) >= quorum_n:
+            stub_by_key = dict(members)
+            donors = sorted((k for k, _ in ok),
+                            key=lambda k: self._fwd_latency.p95_s(k) or float("inf"))
+            hedges = []
+            for i, skey in enumerate(uncovered):
+                donor = donors[i % len(donors)]
+                try:
+                    hfut = stub_by_key[donor].Forward.future(
+                        pb.ForwardRequest(samples=part_by_key[skey].astype(np.int32),
+                                          weights=wmsg, want_margins=want_margins),
+                        timeout=min(timeout_s, 2.0 * soft_s))
+                except ValueError:
+                    continue
+                hedges.append((skey, hfut))
+                self.metrics.counter(metrics_mod.QUORUM_HEDGES).increment()
+                trace_mod.event(trace_mod.EVENT_QUORUM_HEDGE, straggler=f"{skey[0]}:{skey[1]}",
+                                donor=f"{donor[0]}:{donor[1]}")
+                self.log.info("hedging Forward slice of straggler %s:%d on %s:%d",
+                              *skey, *donor)
+            h_ok, _h_failed = _await_futures(hedges)
+            still = []
+            for key, fut in pending:  # a late original is preferred
+                if not fut.done():
+                    still.append((key, fut))
+                    continue
+                try:
+                    ok.append((key, fut.result()))
+                except grpc.RpcError as e:
+                    failed.append((key, e.code()))
+            pending = still
+            covered = {k for k, _ in ok}
+            for skey, reply in h_ok:
+                if skey not in covered:
+                    ok.append((skey, reply))
+                    covered.add(skey)
+                    self.metrics.counter(metrics_mod.QUORUM_HEDGE_WINS).increment()
+        elif pending:
+            # below quorum: the classic barrier, to the hard deadline
+            ok2, failed2, _ = _await_quorum(pending, len(pending) + 1,
+                                            time.monotonic() + timeout_s + 5.0,
+                                            latency=self._fwd_latency)
+            ok.extend(ok2)
+            failed.extend(failed2)
+            pending = []
+        covered = {k for k, _ in ok}
+        # a slice no reply covers joins the retry and evict loop
+        failed = [(k, c) for k, c in failed if k not in covered]
+        for key, _fut in pending:
+            if key not in covered:
+                failed.append((key, grpc.StatusCode.DEADLINE_EXCEEDED))
+        return ok, failed
 
     def distributed_loss(self, weights: np.ndarray) -> float:
         """Objective from the Forward fan-out (Master.scala:77-98), from
@@ -441,20 +797,39 @@ class MasterNode:
         the latest snapshot and saves every `checkpoint_every` epochs.
         `optimizer` is None/'sgd', 'momentum' or 'adam'.
 
+        Quorum barrier (`quorum=Q`, DSGD_QUORUM): a window closes when
+        every reply has landed, or when the soft deadline
+        (`straggler_soft_s`, or adaptive from each worker's reply-latency
+        EWMA) has passed with Q replies in hand.  Each missing worker's
+        slice is then hedged to the fastest responders (`hedge`), a
+        straggler's own reply is preferred if it lands meanwhile, the
+        contributions are summed in canonical slice order (so a round with
+        every reply equals the plain barrier bit for bit) and divided by
+        their count, and each worker whose reply went unused gets
+        ``ef_rollback_version`` on its next request.  A slow worker is
+        never counted as failed; below quorum the window runs the full
+        barrier with retry and evict.  A quorum stamps `step_version` on
+        the plain wire.  `straggler_soft_s` without a quorum only counts
+        the windows that overran it (`master.sync.barrier.stalled`).
+
+        Crash-safe fit state (`fit_state_path` with `fit_state_every=R`,
+        DSGD_FIT_CKPT_EVERY): every R applied windows the loop's whole
+        state (weights, optimizer leaves, epoch and window cursor, the
+        sample generator's state, the early-stopping history, the
+        broadcast version, the fit-token lineage) is written atomically,
+        and once more at the end.  A new master that finds it resumes from
+        it bit for bit, unless the epoch checkpoint is newer; a finished
+        snapshot runs nothing.  Snapshots do not change the result.
+
         The JAX fit_sync's other levers are not ported; a non-default value
-        raises NotImplementedError (ROADMAP.md Queue A [A8] 3.3 and 3.4,
-        [A13] item 8)."""
+        raises NotImplementedError (ROADMAP.md Queue A [A8] 3.4, [A13]
+        item 8)."""
         levers = (
             (local_steps != 1, f"local_steps={local_steps}", "[A8] 3.4"),
             (delta_broadcast, "delta_broadcast", "[A8] 3.4"),
             (stream, "stream", "[A8] 3.4"),
             (bool(fanin_lanes), f"fanin_lanes={fanin_lanes}", "[A8] 3.4"),
             (bool(stage_pool), f"stage_pool={stage_pool}", "[A8] 3.4"),
-            (quorum is not None, f"quorum={quorum}", "[A8] 3.3"),
-            (straggler_soft_s is not None, f"straggler_soft_s={straggler_soft_s}",
-             "[A8] 3.3"),
-            (bool(fit_state_path) or bool(fit_state_every),
-             "fit_state_path/fit_state_every (the crash-safe fit state)", "[A8] 3.3"),
             (health is not None, "health (the training-health monitor)",
              "[A13] item 8, telemetry/"),
             (bool(agg_tree), f"agg_tree={agg_tree!r}", "[A13] item 8, aggtree/"),
@@ -466,6 +841,11 @@ class MasterNode:
                 raise not_ported(f"fit_sync({what})", where)
         if on_worker_death not in ("resplit", "fail"):
             raise ValueError(f"on_worker_death must be resplit|fail, got {on_worker_death!r}")
+        if quorum is not None and int(quorum) < 1:
+            raise ValueError(f"quorum must be >= 1, got {quorum}")
+        quorum = int(quorum) if quorum is not None else None
+        if straggler_soft_s is not None and straggler_soft_s <= 0:
+            raise ValueError(f"straggler_soft_s must be > 0, got {straggler_soft_s}")
         opt = resolve_optimizer(optimizer, momentum)
         opt_kind = opt_kind_tag(optimizer)
         self._require_ready()
@@ -478,10 +858,20 @@ class MasterNode:
         result = FitResult(state=GradState(weights=w))
         test_newest_first: List[float] = []
         tracker = _FailureTracker(grad_retries + 1)
+        self._fit_seq += 1
+        fit_token = self._fit_token_base + self._fit_seq
+        # the broadcast version: stamped on the wire under a quorum (the EF
+        # rollback keys on it), counted either way, as the JAX master's
+        versioned = quorum is not None
+        version = 1 if versioned else 0
+        # ef_rollback[worker]: the version whose reply the quorum discarded,
+        # sent with that worker's next request
+        ef_rollback: Dict[Tuple[str, int], int] = {}
         grad_acc = np.zeros(self.model.n_features, dtype=np.float32)
         m = self.metrics
         grad_bytes = m.counter(metrics_mod.SYNC_GRAD_BYTES)
         rounds = m.counter(metrics_mod.SYNC_ROUNDS)
+        stalled = m.counter(metrics_mod.SYNC_STALLED)
         phase_s = {name: m.histogram(name) for name in (
             SYNC_FANOUT_SECONDS, SYNC_BARRIER_SECONDS, SYNC_DECODE_SECONDS,
             SYNC_APPLY_SECONDS)}
@@ -499,10 +889,39 @@ class MasterNode:
                 opt_state = opt_state_from_jax(opt_leaves, opt.kind, self.model.n_features,
                                                self.device)
             self.log.info("resumed sync fit from checkpoint at epoch %d", start_epoch)
-        if start_epoch >= max_epochs:
+
+        # the window-cadence snapshot outranks the epoch checkpoint unless
+        # that one is newer (fit_state_every past an epoch's windows)
+        resume_batch = 0
+        resume_rng_state = None
+        fit_tokens = [fit_token]
+        fit_state_every = max(0, int(fit_state_every))
+        fs = restore_fit_state(fit_state_path, opt_kind, leaves()) if fit_state_path else None
+        if fs is not None and fs.epoch < start_epoch:
+            self.log.info("fit-state snapshot at epoch %d is older than the epoch checkpoint "
+                          "at %d: ignoring it", fs.epoch, start_epoch)
+            fs = None
+        if fs is not None:
+            start_epoch, resume_batch, resume_rng_state = fs.epoch, fs.batch, fs.rng_state
+            w = np.asarray(fs.weights, dtype=np.float32)
+            test_newest_first = list(fs.test_losses_nf)
+            if fs.opt_leaves:
+                opt_state = opt_state_from_jax(fs.opt_leaves, opt.kind, self.model.n_features,
+                                               self.device)
+            if versioned and fs.bcast_version > 0:
+                # never reuse a version the long-lived workers have seen
+                version = int(fs.bcast_version)
+            fit_tokens = fs.fit_tokens + [fit_token]
+            self.log.info("resumed crash-safe fit state at epoch %d window cursor %d "
+                          "(fit lineage: %d token(s))", start_epoch, resume_batch,
+                          len(fit_tokens))
+        if start_epoch >= max_epochs or (fs is not None and fs.finished):
+            # the budget is spent, or the snapshot is a converged fit's
+            # terminal one: resuming would train past convergence
             loss, acc = self.local_loss(w)
-            self.log.info("fit state already complete at epoch %d (max_epochs %d): "
-                          "nothing to run (loss=%.6f acc=%.4f)",
+            self.log.info("fit state already %s at epoch %d (max_epochs %d): nothing to run "
+                          "(loss=%.6f acc=%.4f)",
+                          "finished" if (fs is not None and fs.finished) else "complete",
                           start_epoch, max_epochs, loss, acc)
             result.epochs_run = start_epoch
             result.state = GradState(weights=w, loss=loss).finish()
@@ -510,11 +929,19 @@ class MasterNode:
 
         bcast_w: Optional[np.ndarray] = None  # the weights `bcast` encodes
         bcast: Optional[pb.Tensor] = None
+        rounds_since_save = 0
+        stopped_early = False
         for epoch in range(start_epoch, max_epochs):
             t0 = time.perf_counter()
             batch = 0
             # keyed by absolute epoch: a resumed run draws the same stream
             rng = np.random.default_rng((self.seed, epoch))
+            if resume_rng_state is not None:
+                # a crash-safe resume lands mid-epoch: the generator's state
+                # and the window cursor of the snapshot
+                rng.bit_generator.state = resume_rng_state
+                batch = resume_batch
+                resume_rng_state = None
             while batch < max_samples:
                 # live membership: an unregistration reaches the loop here
                 current = self._members()
@@ -531,17 +958,28 @@ class MasterNode:
                     if batch >= max_samples:
                         break
                 t_batch = time.perf_counter()
-                # one trace per fan-out window: the Gradient calls become
-                # client/server child spans through rpc/service.py's hooks
+                # one trace per fan-out window: the Gradient calls (hedges
+                # included) become client/server child spans through
+                # rpc/service.py's hooks
                 wspan = trace_mod.root_span(trace_mod.SPAN_SYNC_WINDOW, node="master",
-                                            epoch=epoch, batch=int(batch), version=0)
+                                            epoch=epoch, batch=int(batch), version=version)
                 with wspan:
                     if bcast_w is not w:  # one encode per weight version
                         bcast, bcast_w = codec.encode_tensor(w), w
                     futs = []
+                    ids_by_key: Dict[Tuple[str, int], np.ndarray] = {}
+                    rb_sent: Dict[Tuple[str, int], int] = {}
                     for (key, stub), part in zip(members, parts):
                         ids = _draw_ids(rng, part, batch, batch_size)
-                        req = pb.GradientRequest(samples=ids.astype(np.int32), weights=bcast)
+                        ids_by_key[key] = ids
+                        req = pb.GradientRequest(samples=ids.astype(np.int32), weights=bcast,
+                                                 fit_token=fit_token)
+                        if versioned:
+                            req.step_version = version
+                        rb = ef_rollback.pop(key, None)
+                        if rb is not None:
+                            req.ef_rollback_version = rb
+                            rb_sent[key] = rb  # re-armed if this request fails
                         metrics_mod.record_broadcast(m, "full", bcast.ByteSize())
                         try:
                             fut = stub.Gradient.future(req, timeout=grad_timeout_s)
@@ -549,14 +987,32 @@ class MasterNode:
                             fut = None
                         futs.append((key, fut))
                     t_sent = time.perf_counter()
-                    ok, failed = _await_futures(futs, bytes_counter=grad_bytes)
+                    if quorum is None:
+                        good, failed = _await_futures(futs, bytes_counter=grad_bytes)
+                        replies = [r for _, r in good]
+                        satisfied = False
+                        # pure observation: how often a quorum would have
+                        # had to step in
+                        if (straggler_soft_s is not None
+                                and time.perf_counter() - t_batch > straggler_soft_s):
+                            stalled.increment()
+                    else:
+                        replies, good, failed, satisfied = self._quorum_barrier(
+                            futs, members, ids_by_key, quorum, straggler_soft_s,
+                            grad_timeout_s, fit_token, version, bcast, hedge, ef_rollback,
+                            grad_bytes, rb_sent)
+                        if not satisfied:
+                            flight.record("quorum.below", epoch=epoch, batch=int(batch),
+                                          version=version, got=len(good),
+                                          quorum=min(quorum, len(members)))
+                            flight.dump("below_quorum", min_interval_s=10.0)
                     t_replies = time.perf_counter()
                     phase_s[SYNC_FANOUT_SECONDS].record(t_sent - t_batch)
                     phase_s[SYNC_BARRIER_SECONDS].record(t_replies - t_sent)
                     rounds.increment()
-                    for key, _ in ok:
+                    for key, _ in good:
                         tracker.record_ok(key)
-                    if failed:
+                    if not satisfied:
                         for key, code in failed:
                             n, evict = tracker.record_failure(key)
                             if not evict:
@@ -572,14 +1028,16 @@ class MasterNode:
                                 "worker %s:%d failed Gradient %d times (%s); declaring dead",
                                 key[0], key[1], n, code)
                             self.unregister_worker(*key, evicted=True)
-                        wspan.set(retry=True)
-                        continue  # retry this window (survivors or re-split)
-                    # the replies summed in send order, then one true divide:
+                        if failed:
+                            wspan.set(retry=True)
+                            continue  # retry this window (survivors or re-split)
+                    # the replies summed in send order (a quorum's in
+                    # canonical slice order), then one true divide:
                     # bit-matching np.mean over the decoded replies
                     grad_acc.fill(0.0)
-                    for _, reply in ok:
+                    for reply in replies:
                         codec.decode_grad_into(reply, grad_acc)
-                    grad_acc /= len(ok)
+                    grad_acc /= len(replies)
                     t_decoded = time.perf_counter()
                     if opt.kind == "sgd":
                         w = w - learning_rate * grad_acc  # Master.scala:197
@@ -589,11 +1047,22 @@ class MasterNode:
                             torch.from_numpy(grad_acc).to(self.device),
                             learning_rate, opt, opt_state)
                         w = wt.cpu().numpy()
+                    version += 1
                     t_applied = time.perf_counter()
                     phase_s[SYNC_DECODE_SECONDS].record(t_decoded - t_replies)
                     phase_s[SYNC_APPLY_SECONDS].record(t_applied - t_decoded)
                     m.histogram("master.sync.batch.duration").record(t_applied - t_batch)
                     batch += batch_size
+                    rounds_since_save += 1
+                    if fit_state_path and fit_state_every and rounds_since_save >= fit_state_every:
+                        # the cursor points past the applied window and the
+                        # generator's state is what the next window draws from
+                        save_fit_state(
+                            fit_state_path, weights=w, epoch=epoch, batch=batch,
+                            rng_state=rng.bit_generator.state,
+                            test_losses_nf=test_newest_first, opt_kind=opt_kind,
+                            opt_leaves=leaves(), bcast_version=version, fit_tokens=fit_tokens)
+                        rounds_since_save = 0
             epoch_s = time.perf_counter() - t0
 
             loss, acc = self.local_loss(w)
@@ -611,13 +1080,161 @@ class MasterNode:
                               leaves())
             if criterion is not None and criterion(test_newest_first):
                 self.log.info("Converged to target: stopping computation")
+                stopped_early = True
                 break
 
         save_sync_fit_final(checkpointer, result.epochs_run, start_epoch, checkpoint_every,
                             w, test_newest_first, opt_kind, leaves())
+        if fit_state_path and fit_state_every:
+            # the terminal snapshot: `finished` marks a converged fit; a
+            # spent budget is not marked (the cursor says it), so a raised
+            # max_epochs resumes
+            save_fit_state(
+                fit_state_path, weights=w, epoch=result.epochs_run, batch=0,
+                rng_state=np.random.default_rng(
+                    (self.seed, result.epochs_run)).bit_generator.state,
+                test_losses_nf=test_newest_first, opt_kind=opt_kind, opt_leaves=leaves(),
+                bcast_version=version, fit_tokens=fit_tokens, finished=stopped_early)
         result.state = GradState(
             weights=w, loss=result.losses[-1] if result.losses else float("nan")).finish()
         return result
+
+    def _quorum_barrier(self, futs, members, ids_by_key, quorum, straggler_soft_s,
+                        grad_timeout_s, fit_token, version, bcast, hedge, ef_rollback,
+                        grad_bytes, rb_sent):
+        """One window's quorum barrier with straggler hedges.  Returns
+        (replies, good, failed, satisfied):
+
+        - satisfied: the round closes now with `replies` (at least the
+          quorum), in canonical slice order; `good` lists the workers whose
+          own reply was used.  Each fanned-out worker whose own reply was
+          not used is marked in `ef_rollback`, its late reply is counted
+          and dropped, and no failure is recorded: slow is not dead.
+        - not satisfied: below quorum at the soft deadline, everything was
+          awaited to the hard deadline, and the caller runs the full
+          barrier's failure and retry path over (good, failed).  (The JAX
+          barrier also sets aside stale-replica replies; the port's master
+          always sends the full weights, which no worker finds stale.)"""
+        quorum_n = min(quorum, len(members))
+        soft_s = straggler_soft_s
+        if soft_s is None:
+            # adaptive; until the EWMA has history the window is a full
+            # barrier, which seeds it
+            soft_s = self._latency.soft_deadline_s(ids_by_key.keys(), quorum_n)
+        soft_s = min(soft_s, grad_timeout_s) if soft_s else grad_timeout_s
+        t0 = time.monotonic()
+        ok, failed, pending = _await_quorum(futs, quorum_n, t0 + soft_s,
+                                            bytes_counter=grad_bytes, latency=self._latency)
+        # a stalled round: the barrier overran the soft deadline because
+        # the quorum was not in hand when it fired
+        if time.monotonic() - t0 > soft_s + max(0.05, 0.25 * soft_s):
+            self.metrics.counter(metrics_mod.SYNC_STALLED).increment()
+            trace_mod.event(trace_mod.EVENT_BARRIER_STALLED, soft_s=round(soft_s, 4),
+                            got=len(ok))
+            flight.record("barrier.stalled", soft_s=round(soft_s, 4), got=len(ok),
+                          quorum=quorum_n)
+        good = ok
+        uncovered = [k for k, _ in pending] + [k for k, _ in failed]
+        h_ok = []
+        if uncovered and len(good) >= quorum_n and hedge and good:
+            # each missing slice to the fastest responders: the straggler's
+            # drawn ids again, with this window's weights
+            donors = sorted((k for k, _ in good),
+                            key=lambda k: self._latency.p95_s(k) or float("inf"))
+            stub_by_key = dict(members)
+            hedge_deadline = min(grad_timeout_s, 2.0 * soft_s)
+            hedge_futs = []
+            for i, skey in enumerate(uncovered):
+                donor = donors[i % len(donors)]
+                hreq = pb.GradientRequest(samples=ids_by_key[skey].astype(np.int32),
+                                          weights=bcast, fit_token=fit_token,
+                                          step_version=version, hedge=True)
+                metrics_mod.record_broadcast(self.metrics, "full", bcast.ByteSize())
+                try:
+                    hfut = stub_by_key[donor].Gradient.future(hreq, timeout=hedge_deadline)
+                except ValueError:
+                    continue
+                hedge_futs.append((skey, hfut))
+                self.metrics.counter(metrics_mod.QUORUM_HEDGES).increment()
+                trace_mod.event(trace_mod.EVENT_QUORUM_HEDGE, straggler=f"{skey[0]}:{skey[1]}",
+                                donor=f"{donor[0]}:{donor[1]}")
+                flight.record("quorum.hedge", straggler=f"{skey[0]}:{skey[1]}",
+                              donor=f"{donor[0]}:{donor[1]}")
+                self.log.info("hedging slice of straggler %s:%d on %s:%d", *skey, *donor)
+            h_ok, _h_failed = _await_futures(hedge_futs, bytes_counter=grad_bytes)
+
+        # originals that landed while the hedges ran: a straggler's own
+        # reply is preferred over its hedge
+        still_pending = []
+        for key, fut in pending:
+            if not fut.done():
+                still_pending.append((key, fut))
+                continue
+            try:
+                reply = fut.result()
+                grad_bytes.increment(reply.ByteSize())
+                self._latency.record(key, soft_s)  # at least the soft window
+                good.append((key, reply))
+            except grpc.RpcError as e:
+                failed.append((key, e.code()))
+
+        own = {k for k, _ in good}
+        hedge_wins = [(skey, r) for skey, r in h_ok if skey not in own]
+        # canonical slice order, whatever the arrival order: a round with
+        # every reply in hand equals the plain barrier bit for bit
+        order = {key: i for i, key in enumerate(ids_by_key)}
+        good.sort(key=lambda kr: order[kr[0]])
+        replies = [r for _, r in sorted(good + hedge_wins, key=lambda kr: order[kr[0]])]
+        reply_weight = sum(_reply_weight(r) for r in replies)
+        if reply_weight >= quorum_n:
+            if len(good) < len(ids_by_key):
+                self.metrics.counter(metrics_mod.QUORUM_DEGRADED).increment()
+                missing = [f"{k[0]}:{k[1]}" for k in ids_by_key if k not in own]
+                trace_mod.event(trace_mod.EVENT_QUORUM_DEGRADED, contributors=reply_weight,
+                                missing=missing)
+                flight.record("quorum.degraded", contributors=reply_weight, missing=missing)
+            for skey, _ in hedge_wins:
+                self.metrics.counter(metrics_mod.QUORUM_HEDGE_WINS).increment()
+                trace_mod.event(trace_mod.EVENT_QUORUM_HEDGE_WIN,
+                                straggler=f"{skey[0]}:{skey[1]}")
+            # every worker whose own reply went unused rolls its EF drain
+            # back on its next request; a request that failed outright may
+            # never have been processed, so its old marker is re-armed
+            late_counter = self.metrics.counter(metrics_mod.QUORUM_LATE)
+            failed_keys = {k for k, _ in failed}
+            for key in ids_by_key:
+                if key not in own:
+                    if key in failed_keys and key in rb_sent:
+                        ef_rollback[key] = rb_sent[key]
+                    else:
+                        ef_rollback[key] = version
+            # the late settle runs on a gRPC thread after this window's
+            # span closed: capture the window's context now
+            w_ctx = trace_mod.current()
+            for key, fut in still_pending:
+                def _count_late(f, _c=late_counter, _k=key):
+                    if not f.cancelled():
+                        _c.increment()
+                        trace_mod.event_in(w_ctx, trace_mod.EVENT_QUORUM_LATE, node="master",
+                                           worker=f"{_k[0]}:{_k[1]}")
+                        flight.record("quorum.late", worker=f"{_k[0]}:{_k[1]}")
+                fut.add_done_callback(_count_late)
+            return replies, good, [], True
+
+        # below quorum: the full barrier, to the hard deadline; hedge
+        # replies are dropped and the fan-out's order kept
+        if still_pending:
+            ok2, failed2, _ = _await_quorum(still_pending, len(still_pending) + 1,
+                                            time.monotonic() + grad_timeout_s + 5.0,
+                                            bytes_counter=grad_bytes, latency=self._latency)
+            good.extend(ok2)
+            failed.extend(failed2)
+        good.sort(key=lambda kr: order[kr[0]])
+        own = {k for k, _ in good}
+        for key, rb in rb_sent.items():
+            if key not in own:
+                ef_rollback.setdefault(key, rb)
+        return [r for _, r in good], good, failed, False
 
     # -- the async fit (MasterAsync.scala) -----------------------------------
 
@@ -656,12 +1273,18 @@ class MasterNode:
         wire in StartAsyncRequest.  `batch_drain` (DSGD_ASYNC_DRAIN) buffers
         the deltas in an inbox of at most ASYNC_INBOX_CAP and applies one
         sum per drain; a full inbox falls back to the per-message apply,
-        counted.  `elastic` (DSGD_ELASTIC) is not ported: it raises.
+        counted.
+
+        `elastic` (DSGD_ELASTIC): each tick compares the members with the
+        assignments, and on any change (a join, a leave, an eviction)
+        re-splits the rows over the members in registration order with
+        `split` and re-issues StartAsync, with the current weights, only
+        to the workers whose slice changed; the others train on.  Without
+        it a departed worker's rows go to a survivor and a join waits for
+        the next fit.  Either way a member that registered again is
+        re-kicked with its slice.
 
         Returns the BEST weights (MasterAsync.scala:87-94) as a host array."""
-        if elastic:
-            raise not_ported("fit_async(elastic=True) (elastic membership, DSGD_ELASTIC)",
-                             "[A8] 3.3")
         if optimizer is not None and not isinstance(optimizer, str):
             raise ValueError(
                 "the RPC topology ships the optimizer by NAME in StartAsyncRequest; pass "
@@ -705,6 +1328,8 @@ class MasterNode:
         # every endpoint that ever held rows gets StopAsync at the end, even
         # if evicted: a falsely evicted but live worker must stop training
         ever_assigned = set(assignments)
+        with self._members_lock:
+            self._rereg_pending.clear()  # a prior fit's kicks
         drain_thread = None
         if batch_drain:
             with self._inbox_cv:
@@ -724,15 +1349,32 @@ class MasterNode:
                 with self._async_lock:
                     updates, w_now = self._updates, self._w_async
                 window = startup_grace_s if updates == start_updates else stall_window_s
-                # a worker that left mid-fit has its rows re-issued at once
+                # membership reaches the fit here each tick: a worker that
+                # left has its rows re-issued at once, and with `elastic` a
+                # join or a leave re-splits
                 with self._members_lock:
-                    member_keys = set(self._order)
-                gone = [k for k in assignments if k not in member_keys]
-                if gone:
-                    self.log.warning("async fit: %d assigned worker(s) no longer members; "
-                                     "reassigning", len(gone))
-                    self._reassign_async(assignments, gone, w_now, batch_size,
-                                         learning_rate, optimizer, momentum)
+                    member_order = list(self._order)
+                if elastic:
+                    if set(member_order) != set(assignments):
+                        self._elastic_resplit(assignments, member_order, w_now, batch_size,
+                                              learning_rate, optimizer, momentum, split,
+                                              ever_assigned)
+                else:
+                    gone = [k for k in assignments if k not in set(member_order)]
+                    if gone:
+                        self.log.warning("async fit: %d assigned worker(s) no longer "
+                                         "members; reassigning", len(gone))
+                        self._reassign_async(assignments, gone, w_now, batch_size,
+                                             learning_rate, optimizer, momentum)
+                # a member that registered again shows no membership change
+                with self._members_lock:
+                    rejoined = [k for k in self._rereg_pending if k in assignments]
+                    self._rereg_pending.clear()
+                for key in rejoined:
+                    self.log.warning("async fit: %s:%d re-registered while assigned; "
+                                     "re-issuing its StartAsync", key[0], key[1])
+                    self._try_start_async_worker(key, assignments[key], w_now, batch_size,
+                                                 learning_rate, optimizer, momentum)
                 if updates > last_progress:
                     last_progress, last_progress_t = updates, time.monotonic()
                     interventions = 0
@@ -858,6 +1500,36 @@ class MasterNode:
             return
         self._reassign_async(assignments, dead, w_now, batch_size, learning_rate, optimizer,
                              momentum)
+
+    def _elastic_resplit(self, assignments, member_order, w_now, batch_size, learning_rate,
+                         optimizer, momentum, split, ever_assigned) -> None:
+        """An elastic membership change: re-split the rows over the current
+        members with `split`, in registration order (any master looking at
+        the same members derives the same slices), and re-issue StartAsync
+        with the current weights only to the workers whose slice changed.
+        A departed worker drops out of the assignments; its peers dropped
+        it when the unregistration was broadcast."""
+        if not member_order:
+            raise RuntimeError("async fit: all workers lost mid-fit")
+        parts = split(len(self.train), len(member_order))
+        new_assign = dict(zip(member_order, parts))
+        changed = [key for key in member_order
+                   if key not in assignments
+                   or not np.array_equal(assignments[key], new_assign[key])]
+        joined = [key for key in member_order if key not in assignments]
+        departed = [key for key in assignments if key not in new_assign]
+        assignments.clear()
+        assignments.update(new_assign)
+        ever_assigned.update(member_order)
+        self.metrics.counter(metrics_mod.ASYNC_RESPLITS).increment()
+        flight.record("async.resplit", members=len(member_order), joined=len(joined),
+                      departed=len(departed), reissued=len(changed))
+        self.log.warning("elastic resplit across %d member(s): %d joined, %d departed, "
+                         "%d assignment(s) re-issued", len(member_order), len(joined),
+                         len(departed), len(changed))
+        for key in changed:
+            self._try_start_async_worker(key, assignments[key], w_now, batch_size,
+                                         learning_rate, optimizer, momentum)
 
     def _reassign_async(self, assignments, dead, w_now, batch_size, learning_rate,
                         optimizer, momentum) -> None:

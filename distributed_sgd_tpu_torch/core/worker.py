@@ -32,12 +32,21 @@ The rows live on the worker's device for the life of the node; a request
 carries sample ids, which gather their rows there.  The JAX worker pads
 the ids to a power of two for its jit buckets; the port does not pad.
 
+The quorum barrier's requests are served: a ``hedge`` (another worker's
+slice) is the plain Gradient body on the ids it names, replied
+uncompressed and counted ``slave.sync.hedge``; an ``ef_rollback_version``
+is a no-op, since the port's worker has no compressor and so no
+error-feedback residual.  Full weights stamped with ``step_version`` and
+``fit_token`` install the worker's replica (``resolve_request_weights``).
+With ``master_watch_s`` the worker watches the master after registering
+(``Master.Ping`` with its own identity) and registers again when the
+master forgets it or stops answering.
+
 Every request this slice does not serve answers gRPC ``UNIMPLEMENTED``
 with a message that names the ROADMAP item that holds it, never a wrong
 reply: a Gradient with ``local_steps > 1``, a weight delta or a header-only
-weight arm, ``hedge``, ``ef_rollback_version``, ``shard_count`` or
-``agg_*``; and the methods ``FitStream``, ``AggregateGrad`` and
-``Metrics``.
+weight arm, ``shard_count`` or ``agg_*``; and the methods ``FitStream``,
+``AggregateGrad`` and ``Metrics``.
 """
 
 from __future__ import annotations
@@ -76,9 +85,6 @@ NOT_PORTED = {
     "local_steps": "local_steps > 1 (the pipelined sync levers): ROADMAP.md Queue A [A8] 3.4",
     "delta": "a weight delta or a header-only weight arm (DSGD_DELTA_BROADCAST): "
              "ROADMAP.md Queue A [A8] 3.4",
-    "hedge": "a hedged request (DSGD_QUORUM): ROADMAP.md Queue A [A8] 3.3",
-    "ef_rollback_version": "an error-feedback rollback (DSGD_QUORUM with "
-                           "compression): ROADMAP.md Queue A [A8] 3.3",
     "shard_count": "a sharded-master leg (DSGD_MASTER_SHARDS, shardedps/): "
                    "ROADMAP.md Queue A [A13] item 8",
     "agg": "an aggregation-tree request (DSGD_AGG_TREE, aggtree/): "
@@ -114,12 +120,17 @@ class WorkerNode:
         steps_per_dispatch: int = 1,
         max_inflight_gossip: int = 64,
         gossip_topology: str = "all",
+        master_watch_s: Optional[float] = None,
+        master_watch_misses: int = 3,
     ):
         """`device` defaults to the model's, and must equal it: the
         regularizer's vector lives there.  `steps_per_dispatch` local steps
         run in each async dispatch and gossip as one delta;
         `gossip_topology` ('all' | 'ring' | 'random:k') picks each
-        dispatch's peers; `max_inflight_gossip` bounds each sender."""
+        dispatch's peers; `max_inflight_gossip` bounds each sender.
+        `master_watch_s` (None: register once, as the reference) pings the
+        master at that period once registered; a NOT_FOUND, or
+        `master_watch_misses` misses in a row, registers again."""
         self.host, self.port = host, port
         self.log = node_logger(host, port, master=False)
         self.metrics = metrics or metrics_mod.global_metrics()
@@ -133,6 +144,10 @@ class WorkerNode:
         self.steps_per_dispatch = max(1, int(steps_per_dispatch))
         self._topo_mode, self._topo_k = topo.parse_topology(gossip_topology)
         self._dispatch_no = 0
+        self._master_watch_s = master_watch_s
+        self._master_watch_misses = max(1, int(master_watch_misses))
+        # the last full broadcast: (fit_token, step_version, weights)
+        self._replica: Optional[Tuple[int, int, np.ndarray]] = None
         self.n_rows = len(data)
         self._idx = torch.as_tensor(np.ascontiguousarray(data.indices, np.int32),
                                     device=self.device)
@@ -195,20 +210,50 @@ class WorkerNode:
     def _register_loop(self) -> None:
         """Register with the master until it answers, retrying with the
         policy's jittered exponential backoff (2 s first delay, the
-        reference's fixed retry period, Slave.scala:56)."""
+        reference's fixed retry period, Slave.scala:56): the jitter spreads
+        a fleet's retries after a master restart.  With the master watch on,
+        the registered worker then pings the master with its own identity:
+        a NOT_FOUND (a master that does not know it: a fast restart, or an
+        eviction it missed) registers again at once, and
+        `master_watch_misses` misses in a row (a slow restart, a partition)
+        register again through the backoff."""
         node = pb.Node(host=self.host, port=self.port)
-        attempt = 0
-        while not self._stopped.is_set() and not self._registered.is_set():
-            try:
-                self._master.RegisterSlave(node, timeout=self.rpc_policy.deadline_s)
-                self._registered.set()
-                self.log.info("registered with master")
-            except grpc.RpcError as e:
-                delay = self.rpc_policy.backoff_s(attempt)
-                attempt += 1
-                self.log.info("registration failed (%s); retry %d in %.1fs",
-                              e.code(), attempt, delay)
-                self._stopped.wait(delay)
+        while not self._stopped.is_set():
+            attempt = 0
+            while not self._stopped.is_set() and not self._registered.is_set():
+                try:
+                    self._master.RegisterSlave(node, timeout=self.rpc_policy.deadline_s)
+                    self._registered.set()
+                    self.log.info("registered with master")
+                except grpc.RpcError as e:
+                    delay = self.rpc_policy.backoff_s(attempt)
+                    attempt += 1
+                    self.log.info("registration failed (%s); retry %d in %.1fs",
+                                  e.code(), attempt, delay)
+                    self._stopped.wait(delay)
+            if self._master_watch_s is None or self._stopped.is_set():
+                return
+            misses = 0
+            while not self._stopped.wait(self._master_watch_s):
+                try:
+                    self._master.Ping(node, timeout=self.rpc_policy.deadline_s)
+                    misses = 0
+                except grpc.RpcError as e:
+                    if e.code() == grpc.StatusCode.NOT_FOUND:
+                        self.log.warning("master no longer knows us (restart or eviction); "
+                                         "re-registering")
+                        flight.record("master.forgot", worker=self.node_label)
+                        self._registered.clear()
+                        break
+                    misses += 1
+                    if misses >= self._master_watch_misses:
+                        self.log.warning("master unreachable for %d probes (%s); "
+                                         "re-registering", misses, e.code())
+                        flight.record("master.lost", worker=self.node_label, misses=misses)
+                        self._registered.clear()
+                        break
+            if self._registered.is_set():
+                return  # stopped while the watch was healthy
 
     def stop(self) -> None:
         self._stopped.set()
@@ -293,6 +338,24 @@ class WorkerNode:
         g = self.model.grad_regularized(wt, batch, y)
         self.metrics.counter("slave.sync.backward").increment()
         return g.cpu().numpy()
+
+    def resolve_request_weights(self, request) -> np.ndarray:
+        """The weights of a sync Gradient request that carries them in
+        full: installed as the worker's replica under the request's
+        (fit_token, step_version), as the JAX worker's install arm does.
+        A plain request has both 0.  The delta and header-only arms are
+        Queue A [A8] 3.4 and answer UNIMPLEMENTED before this."""
+        w = codec.decode_tensor(request.weights)
+        self._replica = (request.fit_token, request.step_version, w)
+        return w
+
+    def rollback_sync_ef(self, version: int) -> None:
+        """The quorum's contribution mask (GradientRequest.
+        ef_rollback_version): the master discarded this worker's reply for
+        broadcast `version`.  A worker with a compressor restores the
+        residual drained for that window; the port's worker replies
+        uncompressed and keeps no residual, so there is nothing to undo."""
+        del version
 
     def compute_forward(self, w: np.ndarray, ids: np.ndarray):
         """Forward body (Slave.scala:129-140) -> (predictions, margins).
@@ -471,24 +534,26 @@ class _WorkerServicer:
     def Gradient(self, request, context):  # noqa: N802
         """One sync-window Gradient body on the plain wire: full weights
         in, the regularized gradient sum out (dense or sparse, whichever
-        is smaller, as the JAX worker replies)."""
+        is smaller, as the JAX worker replies).  A hedge (another worker's
+        slice under the quorum barrier) runs the same body on the ids it
+        names and is counted; an EF rollback is a no-op here."""
         if request.local_steps > 1:
             _not_ported(context, "local_steps")
-        if request.hedge:
-            _not_ported(context, "hedge")
-        if request.ef_rollback_version:
-            _not_ported(context, "ef_rollback_version")
         if request.shard_count:
             _not_ported(context, "shard_count")
         if request.agg_parent or request.agg_children:
             _not_ported(context, "agg")
         if not request.HasField("weights"):
             _not_ported(context, "delta")
-        w = codec.decode_tensor(request.weights)
+        if request.ef_rollback_version:
+            self.w.rollback_sync_ef(request.ef_rollback_version)
+        w = self.w.resolve_request_weights(request)
         ids = np.fromiter(request.samples, dtype=np.int64)
         with measure.span("slave.grad.compute", metrics=self.w.metrics, root=False,
                           samples=len(ids), local_steps=1):
             g = self.w.compute_gradient(w, ids)
+        if request.hedge:
+            self.w.metrics.counter("slave.sync.hedge").increment()
         with measure.span("slave.grad.encode", metrics=self.w.metrics, root=False):
             return codec.encode_grad(g)
 

@@ -23,6 +23,15 @@ role (config.py ``Config.role``) picks what runs:
   (Gradient and Forward; StartAsync, UpdateGrad and StopAsync, with
   DSGD_STEPS_PER_DISPATCH and DSGD_GOSSIP_TOPOLOGY) until SIGTERM.
 
+The rpc fits (dev with DSGD_ENGINE=rpc, and the master and worker roles)
+take the JAX CLI's fault tolerance: DSGD_HEARTBEAT_S (with
+DSGD_HEARTBEAT_MAX_MISSES) starts the master's heartbeat, DSGD_QUORUM and
+DSGD_STRAGGLER_SOFT_S the sync fit's quorum barrier with straggler hedges,
+DSGD_FIT_CKPT_EVERY (under DSGD_CHECKPOINT_DIR) its crash-safe fit state,
+from which a restarted master resumes, and DSGD_ELASTIC the async fit's
+elastic membership and, on the worker role, the watch through which the
+worker registers again with a restarted master.
+
 Every engine takes DSGD_OPTIMIZER (sgd | momentum | adam) with
 DSGD_MOMENTUM.  DSGD_CHECKPOINT_DIR saves and resumes every fit
 (checkpoint.py), DSGD_PROFILE_DIR writes a torch.profiler trace of one
@@ -51,7 +60,7 @@ from typing import Optional
 import numpy as np
 
 from distributed_sgd_tpu_torch import trace as trace_mod
-from distributed_sgd_tpu_torch.checkpoint import Checkpointer
+from distributed_sgd_tpu_torch.checkpoint import Checkpointer, fit_state_path
 from distributed_sgd_tpu_torch.config import Config
 from distributed_sgd_tpu_torch.core.early_stopping import no_improvement
 from distributed_sgd_tpu_torch.core.trainer import FitResult, SyncTrainer
@@ -233,6 +242,17 @@ def warn_mesh_ignored(cfg: Config) -> None:
             "topology's (use engine=rpc; docs/HIERARCHY.md)")
 
 
+def _fit_state_args(cfg: Config) -> dict:
+    """DSGD_FIT_CKPT_EVERY -> fit_sync's crash-safe fit-state arguments,
+    empty when it is off (the config checked that DSGD_CHECKPOINT_DIR is
+    set).  (The JAX CLI also passes the path for DSGD_HEALTH_ACTION, which
+    the port refuses.)"""
+    if not cfg.fit_ckpt_every or not cfg.checkpoint_dir:
+        return {}
+    return {"fit_state_path": fit_state_path(cfg.checkpoint_dir),
+            "fit_state_every": cfg.fit_ckpt_every}
+
+
 def _rpc_fit(cfg: Config, master) -> FitResult:
     """The master's fit: the async one with DSGD_ASYNC=1, else the sync
     one, with the JAX CLI's arguments."""
@@ -248,7 +268,8 @@ def _rpc_fit(cfg: Config, master) -> FitResult:
     return master.fit_sync(
         cfg.max_epochs, cfg.batch_size, cfg.learning_rate, criterion,
         checkpointer=ckpt, checkpoint_every=cfg.checkpoint_every,
-        optimizer=cfg.optimizer, momentum=cfg.momentum)
+        optimizer=cfg.optimizer, momentum=cfg.momentum,
+        quorum=cfg.quorum, straggler_soft_s=cfg.straggler_soft_s, **_fit_state_args(cfg))
 
 
 def scenario_rpc(cfg: Config, train: Dataset, test: Dataset, model,
@@ -262,7 +283,8 @@ def scenario_rpc(cfg: Config, train: Dataset, test: Dataset, model,
              cfg.use_async, model.device)
     with DevCluster(model, train, test, n_workers=cfg.node_count, seed=cfg.seed,
                     metrics=metrics, steps_per_dispatch=cfg.steps_per_dispatch,
-                    gossip_topology=cfg.gossip_topology) as c:
+                    gossip_topology=cfg.gossip_topology, heartbeat_s=cfg.heartbeat_s,
+                    heartbeat_max_misses=cfg.heartbeat_max_misses) as c:
         w0 = np.zeros(model.n_features, dtype=np.float32)
         loss0, acc0 = c.master.local_loss(w0, test=False)
         log.info("initial loss=%.6f acc=%.4f", loss0, acc0)
@@ -286,7 +308,8 @@ def _run_master(cfg: Config, train: Dataset, test: Dataset, model) -> FitResult:
     from distributed_sgd_tpu_torch.core.master import MasterNode
 
     master = MasterNode(cfg.host, cfg.port, train, test, model,
-                        expected_workers=cfg.node_count, seed=cfg.seed).start()
+                        expected_workers=cfg.node_count, seed=cfg.seed).start(
+        heartbeat_s=cfg.heartbeat_s, heartbeat_max_misses=cfg.heartbeat_max_misses)
     try:
         master.await_ready()
         res = _rpc_fit(cfg, master)
@@ -315,10 +338,13 @@ def _run_worker(cfg: Config, train: Dataset, model) -> None:
     SIGTERM or SIGINT (or `stop_workers`), then unregister and return."""
     from distributed_sgd_tpu_torch.core.worker import WorkerNode
 
+    # an elastic deployment survives a master restart: the watch pings
+    # the master and registers again when it forgets or loses this worker
     worker = WorkerNode(cfg.host, cfg.port, cfg.master_host, cfg.master_port, train, model,
                         seed=cfg.seed, profile_dir=cfg.profile_dir,
                         steps_per_dispatch=cfg.steps_per_dispatch,
-                        gossip_topology=cfg.gossip_topology)
+                        gossip_topology=cfg.gossip_topology,
+                        master_watch_s=(cfg.heartbeat_s or 5.0) if cfg.elastic else None)
 
     def _on_signal(signum, _frame):
         log.info("signal %d: stopping the worker", signum)

@@ -377,6 +377,14 @@ SYNC_RESPLITS = "master.sync.resplit"            # counter: mid-fit membership r
 MASTER_EVICTIONS = "master.evictions"          # counter: involuntary unregisters
 BREAKER_OPEN = "rpc.breaker.open"                  # breaker trips (rpc/service.py)
 
+# the quorum barrier (DSGD_QUORUM): `stalled` above counts barriers that
+# overran the soft deadline with no quorum relief; a quorum-satisfied
+# round that closed without every worker's own reply counts `degraded`
+QUORUM_DEGRADED = "master.sync.quorum.degraded"    # rounds closed at < full strength
+QUORUM_HEDGES = "master.sync.quorum.hedges"        # hedge Gradient/Forward requests issued
+QUORUM_HEDGE_WINS = "master.sync.quorum.hedge_wins"  # slices covered by a hedge
+QUORUM_LATE = "master.sync.quorum.late"            # late replies discarded
+
 # -- the RPC async fit (core/master.py fit_async, core/worker.py) ---------------
 #
 # A worker counts its local steps under `slave.async.batch` (k a dispatch)
@@ -391,6 +399,7 @@ ASYNC_DRAINS = "master.async.drain.batches"        # inbox drains applied
 ASYNC_DRAIN_SIZE = "master.async.drain.size"       # histogram: messages per drain
 ASYNC_DRAIN_FALLBACK = "master.async.drain.fallback"  # full inbox -> per-message
 TOPOLOGY_RESELECT = "slave.async.topology.reselect"  # edges re-routed past breakers
+ASYNC_RESPLITS = "master.async.resplit"            # elastic membership resplits
 HEALTH_DRAIN_BACKLOG = "health.drain.backlog"       # gauge: async inbox depth (master)
 
 

@@ -45,7 +45,8 @@ def test_every_port_module_imports_with_jax_blocked():
             "distributed_sgd_tpu_torch.trace", "distributed_sgd_tpu_torch.trace.flight",
             "distributed_sgd_tpu_torch.trace.merge", "distributed_sgd_tpu_torch.rpc",
             "distributed_sgd_tpu_torch.rpc.codec", "distributed_sgd_tpu_torch.rpc.service",
-            "distributed_sgd_tpu_torch.rpc.dsgd_pb2", "distributed_sgd_tpu_torch.core.worker",
+            "distributed_sgd_tpu_torch.rpc.dsgd_pb2", "distributed_sgd_tpu_torch.rpc.stream",
+            "distributed_sgd_tpu_torch.core.worker",
             "distributed_sgd_tpu_torch.core.master", "distributed_sgd_tpu_torch.core.cluster",
             "distributed_sgd_tpu_torch.core.split",
             "distributed_sgd_tpu_torch.tools.sync_epoch_routes"} <= set(mods)

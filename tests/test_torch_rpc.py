@@ -240,8 +240,7 @@ def test_the_worker_gradient_is_worker_grads_plus_the_regularizer(data):
 
 
 @pytest.mark.parametrize("field", [
-    "local_steps", "hedge", "ef_rollback_version", "shard_count", "agg_parent", "delta",
-    "Metrics", "AggregateGrad"])
+    "local_steps", "shard_count", "agg_parent", "delta", "Metrics", "AggregateGrad"])
 def test_unserved_requests_answer_unimplemented_with_their_roadmap_item(data, field):
     train, test, _ = data
     with DevCluster(_models(data)[1], _torch(train), _torch(test), n_workers=1) as c:
@@ -252,10 +251,6 @@ def test_unserved_requests_answer_unimplemented_with_their_roadmap_item(data, fi
         call = stub.Gradient
         if field == "local_steps":
             req.local_steps = 2
-        elif field == "hedge":
-            req.hedge = True
-        elif field == "ef_rollback_version":
-            req.ef_rollback_version = 3
         elif field == "shard_count":
             req.shard_count = 2
         elif field == "agg_parent":
@@ -274,18 +269,64 @@ def test_unserved_requests_answer_unimplemented_with_their_roadmap_item(data, fi
     assert "ROADMAP.md Queue A" in e.value.details()
 
 
+@pytest.mark.parametrize("field", ["hedge", "ef_rollback_version"])
+def test_the_worker_serves_the_quorum_barriers_requests(data, field):
+    """A JAX master under a quorum sends `hedge` to a donor (the plain
+    body on another worker's ids, counted) and `ef_rollback_version` to
+    a straggler (a no-op: the port's worker keeps no residual): both
+    reply the gradient the plain request gets."""
+    train, test, _ = data
+    w = np.random.default_rng(6).normal(size=D).astype(np.float32) * 0.1
+    with DevCluster(_models(data)[1], _torch(train), _torch(test), n_workers=1) as c:
+        ch = new_channel("127.0.0.1", c.workers[0].port)
+        stub = WorkerStub(ch)
+        plain = pb.GradientRequest(samples=[0, 1, 5], weights=codec.encode_tensor(w),
+                                   fit_token=7, step_version=3)
+        req = pb.GradientRequest()
+        req.CopyFrom(plain)
+        setattr(req, field, True if field == "hedge" else 2)
+        before = c.workers[0].metrics.counter("slave.sync.hedge").value
+        got, want = stub.Gradient(req, timeout=10), stub.Gradient(plain, timeout=10)
+        hedges = c.workers[0].metrics.counter("slave.sync.hedge").value - before
+        replica = c.workers[0]._replica
+        ch.close()
+    np.testing.assert_array_equal(codec.decode_grad(got), codec.decode_grad(want))
+    assert hedges == (1 if field == "hedge" else 0)
+    assert replica[:2] == (7, 3)  # the install arm: (fit_token, step_version)
+
+
 @pytest.mark.parametrize("kw", [
-    {"local_steps": 2}, {"delta_broadcast": True}, {"quorum": 1}, {"stream": True},
+    {"local_steps": 2}, {"delta_broadcast": True}, {"stream": True},
     {"fanin_lanes": 2}, {"stage_pool": 2}, {"agg_tree": "fanout:2"}, {"master_shards": 2},
-    {"straggler_soft_s": 1.0}, {"fit_state_path": "x"}, {"health": object()}],
-    ids=lambda kw: next(iter(kw)))
+    {"quorum": 2, "local_steps": 2}, {"quorum": 2, "stream": True},
+    {"health": object()}],
+    ids=lambda kw: "+".join(kw))
 def test_fit_sync_levers_not_ported_raise(data, kw):
     train, test, _ = data
     with DevCluster(_models(data)[1], _torch(train), _torch(test), n_workers=1) as c:
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A"):
             c.master.fit_sync(1, B, 0.5, **kw)
-        with pytest.raises(NotImplementedError, match=r"\[A8\] 3.3"):
-            c.master.fit_async(1, B, 0.5, elastic=True)
+
+
+@pytest.mark.parametrize("kw", [
+    {"quorum": 1}, {"straggler_soft_s": 1.0}, {"fit_state_path": "fit_state.npz"}],
+    ids=lambda kw: next(iter(kw)))
+def test_fit_sync_fault_tolerance_levers_run(data, kw, tmp_path):
+    """Each of them once refused: a quorum of 1 over 1 worker, a soft
+    deadline that only observes, and a fit-state path (with snapshots)
+    give the plain fit's weights bit for bit."""
+    train, test, _ = data
+    if "fit_state_path" in kw:
+        kw = {"fit_state_path": str(tmp_path / kw["fit_state_path"]), "fit_state_every": 5}
+    with DevCluster(_models(data)[1], _torch(train), _torch(test), n_workers=1) as c:
+        plain = c.master.fit_sync(1, B, 0.5)
+        got = c.master.fit_sync(1, B, 0.5, **kw)
+    np.testing.assert_array_equal(got.weights, plain.weights)
+    if "fit_state_path" in kw:
+        with np.load(kw["fit_state_path"]) as z:
+            assert (int(z["epoch"]), int(z["batch"])) == (1, 0)
+    with pytest.raises(ValueError):
+        MasterNode.fit_sync(c.master, 1, B, 0.5, quorum=0)
 
 
 # -- fault tolerance (as tests/test_fault_tolerance.py) ---------------------

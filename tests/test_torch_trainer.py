@@ -8,6 +8,7 @@ accuracy of the JAX trainer at the same config and one-card topology."""
 
 import logging
 import os
+import threading
 
 import jax.numpy as jnp
 import numpy as np
@@ -141,6 +142,18 @@ def test_config_reads_the_jax_env_names_and_refuses_what_is_not_ported(monkeypat
         Config(use_async=True, async_mode="hogwild")
     with pytest.raises(ValueError, match="DSGD_GOSSIP_TOPOLOGY"):
         Config(gossip_topology="star")
+    # the fault tolerance's settings, validated as the JAX Config does
+    monkeypatch.setenv("DSGD_HEARTBEAT_MAX_MISSES", "7")
+    monkeypatch.setenv("DSGD_QUORUM", "2")
+    monkeypatch.setenv("DSGD_STRAGGLER_SOFT_S", "0.5")
+    monkeypatch.setenv("DSGD_ROLE", "master")
+    cfg = Config.from_env()
+    assert (cfg.heartbeat_max_misses, cfg.quorum, cfg.straggler_soft_s) == (7, 2, 0.5)
+    for bad, words in (({"quorum": 0}, "quorum"), ({"straggler_soft_s": 0.0}, "straggler"),
+                       ({"heartbeat_max_misses": 0}, "heartbeat_max_misses"),
+                       ({"fit_ckpt_every": 5}, "DSGD_CHECKPOINT_DIR")):
+        with pytest.raises(ValueError, match=words):
+            Config(**bad)
 
 
 _MASTER = {"DSGD_MASTER_HOST": "127.0.0.1", "DSGD_MASTER_PORT": "4000",
@@ -165,9 +178,9 @@ _RPC = {"DSGD_ENGINE": "rpc"}
     {"DSGD_RESOURCE_PROBE_S": "0.2"},
     {"DSGD_BLACKBOX_DIR": "bb"},
     {"DSGD_HOST_DEVICES": "2"},
-    # the rpc fits (dev engine=rpc, and the master role); DSGD_ASYNC=1 and
-    # DSGD_ASYNC_DRAIN run there now (tests/test_torch_rpc_async.py)
-    {**_RPC, "DSGD_HEARTBEAT_S": "0.5"},
+    # the rpc fits (dev engine=rpc, and the master role); DSGD_ASYNC=1,
+    # DSGD_ASYNC_DRAIN and the fault tolerance run there now
+    # (tests/test_torch_rpc_async.py, and the test after this one)
     {**_RPC, "DSGD_LOCAL_STEPS": "4"},
     {**_RPC, "DSGD_DELTA_BROADCAST": "1"},
     {**_RPC, "DSGD_STREAM": "1"},
@@ -175,13 +188,8 @@ _RPC = {"DSGD_ENGINE": "rpc"}
     {**_RPC, "DSGD_STAGE_POOL": "2"},
     {**_RPC, "DSGD_AGG_TREE": "fanout:2"},
     {**_RPC, "DSGD_MASTER_SHARDS": "2"},
-    {**_RPC, "DSGD_QUORUM": "2"},
-    {**_RPC, "DSGD_STRAGGLER_SOFT_S": "1.0"},
-    {**_RPC, "DSGD_ELASTIC": "1"},
-    {**_RPC, "DSGD_FIT_CKPT_EVERY": "10"},
-    {**_MASTER, "DSGD_HEARTBEAT_S": "0.5"},
-    {**_MASTER, "DSGD_QUORUM": "2"},
-    {**_WORKER, "DSGD_ELASTIC": "1"},
+    {**_RPC, "DSGD_QUORUM": "2", "DSGD_STREAM": "1"},
+    {**_MASTER, "DSGD_QUORUM": "2", "DSGD_LOCAL_STEPS": "2"},
     {**_WORKER, "DSGD_ROW_STORE": "store"},
 ], ids=lambda env: "+".join(f"{k[5:].lower()}={v}" for k, v in env.items()
                             if k not in ("DSGD_MASTER_HOST", "DSGD_NODE_HOST")))
@@ -192,6 +200,112 @@ def test_settings_not_ported_raise_before_any_data_loads(env, monkeypatch):
     monkeypatch.setattr(tmain, "load_data", lambda cfg: pytest.fail("data was loaded"))
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A"):
         tmain.main(device="cpu")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+@pytest.mark.parametrize("role,env", [
+    ("dev", {**_RPC, "DSGD_HEARTBEAT_S": "0.5"}),
+    ("dev", {**_RPC, "DSGD_QUORUM": "2"}),
+    ("dev", {**_RPC, "DSGD_STRAGGLER_SOFT_S": "1.0"}),
+    ("dev", {**_RPC, "DSGD_ELASTIC": "1", "DSGD_ASYNC": "1"}),
+    ("dev", {**_RPC, "DSGD_FIT_CKPT_EVERY": "10"}),
+    ("master", {"DSGD_HEARTBEAT_S": "0.5"}),
+    ("master", {"DSGD_QUORUM": "2"}),
+    ("worker", {"DSGD_ELASTIC": "1", "DSGD_HEARTBEAT_S": "0.2"}),
+], ids=lambda x: x if isinstance(x, str) else "+".join(
+    f"{k[5:].lower()}={v}" for k, v in x.items()))
+def test_the_fault_tolerance_settings_act_in_their_role(role, env, monkeypatch, tmp_path):
+    """The settings of the rpc engine's fault tolerance, once refused,
+    reach the node that acts on them and the fit runs: the heartbeat on
+    the master, the quorum and the soft deadline in fit_sync, elastic
+    membership in fit_async, the fit-state snapshots under the checkpoint
+    directory, and the master watch on the worker role."""
+    from distributed_sgd_tpu_torch.core.master import MasterNode
+    from distributed_sgd_tpu_torch.core.worker import WorkerNode
+
+    for k, v in {**env, "DSGD_SYNTHETIC": "600", "DSGD_MAX_EPOCHS": "1",
+                 "DSGD_NODE_COUNT": "2"}.items():
+        monkeypatch.setenv(k, v)
+    if "DSGD_FIT_CKPT_EVERY" in env:
+        monkeypatch.setenv("DSGD_CHECKPOINT_DIR", str(tmp_path))
+    seen = {"start": [], "fit_sync": [], "fit_async": [], "watch": [], "hb": []}
+    real = {name: getattr(MasterNode, name) for name in ("start", "fit_sync", "fit_async")}
+
+    def start(node, *a, **kw):
+        seen["start"].append(kw)
+        out = real["start"](node, *a, **kw)
+        seen["hb"].append(node._hb_thread is not None)
+        return out
+
+    def fit(name):
+        def run(node, *a, **kw):
+            seen[name].append(kw)
+            return real[name](node, *a, **kw)
+        return run
+
+    real_init = WorkerNode.__init__
+
+    def init(node, *a, **kw):
+        seen["watch"].append(kw.get("master_watch_s"))
+        real_init(node, *a, **kw)
+
+    monkeypatch.setattr(MasterNode, "start", start)
+    monkeypatch.setattr(MasterNode, "fit_sync", fit("fit_sync"))
+    monkeypatch.setattr(MasterNode, "fit_async", fit("fit_async"))
+    monkeypatch.setattr(WorkerNode, "__init__", init)
+    if role == "dev":
+        run = tmain.main(device="cpu")
+        assert run.fit is not None and np.isfinite(run.fit.state.loss)
+    else:
+        port = _free_port()
+        box = {}
+
+        def go(name, cfg):
+            try:
+                box[name] = tmain.main(device="cpu", cfg=cfg)
+            except Exception as e:  # noqa: BLE001 - surfaced below
+                box[name] = e
+
+        master_cfg = Config.from_env(host="127.0.0.1", port=port, master_host="127.0.0.1",
+                                     master_port=port)
+        assert master_cfg.role == "master"
+        threads = [threading.Thread(target=go, args=("master", master_cfg), daemon=True)]
+        for i in range(2):
+            cfg = Config.from_env(host="127.0.0.1", port=0, master_host="127.0.0.1",
+                                  master_port=port)
+            assert cfg.role == "worker"
+            threads.append(threading.Thread(target=go, args=(f"w{i}", cfg), daemon=True))
+        for t in threads:
+            t.start()
+        threads[0].join(timeout=120)
+        tmain.stop_workers()
+        for t in threads[1:]:
+            t.join(timeout=30)
+        assert not any(t.is_alive() for t in threads)
+        for name, out in box.items():
+            assert not isinstance(out, Exception), (name, out)
+        assert box["master"].fit.epochs_run == 1
+    if "DSGD_HEARTBEAT_S" in env and role != "worker":
+        assert seen["start"][0]["heartbeat_s"] == 0.5 and seen["hb"] == [True]
+    if "DSGD_QUORUM" in env:
+        assert seen["fit_sync"][0]["quorum"] == 2
+    if "DSGD_STRAGGLER_SOFT_S" in env:
+        assert seen["fit_sync"][0]["straggler_soft_s"] == 1.0
+    if "DSGD_ASYNC" in env:
+        assert seen["fit_async"][0]["elastic"] is True
+    if "DSGD_FIT_CKPT_EVERY" in env:
+        assert seen["fit_sync"][0]["fit_state_every"] == 10
+        with np.load(tmp_path / "fit_state.npz") as z:
+            assert (int(z["epoch"]), int(z["batch"])) == (1, 0)
+    if role == "worker":
+        assert seen["watch"] == [0.2, 0.2]
 
 
 @pytest.mark.parametrize("env,words", [
@@ -205,7 +319,8 @@ def test_settings_not_ported_raise_before_any_data_loads(env, monkeypatch):
     ({"DSGD_QUORUM": "2"}, "DSGD_QUORUM/DSGD_CHAOS ignored"),
     ({"DSGD_ELASTIC": "1"}, "DSGD_ELASTIC/DSGD_ASYNC_DRAIN/DSGD_FIT_CKPT_EVERY ignored"),
     ({"DSGD_ASYNC_DRAIN": "1"}, "the elastic + crash-recovery subsystem"),
-    ({"DSGD_FIT_CKPT_EVERY": "5"}, "DSGD_FIT_CKPT_EVERY ignored"),
+    ({"DSGD_FIT_CKPT_EVERY": "5", "DSGD_CHECKPOINT_DIR": "ckpt"},
+     "DSGD_FIT_CKPT_EVERY ignored"),
     ({"DSGD_HOST_DEVICES": "0"}, "DSGD_HOST_DEVICES ignored"),
     ({"DSGD_GOSSIP_TOPOLOGY": "ring"}, "DSGD_GOSSIP_TOPOLOGY=ring ignored"),
 ], ids=lambda x: x if isinstance(x, str) and " " not in x else None)
