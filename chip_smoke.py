@@ -67,10 +67,10 @@ Phases, each fatal (a traceback and a non-zero exit):
    once a worker and ``sync_epoch`` never ran, that the test loss fell
    from its value at w = 0 and the test accuracy is >= 0.70, printing
    windows/s and the parts of a window, and scraping the fit's registry
-   through a ``PrometheusExporter``; the same fit under torch.profiler for
-   the device's busy share, which must give bitwise the same weights; a
-   100,000-row fit with the nodes on the card against the same on the
-   CPU; the CLI as one master and 3 workers in processes of their own on
+   through a ``PrometheusExporter``; a 100,000-row fit with the nodes on
+   the card against the same on the CPU, and the card's again under
+   torch.profiler for the device's busy share, which must give bitwise
+   the same weights; the CLI as one master and 3 workers in processes of their own on
    loopback with DSGD_TRACE=1, all exiting 0, whose merged trace puts the
    master's windows and the workers' Gradient spans under the same trace
    ids; and two torch.profiler sessions back to back in one process of
@@ -108,7 +108,23 @@ Phases, each fatal (a traceback and a non-zero exit):
    and the CLI as one master and 3 workers with the heartbeat, a quorum,
    DSGD_ELASTIC and fit-state snapshots, the master SIGKILLed mid-fit and
    started again, the new master and the workers exiting 0;
-11. summary: the card line, one JSON line of per-kernel numbers, and last
+11. the pipelined sync RPC engine, at full width: the K-step window (one
+   ``sync_epoch`` launch in the sum mode, S=4, B=100, hinge,
+   dim_sparsity) against its plain version for a full window and a short
+   one (330 ids: 3 steps and a tail of 30), within 1e-6 and bitwise
+   repeatable over 40 launches, timed beside its bound; phase 8's fit
+   again with delta broadcasts, streams, 2 fan-in lanes and a stage pool
+   of 2, bitwise equal to it, with the broadcast bytes of both;
+   DSGD_LOCAL_STEPS=4 with every lever on for 2 epochs (ceil(part / 400)
+   rounds an epoch, one launch a worker a round, no ``worker_grads``,
+   accuracy >= 0.70, windows/s and a window's parts, and one epoch under
+   torch.profiler for the busy share); and the CLI as one master and 3
+   workers that map a row store built from the same synthetic rows in a
+   temporary directory, each holding its third of the train rows and a
+   10% margin, with every lever on: after the first epoch one worker
+   leaves, each survivor reloads only the rows it did not hold, and all
+   exit 0;
+12. summary: the card line, one JSON line of per-kernel numbers, and last
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits non-zero before printing any result.
@@ -1611,12 +1627,12 @@ def rpc_fit(model, train, test, metrics=None, profile: bool = False):
     return out[0], loss0, launches, dev
 
 
-def check_rpc_full_width() -> int:
+def check_rpc_full_width() -> dict:
     """The full-width RPC fit: worker_grads launches = windows x workers, no
     sync_epoch; the loss falls, accuracy >= 0.70; windows/s and the parts
-    of a window; a scrape of the fit's registry; the same fit under
-    torch.profiler for the busy share, with bitwise the same weights.
-    Returns the launches of the first fit."""
+    of a window; a scrape of the fit's registry.  Returns the fit's
+    launches, weights and broadcast bytes, and its data (phase 11 runs the
+    levers' fit on them)."""
     from distributed_sgd_tpu_torch.utils.metrics import PrometheusExporter
 
     t0 = time.perf_counter()
@@ -1663,6 +1679,13 @@ def check_rpc_full_width() -> int:
             or counters.get("master_sync_grad_bytes_total", 0) <= 0):
         raise AssertionError(f"rpc: the scrape shows no rounds or gradient bytes: {counters}")
 
+    return {"launches": launches, "weights": w, "data": (train, test, model),
+            "bcast_bytes": m.counter("master.sync.bcast.bytes").value}
+
+
+def check_rpc_profiled(model, train, test, w: np.ndarray) -> None:
+    """The fit that gave `w` run again under torch.profiler: the device's
+    busy share, and bitwise the same weights."""
     again, _, _, dev = rpc_fit(model, train, test, profile=True)
     same = np.array_equal(np.asarray(again.weights), w)
     kernels = [(t0_, t1_) for t0_, t1_, name in dev if "worker_grads" in name
@@ -1683,12 +1706,14 @@ def check_rpc_full_width() -> int:
           flush=True)
     if not same:
         raise AssertionError("rpc: two runs of one fit gave different weights")
-    return launches
 
 
 def check_rpc_card_against_cpu() -> None:
     """A RPC_SMALL_ROWS-row fit with the nodes on the card and again on the
-    CPU: test losses rtol 1e-5, weights atol 1e-5."""
+    CPU: test losses rtol 1e-5, weights atol 1e-5; then the card's fit
+    again under torch.profiler for the busy share, with bitwise the same
+    weights.  (The profiled fit was once phase 8's full-width one: cut to
+    these rows to keep the smoke's time.)"""
     data = rcv1_like(RPC_SMALL_ROWS, seed=0, idf_values=True)
     train, test = train_test_split(data)
     ds = dim_sparsity(train)
@@ -1699,6 +1724,8 @@ def check_rpc_card_against_cpu() -> None:
         fits[dev] = rpc_fit(model, train, test)[0]
         print(f"rpc {RPC_SMALL_ROWS}-row fit on {dev}: {time.perf_counter() - t0:.2f} s, test "
               f"loss {fits[dev].test_losses[0]:.7f}", flush=True)
+        if dev == "cuda":
+            check_rpc_profiled(model, train, test, np.asarray(fits[dev].weights))
     err = float(np.abs(np.asarray(fits["cuda"].weights) - np.asarray(fits["cpu"].weights)).max())
     print(f"rpc card against CPU: weights max_abs_err={err:.3e}", flush=True)
     if err > 1e-5 or not np.allclose(fits["cuda"].test_losses, fits["cpu"].test_losses,
@@ -1792,14 +1819,14 @@ def check_profiler_sessions() -> None:
                              f"({out.returncode}):\n{out.stdout[-2000:]}\n{out.stderr[-2000:]}")
 
 
-def run_rpc_phase() -> int:
-    """Phase 8; returns the full-width fit's worker_grads launches."""
+def run_rpc_phase() -> dict:
+    """Phase 8; returns check_rpc_full_width's dict."""
     rpc_versions()
-    launches = check_rpc_full_width()
+    full = check_rpc_full_width()
     check_rpc_card_against_cpu()
     check_rpc_cli()
     check_profiler_sessions()
-    return launches
+    return full
 
 
 # -- phase 9: the async fit over RPC ---------------------------------------------
@@ -2478,6 +2505,360 @@ def run_fault_tolerance_phase() -> dict:
     return out
 
 
+# -- phase 11: the pipelined sync RPC engine ---------------------------------------
+
+WINDOW_K = 4  # DSGD_LOCAL_STEPS of the window checks and of the K-step fit
+WINDOW_ATOL = 1e-6  # the window kernel against its plain version
+WINDOW_ROWS = 20000  # rows the window kernel's checks draw from
+WINDOW_FIT_EPOCHS = 2
+PIPE_CLI_ROWS = 100000  # the row-store CLI run (80,000 train rows)
+PIPE_CLI_EPOCHS = 3
+PIPE_CLI_OVERPROVISION = 0.1
+# every lever at once, as the fit's keywords and as the CLI's settings
+PIPE_LEVERS = dict(delta_broadcast=True, stream=True, fanin_lanes=2, stage_pool=2)
+PIPE_ENV = {"DSGD_DELTA_BROADCAST": "1", "DSGD_STREAM": "1", "DSGD_FANIN_LANES": "2",
+            "DSGD_STAGE_POOL": "2"}
+BCAST_COUNTERS = ("bytes", "full", "delta", "cached", "stale")
+
+
+def window_case(data: dict, n_ids: int, seed: int):
+    """(w, ids[S, 1, B], the WindowSteps) of one window of `n_ids` ids at
+    full width, S = WINDOW_K: a short window's tail filled with the zero
+    sentinel row, as core/worker.py's compute_local_window fills it."""
+    rng = np.random.default_rng(seed)
+    steps = min(-(-n_ids // B), WINDOW_K)
+    ids = np.full(steps * B, WINDOW_ROWS, dtype=np.int64)  # the sentinel row
+    ids[:n_ids] = rng.choice(WINDOW_ROWS, size=n_ids, replace=False)
+    w = torch.tensor(rng.normal(size=D).astype(np.float32) * 0.1, device="cuda")
+    model = make_model("hinge", LAM, D, dim_sparsity=data["ds"], device="cuda")
+    steps_ = psync.WindowSteps(model, data["indices"], data["values"], data["labels_f32"],
+                               RPC_LR)
+    return w, torch.from_numpy(ids.reshape(steps, 1, B)).cuda(), steps_
+
+
+def check_window_kernel() -> dict:
+    """The K-step window (sync_epoch in the sum mode: K = 1, grad_divisor
+    1, n_total_workers 1, sgd) against its plain version at full width
+    (hinge, dim_sparsity, S = 4), for a full window and a short one (330
+    ids: 3 full steps and a tail of 30), each within WINDOW_ATOL and
+    bitwise identical over SE_REPEATS launches; times the full window.
+    Returns the summary row."""
+    ds = rcv1_like(WINDOW_ROWS, n_features=D, nnz=P, seed=41, idf_values=True)
+    zero = Dataset(np.zeros((1, P), np.int32), np.zeros((1, P), np.float32),
+                   np.zeros(1, np.int32), D)
+    data = on_card(Dataset(np.concatenate([ds.indices, zero.indices]),
+                           np.concatenate([ds.values, zero.values]),
+                           np.concatenate([ds.labels, zero.labels]), D))
+    data["ds"] = dim_sparsity(ds)
+    max_err = 0.0
+    for label, n_ids in (("full", WINDOW_K * B), ("short", 330)):
+        w, ids, window = window_case(data, n_ids, seed=n_ids)
+        assert window.fused, "the window at D=47,236 must take the one-launch route"
+        reset_counts()
+        got, _ = window.run(w, ids)
+        launches = se.sync_epoch.launches
+        m = window.model
+        want = se.sync_epoch_plain(w, ids, window.indices, window.values, window.labels_f32,
+                                   coeff_kind=m.coeff_kind, reg_kind=m.reg_kind, lam=m.lam,
+                                   dim_sparsity=m.dim_sparsity, lr=RPC_LR, n_total_workers=1,
+                                   grad_divisor=1)
+        outs = {digest(window.run(w, ids)[0]) for _ in range(SE_REPEATS)}
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        moved = float((want - w).abs().max())
+        print(f"window {label} ({n_ids} ids, {ids.shape[0]} steps): max_abs_err={err:.3e} "
+              f"weights moved {moved:.3e}; {launches} launch; {len(outs)} distinct output(s) "
+              f"of {SE_REPEATS} launches", flush=True)
+        if not err <= WINDOW_ATOL or launches != 1 or len(outs) != 1:
+            raise AssertionError(f"window {label}: max abs err {err} (atol {WINDOW_ATOL}), "
+                                 f"{launches} launches (want 1), {len(outs)} distinct outputs")
+        max_err = max(max_err, err)
+
+    w, ids, window = window_case(data, WINDOW_K * B, seed=7)
+    m = window.model
+    kernel = lambda: window.run(w, ids)  # noqa: E731
+    plain = lambda: se.sync_epoch_plain(  # noqa: E731
+        w, ids, window.indices, window.values, window.labels_f32, coeff_kind=m.coeff_kind,
+        reg_kind=m.reg_kind, lam=m.lam, dim_sparsity=m.dim_sparsity, lr=RPC_LR,
+        n_total_workers=1, grad_divisor=1)
+    plain_ms = [time_ms(plain, iters=20, warmup=2)]
+    kernel_ms = [time_ms(kernel, iters=100, warmup=10), time_ms(kernel, iters=100, warmup=10)]
+    plain_ms.append(time_ms(plain, iters=20, warmup=2))
+    flat = ids.flatten().cpu().numpy()
+    row_nnz = (ds.values != 0).sum(axis=1)
+    # each sampled row read once (ids, values, label), the ids, w and
+    # dim_sparsity in, w out
+    bytes_moved = len(np.unique(flat)) * (8 * P + 4) + flat.nbytes + 3 * 4 * D
+    # per sampled row: the margin and the scatter, a mul and an add per
+    # nonzero; per step and feature: the masked regularizer add, the
+    # update and the w . dim_sparsity partial
+    flops = 4 * int(row_nnz[flat].sum()) + WINDOW_K * D * 6
+    bound_bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    bound_ops_ms = flops / F32_FLOPS * 1e3
+    row = {
+        "name": "sync_epoch (window, sum mode)", "route": "cuda",
+        "source": "distributed_sgd_tpu_torch/csrc/sync_epoch.cu", "replaces": TPU_KERNEL,
+        "launches": None, "max_abs_err": max_err,
+        "ms": min(kernel_ms), "plain_ms": min(plain_ms),
+        "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+        "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
+        # no single PyTorch call runs the steps of a window
+        "library_ms": None,
+    }
+    print(f"window kernel (S={WINDOW_K}, B={B}, full width): "
+          f"{min(kernel_ms) * 1e3:.2f} us a launch (runs {[round(t * 1e3, 2) for t in kernel_ms]}),"
+          f" plain {min(plain_ms) * 1e3:.2f} us; bound {row['bound_ms'] * 1e3:.4f} us "
+          f"({bytes_moved} B over {HBM_BYTES_PER_S:.3g} B/s, {flops} f32 operations); "
+          f"{card_line()}", flush=True)
+    return row
+
+
+def bcast_counts(m: Metrics) -> dict:
+    return {k: m.counter(f"master.sync.bcast.{k}").value for k in BCAST_COUNTERS}
+
+
+def check_levers_ran(m: Metrics, epochs: int, label: str) -> None:
+    """Fails unless every lever of PIPE_LEVERS acted in a fit of `epochs`
+    epochs with no retry: each request went out on a stream (none replayed
+    over unary), the broadcasts after each worker's first were sparse
+    deltas, every round but an epoch's first was dispatched pre-staged,
+    and the fan-in lanes summed every reply."""
+    from distributed_sgd_tpu_torch.utils import metrics as mm
+
+    windows = m.counter(mm.SYNC_ROUNDS).value
+    got = {name: m.counter(name).value for name in (
+        mm.STREAM_SENDS, mm.STREAM_FALLBACK, mm.SYNC_BCAST_DELTA, mm.SYNC_BCAST_FULL,
+        mm.STAGE_HITS, mm.STAGE_DISCARDS, mm.FANIN_PARSED)}
+    want = {mm.STREAM_SENDS: RPC_WORKERS * windows, mm.STREAM_FALLBACK: 0,
+            mm.STAGE_HITS: windows - epochs, mm.STAGE_DISCARDS: 0,
+            mm.FANIN_PARSED: RPC_WORKERS * windows}
+    bad = {k: (got[k], v) for k, v in want.items() if got[k] != v}
+    if not got[mm.SYNC_BCAST_DELTA] > 0:
+        bad[mm.SYNC_BCAST_DELTA] = (got[mm.SYNC_BCAST_DELTA], "> 0")
+    print(f"{label}: the levers acted in {windows} windows: {got}", flush=True)
+    if bad:
+        raise AssertionError(f"{label}: a lever did not act (counter: (got, want)): {bad}")
+
+
+def check_levers_at_k1(full: dict) -> None:
+    """The full-width RPC fit of phase 8 (3 workers in one process, lr 0.5,
+    1 epoch, every lever off) run again with delta broadcasts, streams, 2
+    fan-in lanes and a stage pool of 2: bitwise the same weights."""
+    from distributed_sgd_tpu_torch.core.cluster import DevCluster
+
+    train, test, model = full["data"]
+    m = Metrics()
+    with DevCluster(model, train, test, n_workers=RPC_WORKERS, seed=0, metrics=m) as c:
+        t0 = time.perf_counter()
+        fit = c.master.fit_sync(1, B, RPC_LR, **PIPE_LEVERS)
+        fit_s = time.perf_counter() - t0
+    counts = bcast_counts(m)
+    same = np.array_equal(np.asarray(fit.weights), full["weights"])
+    windows = m.counter("master.sync.rounds").value
+    print(f"levers at K=1 (delta, stream, 2 lanes, stage pool 2; full width, 1 epoch): "
+          f"{windows} windows in {fit_s:.2f} s = {windows / fit_s:.1f} windows/s; weights "
+          f"bitwise equal to the knobs-off fit's: {same}; broadcast bytes an epoch "
+          f"{counts['bytes']} (knobs off {full['bcast_bytes']}); master.sync.bcast: {counts}; "
+          f"stream sends {m.counter('master.sync.stream.sends').value}, fallbacks "
+          f"{m.counter('master.sync.stream.fallback').value}; stage hits "
+          f"{m.counter('master.sync.stage.hits').value}; {card_line()}", flush=True)
+    if not same:
+        err = float(np.abs(np.asarray(fit.weights) - full["weights"]).max())
+        raise AssertionError(f"levers at K=1: the weights differ from the knobs-off fit's "
+                             f"(max abs diff {err:.3e})")
+    check_levers_ran(m, 1, "levers at K=1")
+
+
+def check_local_steps_fit(full: dict) -> dict:
+    """DSGD_LOCAL_STEPS=4 with every lever on, full width, 2 epochs: the
+    rounds an epoch are ceil(part / 400), each round one sync_epoch launch a
+    worker and no worker_grads; test accuracy >= 0.70; windows/s and the
+    parts of a window; then one epoch under torch.profiler for the busy
+    share.  Returns the sync_epoch launches of the 2-epoch fit."""
+    from distributed_sgd_tpu_torch.core.cluster import DevCluster
+
+    train, test, model = full["data"]
+    part = -(-len(train) // RPC_WORKERS)
+    rounds_want = WINDOW_FIT_EPOCHS * -(-part // (B * WINDOW_K))
+    m = Metrics()
+    with DevCluster(model, train, test, n_workers=RPC_WORKERS, seed=0, metrics=m) as c:
+        reset_counts()
+        t0 = time.perf_counter()
+        fit = c.master.fit_sync(WINDOW_FIT_EPOCHS, B, RPC_LR, local_steps=WINDOW_K,
+                                **PIPE_LEVERS)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches, wg_launches = se.sync_epoch.launches, wg.worker_grads.launches
+        steps = se.sync_epoch.steps
+    rounds = m.counter("master.sync.rounds").value
+    parts = {label: m.histogram(name).mean * 1e3 for label, name in RPC_PART_HISTS}
+    epoch_s = sum(fit.epoch_seconds)
+    print(f"local steps K={WINDOW_K}, every lever on (full width, {WINDOW_FIT_EPOCHS} epochs): "
+          f"{rounds} rounds (want {rounds_want}) in {epoch_s:.3f} s of epochs = "
+          f"{rounds / epoch_s:.1f} windows/s ({fit_s:.2f} s with evaluation); sync_epoch "
+          f"launches {launches} ({steps} steps), worker_grads launches {wg_launches}; test "
+          f"losses {fit.test_losses} accuracies {fit.test_accuracies}; broadcast "
+          f"{bcast_counts(m)}; {card_line()}", flush=True)
+    print("local steps ms a window: " + json.dumps({k: round(v, 4) for k, v in parts.items()}),
+          flush=True)
+    if rounds != rounds_want or launches != RPC_WORKERS * rounds or wg_launches != 0:
+        raise AssertionError(f"local steps: {rounds} rounds (want {rounds_want}), {launches} "
+                             f"sync_epoch launches (want {RPC_WORKERS * rounds}), "
+                             f"{wg_launches} worker_grads (want 0)")
+    if fit.test_accuracies[-1] < RPC_ACC_FLOOR or not np.isfinite(fit.weights).all():
+        raise AssertionError(f"local steps: test accuracy {fit.test_accuracies[-1]} "
+                             f"(want >= {RPC_ACC_FLOOR}) or weights not finite")
+    check_levers_ran(m, WINDOW_FIT_EPOCHS, f"local steps K={WINDOW_K}")
+
+    with DevCluster(model, train, test, n_workers=RPC_WORKERS, seed=0) as c:
+        dev = device_events(lambda: c.master.fit_sync(1, B, RPC_LR, local_steps=WINDOW_K,
+                                                      **PIPE_LEVERS))
+    kernels = [(a, b) for a, b, name in dev if "sync_epoch" in name]
+    if kernels:
+        lo, hi = kernels[0][0], kernels[-1][1]
+        busy = union_us(dev, lo, hi)
+        kernel_us = sum(max(0.0, min(b, hi) - max(a, lo)) for a, b in kernels)
+        print(f"local steps device busy share over one profiled epoch ({(hi - lo) / 1e3:.1f} ms "
+              f"from its first window kernel to its last): {busy / (hi - lo):.4f}; "
+              f"{len(kernels)} sync_epoch kernels {kernel_us / 1e3:.1f} ms, other device work "
+              f"{(busy - kernel_us) / 1e3:.1f} ms", flush=True)
+    else:
+        print(f"local steps device busy share: not measured (the trace holds {len(dev)} device "
+              f"events and no sync_epoch kernel)", flush=True)
+    return launches
+
+
+def check_row_store_cli(tmp: str) -> dict:
+    """``python -m distributed_sgd_tpu_torch`` as a master (DSGD_SYNTHETIC)
+    and RPC_WORKERS workers that map a row store built from the same rows,
+    each with DSGD_HOST_INDEX (+ DSGD_HOST_OVERPROVISION) and every lever on
+    (DSGD_LOCAL_STEPS=4), started one after another so that registration
+    order is host order: each worker holds its third of the train rows and
+    its margin; after the master's first epoch the last worker leaves
+    (SIGTERM), the survivors' next windows fall outside their slices and
+    each reload reads only the rows it did not hold; all exit 0."""
+    import re
+    import socket
+
+    from distributed_sgd_tpu_torch.data.row_store import build_row_store
+
+    data = rcv1_like(PIPE_CLI_ROWS, seed=0, idf_values=True)  # the CLI's synthetic rows
+    train, _ = train_test_split(data)
+    store = os.path.join(tmp, "rows.bin")
+    t0 = time.perf_counter()
+    build_row_store(data, store, train_rows=len(train), dim_sparsity=dim_sparsity(train))
+    print(f"row store: {PIPE_CLI_ROWS} rows, {os.path.getsize(store)} B, built in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    base = {**os.environ, **PIPE_ENV, "DSGD_LOCAL_STEPS": str(WINDOW_K),
+            "DSGD_NODE_COUNT": str(RPC_WORKERS), "DSGD_MAX_EPOCHS": str(PIPE_CLI_EPOCHS),
+            "DSGD_PATIENCE": "1000", "DSGD_MASTER_HOST": "127.0.0.1",
+            "DSGD_MASTER_PORT": str(port), "DSGD_NODE_HOST": "127.0.0.1"}
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "distributed_sgd_tpu_torch"]
+    master_env = {**base, "DSGD_SYNTHETIC": str(PIPE_CLI_ROWS), "DSGD_NODE_PORT": str(port)}
+    lines: list = []
+    left_at: list = []
+    registered = threading.Event()
+
+    def read(i, proc):
+        # the master splits the rows in registration order, so the
+        # workers start one after another, each once the last registered
+        for line in proc.stdout:
+            lines[i].append(line)
+            if i and "registered with master" in line:
+                registered.set()
+            if i == 0 and "epoch 0:" in line and not left_at:
+                left_at.append(time.perf_counter() - t0)
+                procs[-1].send_signal(signal.SIGTERM)  # the last worker leaves
+
+    procs, readers = [], []
+
+    def start(env):
+        procs.append(subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+        lines.append([])
+        readers.append(threading.Thread(target=read, args=(len(procs) - 1, procs[-1]),
+                                        daemon=True))
+        readers[-1].start()
+
+    t0 = time.perf_counter()
+    try:
+        start(master_env)
+        for i in range(RPC_WORKERS):
+            registered.clear()
+            start({**base, "DSGD_NODE_PORT": "0", "DSGD_ROW_STORE": store,
+                   "DSGD_HOST_INDEX": str(i),
+                   "DSGD_HOST_OVERPROVISION": str(PIPE_CLI_OVERPROVISION)})
+            if not registered.wait(timeout=180):
+                raise AssertionError(f"row-store CLI: worker {i} did not register")
+        procs[0].wait(timeout=600)
+        for p in procs[1:]:
+            if p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+        for p in procs[1:]:
+            p.wait(timeout=120)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r in readers:
+        r.join(timeout=30)
+    outs = ["".join(x) for x in lines]
+    master_lines = lines[0]
+    cli_s = time.perf_counter() - t0
+    codes = [p.returncode for p in procs]
+    slices = [re.findall(r"rows \[(\d+), (\d+)\) resident", o or "") for o in outs[1:]]
+    reloads = [re.findall(r"re-sharded: \[(\d+), (\d+)\) -> \[(\d+), (\d+)\), (\d+) row",
+                          o or "") for o in outs[1:]]
+    held = [int(s[0][1]) - int(s[0][0]) if s else None for s in slices]
+    read = [sum(int(r[4]) for r in rs) for rs in reloads]
+    epochs = [line.split(" - ", 1)[-1].strip() for line in master_lines if "epoch " in line
+              and "test_acc" in line]
+    print(f"row-store CLI: master and {RPC_WORKERS} workers exited {codes} after {cli_s:.1f} s; "
+          f"the last worker left at {left_at[0] if left_at else float('nan'):.1f} s; rows held "
+          f"{held} of {len(train)} train rows (a third is {-(-len(train) // RPC_WORKERS)}, margin "
+          f"{PIPE_CLI_OVERPROVISION}); reloads {[len(r) for r in reloads]} reading {read} rows "
+          f"({reloads}); master {epochs[-1] if epochs else 'logged no epoch'}", flush=True)
+    if codes != [0] * len(procs) or not left_at or len(epochs) != PIPE_CLI_EPOCHS:
+        tails = "\n".join(f"== process {i} ({c}):\n{(o or '')[-3000:]}"
+                           for i, (c, o) in enumerate(zip(codes, outs)))
+        raise AssertionError(f"row-store CLI run failed:\n{tails}")
+    third = -(-len(train) // RPC_WORKERS)
+    margin = int(np.ceil(PIPE_CLI_OVERPROVISION * third))
+    if any(h is None or not third <= h <= third + 2 * margin for h in held):
+        raise AssertionError(f"row-store CLI: workers hold {held} rows, want a third "
+                             f"({third}) plus at most {2 * margin}")
+    survivors = reloads[:-1]
+
+    def delta(r):  # the rows of the new slice that the old one did not hold
+        old_lo, old_hi, new_lo, new_hi = (int(x) for x in r[:4])
+        return (new_hi - new_lo) - max(0, min(old_hi, new_hi) - max(old_lo, new_lo))
+
+    if not any(survivors) or any(int(r[4]) != delta(r) for rs in survivors for r in rs):
+        raise AssertionError(f"row-store CLI: each of the survivors' reloads {survivors} must "
+                             f"read exactly the rows it did not hold "
+                             f"({[[delta(r) for r in rs] for rs in survivors]})")
+    return {"held": held, "reload_rows": read}
+
+
+def run_pipeline_phase(full: dict) -> dict:
+    """Phase 11; returns the window kernel's summary row with its launches."""
+    t0 = time.perf_counter()
+    row = check_window_kernel()
+    check_levers_at_k1(full)
+    row["launches"] = check_local_steps_fit(full)
+    row["path"] = (f"rpc K={WINDOW_K} local steps, every lever on (full width, "
+                   f"{WINDOW_FIT_EPOCHS} epochs): one launch a worker a round")
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-pipe-") as tmp:
+        check_row_store_cli(tmp)
+    print(f"pipeline phase seconds: {time.perf_counter() - t0:.1f}", flush=True)
+    return row
+
+
 def main() -> None:
     phase("1 device")
     if not torch.cuda.is_available():
@@ -2527,7 +2908,8 @@ def main() -> None:
     run_checkpoint_phase()
 
     phase("8 the RPC engine: a master and workers over gRPC")
-    wg_row["launches"] = run_rpc_phase()
+    rpc_full = run_rpc_phase()
+    wg_row["launches"] = rpc_full["launches"]
     wg_row["path"] = (f"rpc (K=1 a reply, {RPC_WORKERS} workers); 0 launches on the mesh main "
                       f"path; {per_step_launches} on the per-step path (K={PER_STEP_WORKERS}), "
                       f"{momentum_launches} more with momentum")
@@ -2549,10 +2931,15 @@ def main() -> None:
     mean_row["path"] = (f"elastic async rpc (a leave and a join, 100,000 rows) "
                         f"{ft['elastic']['sync_epoch_launches']}; " + mean_row["path"])
 
-    phase("11 summary")
+    phase("11 the pipelined sync RPC engine: K-step windows, delta broadcasts, streams, "
+          "fan-in lanes, the stage pool and worker-local rows")
+    window_row = run_pipeline_phase(rpc_full)
+    del rpc_full
+
+    phase("12 summary")
     print(card)
     print(json.dumps({"kernels": [wg_row, se_row, mean_row, opt_rows["momentum"],
-                                  opt_rows["adam"]]}))
+                                  opt_rows["adam"], window_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -20,7 +20,11 @@ fit over RPC, ``async_drain`` its batch-drain inbox).  ``optimizer`` ('sgd',
 heartbeat, ``quorum`` and ``straggler_soft_s`` the sync fit's quorum
 barrier, ``fit_ckpt_every`` its crash-safe fit state under
 ``checkpoint_dir``, and ``elastic`` the async fit's elastic membership and,
-on the worker role, the watch of the master.  ``trace``,
+on the worker role, the watch of the master.  The sync fit takes the
+pipelined levers ``local_steps``, ``delta_broadcast``, ``stream``,
+``fanin_lanes`` and ``stage_pool``; the worker role maps ``row_store``
+(data/row_store.py) and with ``host_index`` loads only its slice of the
+train rows, widened by ``host_overprovision``.  ``trace``,
 ``trace_dir``, ``trace_sample``, ``flight_recorder``, ``record``,
 ``metrics_port`` and ``influx_url`` drive the observability planes
 (main.py).
@@ -108,20 +112,24 @@ class Config:
     straggler_soft_s: Optional[float] = None  # its soft deadline (None: adaptive)
     elastic: bool = False  # elastic async membership; the worker's master watch
     fit_ckpt_every: int = 0  # windows between crash-safe fit-state snapshots
+    # the sync fit's pipelined levers (core/master.py fit_sync)
+    local_steps: int = 1  # K local SGD steps a worker a round
+    delta_broadcast: bool = False  # versioned sparse weight broadcasts
+    stream: bool = False  # one persistent FitStream a worker
+    fanin_lanes: int = 0  # the fan-in's decode lanes (0: one lock)
+    stage_pool: int = 0  # threads staging the next round (0: none)
+    async_drain: bool = False
+    # worker-local rows (the worker role; data/row_store.py, host_shard.py)
+    row_store: Optional[str] = None  # the packed corpus to map
+    host_index: Optional[int] = None  # this worker's slot in the split
+    host_overprovision: float = 0.0  # neighbour rows loaded, a fraction a side
     # read so that none is ignored without a word; each raises (or, on the
     # mesh engine, warns) when set
     compress: str = "none"  # none | topk | qint8
     feature_shards: int = 1
-    local_steps: int = 1
-    delta_broadcast: bool = False
-    stream: bool = False
-    fanin_lanes: int = 0
-    stage_pool: int = 0
     agg_tree: str = ""
     master_shards: int = 0
-    async_drain: bool = False
     host_devices: int = 1
-    row_store: Optional[str] = None
     chaos: Optional[str] = None
     telemetry: bool = False
     health_action: Optional[str] = None
@@ -200,6 +208,41 @@ class Config:
         if self.fit_ckpt_every > 0 and not self.checkpoint_dir:
             raise ValueError("DSGD_FIT_CKPT_EVERY needs DSGD_CHECKPOINT_DIR: the crash "
                              "snapshot lives under the checkpoint directory")
+        if self.local_steps < 1:
+            raise ValueError("local_steps must be >= 1")
+        if self.master_shards < 0:
+            raise ValueError(f"DSGD_MASTER_SHARDS must be an integer >= 0, got "
+                             f"{self.master_shards!r}")
+        if self.master_shards:
+            # the JAX config's composition matrix, at construction
+            for bad, knob in ((self.stream, "DSGD_STREAM"),
+                              (self.quorum is not None, "DSGD_QUORUM"),
+                              (self.local_steps > 1, "DSGD_LOCAL_STEPS"),
+                              (self.fanin_lanes > 0, "DSGD_FANIN_LANES"),
+                              (self.stage_pool > 0, "DSGD_STAGE_POOL"),
+                              (self.compress != "none", "DSGD_COMPRESS")):
+                if bad:
+                    raise ValueError(f"DSGD_MASTER_SHARDS does not compose with {knob} "
+                                     f"(docs/MASTER_SHARDING.md composition table)")
+        if self.fanin_lanes < 0:
+            raise ValueError("DSGD_FANIN_LANES must be >= 0 (0 = decode after the "
+                             "barrier; K shards the decode into K lanes)")
+        if self.stage_pool < 0:
+            raise ValueError("DSGD_STAGE_POOL must be >= 0 (0 = draws and request builds "
+                             "on the dispatch path; P stages them on a P-thread pool "
+                             "during the previous barrier)")
+        if not 0.0 <= self.host_overprovision <= 1.0:
+            raise ValueError("DSGD_HOST_OVERPROVISION must be a fraction in [0, 1] "
+                             "(0 = exact slices; f loads ceil(f * slice) neighbor rows "
+                             "on each side)")
+        if self.host_index is not None:
+            if not self.row_store:
+                raise ValueError("DSGD_HOST_INDEX needs DSGD_ROW_STORE: a host-local "
+                                 "slice is loaded through the store's row reader (the "
+                                 "full-parse path always materializes the corpus)")
+            if not 0 <= self.host_index < self.node_count:
+                raise ValueError(f"DSGD_HOST_INDEX={self.host_index} outside "
+                                 f"[0, node_count={self.node_count})")
 
     @classmethod
     def from_env(cls, **overrides) -> "Config":
@@ -263,6 +306,9 @@ class Config:
             fit_ckpt_every=_env("DSGD_FIT_CKPT_EVERY", cls.fit_ckpt_every, int),
             host_devices=_env("DSGD_HOST_DEVICES", cls.host_devices, int),
             row_store=_env("DSGD_ROW_STORE", None, str),
+            host_index=_env("DSGD_HOST_INDEX", None, int),
+            host_overprovision=_env("DSGD_HOST_OVERPROVISION", cls.host_overprovision,
+                                    float),
             chaos=_env("DSGD_CHAOS", None, str),
             telemetry=_env("DSGD_TELEMETRY", cls.telemetry, bool),
             health_action=_env("DSGD_HEALTH_ACTION", None, str),
@@ -287,24 +333,14 @@ class Config:
     def refuse_for_role(self) -> None:
         """Raise NotImplementedError for a setting the JAX CLI acts on in
         this run's role that the port does not serve yet: on the rpc fits
-        (the dev role with engine 'rpc', and the master) the pipelined
-        levers, the aggregation tree and the sharded master; on the worker
-        role the row store.  The mesh engine ignores them (main.py warns,
-        as the JAX CLI does)."""
+        (the dev role with engine 'rpc', and the master) the aggregation
+        tree and the sharded master.  The mesh engine and the worker role
+        ignore them (main.py warns on the mesh engine, as the JAX CLI
+        does)."""
         role = self.role
-        if role == "worker":
-            if self.row_store:
-                raise _not_ported("DSGD_ROW_STORE on the worker role",
-                                  "[A8] 3.4, data/row_store.py")
-            return
-        if role == "dev" and self.engine == "mesh":
+        if role == "worker" or (role == "dev" and self.engine == "mesh"):
             return
         for bad, setting, where in (
-                (self.local_steps > 1, "DSGD_LOCAL_STEPS", "[A8] 3.4"),
-                (self.delta_broadcast, "DSGD_DELTA_BROADCAST", "[A8] 3.4"),
-                (self.stream, "DSGD_STREAM", "[A8] 3.4"),
-                (self.fanin_lanes, "DSGD_FANIN_LANES", "[A8] 3.4"),
-                (self.stage_pool, "DSGD_STAGE_POOL", "[A8] 3.4"),
                 (self.agg_tree, "DSGD_AGG_TREE", "[A13] item 8, aggtree/"),
                 (self.master_shards, "DSGD_MASTER_SHARDS", "[A13] item 8, shardedps/")):
             if bad:

@@ -12,10 +12,12 @@ plain versions with ``device="cpu"``.
 The master's heartbeat (`heartbeat_s`, `heartbeat_max_misses`) and the
 workers' master watch (`master_watch_s`) are the JAX cluster's; so are
 `add_worker` (a new worker joins the running cluster) and `leave_worker`
-(a worker leaves it gracefully), the churn of an elastic fit.  The JAX
-cluster's compression, hierarchical, host-local, chaos and telemetry
-arguments have no counterpart here (ROADMAP.md Queue A [A8] 3.4, [A10],
-[A13]).
+(a worker leaves it gracefully), the churn of an elastic fit, and
+`host_local` (each worker holds only its contiguous slice of the train
+rows, widened by `host_overprovision`, with an in-memory row reader over
+the corpus, so an elastic resplit reloads only the delta).  The JAX
+cluster's compression, hierarchical, chaos and telemetry arguments have
+no counterpart here (ROADMAP.md Queue A [A10], [A13]).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from typing import List, Optional
 
 from distributed_sgd_tpu_torch.core.master import MasterNode
 from distributed_sgd_tpu_torch.core.worker import WorkerNode
+from distributed_sgd_tpu_torch.data import host_shard
 from distributed_sgd_tpu_torch.data.rcv1 import Dataset
 from distributed_sgd_tpu_torch.models.linear import LinearModel
 from distributed_sgd_tpu_torch.utils import metrics as metrics_mod
@@ -48,14 +51,21 @@ class DevCluster:
         heartbeat_s: Optional[float] = None,
         heartbeat_max_misses: int = 3,
         master_watch_s: Optional[float] = None,
+        host_local: bool = False,
+        host_overprovision: float = 0.0,
     ):
         """The nodes run on the model's device (`make_model(...,
         device=...)`; the card unless the caller asks for the CPU).  All
         share `metrics` (the process's registry when None).  The workers'
         async dispatches run `steps_per_dispatch` local steps each and
         gossip along `gossip_topology`.  `heartbeat_s` starts the master's
-        heartbeat; `master_watch_s` the workers' watch of the master."""
+        heartbeat; `master_watch_s` the workers' watch of the master.
+        `host_local` gives worker i only rows ``overprovisioned_slice(len(
+        train), i, n_workers, host_overprovision)`` of the vanilla split,
+        with a row reader over `train` (data/host_shard.py)."""
         self._host, self._seed, self._train, self._model = host, seed, train, model
+        self._host_local = bool(host_local)
+        self._overprovision = max(0.0, float(host_overprovision))
         self._worker_kwargs = dict(metrics=metrics, steps_per_dispatch=steps_per_dispatch,
                                    gossip_topology=gossip_topology,
                                    master_watch_s=master_watch_s)
@@ -67,8 +77,14 @@ class DevCluster:
         try:
             for i in range(n_workers):
                 port = 0 if base_port == 0 else base_port + 1 + i
-                self.workers.append(WorkerNode(host, port, host, self.master.port, train,
-                                               model, seed=seed + i, **self._worker_kwargs))
+                wdata, extra = train, {}
+                if host_local:
+                    lo, hi, _, _ = host_shard.overprovisioned_slice(
+                        len(train), i, n_workers, overprovision=self._overprovision)
+                    wdata, extra = train.slice(slice(lo, hi)), self._local_kwargs(lo)
+                self.workers.append(WorkerNode(host, port, host, self.master.port, wdata,
+                                               model, seed=seed + i, **self._worker_kwargs,
+                                               **extra))
             for w in self.workers:
                 w.start(wait_registered=True)
             self.master.await_ready()
@@ -77,15 +93,24 @@ class DevCluster:
             raise
         log.info("dev cluster ready: master :%d + %d workers", self.master.port, n_workers)
 
+    def _local_kwargs(self, offset: int) -> dict:
+        return dict(data_offset=offset, row_reader=host_shard.dataset_reader(self._train),
+                    total_rows=len(self._train), host_overprovision=self._overprovision)
+
     def add_worker(self, seed: Optional[int] = None) -> WorkerNode:
         """A new worker joins the running cluster: the same data and model,
         an OS-assigned port, registered through the control plane.  The
         master needs a free slot (an eviction or a leave frees one); an
         elastic fit takes it in at its next tick, a sync fit at its next
-        window."""
+        window.  In a host-local cluster it joins with no rows, and its
+        first assignment loads its slice through the reader."""
         i = len(self.workers)
-        w = WorkerNode(self._host, 0, self._host, self.master.port, self._train, self._model,
-                       seed=self._seed + i if seed is None else seed, **self._worker_kwargs)
+        wdata, extra = self._train, {}
+        if self._host_local:
+            wdata, extra = self._train.slice(slice(0, 0)), self._local_kwargs(0)
+        w = WorkerNode(self._host, 0, self._host, self.master.port, wdata, self._model,
+                       seed=self._seed + i if seed is None else seed, **self._worker_kwargs,
+                       **extra)
         self.workers.append(w)
         w.start(wait_registered=True)
         return w

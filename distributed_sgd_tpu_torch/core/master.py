@@ -15,8 +15,9 @@ core/Master.scala and core/MasterSync.scala):
 - `fit_sync`: per window, each worker's sample ids drawn from its
   partition with a generator keyed by (seed, epoch), one Gradient request
   per worker carrying the full weights, a full barrier with deadlines,
-  the replies summed IN SEND ORDER and divided by their count (so the
-  result bit-matches ``np.mean`` over the replies), and the update applied
+  the replies summed IN SEND ORDER as they arrive and divided by their
+  count (so the result bit-matches ``np.mean`` over the replies), and the
+  update applied
   on the host: ``w - lr * g`` in numpy for sgd (Master.scala:197), the
   port's ``ops.sync_epoch.apply_update`` for momentum and adam.  Worker
   failures are retried (`grad_retries`), then the worker is unregistered
@@ -59,11 +60,20 @@ ELASTICITY.md), with its names:
   re-splits the rows and re-issues StartAsync to the workers whose slice
   changed.
 
+and the JAX master's pipelined sync levers (`fit_sync(local_steps=,
+delta_broadcast=, stream=, fanin_lanes=, stage_pool=)`): K-step local
+windows with the mean decrement applied as a pseudo-gradient, versioned
+sparse broadcasts (``_BroadcastState``, the next version encoded ahead
+while the levers that read it are on), one persistent FitStream a worker (rpc/stream.py), the
+fan-in parsed in lanes and summed in send order (``_ArrivalDecoder``),
+and the next round's draws and requests staged on a pool during the
+barrier (``_DispatchStager``).
+
 The workers compute on their own devices; the master only encodes,
 decodes and applies, and evaluates on its device.  Every lever of the JAX
 fits that is not ported raises NotImplementedError naming the ROADMAP
-item that holds it (the pipelined levers, the health monitor, the
-aggregation tree and the sharded master).
+item that holds it (the health monitor, the aggregation tree and the
+sharded master).
 """
 
 from __future__ import annotations
@@ -117,6 +127,8 @@ SplitFn = Callable[[int, int], List[np.ndarray]]
 # (the JAX master records only the whole window, master.sync.batch.duration)
 SYNC_FANOUT_SECONDS = "master.sync.fanout.seconds"    # draw, encode and send
 SYNC_BARRIER_SECONDS = "master.sync.barrier.seconds"  # wait for the replies
+# with fan-in lanes the replies are parsed and summed during the barrier,
+# and the decode span is only the tail left after it
 SYNC_DECODE_SECONDS = "master.sync.decode.seconds"    # sum and divide the replies
 SYNC_APPLY_SECONDS = "master.sync.apply.seconds"      # the update
 
@@ -166,6 +178,147 @@ def _await_futures(futs, bytes_counter=None):
         except (grpc.RpcError, ValueError) as e:
             failed.append((key, e.code() if isinstance(e, grpc.RpcError) else e))
     return ok, failed
+
+
+class _ArrivalDecoder:
+    """Send-ordered decode-on-arrival for the sync fan-in, SHARDED into K
+    decoder lanes (DSGD_FANIN_LANES); the JAX master's lanes path.
+
+    The plain fan-in decodes every Gradient reply AFTER the barrier closes:
+    N dim-sized scatter-decodes serialized on the critical path while N-1
+    of them could have run during the wait.  This moves each reply's decode
+    into the reply's own arrival callback, constrained to SEND ORDER (the
+    decode cursor only advances over the contiguous settled prefix), so the
+    float accumulation order, and therefore the weights, stay bit-identical
+    to the post-barrier loop.
+
+    Workers map to lanes by a fixed send-index assignment (``i % K``), each
+    lane guards its own slot map with its own lock, and the expensive half
+    of the decode (`codec.parse_grad`: repeated-field -> ndarray) runs in
+    the arrival callback BEFORE any lock is taken, so K callbacks parse
+    concurrently.  Only the cheap float ACCUMULATION (`codec.add_parsed`)
+    is serialized, under the accumulator lock, walking the contiguous
+    settled prefix in send order.  Keeping the accumulation a single
+    send-ordered f32 chain is what makes the lanes BIT-EXACT against the
+    post-barrier loop: a per-lane partial-sum + K-way reduce would regroup
+    the float additions ((r0+r1)+(r2+r3) instead of ((r0+r1)+r2)+r3) and
+    drift in the last ulp.  ``lanes`` below 1 is taken as one lane (the
+    JAX master's single-lock path sums in the same order).
+
+    ``defer=True`` (the quorum barrier's mode) parses arrivals into a
+    side table but never accumulates: the contributor set (hedge wins,
+    late originals) is only known at round close, when the caller replays
+    it in canonical order through ``add_into`` — pre-parsed replies cost
+    O(dim) adds only, unparsed ones (hedge replies arrive on unary
+    futures nobody watches) parse on the spot.
+
+    Lock discipline: parse outside every lock; lane locks guard only
+    their slot maps (set-once per index, so a callback racing `finish()`
+    can never decode a reply twice); the accumulator lock serializes the
+    cursor walk and is never held while a lane lock is awaited in the
+    other direction.  A failed or stale reply marks the window dirty and
+    freezes the cursor — the caller retries the window and the
+    accumulator is re-zeroed on the next attempt, so partially-decoded
+    state never leaks into an applied update."""
+
+    def __init__(self, acc: np.ndarray, lanes: int = 1, defer: bool = False):
+        self.acc = acc
+        self.lanes = max(1, int(lanes))
+        self.defer = bool(defer)
+        self._lock = threading.Lock()
+        self._cursor = 0
+        self.dirty = False
+        self.decoded = 0
+        self.parsed = 0
+        self.reused = 0  # defer mode: replies add_into took pre-parsed
+        self._lane_locks = [threading.Lock() for _ in range(self.lanes)]
+        # per-lane slot maps: index -> (reply | None, parsed | None)
+        self._lane_slots: List[Dict[int, tuple]] = [dict() for _ in range(self.lanes)]
+        # defer mode's side table: id(reply) -> (reply, parsed); the reply
+        # reference keeps the id stable until the round closes
+        self._parsed_by_reply: Dict[int, tuple] = {}
+
+    def watch(self, i: int, fut) -> None:
+        if fut is None:
+            self._settle_lane(i, None)
+            return
+        fut.add_done_callback(lambda f, i=i: self._on_done_lane(i, f))
+
+    def finish(self, futs) -> bool:
+        """Drain any settled tail the callbacks have not reached yet (the
+        barrier already awaited every future, but gRPC's callback threads
+        may lag the main thread's own `result()`); returns clean?"""
+        for i, (_key, fut) in enumerate(futs):
+            lane = self._lane_locks[i % self.lanes]
+            with lane:
+                seen = i in self._lane_slots[i % self.lanes]
+            if not seen:
+                try:
+                    reply = fut.result() if fut is not None else None
+                except Exception:  # noqa: BLE001
+                    reply = None
+                self._settle_lane(i, reply)
+        self._advance_lanes()
+        return not self.dirty
+
+    def _on_done_lane(self, i: int, fut) -> None:
+        try:
+            reply = fut.result()
+        except Exception:  # noqa: BLE001 - classification is the barrier's job
+            reply = None
+        self._settle_lane(i, reply)
+
+    def _settle_lane(self, i: int, reply) -> None:
+        # parse BEFORE any lock: this is the concurrency the lanes buy
+        parsed = None
+        if reply is not None and not reply.stale_version:
+            parsed = codec.parse_grad(reply)
+        lane = i % self.lanes
+        with self._lane_locks[lane]:
+            slots = self._lane_slots[lane]
+            if i in slots:  # set-once: a lagging callback must not re-enter
+                return
+            slots[i] = (reply, parsed)
+        if parsed is not None:
+            with self._lock:  # exact count; defer's side table reads here too
+                self.parsed += 1
+                if self.defer:
+                    self._parsed_by_reply[id(reply)] = (reply, parsed)
+        if not self.defer:
+            self._advance_lanes()
+
+    def _advance_lanes(self) -> None:
+        if self.defer:
+            return
+        with self._lock:  # the accumulator lock: one ordered f32 chain
+            while not self.dirty:
+                lane = self._cursor % self.lanes
+                with self._lane_locks[lane]:
+                    item = self._lane_slots[lane].get(self._cursor)
+                if item is None:
+                    return
+                reply, parsed = item
+                if reply is None or reply.stale_version:
+                    self.dirty = True
+                    return
+                codec.add_parsed(parsed, self.acc)
+                self.decoded += 1
+                self._cursor += 1
+
+    def add_into(self, reply, out: np.ndarray) -> None:
+        """Defer mode's round-close accumulate: reuse the arrival
+        callback's parse when one landed for this reply object, parse on
+        the spot otherwise (hedge replies, late settles) — the float adds
+        are `decode_grad_into`'s exactly, in the caller's order."""
+        item = None
+        if self.defer:
+            with self._lock:
+                item = self._parsed_by_reply.get(id(reply))
+        if item is not None and item[0] is reply:
+            codec.add_parsed(item[1], out)
+            self.reused += 1
+        else:
+            codec.decode_grad_into(reply, out)
 
 
 class _LatencyEwma:
@@ -287,6 +440,376 @@ def _draw_ids(rng: np.random.Generator, part: np.ndarray, start: int,
     return np.asarray(part)[rng.choice(len(part), size=take, replace=False)]
 
 
+class _DispatchStager:
+    """Pooled round-(t+1) dispatch staging (DSGD_STAGE_POOL); the JAX
+    master's.
+
+    The serialized master draws every worker's sample ids ON the dispatch
+    critical path, one worker after another, each round.  With staging
+    on, round t+1's draws run on the stage pool DURING round t's barrier
+    (the main thread is blocked in gRPC with the GIL released, so the
+    staging thread genuinely overlaps) — dispatch then starts from a
+    ready ids-by-worker map.
+
+    Determinism is the whole contract.  The sample stream is one
+    epoch-keyed np.random.Generator consumed in (round, worker) order;
+    a resumed fit replays it from a snapshotted bit-generator state.  So:
+
+    - the pre-draw consumes the SAME values, in the SAME order, the
+      serial path's next round would have consumed (one staging task
+      draws all workers sequentially — never one task per worker);
+    - the pre-draw snapshots the generator state first, and ANY
+      discard — a retry re-dispatching the same cursor, a resplit
+      changing membership/partitions, an epoch ending — RESTORES it, so
+      the serial path's draw at that point reads the exact values it
+      would have read had staging never run;
+    - `rng_state()` exposes the state a SERIAL run would hold right now
+      (the pre-draw base while a stage is pending), which is what the
+      crash-safe fit-state snapshot must persist — persisting the
+      post-pre-draw state would make a resumed fit skip a round's draws.
+
+    The same pool is handed to `_BroadcastState` so per-worker request
+    builds (weight-arm attach + frame construction) fan out across it at
+    encode time; `hits`/`discards` feed master.sync.stage.* counters."""
+
+    def __init__(self, pool_size: int):
+        from concurrent.futures import ThreadPoolExecutor
+
+        self.pool = ThreadPoolExecutor(
+            max_workers=max(1, int(pool_size)), thread_name_prefix="stage-pool")
+        self._fut = None
+        self._base_state = None
+        self._tag: Optional[Tuple[int, int]] = None
+        self._keys: List[Tuple[str, int]] = []
+        self.hits = 0
+        self.discards = 0
+
+    def stage(self, rng, keys, parts, epoch: int, cursor: int,
+              span: int) -> None:
+        """Arm one pre-draw for (epoch, cursor); call only with no stage
+        pending (take/discard every round)."""
+        assert self._fut is None, "a staged draw is already pending"
+        self._base_state = rng.bit_generator.state
+        self._tag = (int(epoch), int(cursor))
+        self._keys = list(keys)
+        parts = list(parts)
+
+        def _draw_all():
+            # sequential, in fan-out order: the exact consumption pattern
+            # of the serial dispatch loop
+            return [_draw_ids(rng, part, cursor, span) for part in parts]
+
+        self._fut = self.pool.submit(_draw_all)
+
+    def take(self, rng, keys, epoch: int, cursor: int):
+        """The staged ids-by-worker map when the staging assumptions still
+        hold (same epoch, same window cursor, same membership); None
+        otherwise — the generator state is restored and the caller draws
+        serially, reading the values a never-staged run would read."""
+        if self._fut is None:
+            return None
+        draws = self._fut.result()  # join: surfaces staging exceptions
+        self._fut = None
+        if self._tag != (int(epoch), int(cursor)) or list(keys) != self._keys:
+            rng.bit_generator.state = self._base_state
+            self._base_state = None
+            self.discards += 1
+            return None
+        self._base_state = None
+        self.hits += 1
+        return dict(zip(self._keys, draws))
+
+    def discard(self, rng) -> None:
+        """Membership moved under the stage (resplit): drop the pre-drawn
+        ids and restore the generator."""
+        if self._fut is None:
+            return
+        self._fut.result()
+        self._fut = None
+        rng.bit_generator.state = self._base_state
+        self._base_state = None
+        self.discards += 1
+
+    def rng_state(self, rng):
+        """The bit-generator state a SERIAL run would hold right now — the
+        pre-draw base while a stage is pending, the live state otherwise.
+        Crash-safe fit-state snapshots persist THIS, never the raw state."""
+        return (self._base_state if self._fut is not None
+                else rng.bit_generator.state)
+
+    def close(self) -> None:
+        self.pool.shutdown(wait=False)
+
+
+class _BroadcastState:
+    """Versioned master->worker weight broadcast for fit_sync; the JAX
+    master's.
+
+    Tracks the master's weight version, each worker's last-acknowledged
+    replica version, and encodes — at most once per version — the wire
+    forms a window can need: the full tensor, the sparse WeightDelta vs
+    the previous version (absolute new values at the changed coordinates),
+    or nothing at all (header-only, when the worker's replica is already
+    current — retry windows re-serialize zero bytes).  With
+    `delta_broadcast` off it degrades to the pre-pipeline wire — every
+    request carries the full dense tensor and no version fields, byte-
+    identical to the unpipelined fit — while still re-encoding only when
+    the weights actually changed.
+
+    The sparse form is used only while it is cheaper than the tensor
+    (8 bytes/changed coordinate vs 4 bytes/element dense: break-even at
+    50% density); denser updates fall back to a full broadcast, as do a
+    (re)joined worker, a worker more than one version behind, and any
+    stale_version reply.
+    """
+
+    SPARSE_BREAK_EVEN = 0.5  # changed fraction above which dense is smaller
+
+    def __init__(self, delta_broadcast: bool, metrics, versioned: bool = False,
+                 stage_pool=None):
+        self.delta_broadcast = delta_broadcast
+        self.metrics = metrics
+        # pooled dispatch (DSGD_STAGE_POOL): when a stage
+        # pool executor is handed in, _build_staged fans the per-worker
+        # request builds (weight-arm attach included) across it instead of
+        # building N requests serially on the one encoder thread — and
+        # staging is armed for UNARY fits too (raw GradientRequests
+        # instead of stream Frames), so the serialized per-worker build
+        # leaves the dispatch critical path on both transports
+        self._stage_exec = stage_pool
+        # encode-ahead, while delta_broadcast or staging (stage_for) is
+        # on: `advance()` hands the new version's wire forms (full tensor
+        # bytes + the np.nonzero sparse delta) and the staged requests to
+        # a single background encoder thread, overlapping the encode with
+        # the window's host-side bookkeeping (fit-state snapshot,
+        # membership check, sample draws) and — under quorum — with
+        # straggler replies still in flight.  `populate` joins the
+        # pending encode before reading, so the wire forms are
+        # byte-identical to the synchronous path.  With those levers off
+        # (and before the first advance) encoding stays lazy in populate,
+        # on the fit's thread, as the unpipelined fit encodes.
+        self._enc_pool = None
+        self._enc_future = None
+        # `versioned` without delta_broadcast (the quorum barrier's mode):
+        # every request still carries the full dense tensor, but stamped
+        # with step_version — the quorum contribution mask
+        # (GradientRequest.ef_rollback_version) keys on the version
+        self.versioned = bool(delta_broadcast or versioned)
+        # versions start at 1: step_version=0 on the wire means "no version
+        # tracking" (a pre-pipeline master), and the workers' EF retry
+        # guard keys on the version alone whenever one is present — a
+        # retried window may switch wire form (full -> header-only) while
+        # keeping its version, so the version must never be ambiguous
+        self.version = 1 if self.versioned else 0
+        self._worker_ver: Dict[Tuple[str, int], int] = {}
+        self._w_prev: Optional[np.ndarray] = None
+        # the version's wire forms (full tensor / sparse delta), each
+        # encoded lazily at most once — the shared versioned weight-send
+        # plan (rpc/codec.py WeightSendPlan)
+        self._send_plan: Optional[codec.WeightSendPlan] = None
+        # pre-staged round dispatch (DSGD_STREAM): with staging armed (stage_for), the
+        # encoder thread ALSO builds each worker's next request frame —
+        # weight arm attached, version stamped — so when the window
+        # barrier closes, dispatch is one sample draw + one stream write
+        # per worker with zero weight re-serialization on the critical
+        # path.  Entries carry the assumptions they were built under
+        # (version, the worker's acknowledged version) and are discarded
+        # when reality moved (stale fallback, resplit, retry window).
+        self._stage_keys: list = []
+        self._stage_ctx: Optional[Tuple[int, int, int, float]] = None
+        self._stage_frames = True
+        self._stage_lock = threading.Lock()
+        self._staged: Dict[Tuple[str, int], tuple] = {}
+
+    def stage_for(self, keys, fit_token: int, local_steps: int,
+                  batch_size: int, learning_rate: float,
+                  frames: bool = True) -> None:
+        """Arm (or re-arm after a membership change) request staging for
+        `keys`; takes effect from the next advance().  `frames=True`
+        stages stream `pb.Frame`s (the DSGD_STREAM dispatch path);
+        `frames=False` stages raw `pb.GradientRequest`s for the unary
+        plane (DSGD_STAGE_POOL) — with neither knob on, nothing ever
+        calls this and populate()'s call graph stays untouched."""
+        self._stage_keys = list(keys)
+        self._stage_ctx = (int(fit_token), int(local_steps),
+                           int(batch_size), float(learning_rate))
+        self._stage_frames = bool(frames)
+        with self._stage_lock:
+            self._staged = {}
+
+    def advance(self, w_new: np.ndarray, w_old: np.ndarray) -> None:
+        """Weights moved: bump the version, invalidate encoded forms, and,
+        while delta_broadcast or staging is on, start encoding the new
+        version off-thread."""
+        self.version += 1
+        self._w_prev = w_old
+        self._send_plan = None
+        with self._stage_lock:
+            self._staged = {}
+        if not (self.delta_broadcast or self._stage_ctx is not None):
+            return
+        if self._enc_pool is None:
+            import weakref
+            from concurrent.futures import ThreadPoolExecutor
+
+            self._enc_pool = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="bcast-encode")
+            # the broadcast state is fit-scoped: release the encoder
+            # thread when the fit drops it (every exit path, exceptions
+            # included) without threading a close() through fit_sync
+            weakref.finalize(self, self._enc_pool.shutdown, wait=False)
+        self._enc_future = self._enc_pool.submit(self._preencode, w_new)
+
+    def _preencode(self, w: np.ndarray) -> None:
+        """Encoder-thread body: build the forms `populate` will need —
+        the resolved plan lands in the lazy slot, `_join_encode` gives
+        the happens-before edge — then stage per-worker request frames
+        when staging is armed (the slot is set by then, so _attach_arm
+        never joins from the encoder thread itself)."""
+        plan = self._new_plan(w)
+        plan.full()
+        if self.delta_broadcast:
+            plan.delta()  # "use the full form" is itself a computed result
+        self._send_plan = plan
+        if self._stage_keys and self._stage_ctx is not None:
+            self._build_staged(w)
+
+    def _build_staged(self, w: np.ndarray) -> None:
+        """Encoder-thread tail: one ready-to-send Frame (stream) or
+        GradientRequest (unary, stage-pool fits) per staged worker for the
+        NEXT window, fanned across the stage pool when one was handed in
+        (per-worker weight-arm attach is the O(N x dim) serial wall this
+        removes).  Wire accounting stays at dispatch time
+        (take_staged_frame / take_staged_request), so counters equal the
+        populate() path's."""
+        token, k, bs, lr = self._stage_ctx
+        version = self.version
+        frames = self._stage_frames
+
+        def _build(key):
+            if frames:
+                frame = pb.Frame()
+                req = frame.request
+                msg = frame
+            else:
+                req = pb.GradientRequest()
+                msg = req
+            req.fit_token = token
+            if k > 1:
+                req.local_steps = k
+                req.batch_size = bs
+                req.learning_rate = lr
+            assumed = self._worker_ver.get(key)
+            form, nbytes = self._attach_arm(req, key, w)
+            return key, (msg, form, nbytes, assumed, version)
+
+        keys = list(self._stage_keys)
+        if self._stage_exec is not None and len(keys) > 1:
+            staged = dict(self._stage_exec.map(_build, keys))
+        else:
+            staged = dict(_build(key) for key in keys)
+        with self._stage_lock:
+            self._staged = staged
+
+    def _take_staged(self, key, frames: bool):
+        """The pre-staged message for `key` if its staging assumptions
+        still hold (same broadcast version, same acknowledged worker
+        version, same transport); None otherwise — the caller builds and
+        populates a fresh one.  Joins the encoder first, exactly like
+        populate()'s lazy reads, and accounts the send here so metrics
+        match the unstaged path."""
+        self._join_encode()
+        with self._stage_lock:
+            if self._stage_frames != frames:
+                return None
+            item = self._staged.pop(key, None)
+        if item is None:
+            return None
+        msg, form, nbytes, assumed, version = item
+        if version != self.version or self._worker_ver.get(key) != assumed:
+            return None  # stale fallback / resplit moved under the stage
+        metrics_mod.record_broadcast(self.metrics, form, nbytes)
+        return msg
+
+    def take_staged_frame(self, key):
+        """Stream dispatch's staged `pb.Frame`, or None (build fresh)."""
+        return self._take_staged(key, frames=True)
+
+    def take_staged_request(self, key):
+        """Unary dispatch's staged `pb.GradientRequest`, or None."""
+        return self._take_staged(key, frames=False)
+
+    def _join_encode(self) -> None:
+        f = self._enc_future
+        if f is not None:
+            f.result()  # surfaces encoder exceptions on the fit thread
+            self._enc_future = None
+
+    def note_ok(self, key) -> None:
+        self._worker_ver[key] = self.version
+
+    def note_stale(self, key) -> None:
+        self._worker_ver.pop(key, None)
+
+    def forget_missing(self, keys) -> None:
+        """Membership changed: drop version claims for departed workers so
+        a same-endpoint rejoin starts from a full broadcast."""
+        live = set(keys)
+        for k in [k for k in self._worker_ver if k not in live]:
+            self._worker_ver.pop(k, None)
+
+    def populate(self, req, key, w: np.ndarray) -> None:
+        """Attach the cheapest valid weight arm for worker `key` to `req`
+        and account it (utils/metrics.py master.sync.bcast.*)."""
+        form, nbytes = self._attach_arm(req, key, w)
+        metrics_mod.record_broadcast(self.metrics, form, nbytes)
+
+    def _attach_arm(self, req, key, w: np.ndarray):
+        """Choose + attach the weight arm for `key`; returns the
+        (form, bytes) pair the caller accounts.  Shared by populate()
+        (dispatch thread, joins the encoder through the lazy slot reads)
+        and _build_staged (encoder thread, slots already set)."""
+        if not self.delta_broadcast:
+            full = self._plan_for(w).full()
+            req.weights.CopyFrom(full)
+            if self.versioned:
+                req.step_version = self.version
+            return "full", full.ByteSize()
+        req.step_version = self.version
+        plan = self._plan_for(w)
+        arm = plan.choose_arm(self._worker_ver.get(key), self.version)
+        if arm == "cached":
+            return "cached", 0
+        if arm == "delta":
+            delta = plan.delta()
+            req.delta.CopyFrom(delta)
+            return "delta", delta.ByteSize()
+        full = plan.full()
+        req.weights.CopyFrom(full)
+        return "full", full.ByteSize()
+
+    def _new_plan(self, w: np.ndarray) -> "codec.WeightSendPlan":
+        """This version's shared weight-send plan (rpc/codec.py): the
+        delta-vs-full choice and both lazy encodes.  Without
+        delta_broadcast the sparse form is disabled outright
+        (w_prev=None), so the plan degrades to a lazy encode_tensor."""
+        return codec.plan_weight_send(
+            w, self._w_prev if self.delta_broadcast else None,
+            base_version=self.version - 1,
+            break_even=self.SPARSE_BREAK_EVEN)
+
+    def _plan_for(self, w: np.ndarray) -> "codec.WeightSendPlan":
+        # slot first, join only on a miss: a set slot IS the encoder's
+        # finished result (assigned last, forms already resolved), and
+        # checking first lets the encoder thread itself resolve forms
+        # while staging frames without deadlocking on its own future
+        if self._send_plan is None:
+            self._join_encode()
+        if self._send_plan is None:
+            self._send_plan = self._new_plan(w)
+        return self._send_plan
+
+
 class MasterNode:
     def __init__(
         self,
@@ -316,11 +839,24 @@ class MasterNode:
         self.expected_workers = expected_workers
         self.seed = seed
 
+        # the fan-in lanes and the stage pool fit_sync resolves against
+        # when its parameters are None (main.py passes the DSGD_* values)
+        self.fanin_lanes = 0
+        self.stage_pool = 0
+
         self._workers: Dict[Tuple[str, int], WorkerStub] = {}
         self._channels: Dict[Tuple[str, int], grpc.Channel] = {}
         self._order: List[Tuple[str, int]] = []  # registration order
         self._members_lock = threading.Lock()
         self.cluster_ready = threading.Event()  # Master.scala:34-35
+        # the persistent gradient streams of a fit with stream=True, opened
+        # at a worker's first streamed dispatch and closed at the fit's end,
+        # an unregistration or stop; the peers that answered UNIMPLEMENTED
+        # to FitStream stay unary for the life of this process (until they
+        # register again: a restarted worker may be another binary)
+        self._streams: Dict[Tuple[str, int], object] = {}
+        self._streams_lock = threading.Lock()
+        self._stream_unsupported: set = set()
 
         # master-local eval (Master.localLoss/localAccuracy) on this device
         engine = SyncEngine(model, batch_size=1, learning_rate=0.0, device=self.device)
@@ -476,6 +1012,7 @@ class MasterNode:
         self._hb_wake.set()
         self._async_running.clear()
         self._async_done.set()
+        self._close_streams()
         if self._hb_thread is not None:
             self._hb_thread.join(timeout=10.0)
         self.server.stop(grace=1.0)
@@ -562,6 +1099,13 @@ class MasterNode:
             self.metrics.counter(metrics_mod.MASTER_EVICTIONS).increment()
             flight.record("worker.evicted", worker=f"{host}:{port}")
             flight.dump("eviction")
+        # the departed worker's stream closes with its membership, and its
+        # UNIMPLEMENTED mark clears
+        with self._streams_lock:
+            stream = self._streams.pop(key, None)
+            self._stream_unsupported.discard(key)
+        if stream is not None:
+            stream.close()
         with self._members_lock:
             self._workers.pop(key, None)
             ch = self._channels.pop(key, None)
@@ -585,6 +1129,69 @@ class MasterNode:
     @property
     def members(self) -> List[Tuple[str, int]]:
         return [k for k, _ in self._members()]
+
+    # -- the streaming fan-out (DSGD_STREAM) ---------------------------------
+
+    def _grad_stream(self, key, stub):
+        """The live FitStream client for `key`, opened lazily; None (the
+        window goes unary) when the peer answered UNIMPLEMENTED before,
+        when its breaker suppresses (each teardown fed it a failure), or
+        when it is no member any more."""
+        s = self._streams.get(key)
+        if s is not None and s.usable:
+            return s
+        from distributed_sgd_tpu_torch.rpc.stream import FitStreamClient
+
+        with self._streams_lock:
+            if key in self._stream_unsupported:
+                return None
+            s = self._streams.get(key)
+            if s is not None:
+                if s.usable:
+                    return s
+                if s.unsupported:
+                    self._stream_unsupported.add(key)
+                    return None
+                self._streams.pop(key, None)  # broken: replaced below
+            breaker = self.rpc_policy.breaker(key)
+            if breaker.suppressed():
+                return None
+            with self._members_lock:
+                if key not in self._workers:
+                    return None
+            try:
+                s = FitStreamClient(stub.FitStream, peer=f"{key[0]}:{key[1]}",
+                                    metrics=self.metrics, log=self.log,
+                                    on_break=breaker.record_failure)
+            except Exception:  # noqa: BLE001 - the channel closed under us
+                return None  # this window goes unary; the barrier classifies
+            self._streams[key] = s
+            return s
+
+    def _close_streams(self) -> None:
+        with self._streams_lock:
+            streams, self._streams = dict(self._streams), {}
+            for k, s in streams.items():
+                if s.unsupported:
+                    self._stream_unsupported.add(k)
+        for s in streams.values():
+            s.close()
+
+    def _dispatch_gradient(self, key, stub, frame, req, timeout_s: float, use_stream: bool):
+        """One worker's Gradient send for a window: a frame down its stream
+        (which replays the request over unary with the deadline left, if
+        the stream tears down), or the unary future.  None: the channel
+        closed under us (the barrier classifies it)."""
+        if use_stream and frame is not None:
+            s = self._grad_stream(key, stub)
+            if s is not None:
+                fut = s.send(frame, timeout_s, unary_call=stub.Gradient, request=req)
+                if fut is not None:
+                    return fut
+        try:
+            return stub.Gradient.future(req, timeout=timeout_s)
+        except ValueError:
+            return None
 
     # -- distributed eval (Master.scala:61-98) -----------------------------
 
@@ -797,6 +1404,33 @@ class MasterNode:
         the latest snapshot and saves every `checkpoint_every` epochs.
         `optimizer` is None/'sgd', 'momentum' or 'adam'.
 
+        The pipelined levers, each off by default (then the wire and the
+        weights are the unpipelined fit's, byte for byte):
+
+        - `delta_broadcast` (DSGD_DELTA_BROADCAST): versioned broadcasts;
+          the workers keep the last weights, and the master sends only the
+          changed coordinates' new values (or nothing on a retry), a full
+          tensor to a (re)joined or stale worker, after a resplit, or when
+          the update is denser than the break-even;
+        - `local_steps` K > 1 (DSGD_LOCAL_STEPS): each worker runs K plain
+          SGD steps over K batches of its partition a round and replies
+          the decrement; the master applies the mean decrement (``w -
+          mean`` for sgd, the optimizer on ``mean / lr`` otherwise): K
+          times fewer rounds an epoch;
+        - `stream` (DSGD_STREAM): each window's requests ride one
+          persistent FitStream a worker, with the next window's requests
+          built by the encode-ahead thread during the barrier; a broken
+          stream replays its window over unary, an UNIMPLEMENTED peer
+          stays unary, and hedges are always unary;
+        - `fanin_lanes` K (DSGD_FANIN_LANES): each reply is parsed in its
+          own arrival callback, off the decoder's lock, and summed in
+          send order: the weights are the lane-free fit's bit for bit.  The
+          count is pinned for the fit (None: `self.fanin_lanes`);
+        - `stage_pool` P (DSGD_STAGE_POOL): the next round's sample draws
+          (one task, the serial order, the generator restored on any
+          discard) and request builds run on a P-thread pool during the
+          barrier (None: `self.stage_pool`).
+
         Quorum barrier (`quorum=Q`, DSGD_QUORUM): a window closes when
         every reply has landed, or when the soft deadline
         (`straggler_soft_s`, or adaptive from each worker's reply-latency
@@ -815,21 +1449,17 @@ class MasterNode:
         Crash-safe fit state (`fit_state_path` with `fit_state_every=R`,
         DSGD_FIT_CKPT_EVERY): every R applied windows the loop's whole
         state (weights, optimizer leaves, epoch and window cursor, the
-        sample generator's state, the early-stopping history, the
-        broadcast version, the fit-token lineage) is written atomically,
-        and once more at the end.  A new master that finds it resumes from
-        it bit for bit, unless the epoch checkpoint is newer; a finished
-        snapshot runs nothing.  Snapshots do not change the result.
+        sample generator's state as a serial run holds it, the
+        early-stopping history, the broadcast version, the fit-token
+        lineage) is written atomically, and once more at the end.  A new
+        master that finds it resumes from it bit for bit, unless the epoch
+        checkpoint is newer; a finished snapshot runs nothing.  Snapshots
+        do not change the result.
 
-        The JAX fit_sync's other levers are not ported; a non-default value
-        raises NotImplementedError (ROADMAP.md Queue A [A8] 3.4, [A13]
-        item 8)."""
+        The JAX fit_sync's health monitor, aggregation tree and sharded
+        master are not ported; a non-default value raises
+        NotImplementedError (ROADMAP.md Queue A [A13] item 8)."""
         levers = (
-            (local_steps != 1, f"local_steps={local_steps}", "[A8] 3.4"),
-            (delta_broadcast, "delta_broadcast", "[A8] 3.4"),
-            (stream, "stream", "[A8] 3.4"),
-            (bool(fanin_lanes), f"fanin_lanes={fanin_lanes}", "[A8] 3.4"),
-            (bool(stage_pool), f"stage_pool={stage_pool}", "[A8] 3.4"),
             (health is not None, "health (the training-health monitor)",
              "[A13] item 8, telemetry/"),
             (bool(agg_tree), f"agg_tree={agg_tree!r}", "[A13] item 8, aggtree/"),
@@ -846,6 +1476,11 @@ class MasterNode:
         quorum = int(quorum) if quorum is not None else None
         if straggler_soft_s is not None and straggler_soft_s <= 0:
             raise ValueError(f"straggler_soft_s must be > 0, got {straggler_soft_s}")
+        local_steps = max(1, int(local_steps))
+        # the lane count is pinned for the fit: every attempt of a window
+        # must walk the same cursor layout
+        lanes = max(0, int(self.fanin_lanes if fanin_lanes is None else fanin_lanes))
+        pool_n = int(self.stage_pool if stage_pool is None else stage_pool)
         opt = resolve_optimizer(optimizer, momentum)
         opt_kind = opt_kind_tag(optimizer)
         self._require_ready()
@@ -860,10 +1495,7 @@ class MasterNode:
         tracker = _FailureTracker(grad_retries + 1)
         self._fit_seq += 1
         fit_token = self._fit_token_base + self._fit_seq
-        # the broadcast version: stamped on the wire under a quorum (the EF
-        # rollback keys on it), counted either way, as the JAX master's
-        versioned = quorum is not None
-        version = 1 if versioned else 0
+        window_span = batch_size * local_steps
         # ef_rollback[worker]: the version whose reply the quorum discarded,
         # sent with that worker's next request
         ef_rollback: Dict[Tuple[str, int], int] = {}
@@ -872,6 +1504,7 @@ class MasterNode:
         grad_bytes = m.counter(metrics_mod.SYNC_GRAD_BYTES)
         rounds = m.counter(metrics_mod.SYNC_ROUNDS)
         stalled = m.counter(metrics_mod.SYNC_STALLED)
+        fanin_parsed = m.counter(metrics_mod.FANIN_PARSED) if lanes else None
         phase_s = {name: m.histogram(name) for name in (
             SYNC_FANOUT_SECONDS, SYNC_BARRIER_SECONDS, SYNC_DECODE_SECONDS,
             SYNC_APPLY_SECONDS)}
@@ -894,6 +1527,7 @@ class MasterNode:
         # that one is newer (fit_state_every past an epoch's windows)
         resume_batch = 0
         resume_rng_state = None
+        resume_version = 0
         fit_tokens = [fit_token]
         fit_state_every = max(0, int(fit_state_every))
         fs = restore_fit_state(fit_state_path, opt_kind, leaves()) if fit_state_path else None
@@ -908,9 +1542,7 @@ class MasterNode:
             if fs.opt_leaves:
                 opt_state = opt_state_from_jax(fs.opt_leaves, opt.kind, self.model.n_features,
                                                self.device)
-            if versioned and fs.bcast_version > 0:
-                # never reuse a version the long-lived workers have seen
-                version = int(fs.bcast_version)
+            resume_version = int(fs.bcast_version)
             fit_tokens = fs.fit_tokens + [fit_token]
             self.log.info("resumed crash-safe fit state at epoch %d window cursor %d "
                           "(fit lineage: %d token(s))", start_epoch, resume_batch,
@@ -927,161 +1559,276 @@ class MasterNode:
             result.state = GradState(weights=w, loss=loss).finish()
             return result
 
-        bcast_w: Optional[np.ndarray] = None  # the weights `bcast` encodes
-        bcast: Optional[pb.Tensor] = None
+        stager = _DispatchStager(pool_n) if pool_n > 0 else None
+        # a quorum stamps the version on the plain wire too: the EF
+        # rollback keys on it
+        bcast = _BroadcastState(delta_broadcast, m, versioned=quorum is not None,
+                                stage_pool=stager.pool if stager else None)
+        if bcast.versioned and resume_version > 0:
+            # never reuse a version the long-lived workers have seen
+            bcast.version = resume_version
+        use_stream = bool(stream)
+        if use_stream or stager is not None:
+            # from the first advance() on, the encoder thread builds each
+            # worker's next request (a Frame for the stream, a
+            # GradientRequest otherwise) while this window's replies fly
+            bcast.stage_for(keys, fit_token, local_steps, batch_size, learning_rate,
+                            frames=use_stream)
+
+        def serial_rng_state(rng):
+            # the generator's state as a serial run holds it: the stage's
+            # base while a pre-draw is pending
+            return stager.rng_state(rng) if stager is not None else rng.bit_generator.state
+
         rounds_since_save = 0
         stopped_early = False
-        for epoch in range(start_epoch, max_epochs):
-            t0 = time.perf_counter()
-            batch = 0
-            # keyed by absolute epoch: a resumed run draws the same stream
-            rng = np.random.default_rng((self.seed, epoch))
-            if resume_rng_state is not None:
-                # a crash-safe resume lands mid-epoch: the generator's state
-                # and the window cursor of the snapshot
-                rng.bit_generator.state = resume_rng_state
-                batch = resume_batch
-                resume_rng_state = None
-            while batch < max_samples:
-                # live membership: an unregistration reaches the loop here
-                current = self._members()
-                if [k for k, _ in current] != keys:
-                    if not current:
-                        raise RuntimeError("all workers lost mid-fit")
-                    members, keys = current, [k for k, _ in current]
-                    parts = split(len(self.train), len(members))
-                    max_samples = max(len(p) for p in parts)
-                    m.counter(metrics_mod.SYNC_RESPLITS).increment()
-                    flight.record("sync.resplit", members=len(members))
-                    self.log.warning("membership changed; re-split across %d workers",
-                                     len(members))
-                    if batch >= max_samples:
-                        break
-                t_batch = time.perf_counter()
-                # one trace per fan-out window: the Gradient calls (hedges
-                # included) become client/server child spans through
-                # rpc/service.py's hooks
-                wspan = trace_mod.root_span(trace_mod.SPAN_SYNC_WINDOW, node="master",
-                                            epoch=epoch, batch=int(batch), version=version)
-                with wspan:
-                    if bcast_w is not w:  # one encode per weight version
-                        bcast, bcast_w = codec.encode_tensor(w), w
-                    futs = []
-                    ids_by_key: Dict[Tuple[str, int], np.ndarray] = {}
-                    rb_sent: Dict[Tuple[str, int], int] = {}
-                    for (key, stub), part in zip(members, parts):
-                        ids = _draw_ids(rng, part, batch, batch_size)
-                        ids_by_key[key] = ids
-                        req = pb.GradientRequest(samples=ids.astype(np.int32), weights=bcast,
-                                                 fit_token=fit_token)
-                        if versioned:
-                            req.step_version = version
-                        rb = ef_rollback.pop(key, None)
-                        if rb is not None:
-                            req.ef_rollback_version = rb
-                            rb_sent[key] = rb  # re-armed if this request fails
-                        metrics_mod.record_broadcast(m, "full", bcast.ByteSize())
-                        try:
-                            fut = stub.Gradient.future(req, timeout=grad_timeout_s)
-                        except ValueError:  # channel closed under us
-                            fut = None
-                        futs.append((key, fut))
-                    t_sent = time.perf_counter()
-                    if quorum is None:
-                        good, failed = _await_futures(futs, bytes_counter=grad_bytes)
-                        replies = [r for _, r in good]
-                        satisfied = False
-                        # pure observation: how often a quorum would have
-                        # had to step in
-                        if (straggler_soft_s is not None
-                                and time.perf_counter() - t_batch > straggler_soft_s):
-                            stalled.increment()
-                    else:
-                        replies, good, failed, satisfied = self._quorum_barrier(
-                            futs, members, ids_by_key, quorum, straggler_soft_s,
-                            grad_timeout_s, fit_token, version, bcast, hedge, ef_rollback,
-                            grad_bytes, rb_sent)
+        try:
+            for epoch in range(start_epoch, max_epochs):
+                t0 = time.perf_counter()
+                batch = 0
+                # keyed by absolute epoch: a resumed run draws the same stream
+                rng = np.random.default_rng((self.seed, epoch))
+                if resume_rng_state is not None:
+                    # a crash-safe resume lands mid-epoch: the generator's
+                    # state and the window cursor of the snapshot
+                    rng.bit_generator.state = resume_rng_state
+                    batch = resume_batch
+                    resume_rng_state = None
+                while batch < max_samples:
+                    live_lanes = self.fanin_lanes if fanin_lanes is None else fanin_lanes
+                    if max(0, int(live_lanes)) != lanes:
+                        raise RuntimeError(f"fan-in lane count changed mid-fit ({lanes} -> "
+                                           f"{live_lanes}): it is pinned at fit start")
+                    # live membership: an unregistration reaches the loop here
+                    current = self._members()
+                    if [k for k, _ in current] != keys:
+                        if not current:
+                            raise RuntimeError("all workers lost mid-fit")
+                        if stager is not None:
+                            # the pre-draw was for the old partitions: drop
+                            # it and rewind the generator
+                            stager.discard(rng)
+                        members, keys = current, [k for k, _ in current]
+                        parts = split(len(self.train), len(members))
+                        max_samples = max(len(p) for p in parts)
+                        bcast.forget_missing(keys)  # a rejoin starts from full weights
+                        if use_stream or stager is not None:
+                            bcast.stage_for(keys, fit_token, local_steps, batch_size,
+                                            learning_rate, frames=use_stream)
+                        m.counter(metrics_mod.SYNC_RESPLITS).increment()
+                        flight.record("sync.resplit", members=len(members))
+                        self.log.warning("membership changed; re-split across %d workers",
+                                         len(members))
+                        if batch >= max_samples:
+                            break
+                    t_batch = time.perf_counter()
+                    # one trace per fan-out window: the Gradient calls (hedges
+                    # included) become client/server child spans through
+                    # rpc/service.py's hooks
+                    wspan = trace_mod.root_span(trace_mod.SPAN_SYNC_WINDOW, node="master",
+                                                epoch=epoch, batch=int(batch),
+                                                version=bcast.version)
+                    with wspan:
+                        futs = []
+                        ids_by_key: Dict[Tuple[str, int], np.ndarray] = {}
+                        rb_sent: Dict[Tuple[str, int], int] = {}
+                        # with fan-in lanes each reply is parsed as it
+                        # arrives: the full barrier also sums it then, in
+                        # send order; a quorum's contributors are known only
+                        # at round close.  Without lanes every reply is
+                        # decoded after the barrier
+                        decoder = None
+                        if lanes:
+                            grad_acc.fill(0.0)
+                            decoder = _ArrivalDecoder(grad_acc, lanes=lanes,
+                                                      defer=quorum is not None)
+                        staged_ids = (stager.take(rng, keys, epoch, batch)
+                                      if stager is not None else None)
+                        for (key, stub), part in zip(members, parts):
+                            ids = (staged_ids[key] if staged_ids is not None
+                                   else _draw_ids(rng, part, batch, window_span))
+                            ids_by_key[key] = ids
+                            frame = req = None
+                            if use_stream:
+                                frame = bcast.take_staged_frame(key)
+                                if frame is not None:
+                                    req = frame.request
+                            elif stager is not None:
+                                req = bcast.take_staged_request(key)
+                            if req is not None:
+                                req.samples.extend(ids.astype(np.int32))
+                            else:
+                                if use_stream:
+                                    frame = pb.Frame()
+                                    req = frame.request
+                                    req.samples.extend(ids.astype(np.int32))
+                                    req.fit_token = fit_token
+                                else:
+                                    req = pb.GradientRequest(samples=ids.astype(np.int32),
+                                                             fit_token=fit_token)
+                                if local_steps > 1:
+                                    req.local_steps = local_steps
+                                    req.batch_size = batch_size
+                                    req.learning_rate = learning_rate
+                                bcast.populate(req, key, w)
+                            rb = ef_rollback.pop(key, None)
+                            if rb is not None:
+                                req.ef_rollback_version = rb
+                                rb_sent[key] = rb  # re-armed if this request fails
+                            fut = self._dispatch_gradient(key, stub, frame, req,
+                                                          grad_timeout_s, use_stream)
+                            futs.append((key, fut))
+                            if decoder is not None:
+                                decoder.watch(len(futs) - 1, fut)
+                        if stager is not None and batch + window_span < max_samples:
+                            # the next round's draws run on the pool while
+                            # this round's replies fly (an epoch's last round
+                            # stages nothing: the next epoch re-keys)
+                            stager.stage(rng, keys, parts, epoch, batch + window_span,
+                                         window_span)
+                        t_sent = time.perf_counter()
+                        if quorum is None:
+                            ok, failed = _await_futures(futs, bytes_counter=grad_bytes)
+                            if decoder is not None:
+                                decoder.finish(futs)
+                            good, stale = [], []
+                            for key, reply in ok:
+                                (stale if reply.stale_version else good).append((key, reply))
+                            replies = [r for _, r in good]
+                            satisfied = False
+                            # pure observation: how often a quorum would have
+                            # had to step in
+                            if (straggler_soft_s is not None
+                                    and time.perf_counter() - t_batch > straggler_soft_s):
+                                stalled.increment()
+                        else:
+                            replies, good, stale, failed, satisfied = self._quorum_barrier(
+                                futs, members, ids_by_key, quorum, straggler_soft_s,
+                                grad_timeout_s, fit_token, local_steps, batch_size,
+                                learning_rate, bcast, w, hedge, ef_rollback, grad_bytes,
+                                rb_sent)
+                            if not satisfied:
+                                flight.record("quorum.below", epoch=epoch, batch=int(batch),
+                                              version=bcast.version, got=len(good),
+                                              quorum=min(quorum, len(members)))
+                                flight.dump("below_quorum", min_interval_s=10.0)
+                        t_replies = time.perf_counter()
+                        phase_s[SYNC_FANOUT_SECONDS].record(t_sent - t_batch)
+                        phase_s[SYNC_BARRIER_SECONDS].record(t_replies - t_sent)
+                        rounds.increment()
+                        for key, _ in good:
+                            tracker.record_ok(key)
+                            bcast.note_ok(key)
+                        for key, _ in stale:
+                            # a stale reply is a live worker whose replica
+                            # missed a version: a full broadcast on the retry
+                            tracker.record_ok(key)
+                            bcast.note_stale(key)
+                            m.counter(metrics_mod.SYNC_STALE).increment()
+                            trace_mod.event(trace_mod.EVENT_BCAST_STALE,
+                                            worker=f"{key[0]}:{key[1]}")
+                            self.log.warning("worker %s:%d replica stale at v%d; falling back "
+                                             "to full broadcast", key[0], key[1],
+                                             bcast.version)
                         if not satisfied:
-                            flight.record("quorum.below", epoch=epoch, batch=int(batch),
-                                          version=version, got=len(good),
-                                          quorum=min(quorum, len(members)))
-                            flight.dump("below_quorum", min_interval_s=10.0)
-                    t_replies = time.perf_counter()
-                    phase_s[SYNC_FANOUT_SECONDS].record(t_sent - t_batch)
-                    phase_s[SYNC_BARRIER_SECONDS].record(t_replies - t_sent)
-                    rounds.increment()
-                    for key, _ in good:
-                        tracker.record_ok(key)
-                    if not satisfied:
-                        for key, code in failed:
-                            n, evict = tracker.record_failure(key)
-                            if not evict:
+                            for key, code in failed:
+                                n, evict = tracker.record_failure(key)
+                                if not evict:
+                                    self.log.warning(
+                                        "worker %s:%d failed Gradient (%s); retry %d/%d",
+                                        key[0], key[1], code, n, grad_retries)
+                                    continue
+                                if on_worker_death == "fail":
+                                    raise RuntimeError(
+                                        f"worker {key[0]}:{key[1]} died mid-fit "
+                                        f"({n} consecutive Gradient failures: {code})")
                                 self.log.warning(
-                                    "worker %s:%d failed Gradient (%s); retry %d/%d",
-                                    key[0], key[1], code, n, grad_retries)
-                                continue
-                            if on_worker_death == "fail":
-                                raise RuntimeError(
-                                    f"worker {key[0]}:{key[1]} died mid-fit "
-                                    f"({n} consecutive Gradient failures: {code})")
-                            self.log.warning(
-                                "worker %s:%d failed Gradient %d times (%s); declaring dead",
-                                key[0], key[1], n, code)
-                            self.unregister_worker(*key, evicted=True)
-                        if failed:
-                            wspan.set(retry=True)
-                            continue  # retry this window (survivors or re-split)
-                    # the replies summed in send order (a quorum's in
-                    # canonical slice order), then one true divide:
-                    # bit-matching np.mean over the decoded replies
-                    grad_acc.fill(0.0)
-                    for reply in replies:
-                        codec.decode_grad_into(reply, grad_acc)
-                    grad_acc /= len(replies)
-                    t_decoded = time.perf_counter()
-                    if opt.kind == "sgd":
-                        w = w - learning_rate * grad_acc  # Master.scala:197
-                    else:
-                        wt, opt_state = apply_update(
-                            torch.from_numpy(w).to(self.device),
-                            torch.from_numpy(grad_acc).to(self.device),
-                            learning_rate, opt, opt_state)
-                        w = wt.cpu().numpy()
-                    version += 1
-                    t_applied = time.perf_counter()
-                    phase_s[SYNC_DECODE_SECONDS].record(t_decoded - t_replies)
-                    phase_s[SYNC_APPLY_SECONDS].record(t_applied - t_decoded)
-                    m.histogram("master.sync.batch.duration").record(t_applied - t_batch)
-                    batch += batch_size
-                    rounds_since_save += 1
-                    if fit_state_path and fit_state_every and rounds_since_save >= fit_state_every:
-                        # the cursor points past the applied window and the
-                        # generator's state is what the next window draws from
-                        save_fit_state(
-                            fit_state_path, weights=w, epoch=epoch, batch=batch,
-                            rng_state=rng.bit_generator.state,
-                            test_losses_nf=test_newest_first, opt_kind=opt_kind,
-                            opt_leaves=leaves(), bcast_version=version, fit_tokens=fit_tokens)
-                        rounds_since_save = 0
-            epoch_s = time.perf_counter() - t0
+                                    "worker %s:%d failed Gradient %d times (%s); declaring "
+                                    "dead", key[0], key[1], n, code)
+                                self.unregister_worker(*key, evicted=True)
+                            if failed or stale:
+                                wspan.set(retry=True)
+                                continue  # retry this window (survivors or re-split)
+                        # the replies summed in send order (a quorum's in
+                        # canonical slice order), then one true divide:
+                        # bit-matching np.mean over the decoded replies.  With
+                        # lanes the full barrier summed them as they arrived.
+                        if decoder is not None:
+                            # exact once the window closed (a callback may
+                            # still be counting `parsed`)
+                            fanin_parsed.increment(decoder.reused if decoder.defer
+                                                   else decoder.decoded)
+                        if decoder is not None and decoder.defer:
+                            grad_acc.fill(0.0)
+                            for reply in replies:
+                                decoder.add_into(reply, grad_acc)
+                        elif decoder is None or decoder.decoded != len(replies):
+                            grad_acc.fill(0.0)
+                            for reply in replies:
+                                codec.decode_grad_into(reply, grad_acc)
+                        grad_acc /= len(replies)
+                        t_decoded = time.perf_counter()
+                        w_old = w
+                        if local_steps > 1 and opt.kind == "sgd":
+                            # the mean decrement, applied as it is
+                            w = w - grad_acc
+                        elif local_steps > 1:
+                            # the optimizer takes the pseudo-gradient
+                            # mean / lr, divided in f32
+                            w, opt_state = self._apply_update(
+                                w, grad_acc / np.float32(learning_rate), learning_rate, opt,
+                                opt_state)
+                        elif opt.kind == "sgd":
+                            w = w - learning_rate * grad_acc  # Master.scala:197
+                        else:
+                            w, opt_state = self._apply_update(w, grad_acc, learning_rate, opt,
+                                                              opt_state)
+                        bcast.advance(w, w_old)
+                        t_applied = time.perf_counter()
+                        phase_s[SYNC_DECODE_SECONDS].record(t_decoded - t_replies)
+                        phase_s[SYNC_APPLY_SECONDS].record(t_applied - t_decoded)
+                        m.histogram("master.sync.batch.duration").record(t_applied - t_batch)
+                        batch += window_span
+                        rounds_since_save += 1
+                        if (fit_state_path and fit_state_every
+                                and rounds_since_save >= fit_state_every):
+                            # the cursor points past the applied window and
+                            # the generator's state is what the next window
+                            # draws from
+                            save_fit_state(
+                                fit_state_path, weights=w, epoch=epoch, batch=batch,
+                                rng_state=serial_rng_state(rng),
+                                test_losses_nf=test_newest_first, opt_kind=opt_kind,
+                                opt_leaves=leaves(), bcast_version=bcast.version,
+                                fit_tokens=fit_tokens)
+                            rounds_since_save = 0
+                epoch_s = time.perf_counter() - t0
 
-            loss, acc = self.local_loss(w)
-            test_loss, test_acc = self.local_loss(w, test=True)
-            record_epoch(result, test_newest_first, epoch, loss, acc, test_loss, test_acc,
-                         epoch_s)
-            m.histogram("master.sync.loss").record(loss)
-            m.histogram("master.sync.acc").record(100 * acc)
-            m.histogram("master.sync.epoch.seconds").record(epoch_s)
-            self.log.info(
-                "epoch %d: loss=%.6f acc=%.4f test_loss=%.6f test_acc=%.4f (%.2fs)",
-                epoch, loss, acc, test_loss, test_acc, epoch_s)
-            if checkpointer is not None and (epoch + 1) % checkpoint_every == 0:
-                save_sync_fit(checkpointer, epoch + 1, w, test_newest_first, opt_kind,
-                              leaves())
-            if criterion is not None and criterion(test_newest_first):
-                self.log.info("Converged to target: stopping computation")
-                stopped_early = True
-                break
+                loss, acc = self.local_loss(w)
+                test_loss, test_acc = self.local_loss(w, test=True)
+                record_epoch(result, test_newest_first, epoch, loss, acc, test_loss, test_acc,
+                             epoch_s)
+                m.histogram("master.sync.loss").record(loss)
+                m.histogram("master.sync.acc").record(100 * acc)
+                m.histogram("master.sync.epoch.seconds").record(epoch_s)
+                self.log.info(
+                    "epoch %d: loss=%.6f acc=%.4f test_loss=%.6f test_acc=%.4f (%.2fs)",
+                    epoch, loss, acc, test_loss, test_acc, epoch_s)
+                if checkpointer is not None and (epoch + 1) % checkpoint_every == 0:
+                    save_sync_fit(checkpointer, epoch + 1, w, test_newest_first, opt_kind,
+                                  leaves())
+                if criterion is not None and criterion(test_newest_first):
+                    self.log.info("Converged to target: stopping computation")
+                    stopped_early = True
+                    break
+        finally:
+            # the streams and the stage pool are the fit's
+            if use_stream:
+                self._close_streams()
+            if stager is not None:
+                stager.close()
+                m.counter(metrics_mod.STAGE_HITS).increment(stager.hits)
+                m.counter(metrics_mod.STAGE_DISCARDS).increment(stager.discards)
 
         save_sync_fit_final(checkpointer, result.epochs_run, start_epoch, checkpoint_every,
                             w, test_newest_first, opt_kind, leaves())
@@ -1094,27 +1841,36 @@ class MasterNode:
                 rng_state=np.random.default_rng(
                     (self.seed, result.epochs_run)).bit_generator.state,
                 test_losses_nf=test_newest_first, opt_kind=opt_kind, opt_leaves=leaves(),
-                bcast_version=version, fit_tokens=fit_tokens, finished=stopped_early)
+                bcast_version=bcast.version, fit_tokens=fit_tokens, finished=stopped_early)
         result.state = GradState(
             weights=w, loss=result.losses[-1] if result.losses else float("nan")).finish()
         return result
 
+    def _apply_update(self, w: np.ndarray, g: np.ndarray, learning_rate: float, opt,
+                      opt_state):
+        """(w, the optimizer's state) after the update of host weights `w`
+        by the mean gradient `g`, on the master's device."""
+        wt, opt_state = apply_update(torch.from_numpy(w).to(self.device),
+                                     torch.from_numpy(g).to(self.device),
+                                     learning_rate, opt, opt_state)
+        return wt.cpu().numpy(), opt_state
+
     def _quorum_barrier(self, futs, members, ids_by_key, quorum, straggler_soft_s,
-                        grad_timeout_s, fit_token, version, bcast, hedge, ef_rollback,
-                        grad_bytes, rb_sent):
+                        grad_timeout_s, fit_token, local_steps, batch_size, learning_rate,
+                        bcast, w, hedge, ef_rollback, grad_bytes, rb_sent):
         """One window's quorum barrier with straggler hedges.  Returns
-        (replies, good, failed, satisfied):
+        (replies, good, stale, failed, satisfied):
 
         - satisfied: the round closes now with `replies` (at least the
           quorum), in canonical slice order; `good` lists the workers whose
           own reply was used.  Each fanned-out worker whose own reply was
           not used is marked in `ef_rollback`, its late reply is counted
-          and dropped, and no failure is recorded: slow is not dead.
+          and dropped, and no failure is recorded: slow is not dead.  A
+          stale reply's slice is hedged like a missing one.
         - not satisfied: below quorum at the soft deadline, everything was
           awaited to the hard deadline, and the caller runs the full
-          barrier's failure and retry path over (good, failed).  (The JAX
-          barrier also sets aside stale-replica replies; the port's master
-          always sends the full weights, which no worker finds stale.)"""
+          barrier's failure, stale and retry path over (good, stale,
+          failed)."""
         quorum_n = min(quorum, len(members))
         soft_s = straggler_soft_s
         if soft_s is None:
@@ -1133,12 +1889,15 @@ class MasterNode:
                             got=len(ok))
             flight.record("barrier.stalled", soft_s=round(soft_s, 4), got=len(ok),
                           quorum=quorum_n)
-        good = ok
-        uncovered = [k for k, _ in pending] + [k for k, _ in failed]
+        good, stale = [], []
+        for key, reply in ok:
+            (stale if reply.stale_version else good).append((key, reply))
+        uncovered = [k for k, _ in pending] + [k for k, _ in failed] + [k for k, _ in stale]
         h_ok = []
         if uncovered and len(good) >= quorum_n and hedge and good:
             # each missing slice to the fastest responders: the straggler's
-            # drawn ids again, with this window's weights
+            # drawn ids again, with this window's weights (header-only under
+            # delta broadcast: the donor just proved this version)
             donors = sorted((k for k, _ in good),
                             key=lambda k: self._latency.p95_s(k) or float("inf"))
             stub_by_key = dict(members)
@@ -1147,9 +1906,13 @@ class MasterNode:
             for i, skey in enumerate(uncovered):
                 donor = donors[i % len(donors)]
                 hreq = pb.GradientRequest(samples=ids_by_key[skey].astype(np.int32),
-                                          weights=bcast, fit_token=fit_token,
-                                          step_version=version, hedge=True)
-                metrics_mod.record_broadcast(self.metrics, "full", bcast.ByteSize())
+                                          fit_token=fit_token, hedge=True)
+                if local_steps > 1:
+                    hreq.local_steps = local_steps
+                    hreq.batch_size = batch_size
+                    hreq.learning_rate = learning_rate
+                bcast.note_ok(donor)  # its own reply proved this version
+                bcast.populate(hreq, donor, w)
                 try:
                     hfut = stub_by_key[donor].Gradient.future(hreq, timeout=hedge_deadline)
                 except ValueError:
@@ -1174,12 +1937,12 @@ class MasterNode:
                 reply = fut.result()
                 grad_bytes.increment(reply.ByteSize())
                 self._latency.record(key, soft_s)  # at least the soft window
-                good.append((key, reply))
+                (stale if reply.stale_version else good).append((key, reply))
             except grpc.RpcError as e:
                 failed.append((key, e.code()))
 
         own = {k for k, _ in good}
-        hedge_wins = [(skey, r) for skey, r in h_ok if skey not in own]
+        hedge_wins = [(skey, r) for skey, r in h_ok if skey not in own and not r.stale_version]
         # canonical slice order, whatever the arrival order: a round with
         # every reply in hand equals the plain barrier bit for bit
         order = {key: i for i, key in enumerate(ids_by_key)}
@@ -1207,7 +1970,7 @@ class MasterNode:
                     if key in failed_keys and key in rb_sent:
                         ef_rollback[key] = rb_sent[key]
                     else:
-                        ef_rollback[key] = version
+                        ef_rollback[key] = bcast.version
             # the late settle runs on a gRPC thread after this window's
             # span closed: capture the window's context now
             w_ctx = trace_mod.current()
@@ -1219,7 +1982,7 @@ class MasterNode:
                                            worker=f"{_k[0]}:{_k[1]}")
                         flight.record("quorum.late", worker=f"{_k[0]}:{_k[1]}")
                 fut.add_done_callback(_count_late)
-            return replies, good, [], True
+            return replies, good, stale, [], True
 
         # below quorum: the full barrier, to the hard deadline; hedge
         # replies are dropped and the fan-out's order kept
@@ -1227,14 +1990,15 @@ class MasterNode:
             ok2, failed2, _ = _await_quorum(still_pending, len(still_pending) + 1,
                                             time.monotonic() + grad_timeout_s + 5.0,
                                             bytes_counter=grad_bytes, latency=self._latency)
-            good.extend(ok2)
+            for key, reply in ok2:
+                (stale if reply.stale_version else good).append((key, reply))
             failed.extend(failed2)
         good.sort(key=lambda kr: order[kr[0]])
         own = {k for k, _ in good}
         for key, rb in rb_sent.items():
             if key not in own:
                 ef_rollback.setdefault(key, rb)
-        return [r for _, r in good], good, failed, False
+        return [r for _, r in good], good, stale, failed, False
 
     # -- the async fit (MasterAsync.scala) -----------------------------------
 

@@ -28,42 +28,67 @@ full-mesh introduction fills, and the bodies a fit calls:
   the nodes of a one-process cluster overlap on the card and no tensor
   crosses streams; deltas cross nodes through host memory.
 
-The rows live on the worker's device for the life of the node; a request
-carries sample ids, which gather their rows there.  The JAX worker pads
-the ids to a power of two for its jit buckets; the port does not pad.
+The rows live on the worker's device for the life of the node (or of the
+slice, see below); a request carries sample ids, which gather their rows
+there.  The JAX worker pads the ids to a power of two for its jit
+buckets; the port does not pad.
+
+The pipelined sync levers (docs/SYNC_PIPELINE.md of the JAX package):
+
+- versioned weights (``resolve_request_weights``): a full broadcast
+  installs the worker's replica under (fit_token, step_version), a
+  ``WeightDelta`` assigns the master's absolute new values on top of the
+  replica at ``base_version``, and a header-only request reuses it; any
+  mismatch replies ``stale_version`` and computes nothing;
+- the K-step local window (``compute_local_window``, a request with
+  ``local_steps`` K > 1): up to K plain SGD steps over the ids in
+  batches of ``batch_size``, as ONE ``sync_epoch`` launch in the sum mode
+  (``parallel.sync.WindowSteps``), replying the decrement ``w - w_end``;
+- ``FitStream``: one persistent stream a master, each frame the unary
+  Gradient body.
 
 The quorum barrier's requests are served: a ``hedge`` (another worker's
-slice) is the plain Gradient body on the ids it names, replied
-uncompressed and counted ``slave.sync.hedge``; an ``ef_rollback_version``
-is a no-op, since the port's worker has no compressor and so no
-error-feedback residual.  Full weights stamped with ``step_version`` and
-``fit_token`` install the worker's replica (``resolve_request_weights``).
-With ``master_watch_s`` the worker watches the master after registering
-(``Master.Ping`` with its own identity) and registers again when the
-master forgets it or stops answering.
+slice) is the plain Gradient body (or the window) on the ids it names,
+replied uncompressed and counted ``slave.sync.hedge``; an
+``ef_rollback_version`` is a no-op, since the port's worker has no
+compressor and so no error-feedback residual.  With ``master_watch_s``
+the worker watches the master after registering (``Master.Ping`` with its
+own identity) and registers again when the master forgets it or stops
+answering.
 
-Every request this slice does not serve answers gRPC ``UNIMPLEMENTED``
+Host-local rows (data/host_shard.py, data/row_store.py): with
+``data_offset`` the worker holds only global rows [data_offset,
+data_offset + len(data)) and maps the master's global ids into them.
+With a ``row_reader`` over the corpus (``total_rows`` long), ids outside
+the slice RELOAD it incrementally (``ensure_rows``: only the uncovered
+delta is read, widened by ``host_overprovision``), a StartAsync
+re-shards it to its assignment, and a hedge for another worker's rows
+reads them into a scratch batch; without a reader such ids are refused.
+Each resident slice is one ``_Resident`` snapshot, swapped whole, so a
+body computes on one slice, its bounds and its sentinel row.
+
+Every request the port does not serve yet answers gRPC ``UNIMPLEMENTED``
 with a message that names the ROADMAP item that holds it, never a wrong
-reply: a Gradient with ``local_steps > 1``, a weight delta or a header-only
-weight arm, ``shard_count`` or ``agg_*``; and the methods ``FitStream``,
+reply: a Gradient with ``shard_count`` or ``agg_*``, and the methods
 ``AggregateGrad`` and ``Metrics``.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import grpc
 import numpy as np
 import torch
 
+from distributed_sgd_tpu_torch.data import host_shard
 from distributed_sgd_tpu_torch.data.rcv1 import Dataset
 from distributed_sgd_tpu_torch.models.linear import LinearModel
 from distributed_sgd_tpu_torch.ops.sparse import SparseBatch
 from distributed_sgd_tpu_torch.parallel import topology as topo
 from distributed_sgd_tpu_torch.parallel.mesh import DeviceLike
-from distributed_sgd_tpu_torch.parallel.sync import MeanSteps, resolve_optimizer
+from distributed_sgd_tpu_torch.parallel.sync import MeanSteps, WindowSteps, resolve_optimizer
 from distributed_sgd_tpu_torch.rpc import codec, dsgd_pb2 as pb
 from distributed_sgd_tpu_torch.rpc.service import (
     GossipSender,
@@ -79,17 +104,13 @@ from distributed_sgd_tpu_torch.utils import measure
 from distributed_sgd_tpu_torch.utils import metrics as metrics_mod
 from distributed_sgd_tpu_torch.utils.log import node_logger
 
-# where each unserved request kind is ported (ROADMAP.md Queue A, [A8] is
-# the RPC engine; its sub-slices 3.2-3.4, and item 8's modules)
+# where each unserved request kind is ported (ROADMAP.md Queue A, item 8's
+# modules)
 NOT_PORTED = {
-    "local_steps": "local_steps > 1 (the pipelined sync levers): ROADMAP.md Queue A [A8] 3.4",
-    "delta": "a weight delta or a header-only weight arm (DSGD_DELTA_BROADCAST): "
-             "ROADMAP.md Queue A [A8] 3.4",
     "shard_count": "a sharded-master leg (DSGD_MASTER_SHARDS, shardedps/): "
                    "ROADMAP.md Queue A [A13] item 8",
     "agg": "an aggregation-tree request (DSGD_AGG_TREE, aggtree/): "
            "ROADMAP.md Queue A [A13] item 8",
-    "FitStream": "the streaming fan-out (DSGD_STREAM): ROADMAP.md Queue A [A8] 3.4",
     "AggregateGrad": "the aggregation tree (DSGD_AGG_TREE, aggtree/): "
                      "ROADMAP.md Queue A [A13] item 8",
     "Metrics": "the cluster telemetry scrape (DSGD_TELEMETRY, telemetry/): "
@@ -100,6 +121,44 @@ NOT_PORTED = {
 def _not_ported(context, what: str):
     context.abort(grpc.StatusCode.UNIMPLEMENTED,
                   f"not ported to the torch worker yet: {NOT_PORTED[what]}")
+
+
+class _Resident(NamedTuple):
+    """One consistent snapshot of the worker's resident rows, swapped whole
+    (one attribute assignment) when an elastic reload re-shards the slice
+    (``ensure_rows``): a body that took the snapshot before the swap
+    computes entirely on the old slice, with the old offset, and with the
+    old data's bounds (ops/sync_epoch.py ``data_bounds`` is kept per
+    tensor).  The device tensors hold `n` rows and one more, the zero
+    sentinel row at index `n` (all values 0, label 0) that fills a short
+    window.  ``host`` keeps the host arrays only with a row reader (the
+    rows a reload reuses)."""
+
+    offset: Optional[int]  # global row id of local row 0 (None: the full corpus)
+    n: int  # resident rows, the sentinel not counted
+    idx: torch.Tensor  # int32[n + 1, P]
+    val: torch.Tensor  # f32[n + 1, P]
+    y: torch.Tensor  # f32[n + 1]
+    host: Optional[Dataset]
+
+
+def _with_sentinel(arr: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
+    """`arr` on `device` as `dtype`, with one zero row appended."""
+    if not arr.flags.writeable:  # a row store's mmap view
+        arr = np.array(arr)
+    host = torch.from_numpy(np.ascontiguousarray(arr))
+    out = torch.zeros((host.shape[0] + 1,) + tuple(host.shape[1:]), dtype=dtype,
+                      device=device)
+    out[:host.shape[0]].copy_(host.to(dtype))
+    return out
+
+
+def _resident(data: Dataset, offset: Optional[int], keep_host: bool, device) -> _Resident:
+    return _Resident(offset, len(data), _with_sentinel(data.indices, torch.int32, device),
+                     _with_sentinel(data.values, torch.float32, device),
+                     _with_sentinel(np.asarray(data.labels, np.float32), torch.float32,
+                                    device),
+                     data if keep_host else None)
 
 
 class WorkerNode:
@@ -122,6 +181,10 @@ class WorkerNode:
         gossip_topology: str = "all",
         master_watch_s: Optional[float] = None,
         master_watch_misses: int = 3,
+        data_offset: Optional[int] = None,
+        row_reader=None,
+        total_rows: Optional[int] = None,
+        host_overprovision: float = 0.0,
     ):
         """`device` defaults to the model's, and must equal it: the
         regularizer's vector lives there.  `steps_per_dispatch` local steps
@@ -130,7 +193,13 @@ class WorkerNode:
         dispatch's peers; `max_inflight_gossip` bounds each sender.
         `master_watch_s` (None: register once, as the reference) pings the
         master at that period once registered; a NOT_FOUND, or
-        `master_watch_misses` misses in a row, registers again."""
+        `master_watch_misses` misses in a row, registers again.
+
+        `data_offset` makes `data` global rows [data_offset, data_offset +
+        len(data)) (None: the full corpus, ids untouched); `row_reader`
+        (data/host_shard.py ``RowReader`` over `total_rows` rows) lets the
+        slice reload, widened by `host_overprovision` (a fraction of the
+        span on each side)."""
         self.host, self.port = host, port
         self.log = node_logger(host, port, master=False)
         self.metrics = metrics or metrics_mod.global_metrics()
@@ -146,14 +215,25 @@ class WorkerNode:
         self._dispatch_no = 0
         self._master_watch_s = master_watch_s
         self._master_watch_misses = max(1, int(master_watch_misses))
-        # the last full broadcast: (fit_token, step_version, weights)
+        # the weights of the last applied broadcast, versioned:
+        # (fit_token, step_version, weights)
+        self._replica_lock = threading.Lock()
         self._replica: Optional[Tuple[int, int, np.ndarray]] = None
-        self.n_rows = len(data)
-        self._idx = torch.as_tensor(np.ascontiguousarray(data.indices, np.int32),
-                                    device=self.device)
-        self._val = torch.as_tensor(np.ascontiguousarray(data.values, np.float32),
-                                    device=self.device)
-        self._y = torch.as_tensor(np.asarray(data.labels, np.float32), device=self.device)
+        if row_reader is not None:
+            if total_rows is None:
+                raise ValueError("row_reader needs total_rows: a reload clips its slice to "
+                                 "the reader's corpus")
+            if data_offset is None:
+                raise ValueError("row_reader without data_offset: a full-corpus worker "
+                                 "has nothing to reload")
+        self._row_reader = row_reader
+        self._total_rows = total_rows
+        self._overprovision = max(0.0, float(host_overprovision))
+        self._reload_lock = threading.Lock()
+        # the rows a reload may hold: the constructed slice, re-anchored by
+        # each StartAsync's assignment (see ensure_rows)
+        self._resident_budget = len(data)
+        self._resident = _resident(data, data_offset, row_reader is not None, self.device)
 
         self._peers: Dict[Tuple[str, int], WorkerStub] = {}
         # bounded fire-and-forget gossip to each peer and to the master:
@@ -195,6 +275,11 @@ class WorkerNode:
     def node_label(self) -> str:
         """Stable identity for trace spans."""
         return f"{self.host}:{self.port}"
+
+    @property
+    def n_rows(self) -> int:
+        """Resident rows."""
+        return self._resident.n
 
     # -- lifecycle (Slave.scala:40-77) -------------------------------------
 
@@ -320,34 +405,194 @@ class WorkerNode:
 
     # -- the bodies ----------------------------------------------------------
 
-    def _rows(self, ids: np.ndarray):
-        """(rows, labels) of the sample ids, gathered on the device."""
+    def _rows(self, ids: np.ndarray, res: _Resident):
+        """(rows, labels) of the local ids `ids` of snapshot `res`, gathered
+        on the device."""
         ids = np.asarray(ids, dtype=np.int64)
-        if len(ids) and (ids.min() < 0 or ids.max() >= self.n_rows):
-            raise ValueError(f"sample ids outside this worker's {self.n_rows} rows")
+        if len(ids) and (ids.min() < 0 or ids.max() >= res.n):
+            raise ValueError(f"sample ids outside this worker's {res.n} rows")
         t = torch.from_numpy(ids).to(self.device)
-        batch = SparseBatch(self._idx.index_select(0, t), self._val.index_select(0, t))
-        return batch, self._y.index_select(0, t)
+        batch = SparseBatch(res.idx.index_select(0, t), res.val.index_select(0, t))
+        return batch, res.y.index_select(0, t)
+
+    def _local_ids(self, ids: np.ndarray) -> Tuple[np.ndarray, _Resident]:
+        """(the global sample ids mapped into the resident rows, the snapshot
+        they are valid for): the caller computes on THAT snapshot, never on
+        the attributes again, since a reload may swap them meanwhile.
+
+        With the full corpus resident the ids pass through.  A host-local
+        slice maps id -> id - offset; ids outside it reload the slice
+        through the row reader (`ensure_rows`), or are refused without
+        one: a gradient over the wrong rows would be worse than the
+        failure the master classifies (retry, evict)."""
+        res = self._resident
+        if res.offset is None:
+            return ids, res
+        local = np.asarray(ids, dtype=np.int64) - res.offset
+        if len(local) and (local.min() < 0 or local.max() >= res.n):
+            if self._row_reader is not None:
+                res = self.ensure_rows(int(np.min(ids)), int(np.max(ids)) + 1)
+                local = np.asarray(ids, dtype=np.int64) - res.offset
+                if local.min() >= 0 and local.max() < res.n:
+                    return local, res
+            raise ValueError(
+                f"sample ids outside this host's resident slice [{res.offset}, "
+                f"{res.offset + res.n}): the master's split is not host-granular "
+                f"for this worker")
+        return local, res
+
+    def ensure_rows(self, lo: int, hi: int) -> _Resident:
+        """Grow or shift the resident slice to cover global rows [lo, hi)
+        through the row reader, reading ONLY the uncovered delta
+        (data/host_shard.py ``reload_slice``), widened by the
+        over-provision margin; returns the current snapshot.
+
+        A covered range returns at once.  An overlapping reload keeps the
+        union with the resident rows, bounded by the resident budget (the
+        constructed slice, re-anchored by each StartAsync): past it the
+        rows farthest from the requested range are dropped, so drifting
+        resplits slide a window of fixed size.  A disjoint range drops the
+        old rows.  The new snapshot replaces the old in one assignment;
+        bodies in flight keep the one they took."""
+        with self._reload_lock:
+            res = self._resident
+            if (res.offset is None or self._row_reader is None
+                    or (lo >= res.offset and hi <= res.offset + res.n)):
+                return res
+            total = self._total_rows
+            margin = host_shard.overprovision_margin(hi - lo, self._overprovision)
+            req_lo = max(0, lo - margin)
+            req_hi = min(total, max(hi, lo + 1) + margin)
+            want_lo, want_hi = req_lo, req_hi
+            if want_lo < res.offset + res.n and res.offset < want_hi:
+                # overlap: the union keeps earlier rows warm
+                want_lo = min(want_lo, res.offset)
+                want_hi = max(want_hi, res.offset + res.n)
+            budget = max(self._resident_budget, req_hi - req_lo)
+            excess = (want_hi - want_lo) - budget
+            if excess > 0:
+                # trim the old slack outside the requested range, the
+                # larger side first
+                slack_lo, slack_hi = req_lo - want_lo, want_hi - req_hi
+                if slack_lo >= slack_hi:
+                    cut = min(slack_lo, excess)
+                    want_lo += cut
+                    want_hi -= min(slack_hi, excess - cut)
+                else:
+                    cut = min(slack_hi, excess)
+                    want_hi -= cut
+                    want_lo += min(slack_lo, excess - cut)
+            host = res.host
+            new_data, rows_read = host_shard.reload_slice(
+                host, res.offset, self._row_reader, total, host.n_features,
+                host.pad_width if not host.is_dense else 0, want_lo, want_hi,
+                labels_dtype=host.labels.dtype)
+            new_res = _resident(new_data, want_lo, True, self.device)
+            self._resident = new_res
+            self.metrics.counter(metrics_mod.DATA_RELOADS).increment()
+            self.metrics.counter(metrics_mod.DATA_RELOAD_ROWS).increment(rows_read)
+            flight.record("data.reload", worker=self.node_label, start=want_lo, end=want_hi,
+                          rows_read=rows_read)
+            self.log.info("resident slice re-sharded: [%d, %d) -> [%d, %d), %d row(s) read "
+                          "(delta only)", res.offset, res.offset + res.n, want_lo, want_hi,
+                          rows_read)
+            return new_res
 
     def compute_gradient(self, w: np.ndarray, ids: np.ndarray) -> np.ndarray:
         """Sync Gradient body: the sum of backwards over `ids` plus the
         regularizer (Slave.scala:142-157), as f32[D] on the host."""
         self._profile.tick()
-        batch, y = self._rows(ids)
+        ids, res = self._local_ids(ids)
+        return self._gradient(w, *self._rows(ids, res))
+
+    def _gradient(self, w: np.ndarray, batch: SparseBatch, y: torch.Tensor) -> np.ndarray:
         wt = torch.from_numpy(np.asarray(w, dtype=np.float32)).to(self.device)
         g = self.model.grad_regularized(wt, batch, y)
         self.metrics.counter("slave.sync.backward").increment()
         return g.cpu().numpy()
 
-    def resolve_request_weights(self, request) -> np.ndarray:
-        """The weights of a sync Gradient request that carries them in
-        full: installed as the worker's replica under the request's
-        (fit_token, step_version), as the JAX worker's install arm does.
-        A plain request has both 0.  The delta and header-only arms are
-        Queue A [A8] 3.4 and answer UNIMPLEMENTED before this."""
-        w = codec.decode_tensor(request.weights)
-        self._replica = (request.fit_token, request.step_version, w)
-        return w
+    def compute_gradient_hedged(self, w: np.ndarray, ids: np.ndarray) -> np.ndarray:
+        """A hedge's body (GradientRequest.hedge): compute_gradient's, but
+        another worker's rows outside a host-local donor's slice are read
+        through the row reader into a scratch batch, never through
+        `ensure_rows`: the donor's slice, reload counters and budget are
+        its own.  A full-corpus worker takes the plain body."""
+        res = self._resident
+        if res.offset is not None and self._row_reader is not None and len(ids):
+            local = np.asarray(ids, dtype=np.int64) - res.offset
+            if local.min() < 0 or local.max() >= res.n:
+                return self._scratch_gradient(w, ids, res)
+        return self.compute_gradient(w, ids)
+
+    def _scratch_gradient(self, w: np.ndarray, ids: np.ndarray, res: _Resident) -> np.ndarray:
+        """One gradient over rows [min(ids), max(ids) + 1) read into scratch
+        tensors (no margin, no swap, no reload counted), dropped after."""
+        self._profile.tick()
+        gmin, gmax = int(np.min(ids)), int(np.max(ids)) + 1
+        host = res.host
+        scratch = host_shard.load_host_shard(
+            self._row_reader, self._total_rows, host.n_features,
+            host.pad_width if not host.is_dense else 0, gmin, gmax,
+            labels_dtype=host.labels.dtype)
+        self.metrics.counter(metrics_mod.HEDGE_SCRATCH).increment()
+        return self._gradient(w, *self._rows(np.asarray(ids, np.int64) - gmin,
+                                             _resident(scratch, gmin, False, self.device)))
+
+    def resolve_request_weights(self, request) -> Tuple[Optional[np.ndarray], bool]:
+        """The versioned weights of a sync Gradient request: (weights,
+        stale), as the JAX worker's.  A full broadcast (``weights`` set)
+        installs the replica at (fit_token, step_version); a
+        ``WeightDelta`` assigns the master's ABSOLUTE new values at its
+        indices on top of the replica when ``base_version`` matches; a
+        header-only request (neither arm) reuses the replica.  A request
+        whose version the replica already holds gets the replica whatever
+        its arm, so a re-sent delta is never applied twice.  Any mismatch
+        (no replica after a start, another fit's token, another base)
+        returns stale=True and nothing is computed: the master falls back
+        to a full broadcast.  A plain request (both 0) installs every
+        window."""
+        tok, version = request.fit_token, request.step_version
+        with self._replica_lock:
+            if self._replica is not None and self._replica[0] != tok:
+                self._replica = None  # a new fit: the old replica is not its
+            if request.HasField("weights"):
+                w = codec.decode_tensor(request.weights)
+                self._replica = (tok, version, w)
+                return w, False
+            if self._replica is None:
+                return None, True
+            _, cached_version, cached = self._replica
+            if cached_version == version:
+                return cached, False
+            if request.HasField("delta") and cached_version == request.delta.base_version:
+                w = codec.apply_weight_delta(cached, request.delta)
+                self._replica = (tok, version, w)
+                return w, False
+            return None, True
+
+    def compute_local_window(self, w: np.ndarray, ids: np.ndarray, k: int, batch_size: int,
+                             learning_rate: float) -> np.ndarray:
+        """Up to `k` local SGD steps over `ids` in batches of `batch_size`,
+        as the JAX worker's window: min(ceil(n / batch_size), k) steps,
+        the ids past k * batch_size dropped, a short last batch filled with
+        the zero sentinel row.  Returns the decrement w - w_end, f32[D] on
+        the host (at K=1 that is lr * compute_gradient(w, ids))."""
+        self._profile.tick()
+        ids, res = self._local_ids(ids)
+        ids = np.asarray(ids, dtype=np.int64)
+        bs = max(1, int(batch_size))
+        steps = max(1, min(-(-len(ids) // bs), max(1, int(k))))
+        n = min(len(ids), steps * bs)
+        if n and (ids[:n].min() < 0 or ids[:n].max() >= res.n):
+            raise ValueError(f"sample ids outside this worker's {res.n} rows")
+        padded = np.full(steps * bs, res.n, dtype=np.int64)  # res.n: the sentinel row
+        padded[:n] = ids[:n]
+        window = WindowSteps(self.model, res.idx, res.val, res.y, float(learning_rate))
+        wt = torch.from_numpy(np.asarray(w, dtype=np.float32)).to(self.device)
+        w_end, _ = window.run(wt, torch.from_numpy(padded.reshape(steps, 1, bs)).to(
+            self.device))
+        self.metrics.counter("slave.sync.backward").increment(steps)
+        return (wt - w_end).cpu().numpy()
 
     def rollback_sync_ef(self, version: int) -> None:
         """The quorum's contribution mask (GradientRequest.
@@ -362,13 +607,13 @@ class WorkerNode:
         The margins ride along so that the master computes margin-based
         losses (logistic) exactly."""
         self._profile.tick()
-        batch, _ = self._rows(ids)
+        ids, res = self._local_ids(ids)
+        batch, _ = self._rows(ids, res)
         wt = torch.from_numpy(np.asarray(w, dtype=np.float32)).to(self.device)
         margins = self.model.margins(wt, batch)
         preds = self.model.predict(margins)
         self.metrics.counter("slave.sync.forward").increment()
         return preds.float().cpu().numpy(), margins.cpu().numpy()
-
 
     # -- the async mode (Slave.scala:79-111,159-195) -------------------------
 
@@ -395,19 +640,29 @@ class WorkerNode:
     def _prepare_async(self, w0, assignment, batch_size, learning_rate, optimizer,
                        momentum):
         """StartAsync's state: the replica, the rows, the steps and the
-        generator; returns the resolved optimizer."""
+        generator; returns the resolved optimizer.  A host-local slice is
+        first re-sharded to cover the assignment (only the delta read), and
+        the assignment re-anchors its resident budget."""
         assignment = np.asarray(assignment, dtype=np.int64)
         if len(assignment) == 0:
             raise ValueError("StartAsync with no samples")
-        if assignment.min() < 0 or assignment.max() >= self.n_rows:
-            raise ValueError(f"StartAsync samples outside this worker's {self.n_rows} rows")
+        res = self._resident
+        if res.offset is not None:
+            if self._row_reader is not None:
+                a_lo, a_hi = int(assignment.min()), int(assignment.max()) + 1
+                self._resident_budget = (a_hi - a_lo) + 2 * host_shard.overprovision_margin(
+                    a_hi - a_lo, self._overprovision)
+                res = self.ensure_rows(a_lo, a_hi)
+            assignment = assignment - res.offset
+        if assignment.min() < 0 or assignment.max() >= res.n:
+            raise ValueError(f"StartAsync samples outside this worker's {res.n} resident rows")
         # momentum passes through as given: an explicit 0.0 is honoured
         opt = resolve_optimizer(optimizer or None, float(momentum))
         with torch.cuda.stream(self._stream):
             with self._w_lock:
                 self._w = torch.as_tensor(np.asarray(w0, dtype=np.float32)).to(self.device)
             self._assignment = torch.from_numpy(assignment).to(self.device)
-            self._steps = MeanSteps(self.model, self._idx, self._val, self._y,
+            self._steps = MeanSteps(self.model, res.idx, res.val, res.y,
                                     float(learning_rate), opt)
         self._async_bs = int(batch_size)
         self._gen.manual_seed(self.seed + self.port)  # the JAX worker's PRNGKey(seed + port)
@@ -532,30 +787,44 @@ class _WorkerServicer:
         return pb.ForwardReply(predictions=preds)
 
     def Gradient(self, request, context):  # noqa: N802
-        """One sync-window Gradient body on the plain wire: full weights
-        in, the regularized gradient sum out (dense or sparse, whichever
-        is smaller, as the JAX worker replies).  A hedge (another worker's
-        slice under the quorum barrier) runs the same body on the ids it
-        names and is counted; an EF rollback is a no-op here."""
-        if request.local_steps > 1:
-            _not_ported(context, "local_steps")
+        return self._gradient_update(request, context)
+
+    def _gradient_update(self, request, context):
+        """One sync-window Gradient body, shared by the unary Gradient and
+        the FitStream loop: streaming changes the transport, never the
+        math.  The weights resolve by version (a stale replica replies
+        ``stale_version`` and computes nothing); ``local_steps`` K > 1 runs
+        the K-step window; a hedge (another worker's slice under the
+        quorum barrier) is counted and replied as computed; an EF rollback
+        is a no-op here."""
         if request.shard_count:
             _not_ported(context, "shard_count")
         if request.agg_parent or request.agg_children:
             _not_ported(context, "agg")
-        if not request.HasField("weights"):
-            _not_ported(context, "delta")
         if request.ef_rollback_version:
             self.w.rollback_sync_ef(request.ef_rollback_version)
-        w = self.w.resolve_request_weights(request)
+        w, stale = self.w.resolve_request_weights(request)
+        if stale:
+            self.w.metrics.counter("slave.sync.stale").increment()
+            return pb.GradUpdate(stale_version=True)
         ids = np.fromiter(request.samples, dtype=np.int64)
+        k = request.local_steps
         with measure.span("slave.grad.compute", metrics=self.w.metrics, root=False,
-                          samples=len(ids), local_steps=1):
-            g = self.w.compute_gradient(w, ids)
+                          samples=len(ids), local_steps=int(k or 1)):
+            if k > 1:
+                g = self.w.compute_local_window(w, ids, k, request.batch_size,
+                                                request.learning_rate)
+            elif request.hedge:
+                g = self.w.compute_gradient_hedged(w, ids)
+            else:
+                g = self.w.compute_gradient(w, ids)
         if request.hedge:
             self.w.metrics.counter("slave.sync.hedge").increment()
         with measure.span("slave.grad.encode", metrics=self.w.metrics, root=False):
-            return codec.encode_grad(g)
+            msg = codec.encode_grad(g)
+        if k > 1:
+            msg.n_steps = k  # steps a round, for the wire's accounting
+        return msg
 
     def StartAsync(self, request, context):  # noqa: N802
         self.w.start_async(
@@ -583,4 +852,33 @@ class _WorkerServicer:
         _not_ported(context, "AggregateGrad")
 
     def FitStream(self, request_iterator, context):  # noqa: N802
-        _not_ported(context, "FitStream")
+        """The streaming sync fan-out (DSGD_STREAM): one persistent bidi
+        stream a master for the life of a fit; each frame runs the unary
+        Gradient body and answers on the stream under the request's seq.
+        The master closing the stream, a transport reset, or an exception
+        out of the body ends the generator, which the master's stream
+        client takes as a failed call: its windows in flight replay over
+        unary."""
+        m = self.w.metrics
+        m.counter(metrics_mod.SLAVE_STREAM_OPENED).increment()
+        self.w.log.info("FitStream opened by %s", context.peer())
+        try:
+            for frame in request_iterator:
+                if frame.WhichOneof("payload") != "request":
+                    continue  # an arm this worker does not know is skipped
+                m.counter(metrics_mod.SLAVE_STREAM_FRAMES).increment()
+                update = self._gradient_update(frame.request, context)
+                yield pb.Frame(seq=frame.seq, fit_token=frame.fit_token, update=update)
+        except grpc.RpcError:
+            # the client tore the stream down (the fit ended, a cancel, a
+            # reset): nobody is left to answer
+            self.w.log.info("FitStream closed by peer")
+        except Exception as e:  # noqa: BLE001 - record, then tear down
+            # a frame has no error arm: tearing the stream down IS the
+            # failure (the master replays over unary, where the same
+            # request fails per call)
+            self.w.log.warning("FitStream servicer loop failed: %r", e)
+            flight.record("stream.servicer.error", worker=self.w.node_label, error=repr(e))
+            raise
+        finally:
+            m.counter(metrics_mod.SLAVE_STREAM_CLOSED).increment()

@@ -30,7 +30,13 @@ DSGD_STRAGGLER_SOFT_S the sync fit's quorum barrier with straggler hedges,
 DSGD_FIT_CKPT_EVERY (under DSGD_CHECKPOINT_DIR) its crash-safe fit state,
 from which a restarted master resumes, and DSGD_ELASTIC the async fit's
 elastic membership and, on the worker role, the watch through which the
-worker registers again with a restarted master.
+worker registers again with a restarted master.  The sync fit takes the
+JAX CLI's pipelined levers: DSGD_LOCAL_STEPS (K local steps a round),
+DSGD_DELTA_BROADCAST, DSGD_STREAM, DSGD_FANIN_LANES and DSGD_STAGE_POOL.
+A worker with DSGD_ROW_STORE maps the packed corpus (data/row_store.py)
+instead of building the data, and with DSGD_HOST_INDEX holds only its
+slice of the train rows (+ DSGD_HOST_OVERPROVISION), reloading the delta
+when an elastic resplit moves it.
 
 Every engine takes DSGD_OPTIMIZER (sgd | momentum | adam) with
 DSGD_MOMENTUM.  DSGD_CHECKPOINT_DIR saves and resumes every fit
@@ -269,6 +275,8 @@ def _rpc_fit(cfg: Config, master) -> FitResult:
         cfg.max_epochs, cfg.batch_size, cfg.learning_rate, criterion,
         checkpointer=ckpt, checkpoint_every=cfg.checkpoint_every,
         optimizer=cfg.optimizer, momentum=cfg.momentum,
+        local_steps=cfg.local_steps, delta_broadcast=cfg.delta_broadcast,
+        stream=cfg.stream, fanin_lanes=cfg.fanin_lanes, stage_pool=cfg.stage_pool,
         quorum=cfg.quorum, straggler_soft_s=cfg.straggler_soft_s, **_fit_state_args(cfg))
 
 
@@ -332,10 +340,48 @@ def stop_workers() -> None:
         node.stop()
 
 
-def _run_worker(cfg: Config, train: Dataset, model) -> None:
+def _build_worker_row_store(cfg: Config, device: DeviceLike = None):
+    """DSGD_ROW_STORE on the worker role: map the packed corpus (data/
+    row_store.py) instead of building it, and with DSGD_HOST_INDEX load
+    ONLY this worker's slice of the train rows (+ the
+    DSGD_HOST_OVERPROVISION neighbour margin) through the store's reader.
+    Returns (data, model, the worker's keyword arguments).  A store that
+    is missing is built once from the corpus under DSGD_DATA_PATH; the
+    train split's dim-sparsity vector comes from the store's sidecar, so
+    no worker scans the corpus to build its model."""
+    from distributed_sgd_tpu_torch.data import host_shard
+    from distributed_sgd_tpu_torch.data.row_store import RowStore, build_from_corpus, meta_path
+
+    if not os.path.exists(meta_path(cfg.row_store)):
+        log.info("row store %s missing: building from %s (one-time parse)", cfg.row_store,
+                 cfg.data_path)
+        build_from_corpus(cfg.data_path, cfg.row_store, full=cfg.full, pad_width=cfg.pad_width)
+    store = RowStore(cfg.row_store)
+    ds = store.dim_sparsity()
+    if ds is None:
+        log.warning("row store has no dim-sparsity sidecar: the model falls back to the "
+                    "plain l2 regularizer")
+    model = make_model(cfg.model, cfg.lam, store.n_features, dim_sparsity=ds, device=device)
+    n_train = store.train_rows
+    if cfg.host_index is None:
+        log.info("row store mapped: %d train rows resident (full split)", n_train)
+        return store.read_rows(0, n_train), model, {}
+    lo, hi, start, end = host_shard.overprovisioned_slice(
+        n_train, cfg.host_index, cfg.node_count, overprovision=cfg.host_overprovision)
+    data = host_shard.load_host_shard(store.reader, n_train, store.n_features, store.pad_width,
+                                      lo, hi, labels_dtype=store.labels_dtype)
+    log.info("host-local slice %d/%d loaded through the row store: rows [%d, %d) resident "
+             "(nominal [%d, %d) + overprovision %g)", cfg.host_index, cfg.node_count, lo, hi,
+             start, end, cfg.host_overprovision)
+    return data, model, dict(data_offset=lo, row_reader=store.reader, total_rows=n_train,
+                             host_overprovision=cfg.host_overprovision)
+
+
+def _run_worker(cfg: Config, train: Dataset, model, extra: Optional[dict] = None) -> None:
     """The worker role: serve on DSGD_NODE_PORT and register with the
     master at DSGD_MASTER_HOST:DSGD_MASTER_PORT; answer its calls until
-    SIGTERM or SIGINT (or `stop_workers`), then unregister and return."""
+    SIGTERM or SIGINT (or `stop_workers`), then unregister and return.
+    `extra` carries a host-local slice's arguments (_build_worker_row_store)."""
     from distributed_sgd_tpu_torch.core.worker import WorkerNode
 
     # an elastic deployment survives a master restart: the watch pings
@@ -344,7 +390,8 @@ def _run_worker(cfg: Config, train: Dataset, model) -> None:
                         seed=cfg.seed, profile_dir=cfg.profile_dir,
                         steps_per_dispatch=cfg.steps_per_dispatch,
                         gossip_topology=cfg.gossip_topology,
-                        master_watch_s=(cfg.heartbeat_s or 5.0) if cfg.elastic else None)
+                        master_watch_s=(cfg.heartbeat_s or 5.0) if cfg.elastic else None,
+                        **(extra or {}))
 
     def _on_signal(signum, _frame):
         log.info("signal %d: stopping the worker", signum)
@@ -409,6 +456,12 @@ def main(device: DeviceLike = None, cfg: Optional[Config] = None) -> Run:
     exporter, pusher = _observability(cfg, role)
     try:
         t0 = time.perf_counter()
+        if role == "worker" and cfg.row_store:
+            train, model, extra = _build_worker_row_store(cfg, device)
+            data_s = time.perf_counter() - t0
+            log.info("data mapped: %d rows resident in %.2fs", len(train), data_s)
+            _run_worker(cfg, train, model, extra)
+            return Run(fit=None, data_seconds=data_s)
         train, test, model = build(cfg, device)
         data_s = time.perf_counter() - t0
         log.info("data loaded: %d train + %d test rows in %.2fs", len(train), len(test),

@@ -345,20 +345,49 @@ class MeanSteps:
         """(weights, optimizer state) after the steps ids[S, 1, B] (rows of
         this worker's data) from `w` and `state` (`init_state()` when None),
         which are left untouched."""
-        m, b = self.model, ids.shape[2]
+        m, div = self.model, self.grad_divisor(ids.shape[2])
         state = self.init_state() if state is None else state
         if self.fused:
             return sync_epoch(
                 w, ids, self.indices, self.values, self.labels_f32,
                 coeff_kind=m.coeff_kind, reg_kind=m.reg_kind, lam=m.lam,
                 dim_sparsity=m.dim_sparsity, lr=self.learning_rate, n_total_workers=1,
-                grad_divisor=b, optimizer=self.optimizer, opt_state=state)
+                grad_divisor=div, optimizer=self.optimizer, opt_state=state)
         for rows in ids:
             g = worker_grads(w, self.indices[rows], self.values[rows], self.labels_f32[rows],
                              m.coeff_kind)[0]
-            w, state = apply_update(w, m.regularize(g / b, w), self.learning_rate,
+            w, state = apply_update(w, m.regularize(g / div, w), self.learning_rate,
                                     self.optimizer, state)
         return w, state
+
+    def grad_divisor(self, batch_size: int) -> int:
+        """What a step's gradient sum is divided by: the batch (the mean)."""
+        return batch_size
+
+
+class WindowSteps(MeanSteps):
+    """The sync RPC worker's K-step local window (GradientRequest.
+    local_steps; the JAX worker's ``_window_fn``): S steps over
+    ids[S, 1, B], each the SUM of the backwards over the batch, the
+    model's regularizer, and the reference's plain update ``w - lr*g``,
+    whatever optimizer the fit runs (the master applies that to the mean
+    of the windows' decrements).  Where w and the integer sums fit one
+    cluster (``cluster_plan(1, D, 0)``: D up to 154,848) the window is one
+    ``sync_epoch`` launch in the sum mode (K = 1, grad_divisor = 1,
+    n_total_workers = 1, sgd); otherwise one ``worker_grads`` launch a
+    step, with the regularizer and the update in torch.
+
+    A row of zeros (all values 0, label 0) adds an exact 0 to every sum
+    and leaves the regularizer's ``g != 0`` mask as it was, so a short
+    window's tail is filled with such a row: the JAX worker's padded,
+    masked ids."""
+
+    def __init__(self, model: LinearModel, indices: torch.Tensor, values: torch.Tensor,
+                 labels: torch.Tensor, learning_rate: float):
+        super().__init__(model, indices, values, labels, learning_rate, Optimizer())
+
+    def grad_divisor(self, batch_size: int) -> int:
+        return 1
 
 
 def resolve_optimizer(optimizer, momentum: float = 0.9) -> Optimizer:

@@ -363,8 +363,9 @@ def record_wire(metrics: "Metrics", wire_bytes: int, dense_bytes: int) -> None:
 # -- the RPC sync fit (core/master.py fit_sync) --------------------------------
 #
 # `rounds` counts every barrier attempt, including windows later discarded
-# to a failed sibling; the bcast.* family is the master->worker weight
-# traffic by wire form (the port's master sends the full tensor only).
+# to a failed or stale sibling; the bcast.* family is the master->worker
+# weight traffic by wire form (full, the sparse delta of
+# DSGD_DELTA_BROADCAST, or header-only).
 SYNC_ROUNDS = "master.sync.rounds"             # counter: fan-out barriers run
 SYNC_GRAD_BYTES = "master.sync.grad.bytes"     # counter: worker->master reply bytes
 SYNC_BCAST_BYTES = "master.sync.bcast.bytes"   # counter: master->worker weight bytes
@@ -384,6 +385,32 @@ QUORUM_DEGRADED = "master.sync.quorum.degraded"    # rounds closed at < full str
 QUORUM_HEDGES = "master.sync.quorum.hedges"        # hedge Gradient/Forward requests issued
 QUORUM_HEDGE_WINS = "master.sync.quorum.hedge_wins"  # slices covered by a hedge
 QUORUM_LATE = "master.sync.quorum.late"            # late replies discarded
+
+# the pipelined sync levers: replies summed through the fan-in lanes
+# (DSGD_FANIN_LANES) in applied windows, each parsed in its arrival
+# callback (or at round close where that lagged);
+# rounds dispatched from a pre-staged draw (DSGD_STAGE_POOL) and stages
+# dropped by a retry or a resplit, counted once a fit; the persistent per-worker streams (DSGD_STREAM, rpc/
+# stream.py): frames written, frames past their deadline, late replies
+# dropped by seq, teardowns, and windows replayed over unary after one;
+# the worker's side of the streams; and the host-local rows (data/
+# host_shard.py): resident-slice reloads, the rows they read, and hedges
+# served from a scratch read.  With the levers off none of these moves.
+FANIN_PARSED = "master.sync.fanin.parsed"      # counter: replies summed by the lanes
+STAGE_HITS = "master.sync.stage.hits"          # counter: rounds served pre-staged
+STAGE_DISCARDS = "master.sync.stage.discards"  # counter: stages dropped (retry/resplit)
+STREAM_OPENED = "master.sync.stream.opened"      # counter: streams opened
+STREAM_SENDS = "master.sync.stream.sends"        # counter: request frames written
+STREAM_EXPIRED = "master.sync.stream.expired"    # counter: frame deadline misses
+STREAM_LATE = "master.sync.stream.late"          # counter: late/dup replies dropped
+STREAM_BROKEN = "master.sync.stream.broken"      # counter: stream teardowns
+STREAM_FALLBACK = "master.sync.stream.fallback"  # counter: windows replayed unary
+SLAVE_STREAM_OPENED = "slave.stream.opened"      # counter: streams accepted
+SLAVE_STREAM_CLOSED = "slave.stream.closed"      # counter: streams torn down
+SLAVE_STREAM_FRAMES = "slave.stream.frames"      # counter: request frames served
+DATA_RELOADS = "slave.data.reloads"              # counter: resident-slice reloads
+DATA_RELOAD_ROWS = "slave.data.reload.rows"      # counter: rows read for reloads
+HEDGE_SCRATCH = "slave.data.hedge.scratch"       # counter: scratch-served hedges
 
 # -- the RPC async fit (core/master.py fit_async, core/worker.py) ---------------
 #

@@ -49,7 +49,9 @@ def test_every_port_module_imports_with_jax_blocked():
             "distributed_sgd_tpu_torch.core.worker",
             "distributed_sgd_tpu_torch.core.master", "distributed_sgd_tpu_torch.core.cluster",
             "distributed_sgd_tpu_torch.core.split",
-            "distributed_sgd_tpu_torch.tools.sync_epoch_routes"} <= set(mods)
+            "distributed_sgd_tpu_torch.tools.sync_epoch_routes",
+            "distributed_sgd_tpu_torch.utils.pool", "distributed_sgd_tpu_torch.data.host_shard",
+            "distributed_sgd_tpu_torch.data.row_store"} <= set(mods)
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"

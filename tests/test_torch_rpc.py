@@ -239,8 +239,7 @@ def test_the_worker_gradient_is_worker_grads_plus_the_regularizer(data):
 # -- what the worker does not serve yet -------------------------------------
 
 
-@pytest.mark.parametrize("field", [
-    "local_steps", "shard_count", "agg_parent", "delta", "Metrics", "AggregateGrad"])
+@pytest.mark.parametrize("field", ["shard_count", "agg_parent", "Metrics", "AggregateGrad"])
 def test_unserved_requests_answer_unimplemented_with_their_roadmap_item(data, field):
     train, test, _ = data
     with DevCluster(_models(data)[1], _torch(train), _torch(test), n_workers=1) as c:
@@ -249,15 +248,10 @@ def test_unserved_requests_answer_unimplemented_with_their_roadmap_item(data, fi
         stub = WorkerStub(ch)
         req = pb.GradientRequest(samples=[0, 1], weights=codec.encode_tensor(np.zeros(D)))
         call = stub.Gradient
-        if field == "local_steps":
-            req.local_steps = 2
-        elif field == "shard_count":
+        if field == "shard_count":
             req.shard_count = 2
         elif field == "agg_parent":
             req.agg_parent = "127.0.0.1:1"
-        elif field == "delta":
-            req = pb.GradientRequest(samples=[0, 1], step_version=2,
-                                     delta=pb.WeightDelta(base_version=1))
         elif field == "Metrics":
             call, req = stub.Metrics, pb.Empty()
         else:
@@ -296,10 +290,7 @@ def test_the_worker_serves_the_quorum_barriers_requests(data, field):
 
 
 @pytest.mark.parametrize("kw", [
-    {"local_steps": 2}, {"delta_broadcast": True}, {"stream": True},
-    {"fanin_lanes": 2}, {"stage_pool": 2}, {"agg_tree": "fanout:2"}, {"master_shards": 2},
-    {"quorum": 2, "local_steps": 2}, {"quorum": 2, "stream": True},
-    {"health": object()}],
+    {"agg_tree": "fanout:2"}, {"master_shards": 2}, {"health": object()}],
     ids=lambda kw: "+".join(kw))
 def test_fit_sync_levers_not_ported_raise(data, kw):
     train, test, _ = data

@@ -179,18 +179,12 @@ _RPC = {"DSGD_ENGINE": "rpc"}
     {"DSGD_BLACKBOX_DIR": "bb"},
     {"DSGD_HOST_DEVICES": "2"},
     # the rpc fits (dev engine=rpc, and the master role); DSGD_ASYNC=1,
-    # DSGD_ASYNC_DRAIN and the fault tolerance run there now
-    # (tests/test_torch_rpc_async.py, and the test after this one)
-    {**_RPC, "DSGD_LOCAL_STEPS": "4"},
-    {**_RPC, "DSGD_DELTA_BROADCAST": "1"},
-    {**_RPC, "DSGD_STREAM": "1"},
-    {**_RPC, "DSGD_FANIN_LANES": "2"},
-    {**_RPC, "DSGD_STAGE_POOL": "2"},
+    # DSGD_ASYNC_DRAIN, the fault tolerance and the pipelined levers run
+    # there now (tests/test_torch_rpc_async.py, the test after this one,
+    # tests/test_torch_rpc_pipeline.py)
     {**_RPC, "DSGD_AGG_TREE": "fanout:2"},
     {**_RPC, "DSGD_MASTER_SHARDS": "2"},
-    {**_RPC, "DSGD_QUORUM": "2", "DSGD_STREAM": "1"},
-    {**_MASTER, "DSGD_QUORUM": "2", "DSGD_LOCAL_STEPS": "2"},
-    {**_WORKER, "DSGD_ROW_STORE": "store"},
+    {**_MASTER, "DSGD_AGG_TREE": "fanout:2", "DSGD_LOCAL_STEPS": "2"},
 ], ids=lambda env: "+".join(f"{k[5:].lower()}={v}" for k, v in env.items()
                             if k not in ("DSGD_MASTER_HOST", "DSGD_NODE_HOST")))
 def test_settings_not_ported_raise_before_any_data_loads(env, monkeypatch):
