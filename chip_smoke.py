@@ -124,7 +124,22 @@ Phases, each fatal (a traceback and a non-zero exit):
    10% margin, with every lever on: after the first epoch one worker
    leaves, each survivor reloads only the rows it did not hold, and all
    exit 0;
-12. summary: the card line, one JSON line of per-kernel numbers, and last
+12. online serving, at full width on phase 5's weights (D = 47,236)
+   saved as a ``<step>.npz``: a ``ServingServer`` with the weights on the
+   card answers held-out rows of phase 5's test split (about 76 nonzeros
+   a row) from 1 client and from 64 concurrent ones, each margin within
+   1e-5 of a float64 numpy oracle and each prediction the model's wherever
+   |margin| >= 1e-4, printing requests/s, p50/p99 latency and the mean
+   flush size; one row in one bucket asked 50 times gives one margin; the
+   forward's time a flush at buckets B=4 (one row) and B=64, P=128 (CUDA
+   events); a checkpoint hot-swapped under 8 clients with no failed
+   request; a full push then a delta push, the card's weights bitwise the
+   numpy-applied delta; a ``ServingFleet`` of 2 replicas with the canary
+   at 0.5 promoting the trained weights and rolling back the negated
+   ones; and the CLI's ``DSGD_ROLE=serve`` (on the card) and
+   ``DSGD_ROLE=route`` as processes, 200 requests through the router, then
+   SIGTERM and both exit 0.  The path launches neither kernel;
+13. summary: the card line, one JSON line of per-kernel numbers, and last
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits non-zero before printing any result.
@@ -901,16 +916,31 @@ def reset_counts() -> None:
     se.sync_epoch.opt_launches = dict.fromkeys(se.OPT_KINDS, 0)
 
 
-def run_main_path() -> int:
-    """The port's CLI run at full width; returns the sync_epoch launches."""
-    with cli_env(DSGD_SYNTHETIC=MAIN_ROWS, DSGD_MAX_EPOCHS=MAIN_EPOCHS):
-        reset_counts()
-        t0 = time.perf_counter()
-        run = port_main.main()
-        torch.cuda.synchronize()
-        total_s = time.perf_counter() - t0
-        launches, steps_run = se.sync_epoch.launches, se.sync_epoch.steps
-        wg_launches = wg.worker_grads.launches
+def run_main_path():
+    """The port's CLI run at full width; returns the sync_epoch launches,
+    the fit's weights and SERVE_ROWS rows of its held-out test split (the
+    serving phase's requests and probe)."""
+    held = {}
+    build = port_main.build
+
+    def keep_test(cfg, device=None):
+        train, test, model = build(cfg, device)
+        held["test"] = Dataset(test.indices[:SERVE_ROWS].copy(), test.values[:SERVE_ROWS].copy(),
+                               test.labels[:SERVE_ROWS].copy(), test.n_features)
+        return train, test, model
+
+    port_main.build = keep_test
+    try:
+        with cli_env(DSGD_SYNTHETIC=MAIN_ROWS, DSGD_MAX_EPOCHS=MAIN_EPOCHS):
+            reset_counts()
+            t0 = time.perf_counter()
+            run = port_main.main()
+            torch.cuda.synchronize()
+            total_s = time.perf_counter() - t0
+            launches, steps_run = se.sync_epoch.launches, se.sync_epoch.steps
+            wg_launches = wg.worker_grads.launches
+    finally:
+        port_main.build = build
     fit = run.fit
     steps = steps_per_epoch_for(int(MAIN_ROWS * 0.8), 1, 3, 100)
     print(f"data generation seconds: {run.data_seconds:.3f}")
@@ -942,7 +972,7 @@ def run_main_path() -> int:
         raise AssertionError(
             f"sync_epoch launched {launches} times over {steps_run} steps and worker_grads "
             f"{wg_launches} times; want {MAIN_EPOCHS}, {MAIN_EPOCHS * steps} and 0")
-    return launches
+    return launches, w.detach().cpu().numpy(), held["test"]
 
 
 def run_main_path_optimizer(kind: str) -> int:
@@ -2859,6 +2889,399 @@ def run_pipeline_phase(full: dict) -> dict:
     return row
 
 
+SERVE_ROWS = 4096  # rows of the main path's test split kept for the serving phase
+SERVE_STEP = MAIN_EPOCHS  # the checkpoint step the served weights are saved under
+SERVE_ATOL = 1e-5  # a served margin against the float64 numpy oracle
+SERVE_PRED_MARGIN = 1e-4  # predictions must agree where |margin| is at least this
+SERVE_ONE_CLIENT = 400  # sequential requests of the one-client run
+SERVE_CLIENTS, SERVE_PER_CLIENT = 64, 30
+SERVE_REPEATS = 50  # one row asked again and again: one margin
+SERVE_CLI_REQUESTS = 200
+SERVE_PROBE_ROWS = 256
+# the server's own histograms of a request's parts: the decode, the wait
+# for its flush (window and execute), a flush's execute, the whole request
+SERVE_PARTS = ("span.serve.predict.decode", "span.serve.predict.queue",
+               "span.serve.batch.execute", "serve.predict.duration")
+
+
+def serve_rows(test: Dataset, lo: int, hi: int):
+    """(indices, values) request rows of the held-out split, pads stripped."""
+    out = []
+    for i in range(lo, hi):
+        nz = test.values[i] != 0
+        out.append((test.indices[i][nz].astype(np.int32), test.values[i][nz].astype(np.float32)))
+    return out
+
+
+def serve_oracle(rows, w: np.ndarray) -> np.ndarray:
+    w64 = w.astype(np.float64)
+    return np.array([np.dot(v.astype(np.float64), w64[i]) for i, v in rows])
+
+
+def check_answers(label: str, replies, rows, w: np.ndarray, step: int) -> float:
+    """Each answer's margin within SERVE_ATOL of the float64 oracle, its
+    prediction the hinge model's (-sign) wherever |margin| >= 1e-4, its
+    step `step`; returns the largest margin error."""
+    margins = np.array([r.margin for r in replies], np.float64)
+    preds = np.array([r.prediction for r in replies])
+    err = float(np.max(np.abs(margins - serve_oracle(rows, w))))
+    firm = np.abs(margins) >= SERVE_PRED_MARGIN
+    steps = {r.model_step for r in replies}
+    if err > SERVE_ATOL or not np.array_equal(preds[firm], -np.sign(margins[firm])) \
+            or steps != {step}:
+        raise AssertionError(f"serving, {label}: margin error {err} (limit {SERVE_ATOL}), "
+                             f"{int((preds[firm] != -np.sign(margins[firm])).sum())} wrong "
+                             f"predictions, steps {steps} (want {step})")
+    return err
+
+
+def parts_snapshot(m: Metrics) -> dict:
+    return {n: (m.histogram(n).count, m.histogram(n).sum) for n in SERVE_PARTS}
+
+
+def parts_line(m: Metrics, before: dict) -> str:
+    """The server-side mean ms of each part since `before`."""
+    out = []
+    for n in SERVE_PARTS:
+        count = m.histogram(n).count - before[n][0]
+        secs = m.histogram(n).sum - before[n][1]
+        out.append(f"{n.replace('span.', '')} {1e3 * secs / max(count, 1):.3f} ms")
+    return "; server side, mean a request (a flush for execute): " + ", ".join(out)
+
+
+def latency_line(label: str, lat_s, wall_s: float) -> str:
+    lat_ms = np.asarray(lat_s) * 1e3
+    return (f"{label}: {len(lat_ms) / wall_s:.1f} requests/s, p50 "
+            f"{np.percentile(lat_ms, 50):.3f} ms, p99 {np.percentile(lat_ms, 99):.3f} ms "
+            f"({len(lat_ms)} requests in {wall_s:.3f} s)")
+
+
+def predict_all(port: int, rows, clients: int, per_client: int, order_seed: int):
+    """`clients` threads, each with its own channel, send `per_client` rows
+    each; returns (replies, rows asked, latencies, wall seconds)."""
+    from distributed_sgd_tpu_torch.rpc import dsgd_pb2 as pb
+    from distributed_sgd_tpu_torch.rpc.service import ServeStub, new_channel
+
+    rng = np.random.default_rng(order_seed)
+    picks = rng.integers(0, len(rows), (clients, per_client))
+    results = [[] for _ in range(clients)]
+    errors = []
+    start = threading.Barrier(clients + 1)
+
+    def client(k):
+        channel = new_channel("127.0.0.1", port)
+        stub = ServeStub(channel)
+        start.wait()
+        try:
+            for j in picks[k]:
+                i, v = rows[j]
+                t0 = time.perf_counter()
+                reply = stub.Predict(pb.PredictRequest(indices=i, values=v), timeout=30)
+                results[k].append((j, reply, time.perf_counter() - t0))
+        except Exception as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+        finally:
+            channel.close()
+
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(clients)]
+    for t in threads:
+        t.start()
+    start.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise AssertionError(f"serving: {len(errors)} failed requests, first {errors[0]!r}")
+    flat = [r for rs in results for r in rs]
+    return ([r for _, r, _ in flat], [rows[j] for j, _, _ in flat], [t for _, _, t in flat],
+            wall)
+
+
+def serving_busy_share(port: int, rows) -> None:
+    """The device's busy share under the 64-client load, from a burst
+    (64 clients x 10 requests) under torch.profiler: the union of device
+    events over the span from the first to the last."""
+    box = {}
+    dev = device_events(lambda: box.setdefault(
+        "out", predict_all(port, rows, SERVE_CLIENTS, 10, 7)))
+    if len(dev) < 2:
+        print(f"serving busy share: not measured (the trace holds {len(dev)} device "
+              f"events)", flush=True)
+        return
+    lo, hi = dev[0][0], max(t1 for _, t1, _ in dev)
+    share = union_us(dev, lo, hi) / (hi - lo)
+    print(f"serving busy share under {SERVE_CLIENTS} clients: {share:.4f} over "
+          f"{hi - lo:.1f} us ({len(dev)} device events, {len(box['out'][0])} requests)",
+          flush=True)
+
+
+def time_forward(server, w_dev: torch.Tensor, rows, b: int) -> float:
+    """Microseconds a flush of `b` rows spends in the forward at its bucket
+    (P = 128 for these rows), from CUDA events over 200 launches."""
+    from distributed_sgd_tpu_torch.serving.bucketing import pack_rows
+
+    idx, val = pack_rows([r for r in rows if len(r[0]) > 64][:b])
+    i_dev, v_dev = torch.from_numpy(idx).cuda(), torch.from_numpy(val).cuda()
+    us = 1e3 * time_ms(lambda: server.engine.forward(w_dev, i_dev, v_dev))
+    print(f"serving forward, a flush of {b} row(s) at bucket B={idx.shape[0]} "
+          f"P={idx.shape[1]}: {us:.2f} us (CUDA events, 200 launches); moves "
+          f"{3 * idx.size * 4 + 2 * idx.shape[0] * 4} bytes (indices, values and the "
+          f"gathered weights read, predictions and margins written)", flush=True)
+    return us
+
+
+def check_serving_replica(w: np.ndarray, test: Dataset, tmp: str) -> None:
+    """One ServingServer on the card over `w` saved as a <step>.npz:
+    answers from 1 and 64 clients against the float64 oracle, one row in
+    one bucket repeated, the forward's time, a hot swap mid-traffic, then
+    a full and a delta push."""
+    from distributed_sgd_tpu_torch.rpc import codec
+    from distributed_sgd_tpu_torch.serving.push import WeightPusher
+    from distributed_sgd_tpu_torch.serving.server import ServingServer
+
+    ckpt = os.path.join(tmp, "replica")
+    Checkpointer(ckpt).save(SERVE_STEP, w)
+    m = Metrics()
+    server = ServingServer(ckpt, port=0, host="127.0.0.1", ckpt_poll_s=0.1, metrics=m).start()
+    try:
+        step, w_dev = server.store.get()
+        if step != SERVE_STEP or not w_dev.is_cuda or server.engine.device.type != "cuda" \
+                or w_dev.cpu().numpy().tobytes() != w.tobytes():
+            raise AssertionError(f"serving: step {step} on {w_dev.device}, engine on "
+                                 f"{server.engine.device}: want step {SERVE_STEP} on the card")
+        rows = serve_rows(test, 0, SERVE_ROWS)
+        print(f"serving: D={w.shape[0]}, {len(rows)} held-out request rows, "
+              f"{np.mean([len(i) for i, _ in rows]):.1f} nonzeros a row", flush=True)
+        # one client, then 64
+        before = parts_snapshot(m)
+        replies, asked, lat, wall = predict_all(server.bound_port, rows, 1, SERVE_ONE_CLIENT, 1)
+        err1 = check_answers("1 client", replies, asked, w, SERVE_STEP)
+        print(latency_line("serving, 1 client", lat, wall) + f"; max margin error {err1:.3g}"
+              + parts_line(m, before), flush=True)
+        flushes0 = m.histogram("serve.batch.size").count
+        before = parts_snapshot(m)
+        replies, asked, lat, wall = predict_all(server.bound_port, rows, SERVE_CLIENTS,
+                                                SERVE_PER_CLIENT, 2)
+        err64 = check_answers(f"{SERVE_CLIENTS} clients", replies, asked, w, SERVE_STEP)
+        hist = m.histogram("serve.batch.size")
+        flushes = hist.count - flushes0
+        print(latency_line(f"serving, {SERVE_CLIENTS} clients", lat, wall)
+              + f"; max margin error {err64:.3g}; mean flush size "
+              f"{len(replies) / flushes:.2f} rows over {flushes} flushes; largest flush "
+              f"{hist.max:.0f}" + parts_line(m, before), flush=True)
+        serving_busy_share(server.bound_port, rows)
+        # one row in one bucket, asked again and again: one margin
+        replies, _, _, _ = predict_all(server.bound_port, rows[:1], 1, SERVE_REPEATS, 3)
+        seen = {r.margin for r in replies}
+        if len(seen) != 1:
+            raise AssertionError(f"serving: one row in one bucket gave {len(seen)} margins")
+        print(f"serving: one row asked {SERVE_REPEATS} times, one margin {seen.pop()!r}; "
+              f"serve.jit.compile {m.counter('serve.jit.compile').value} buckets used",
+              flush=True)
+        for b in (1, 64):
+            time_forward(server, w_dev, rows, b)
+        check_hot_swap(server, ckpt, w, rows)
+        # a full push, then a delta: the card's weights are the numpy-applied delta
+        rng = np.random.default_rng(17)
+        w_full = (w * np.float32(0.5)).astype(np.float32)
+        w_delta = w_full.copy()
+        hit = rng.choice(w.shape[0], size=500, replace=False)
+        w_delta[hit] = rng.normal(size=500).astype(np.float32)
+        pusher = WeightPusher([("127.0.0.1", server.bound_port)], metrics=Metrics())
+        try:
+            acks = [pusher.push(10, w_full), pusher.push(11, w_delta)]
+        finally:
+            pusher.close()
+        delta = codec.encode_weight_delta(w_delta, w_full, 10)
+        want = codec.apply_weight_delta(w_full, delta)
+        step, w_dev = server.store.get()
+        got = w_dev.cpu().numpy()
+        counts = (m.counter("serve.model.push.full").value,
+                  m.counter("serve.model.push.delta").value)
+        print(f"serving push: acks {acks}, step {step} on {w_dev.device}; full and delta "
+              f"applied {counts}; card weights equal the numpy-applied delta: "
+              f"{got.tobytes() == want.tobytes()}", flush=True)
+        if acks != [1, 1] or step != 11 or not w_dev.is_cuda or counts != (1, 1) \
+                or got.tobytes() != want.tobytes():
+            raise AssertionError("serving push: the card does not hold the pushed delta")
+        replies, asked, _, _ = predict_all(server.bound_port, rows[:64], 1, 64, 4)
+        check_answers("after the delta push", replies, asked, want, 11)
+    finally:
+        server.stop()
+
+
+def check_hot_swap(server, ckpt: str, w: np.ndarray, rows) -> None:
+    """8 clients keep asking while a new checkpoint lands; no request
+    fails, and once the store has swapped every answer carries the new
+    step and the new weights' margin."""
+    from distributed_sgd_tpu_torch.rpc import dsgd_pb2 as pb
+    from distributed_sgd_tpu_torch.rpc.service import ServeStub, new_channel
+
+    w_new = (-w).astype(np.float32)
+    stop, failures, steps = threading.Event(), [], set()
+
+    def traffic(k):
+        channel = new_channel("127.0.0.1", server.bound_port)
+        stub = ServeStub(channel)
+        i, v = rows[k]
+        while not stop.is_set():
+            try:
+                steps.add(stub.Predict(pb.PredictRequest(indices=i, values=v),
+                                       timeout=30).model_step)
+            except Exception as e:  # noqa: BLE001 - raised below
+                failures.append(e)
+        channel.close()
+
+    threads = [threading.Thread(target=traffic, args=(k,)) for k in range(8)]
+    for t in threads:
+        t.start()
+    time.sleep(0.5)
+    t_save = time.perf_counter()
+    Checkpointer(ckpt).save(SERVE_STEP + 1, w_new)
+    deadline = time.time() + 30
+    while time.time() < deadline and server.store.step != SERVE_STEP + 1:
+        time.sleep(0.01)
+    swap_s = time.perf_counter() - t_save
+    time.sleep(0.3)
+    stop.set()
+    for t in threads:
+        t.join()
+    replies, asked, _, _ = predict_all(server.bound_port, rows[:256], 1, 256, 5)
+    check_answers("after the hot swap", replies, asked, w_new, SERVE_STEP + 1)
+    print(f"serving hot swap: steps answered under traffic {sorted(steps)}, "
+          f"{len(failures)} failed; swapped {swap_s:.3f} s after the save (0.1 s poll)",
+          flush=True)
+    if failures or steps != {SERVE_STEP, SERVE_STEP + 1}:
+        raise AssertionError(f"serving hot swap: {len(failures)} failed requests, steps "
+                             f"{sorted(steps)}")
+
+
+def check_serving_fleet(w: np.ndarray, test: Dataset, tmp: str) -> None:
+    """A ServingFleet of 2 replicas on the card, the canary at 0.5, probed
+    on held-out rows with their labels: the trained weights promote (the
+    baseline), the negated ones roll back, a good next version promotes."""
+    from distributed_sgd_tpu_torch.serving.fleet import ServingFleet
+    from distributed_sgd_tpu_torch.serving.push import WeightPusher
+    from distributed_sgd_tpu_torch.serving.router import probe_from_dataset
+    from distributed_sgd_tpu_torch.utils import metrics as mm
+
+    ckpt = os.path.join(tmp, "fleet")
+    Checkpointer(ckpt).save(SERVE_STEP, w)
+    probe_set = Dataset(test.indices[-SERVE_PROBE_ROWS:], test.values[-SERVE_PROBE_ROWS:],
+                        test.labels[-SERVE_PROBE_ROWS:], test.n_features)
+    m = Metrics()
+    w_next = (w * np.float32(1.001)).astype(np.float32)
+    with ServingFleet(ckpt, n_replicas=2, canary_fraction=0.5,
+                      probe=probe_from_dataset(probe_set, n=SERVE_PROBE_ROWS),
+                      health_s=0.2, ckpt_poll_s=30.0, metrics=m) as fleet:
+        pusher = WeightPusher([("127.0.0.1", fleet.router_port)], metrics=Metrics())
+        try:
+            acks, losses = [], []
+            for version, wv in ((5, w), (6, -w), (7, w_next)):
+                acks.append(pusher.push(version, wv))
+                losses.append(m.gauge(mm.ROUTER_CANARY_LOSS).value)
+        finally:
+            pusher.close()
+        steps = [r.store.step for r in fleet.replicas]
+        on_card = all(r.store.get()[1].is_cuda for r in fleet.replicas)
+        served = all(r.store.get()[1].cpu().numpy().tobytes() == w_next.tobytes()
+                     for r in fleet.replicas)
+        counts = (m.counter(mm.ROUTER_CANARY_PROMOTED).value,
+                  m.counter(mm.ROUTER_CANARY_ROLLBACK).value)
+    print(f"serving fleet (2 replicas on the card, canary 0.5, {SERVE_PROBE_ROWS} probe "
+          f"rows): acks {acks} for v5 (trained), v6 (negated), v7 (trained x 1.001); "
+          f"promoted probe loss after each {losses}; promoted {counts[0]}, rolled back "
+          f"{counts[1]}; replica steps {steps}", flush=True)
+    if acks != [1, 0, 1] or counts != (2, 1) or steps != [7, 7] or not on_card or not served:
+        raise AssertionError("serving fleet: the canary did not promote the trained weights "
+                             "and roll back the negated ones")
+
+
+def check_serving_cli(w: np.ndarray, test: Dataset, tmp: str) -> None:
+    """``python -m distributed_sgd_tpu_torch`` as DSGD_ROLE=serve on the
+    card and DSGD_ROLE=route over it, in processes of their own: 200
+    requests through the router (and the replica's answers checked), then
+    SIGTERM, and both exit 0."""
+    import socket
+
+    from distributed_sgd_tpu_torch.rpc import dsgd_pb2 as pb
+    from distributed_sgd_tpu_torch.rpc.service import ServeStub, new_channel
+
+    ckpt = os.path.join(tmp, "cli")
+    Checkpointer(ckpt).save(SERVE_STEP, w)
+    ports = []
+    for _ in range(2):
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            ports.append(sock.getsockname()[1])
+    serve_port, route_port = ports
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "distributed_sgd_tpu_torch"]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd, cwd=root, env={**os.environ, **env}, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for env in ({"DSGD_ROLE": "serve", "DSGD_CHECKPOINT_DIR": ckpt,
+                          "DSGD_SERVE_PORT": str(serve_port)},
+                         {"DSGD_ROLE": "route", "DSGD_SERVE_PORT": str(route_port),
+                          "DSGD_SERVE_TARGETS": f"127.0.0.1:{serve_port}",
+                          "DSGD_SERVE_HEALTH_S": "0.2"})]
+    outs = [None, None]
+    try:
+        channel = new_channel("127.0.0.1", route_port)
+        stub = ServeStub(channel)
+        deadline = time.time() + 120
+        while time.time() < deadline:
+            try:
+                if stub.ServeHealth(pb.Empty(), timeout=1).ok:
+                    break
+            except Exception:  # noqa: BLE001 - not up yet
+                pass
+            if any(p.poll() is not None for p in procs):
+                break
+            time.sleep(0.2)
+        channel.close()
+        up_s = time.perf_counter() - t0
+        rows = serve_rows(test, 0, SERVE_CLI_REQUESTS)
+        replies, asked, lat, wall = predict_all(route_port, rows, 1, SERVE_CLI_REQUESTS, 6)
+        check_answers("the route role over the serve role", replies, asked, w, SERVE_STEP)
+        print(latency_line("serving CLI, 1 client through the router", lat, wall)
+              + f"; both roles up {up_s:.1f} s after their start", flush=True)
+        for p in procs:
+            p.send_signal(signal.SIGTERM)
+        for k, p in enumerate(procs):
+            outs[k], _ = p.communicate(timeout=60)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    codes = [p.returncode for p in procs]
+    print(f"serving CLI: serve and route exited {codes} after {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    if codes != [0, 0] or "device=cuda" not in outs[0]:
+        tails = "\n".join(f"== {name} ({c}):\n{(o or '')[-2000:]}"
+                          for name, c, o in zip(("serve", "route"), codes, outs))
+        raise AssertionError(f"serving CLI run failed:\n{tails}")
+
+
+def run_serving_phase(w: np.ndarray, test: Dataset) -> None:
+    """Phase 12: the serving path at full width on the main path's weights.
+    It launches no kernel of the port: the forward is torch ops."""
+    t0 = time.perf_counter()
+    reset_counts()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-serve-") as tmp:
+        check_serving_replica(w, test, tmp)
+        check_serving_fleet(w, test, tmp)
+        check_serving_cli(w, test, tmp)
+    launches = (wg.worker_grads.launches, se.sync_epoch.launches)
+    print(f"serving path launches: worker_grads {launches[0]}, sync_epoch {launches[1]}",
+          flush=True)
+    if launches != (0, 0):
+        raise AssertionError(f"the serving path launched a training kernel: {launches}")
+    print(f"serving phase seconds: {time.perf_counter() - t0:.1f}", flush=True)
+
+
 def main() -> None:
     phase("1 device")
     if not torch.cuda.is_available():
@@ -2894,7 +3317,7 @@ def main() -> None:
     check_opt_engines()
 
     phase("5 sync paths: main path and per-step path")
-    se_row["launches"] = run_main_path()
+    se_row["launches"], main_w, main_test = run_main_path()
     se_row["path"] = "main"
     opt_rows["adam"]["launches"] = run_main_path_optimizer("adam")
     per_step_launches = run_per_step_path()
@@ -2936,7 +3359,12 @@ def main() -> None:
     window_row = run_pipeline_phase(rpc_full)
     del rpc_full
 
-    phase("12 summary")
+    phase("12 online serving: Predict on the card, hot swap, weight push, the canary fleet "
+          "and the serve and route roles")
+    run_serving_phase(main_w, main_test)
+    del main_w, main_test
+
+    phase("13 summary")
     print(card)
     print(json.dumps({"kernels": [wg_row, se_row, mean_row, opt_rows["momentum"],
                                   opt_rows["adam"], window_row]}))

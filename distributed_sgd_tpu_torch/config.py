@@ -27,7 +27,12 @@ pipelined levers ``local_steps``, ``delta_broadcast``, ``stream``,
 train rows, widened by ``host_overprovision``.  ``trace``,
 ``trace_dir``, ``trace_sample``, ``flight_recorder``, ``record``,
 ``metrics_port`` and ``influx_url`` drive the observability planes
-(main.py).
+(main.py), ``resource_probe_s`` (with ``blackbox_dir``) the resource probe
+in every role.  ``DSGD_ROLE=serve`` runs a serving replica (or, with
+``serve_replicas``, an in-process fleet) and ``DSGD_ROLE=route`` the fleet
+router; the ``serve_*`` fields are the JAX Config's, with its defaults
+and validation, and ``serve_push`` streams a training role's checkpoints
+to the fleet.
 
 Settings that change what the JAX CLI does but are not ported are read
 and refused with NotImplementedError before any data is loaded: here the
@@ -133,10 +138,30 @@ class Config:
     chaos: Optional[str] = None
     telemetry: bool = False
     health_action: Optional[str] = None
+    autopilot: bool = False
+    # the resource plane (telemetry/): the probe's period (0: no probe) and
+    # the blackbox ring's directory, which needs the probe
     resource_probe_s: float = 0.0
     blackbox_dir: Optional[str] = None
-    autopilot: bool = False
-    serve_push: Optional[str] = None
+    # serving (serving/): the replica, the fleet and the router
+    serve_port: int = 4100  # gRPC dsgd.Serving bind port (replica OR router)
+    serve_max_batch: int = 64  # micro-batch flush size cap
+    serve_max_delay_ms: float = 5.0  # coalescing window from oldest queued row
+    serve_queue_depth: int = 256  # admission bound -> RESOURCE_EXHAUSTED
+    serve_ckpt_poll_s: float = 2.0  # checkpoint hot-reload poll period
+    serve_replicas: int = 0  # role=serve: N in-process replicas + a router (0: one node)
+    serve_targets: Optional[str] = None  # role=route: 'host:port,...' replicas
+    serve_push: Optional[str] = None  # training roles: fleet endpoints to push to
+    serve_canary: float = 0.0  # fleet fraction a pushed version lands on first
+    serve_probe: Optional[str] = None  # the canary's held-out probe set (.npz)
+    serve_hedge_ms: float = 0.0  # a routed Predict slower than this is hedged (0: never)
+    serve_health_s: float = 1.0  # router ServeHealth poll period
+    serve_state: Optional[str] = None  # the router's promoted-state sidecar (JSON)
+    serve_probe_refresh_s: float = 0.0  # re-read the probe file this often (0: never)
+    serve_ha: Optional[str] = None  # 'peers:<host:port,...>[;self=..][;sync=..][;ttl=..]'
+    serve_slo_ms: float = 0.0  # the fleet autoscaler's SLO (0: fixed fleet size)
+    serve_scale_max: int = 8  # autoscale ceiling (the boot size is the floor)
+    serve_scale_cooldown_s: float = 5.0  # dead time after every autoscale action
 
     def __post_init__(self):
         if self.engine not in ("mesh", "rpc"):
@@ -144,18 +169,18 @@ class Config:
         if self.role_override not in (None, "dev", "master", "worker", "serve", "route"):
             raise ValueError(f"DSGD_ROLE={self.role_override!r} must be one of "
                              f"dev | master | worker | serve | route")
-        if self.role_override in ("serve", "route"):
-            raise _not_ported(f"DSGD_ROLE={self.role_override}", "[A12], serving/")
-        if self.serve_push:
-            raise _not_ported("DSGD_SERVE_PUSH", "[A12], serving/push.py")
         for bad, setting in ((self.autopilot, "DSGD_AUTOPILOT"),
                              (self.chaos, "DSGD_CHAOS"),
                              (self.telemetry, "DSGD_TELEMETRY"),
-                             (self.health_action, "DSGD_HEALTH_ACTION"),
-                             (self.resource_probe_s > 0, "DSGD_RESOURCE_PROBE_S > 0"),
-                             (self.blackbox_dir, "DSGD_BLACKBOX_DIR")):
+                             (self.health_action, "DSGD_HEALTH_ACTION")):
             if bad:
-                raise _not_ported(setting, "[A13], item 2 (telemetry/) and item 8")
+                raise _not_ported(setting, "[A13] item 8")
+        if self.resource_probe_s < 0:
+            raise ValueError("DSGD_RESOURCE_PROBE_S must be >= 0 (0 = no resource probe)")
+        if self.blackbox_dir and self.resource_probe_s <= 0:
+            raise ValueError("DSGD_BLACKBOX_DIR needs DSGD_RESOURCE_PROBE_S > 0: the "
+                             "resource probe is the blackbox's only writer")
+        self._check_serving()
         if self.host_devices < 0:
             raise ValueError("host_devices must be >= 0")
         if self.host_devices > 1:
@@ -244,6 +269,71 @@ class Config:
                 raise ValueError(f"DSGD_HOST_INDEX={self.host_index} outside "
                                  f"[0, node_count={self.node_count})")
 
+    def _check_serving(self) -> None:
+        """The JAX Config's validation of the serving fields."""
+        if self.role_override == "serve" and not self.checkpoint_dir:
+            raise ValueError("role=serve needs checkpoint_dir (DSGD_CHECKPOINT_DIR): "
+                             "serving loads and hot-reloads the trainer's checkpoints")
+        if self.serve_max_batch < 1:
+            raise ValueError("serve_max_batch must be >= 1")
+        if self.serve_max_delay_ms < 0:
+            raise ValueError("serve_max_delay_ms must be >= 0")
+        if self.serve_queue_depth < 1:
+            raise ValueError("serve_queue_depth must be >= 1")
+        if self.serve_ckpt_poll_s <= 0:
+            raise ValueError("serve_ckpt_poll_s must be > 0")
+        if self.serve_replicas < 0:
+            raise ValueError("serve_replicas must be >= 0 (0 = single node)")
+        if self.role_override == "route" and not self.serve_targets:
+            raise ValueError("role=route needs DSGD_SERVE_TARGETS: the router balances "
+                             "over an explicit replica endpoint list (host:port,...)")
+        for spec in (self.serve_targets, self.serve_push):
+            if spec:
+                from distributed_sgd_tpu_torch.serving.push import parse_targets
+
+                parse_targets(spec)  # endpoint-list typos fail here, not mid-route
+        if self.serve_push and not self.checkpoint_dir:
+            raise ValueError("DSGD_SERVE_PUSH needs DSGD_CHECKPOINT_DIR: the checkpoint "
+                             "distributor watches the trainer's checkpoint directory")
+        if not 0.0 <= self.serve_canary <= 1.0:
+            raise ValueError("serve_canary must be a fraction in [0, 1]")
+        if (self.serve_canary > 0 and not self.serve_probe
+                and self.role_override in ("route", "serve")):
+            # an armed canary with nothing to evaluate would promote every
+            # version ungated
+            raise ValueError("DSGD_SERVE_CANARY > 0 needs DSGD_SERVE_PROBE: the canary "
+                             "gate evaluates pushed versions against a held-out probe set")
+        if self.serve_hedge_ms < 0:
+            raise ValueError("serve_hedge_ms must be >= 0 (0 = no hedging)")
+        if self.serve_health_s <= 0:
+            raise ValueError("serve_health_s must be > 0")
+        if self.serve_probe_refresh_s < 0:
+            raise ValueError("DSGD_SERVE_PROBE_REFRESH_S must be >= 0 (0 = fixed probe set)")
+        if (self.serve_probe_refresh_s > 0 and not self.serve_probe
+                and self.role_override in ("route", "serve")):
+            raise ValueError("DSGD_SERVE_PROBE_REFRESH_S > 0 needs DSGD_SERVE_PROBE: the "
+                             "refresh re-reads the probe file on its cadence")
+        if self.serve_ha:
+            if self.role_override != "route":
+                raise ValueError("DSGD_SERVE_HA is a router knob (DSGD_ROLE=route): peer "
+                                 "promoted-state sync runs between LIVE routers")
+            from distributed_sgd_tpu_torch.serving.ha import parse_ha_spec
+
+            parse_ha_spec(self.serve_ha)
+        if self.serve_slo_ms < 0:
+            raise ValueError("DSGD_SERVE_SLO_MS must be >= 0 (0 = autoscale off)")
+        if self.serve_slo_ms > 0 and self.role_override == "serve" and self.serve_replicas < 1:
+            raise ValueError("DSGD_SERVE_SLO_MS needs the fleet mode (DSGD_SERVE_REPLICAS "
+                             ">= 1): the autoscaler grows and shrinks an in-process "
+                             "replica fleet")
+        if self.serve_scale_max < 1:
+            raise ValueError("DSGD_SERVE_SCALE_MAX must be >= 1")
+        if self.serve_slo_ms > 0 and self.serve_scale_max < max(1, self.serve_replicas):
+            raise ValueError("DSGD_SERVE_SCALE_MAX must be >= the boot fleet size "
+                             "(DSGD_SERVE_REPLICAS): the boot size is the scale floor")
+        if self.serve_scale_cooldown_s < 0:
+            raise ValueError("DSGD_SERVE_SCALE_COOLDOWN_S must be >= 0")
+
     @classmethod
     def from_env(cls, **overrides) -> "Config":
         """Build from DSGD_* env vars."""
@@ -315,7 +405,26 @@ class Config:
             resource_probe_s=_env("DSGD_RESOURCE_PROBE_S", cls.resource_probe_s, float),
             blackbox_dir=_env("DSGD_BLACKBOX_DIR", None, str),
             autopilot=_env("DSGD_AUTOPILOT", cls.autopilot, bool),
+            serve_port=_env("DSGD_SERVE_PORT", cls.serve_port, int),
+            serve_max_batch=_env("DSGD_SERVE_MAX_BATCH", cls.serve_max_batch, int),
+            serve_max_delay_ms=_env("DSGD_SERVE_MAX_DELAY_MS", cls.serve_max_delay_ms, float),
+            serve_queue_depth=_env("DSGD_SERVE_QUEUE_DEPTH", cls.serve_queue_depth, int),
+            serve_ckpt_poll_s=_env("DSGD_SERVE_CKPT_POLL_S", cls.serve_ckpt_poll_s, float),
+            serve_replicas=_env("DSGD_SERVE_REPLICAS", cls.serve_replicas, int),
+            serve_targets=_env("DSGD_SERVE_TARGETS", None, str),
             serve_push=_env("DSGD_SERVE_PUSH", None, str),
+            serve_canary=_env("DSGD_SERVE_CANARY", cls.serve_canary, float),
+            serve_probe=_env("DSGD_SERVE_PROBE", None, str),
+            serve_hedge_ms=_env("DSGD_SERVE_HEDGE_MS", cls.serve_hedge_ms, float),
+            serve_health_s=_env("DSGD_SERVE_HEALTH_S", cls.serve_health_s, float),
+            serve_state=_env("DSGD_SERVE_STATE", None, str),
+            serve_probe_refresh_s=_env("DSGD_SERVE_PROBE_REFRESH_S",
+                                       cls.serve_probe_refresh_s, float),
+            serve_ha=_env("DSGD_SERVE_HA", None, str),
+            serve_slo_ms=_env("DSGD_SERVE_SLO_MS", cls.serve_slo_ms, float),
+            serve_scale_max=_env("DSGD_SERVE_SCALE_MAX", cls.serve_scale_max, int),
+            serve_scale_cooldown_s=_env("DSGD_SERVE_SCALE_COOLDOWN_S",
+                                        cls.serve_scale_cooldown_s, float),
         )
         return dataclasses.replace(cfg, **overrides)
 
@@ -334,11 +443,11 @@ class Config:
         """Raise NotImplementedError for a setting the JAX CLI acts on in
         this run's role that the port does not serve yet: on the rpc fits
         (the dev role with engine 'rpc', and the master) the aggregation
-        tree and the sharded master.  The mesh engine and the worker role
-        ignore them (main.py warns on the mesh engine, as the JAX CLI
-        does)."""
+        tree and the sharded master.  The mesh engine, the worker role and
+        the serving roles ignore them (main.py warns on the mesh engine, as
+        the JAX CLI does)."""
         role = self.role
-        if role == "worker" or (role == "dev" and self.engine == "mesh"):
+        if role in ("worker", "serve", "route") or (role == "dev" and self.engine == "mesh"):
             return
         for bad, setting, where in (
                 (self.agg_tree, "DSGD_AGG_TREE", "[A13] item 8, aggtree/"),

@@ -84,6 +84,7 @@ import logging
 import random
 import threading
 import time
+import weakref
 from typing import Callable, Dict, List, Optional, Tuple
 
 import grpc
@@ -117,6 +118,7 @@ from distributed_sgd_tpu_torch.rpc.service import (
     new_channel,
     new_server,
 )
+from distributed_sgd_tpu_torch.telemetry import resources
 from distributed_sgd_tpu_torch.trace import flight
 from distributed_sgd_tpu_torch.utils import metrics as metrics_mod
 from distributed_sgd_tpu_torch.utils.log import node_logger
@@ -874,6 +876,14 @@ class MasterNode:
         self._inbox_cv = threading.Condition()
         self._inbox: list = []
         self._drain_on = False
+        # the resource plane (telemetry/resources.py): the drain inbox's
+        # depth is a pressure source.  The weakref closure returns None once
+        # this master is collected, which unregisters the source; with no
+        # probe running nothing ever calls it
+        inbox_ref = weakref.ref(self)
+        self._inbox_pressure_token = resources.register_pressure(
+            metrics_mod.PROC_PRESSURE_DRAIN_INBOX,
+            lambda: (len(m._inbox) if (m := inbox_ref()) is not None else None))
         # members that registered again during an async fit (a worker
         # process restarted on the same endpoint): the fit's loop re-kicks
         # each with its slice, since no membership change shows it
@@ -1013,6 +1023,8 @@ class MasterNode:
         self._async_running.clear()
         self._async_done.set()
         self._close_streams()
+        resources.unregister_pressure(metrics_mod.PROC_PRESSURE_DRAIN_INBOX,
+                                      self._inbox_pressure_token)
         if self._hb_thread is not None:
             self._hb_thread.join(timeout=10.0)
         self.server.stop(grace=1.0)

@@ -21,7 +21,16 @@ role (config.py ``Config.role``) picks what runs:
 - worker (any other DSGD_MASTER_HOST/PORT): load the data, serve on
   DSGD_NODE_PORT, register with the master and answer its calls
   (Gradient and Forward; StartAsync, UpdateGrad and StopAsync, with
-  DSGD_STEPS_PER_DISPATCH and DSGD_GOSSIP_TOPOLOGY) until SIGTERM.
+  DSGD_STEPS_PER_DISPATCH and DSGD_GOSSIP_TOPOLOGY) until SIGTERM;
+- serve (DSGD_ROLE=serve): no data; answer Predict on DSGD_SERVE_PORT
+  from the weights under DSGD_CHECKPOINT_DIR, on the card, hot-reloading
+  each newer checkpoint and applying pushed weights, until SIGTERM; with
+  DSGD_SERVE_REPLICAS=N an in-process fleet of N replicas behind a router
+  on DSGD_SERVE_PORT (DSGD_SERVE_SLO_MS adds the replica autoscaler);
+- route (DSGD_ROLE=route): the fleet router over DSGD_SERVE_TARGETS
+  (balancing, hedges, the canary gate on pushed versions, DSGD_SERVE_STATE,
+  DSGD_SERVE_HA), until SIGTERM.  It computes on the host: its only
+  arithmetic is the canary's probe loss over the replicas' margins.
 
 The rpc fits (dev with DSGD_ENGINE=rpc, and the master and worker roles)
 take the JAX CLI's fault tolerance: DSGD_HEARTBEAT_S (with
@@ -40,8 +49,12 @@ when an elastic resplit moves it.
 
 Every engine takes DSGD_OPTIMIZER (sgd | momentum | adam) with
 DSGD_MOMENTUM.  DSGD_CHECKPOINT_DIR saves and resumes every fit
-(checkpoint.py), DSGD_PROFILE_DIR writes a torch.profiler trace of one
-sync epoch (or, on the worker role, of its first dispatches).  DSGD_TRACE
+(checkpoint.py), and with DSGD_SERVE_PUSH the dev and master roles stream
+each new checkpoint to a serving fleet (serving/push.py).
+DSGD_PROFILE_DIR writes a torch.profiler trace of one sync epoch (or, on
+the worker role, of its first dispatches; on the serve role, of its first
+Predict batches).  DSGD_RESOURCE_PROBE_S starts the resource probe in any
+role (telemetry/resources.py), DSGD_BLACKBOX_DIR its on-disk ring.  DSGD_TRACE
 writes per-process span timelines under DSGD_TRACE_DIR (merge them with
 ``python -m distributed_sgd_tpu_torch.trace.merge``), DSGD_FLIGHT_RECORDER
 sizes the post-mortem ring (SIGUSR2 dumps it), and DSGD_RECORD ships the
@@ -410,6 +423,173 @@ def _run_worker(cfg: Config, train: Dataset, model, extra: Optional[dict] = None
             _live_workers.remove(worker)
 
 
+_live_serving: list = []  # the serving roles' nodes in this process
+
+
+class _ServingRole:
+    """One serving role's node (a replica, a fleet or a router), stopped
+    once by whichever comes first: a signal (`stop_serving`) or the role's
+    own exit.  `stop` runs its steps in order (the autoscaler before its
+    fleet)."""
+
+    def __init__(self, node, *before_stop):
+        self.node = node
+        self._steps = list(before_stop) + [node.stop]
+        self._lock = threading.Lock()
+        self._stopped = False
+
+    def stop(self) -> None:
+        with self._lock:
+            if not self._stopped:
+                self._stopped = True
+                for step in self._steps:
+                    step()
+
+
+def stop_serving() -> None:
+    """Stop every serving role of this process (what SIGTERM and SIGINT
+    do): its gRPC server stops and its `main` returns."""
+    with _live_lock:
+        roles = list(_live_serving)
+    for r in roles:
+        r.stop()
+
+
+def _serve_until_stopped(role: _ServingRole) -> None:
+    def _on_signal(signum, _frame):
+        log.info("signal %d: stopping the serving role", signum)
+        threading.Thread(target=stop_serving, name="serve-stop", daemon=True).start()
+
+    if threading.current_thread() is threading.main_thread():
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            signal.signal(sig, _on_signal)
+    with _live_lock:
+        _live_serving.append(role)
+    try:
+        role.node.await_termination()
+    finally:
+        with _live_lock:
+            _live_serving.remove(role)
+        role.stop()
+
+
+def _load_probe(cfg: Config):
+    """DSGD_SERVE_PROBE -> canary probe rows (None when unset)."""
+    if not cfg.serve_probe:
+        return None
+    from distributed_sgd_tpu_torch.serving.router import load_probe
+
+    probe = load_probe(cfg.serve_probe)
+    log.info("canary probe set: %d rows from %s", len(probe), cfg.serve_probe)
+    return probe
+
+
+def _run_serving(cfg: Config, role: str, device) -> None:
+    """The three serving branches of the JAX CLI's `_run_role`: the router
+    (with HA), the in-process fleet (with the autoscaler), and the single
+    serve node."""
+    if role == "route":
+        # the fleet router (serving/router.py): health-aware
+        # power-of-two-choices balancing over DSGD_SERVE_TARGETS, the canary
+        # gate on pushed versions; host work only
+        from distributed_sgd_tpu_torch.serving.push import parse_targets
+        from distributed_sgd_tpu_torch.serving.router import ServingRouter
+
+        router = ServingRouter(
+            parse_targets(cfg.serve_targets), port=cfg.serve_port, model=cfg.model,
+            lam=cfg.lam, canary_fraction=cfg.serve_canary, probe=_load_probe(cfg),
+            hedge_ms=cfg.serve_hedge_ms, health_s=cfg.serve_health_s,
+            metrics=metrics_mod.global_metrics(), seed=cfg.seed,
+            state_path=cfg.serve_state, probe_path=cfg.serve_probe,
+            probe_refresh_s=cfg.serve_probe_refresh_s).start()
+        if cfg.serve_ha:
+            # dual LIVE routers: the lease-based coordinator and its
+            # promoted-state peer sync (serving/ha.py)
+            from distributed_sgd_tpu_torch.serving.ha import HACoordinator
+
+            router.attach_ha(HACoordinator.from_spec(
+                cfg.serve_ha, metrics=metrics_mod.global_metrics()))
+            router._ha.start()
+        log.info("routing on :%d over %s (canary=%g, hedge=%gms)", router.bound_port,
+                 cfg.serve_targets, cfg.serve_canary, cfg.serve_hedge_ms)
+        _serve_until_stopped(_ServingRole(router))
+        return
+    if cfg.serve_replicas > 0:
+        # the one-machine fleet (serving/fleet.py): DSGD_SERVE_REPLICAS
+        # replicas on the card behind an in-process router on serve_port
+        from distributed_sgd_tpu_torch.serving.fleet import ServingFleet
+
+        fleet = ServingFleet(
+            cfg.checkpoint_dir, cfg.serve_replicas, model=cfg.model, lam=cfg.lam,
+            router_port=cfg.serve_port, max_batch=cfg.serve_max_batch,
+            max_delay_ms=cfg.serve_max_delay_ms, queue_depth=cfg.serve_queue_depth,
+            ckpt_poll_s=cfg.serve_ckpt_poll_s, canary_fraction=cfg.serve_canary,
+            probe=_load_probe(cfg), hedge_ms=cfg.serve_hedge_ms,
+            health_s=cfg.serve_health_s, metrics=metrics_mod.global_metrics(),
+            seed=cfg.seed, state_path=cfg.serve_state, probe_path=cfg.serve_probe,
+            probe_refresh_s=cfg.serve_probe_refresh_s, device=device).start()
+        before_stop = []
+        if cfg.serve_slo_ms > 0:
+            # DSGD_SERVE_SLO_MS: the router's load signal against the SLO
+            # grows and shrinks the fleet (serving/ha.py)
+            from distributed_sgd_tpu_torch.serving.ha import ReplicaAutoscaler, router_load_ms
+
+            autoscaler = ReplicaAutoscaler(
+                signal_ms=lambda: router_load_ms(fleet.router),
+                scale_up=fleet.add_replica, scale_down=fleet.drain_replica,
+                count=lambda: len(fleet.replicas), slo_ms=cfg.serve_slo_ms,
+                min_replicas=cfg.serve_replicas, max_replicas=cfg.serve_scale_max,
+                cooldown_s=cfg.serve_scale_cooldown_s,
+                metrics=metrics_mod.global_metrics()).start()
+            before_stop.append(autoscaler.stop)
+        log.info("serving fleet: router :%d over %d in-process replicas on %s",
+                 fleet.router_port, cfg.serve_replicas, device)
+        _serve_until_stopped(_ServingRole(fleet, *before_stop))
+        return
+    # one replica (serving/server.py): the weights on the card, hot-reloaded
+    # from the trainer's checkpoints
+    from distributed_sgd_tpu_torch.serving.server import ServingServer
+
+    server = ServingServer.from_config(cfg, metrics=metrics_mod.global_metrics(),
+                                       device=device).start()
+    log.info("serving model=%s on :%d (ckpt=%s, max_batch=%d, max_delay_ms=%g, "
+             "queue_depth=%d, device=%s)", cfg.model, server.bound_port, cfg.checkpoint_dir,
+             cfg.serve_max_batch, cfg.serve_max_delay_ms, cfg.serve_queue_depth, device)
+    _serve_until_stopped(_ServingRole(server))
+
+
+def _serve_distributor(cfg: Config):
+    """DSGD_SERVE_PUSH on a training role -> a started CheckpointDistributor
+    (None when unset): every checkpoint the fit writes streams to the fleet
+    as a versioned weight delta (the config required checkpoint_dir)."""
+    if not cfg.serve_push:
+        return None
+    from distributed_sgd_tpu_torch.serving.push import CheckpointDistributor, parse_targets
+
+    log.info("checkpoint distributor on: %s -> %s", cfg.checkpoint_dir, cfg.serve_push)
+    return CheckpointDistributor(cfg.checkpoint_dir, parse_targets(cfg.serve_push),
+                                 metrics=metrics_mod.global_metrics()).start()
+
+
+def _resource_probe(cfg: Config, role: str):
+    """DSGD_RESOURCE_PROBE_S > 0: the process's resource probe thread, with
+    the leak-slope sentinel on its series and, with DSGD_BLACKBOX_DIR, the
+    blackbox ring (telemetry/); None when unset (no thread, no file)."""
+    if cfg.resource_probe_s <= 0:
+        return None
+    from distributed_sgd_tpu_torch.telemetry import blackbox as blackbox_mod
+    from distributed_sgd_tpu_torch.telemetry import resources, slope
+
+    sentinel = slope.LeakSentinel(metrics=metrics_mod.global_metrics())
+    box = (blackbox_mod.Blackbox(cfg.blackbox_dir, service=f"{role}-{cfg.port}")
+           if cfg.blackbox_dir else None)
+    probe = resources.configure(cfg.resource_probe_s, metrics=metrics_mod.global_metrics(),
+                                sentinel=sentinel, blackbox=box)
+    log.info("resource probe on: every %gs (blackbox=%s)", cfg.resource_probe_s,
+             cfg.blackbox_dir or "off")
+    return probe
+
+
 def _observability(cfg: Config, role: str):
     """DSGD_TRACE / DSGD_FLIGHT_RECORDER / DSGD_RECORD wiring, as the JAX
     CLI's (distributed_sgd_tpu/main.py:420-481), before any channel or
@@ -454,7 +634,11 @@ def main(device: DeviceLike = None, cfg: Optional[Config] = None) -> Run:
     log.info("role: %s", role)
     np.random.seed(cfg.seed)
     exporter, pusher = _observability(cfg, role)
+    probe = _resource_probe(cfg, role)
     try:
+        if role in ("serve", "route"):
+            _run_serving(cfg, role, device)
+            return Run(fit=None, data_seconds=0.0)
         t0 = time.perf_counter()
         if role == "worker" and cfg.row_store:
             train, model, extra = _build_worker_row_store(cfg, device)
@@ -469,11 +653,19 @@ def main(device: DeviceLike = None, cfg: Optional[Config] = None) -> Run:
         if role == "worker":
             _run_worker(cfg, train, model)
             return Run(fit=None, data_seconds=data_s)
-        if role == "master":
-            return Run(fit=_run_master(cfg, train, test, model), data_seconds=data_s)
-        if cfg.engine == "rpc":
-            return Run(fit=scenario_rpc(cfg, train, test, model), data_seconds=data_s)
-        return Run(fit=scenario_mesh(cfg, train, test, model, device), data_seconds=data_s)
+        distributor = _serve_distributor(cfg)
+        try:
+            if role == "master":
+                fit = _run_master(cfg, train, test, model)
+            elif cfg.engine == "rpc":
+                fit = scenario_rpc(cfg, train, test, model)
+            else:
+                fit = scenario_mesh(cfg, train, test, model, device)
+        finally:
+            if distributor is not None:
+                # its final sweep ships the checkpoint the fit wrote last
+                distributor.stop()
+        return Run(fit=fit, data_seconds=data_s)
     except Exception:
         # an uncaught exception leaves flight-recorder evidence
         flight.dump("exception")
@@ -482,6 +674,8 @@ def main(device: DeviceLike = None, cfg: Optional[Config] = None) -> Run:
         # flush and stop on every exit path: a crashed run's tail metrics
         # and trace are the ones that matter
         trace_mod.flush()
+        if probe is not None:
+            probe.stop()
         if exporter is not None:
             exporter.stop()
         if pusher is not None:

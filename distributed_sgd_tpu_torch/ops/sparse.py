@@ -11,6 +11,9 @@ so no explicit mask is carried.
 - ``scatter_add(batch, coeff, n_features) -> f32[D]``: sum_i coeff_i * x_i
   as one flat ``index_add_``.
 
+``pad_rows`` is the host-side row packer (numpy) that builds such a batch
+from variable-nnz rows: the serving batcher's (serving/bucketing.py).
+
 The training step's fused gather + coefficient + scatter for all workers
 is the hand-written kernel in ops/worker_grads.py; these ops serve the
 evaluation gather and the per-model reference gradient.
@@ -18,8 +21,9 @@ evaluation gather and the per-model reference gradient.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Sequence, Tuple
 
+import numpy as np
 import torch
 
 
@@ -59,3 +63,27 @@ def scatter_add(batch: SparseBatch, coeff: torch.Tensor, n_features: int) -> tor
     flat_val = (batch.values.float() * coeff.float()[:, None]).reshape(-1)
     out = torch.zeros(n_features, dtype=torch.float32, device=flat_val.device)
     return out.index_add_(0, batch.indices.reshape(-1), flat_val)
+
+
+def pad_rows(
+    rows: Sequence[Tuple[np.ndarray, np.ndarray]],
+    pad_width: int,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Host-side: pack variable-nnz (indices, values) rows into [B, P] arrays.
+
+    Rows longer than `pad_width` are truncated by largest-|value| (keeps the
+    heaviest features); shorter rows are zero-padded.
+    """
+    b = len(rows)
+    out_idx = np.zeros((b, pad_width), dtype=np.int32)
+    out_val = np.zeros((b, pad_width), dtype=np.float32)
+    for i, (idx, val) in enumerate(rows):
+        n = len(idx)
+        if n > pad_width:
+            keep = np.argsort(-np.abs(val))[:pad_width]
+            keep.sort()
+            idx, val = idx[keep], val[keep]
+            n = pad_width
+        out_idx[i, :n] = idx
+        out_val[i, :n] = val
+    return out_idx, out_val

@@ -2,8 +2,8 @@
 process, dumped to JSON post-mortem (docs/OBSERVABILITY.md).
 
 The port's own copy of the JAX package's trace/flight.py, with the same
-dump format (its ``resources`` entry is None until the port has the
-resource probe).
+dump format: its ``resources`` entry is the resource probe's sample
+(telemetry/resources.py).
 
 Tracing (trace/__init__.py) answers "show me round N end to end" — but it
 is sampled and default-off, and the runs that die are rarely the runs
@@ -122,11 +122,16 @@ class FlightRecorder:
 
     @staticmethod
     def _resources() -> Optional[dict]:
-        """The dump payload's resource snapshot: None in the port, whose
-        resource probe (the JAX package's telemetry/resources.py) is not
-        ported yet (ROADMAP.md Queue A 13).  The key stays, so a dump
-        reads the same in both packages."""
-        return None
+        """Resource snapshot for the dump payload: every quorum/eviction/
+        crash dump carries RSS/fd/thread context.  Lazy import (dump is
+        the cold path; record must stay import-free) and guarded — a
+        sampling failure must not break a post-mortem."""
+        try:
+            from distributed_sgd_tpu_torch.telemetry import resources
+
+            return resources.sample_resources()
+        except Exception:  # noqa: BLE001 - never mask the original failure
+            return None
 
 
 _RECORDER: Optional[FlightRecorder] = None

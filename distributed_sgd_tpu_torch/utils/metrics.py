@@ -16,9 +16,10 @@ recorded values.  Exporters:
   reference's ``record=true`` push.
 
 The instrument constants are those the port records: the sync trainer,
-the async engines, and the RPC master and worker (core/master.py,
-core/worker.py), the async RPC fit included.  The serving, tree, shard and autopilot families wait
-for their modules (ROADMAP.md Queue A).
+the async engines, the RPC master and worker (core/master.py,
+core/worker.py), the async RPC fit included, the serving fleet
+(serving/) and the resource probe (telemetry/).  The tree, shard and
+autopilot families wait for their modules (ROADMAP.md Queue A).
 """
 
 from __future__ import annotations
@@ -437,9 +438,94 @@ def record_broadcast(metrics: "Metrics", form: str, n_bytes: int) -> None:
     metrics.counter(f"master.sync.bcast.{form}").increment()
 
 
+# -- serving fleet (serving/router.py + serving/push.py) ----------------------
+#
+# Checkpoint-distribution accounting follows the master.sync.bcast.* /
+# comms.* pattern: the PUSHER (the trainer master's distributor, or the
+# router re-pushing on canary rollback) counts send-side only, so an
+# in-process fleet sharing a registry never double-counts.  `bytes` is the
+# actual serialized PushWeightsRequest size; `bytes_full_equiv` is what the
+# same update would have cost as one full dense tensor per target -- the
+# denominator of the fleet's wire-savings ratio.
+SERVE_PUSH_BYTES = "serve.push.bytes"                # counter: wire bytes sent
+SERVE_PUSH_FULL_EQUIV = "serve.push.bytes_full_equiv"  # counter: 4*dim/target baseline
+SERVE_PUSH_FULL = "serve.push.full"                  # counter: full-tensor pushes
+SERVE_PUSH_DELTA = "serve.push.delta"                # counter: sparse delta pushes
+SERVE_PUSH_NACK = "serve.push.nack"                  # counter: version-gap nacks seen
+SERVE_PUSH_ERRORS = "serve.push.errors"              # counter: failed push RPCs
+# replica-side push application (serving/model_store.py apply_push)
+SERVE_MODEL_PUSH_FULL = "serve.model.push.full"      # counter: full pushes applied
+SERVE_MODEL_PUSH_DELTA = "serve.model.push.delta"    # counter: deltas applied
+SERVE_MODEL_PUSH_GAP = "serve.model.push.gap"        # counter: gaps -> file fallback
+SERVE_MODEL_VERSION = "serve.model.version"          # gauge: checkpoint step serving NOW
+# router data plane (serving/router.py)
+ROUTER_RETRIES = "router.predict.retries"            # counter: failovers to another replica
+ROUTER_HEDGES = "router.predict.hedges"              # counter: tail hedges issued
+ROUTER_HEDGE_WINS = "router.predict.hedge_wins"      # counter: hedge answered first
+ROUTER_DRAINED = "router.replica.drained"            # counter: healthy->drained transitions
+ROUTER_ELIGIBLE = "router.replica.eligible"          # gauge: replicas in rotation
+ROUTER_CANARY_PROMOTED = "router.canary.promoted"    # counter: versions promoted fleet-wide
+ROUTER_CANARY_ROLLBACK = "router.canary.rollback"    # counter: versions rolled back
+ROUTER_CANARY_LOSS = "router.canary.probe_loss"      # gauge: last probe-set loss
+ROUTER_PROBE_REFRESH = "router.canary.probe_refresh"  # counter: probe-set rotations
+ROUTER_PROBE_SOURCED = "router.canary.probe_sourced"  # counter: reservoir rotations
+ROUTER_PROBE_FILL = "router.canary.probe_fill"        # gauge: reservoir rows held
+
+# serving-plane HA + autoscale (serving/ha.py)
+ROUTER_HA_DECIDER = "router.ha.decider"              # gauge: 1 = holds the decider lease
+ROUTER_HA_SYNCS = "router.ha.syncs"                  # counter: inbound peer sync exchanges served
+ROUTER_HA_SYNC_ERRORS = "router.ha.sync_errors"      # counter: peer syncs that failed
+ROUTER_HA_APPLIED = "router.ha.applied"              # counter: peer records adopted locally
+ROUTER_HA_DEFERRED = "router.ha.deferred"            # counter: pushes deferred (not decider)
+ROUTER_HA_FAILOVERS = "router.ha.failovers"          # counter: lease assumed after a lapse
+ROUTER_SCALE_UP = "router.scale.up"                  # counter: replicas spun up
+ROUTER_SCALE_DOWN = "router.scale.down"              # counter: replicas drained off
+ROUTER_SCALE_REPLICAS = "router.scale.replicas"      # gauge: current fleet size
+ROUTER_SCALE_LOAD_MS = "router.scale.load_ms"        # gauge: last load signal read
+
+
+def record_push(metrics: "Metrics", form: str, wire_bytes: int,
+                dense_bytes: int) -> None:
+    """Account one PushWeights send: `form` is 'full' | 'delta';
+    `dense_bytes` is the full-tensor-per-target baseline the delta saved
+    against (the analogue of record_wire's dense equivalent)."""
+    metrics.counter(SERVE_PUSH_BYTES).increment(int(wire_bytes))
+    metrics.counter(SERVE_PUSH_FULL_EQUIV).increment(int(dense_bytes))
+    metrics.counter(f"serve.push.{form}").increment()
+
+
 # -- process gauges -------------------------------------------------------------
 PROC_RSS_BYTES = "process.rss_bytes"               # gauge: resident set size
 PROC_OPEN_FDS = "process.open_fds"                 # gauge: open file descriptors
+
+# -- long-horizon resource plane (telemetry/resources.py) ---------------------
+# The ResourceProbe daemon (DSGD_RESOURCE_PROBE_S) samples these every
+# tick: the /proc-backed process gauges (absent off-Linux -- a never-set
+# gauge is NaN and stays off the wire), the interpreter-level gauges
+# (threads, gc), and the internal-pressure gauges read from the live
+# structures whose slow fill precedes an hours-horizon death (async
+# drain inbox, trace buffer, flight ring, serving admission queue).  The
+# compile-cache gauge is the JAX package's name; the port has no compile
+# cache and never sets it.  Knobs off, the probe never runs and none of
+# these registers.
+PROC_RSS = "proc.rss_bytes"                        # gauge: RSS from /proc/self/statm
+PROC_FDS = "proc.fds"                              # gauge: /proc/self/fd entries
+PROC_THREADS = "proc.threads"                      # gauge: OS threads (status; fallback: threading)
+PROC_GC_GEN2 = "proc.gc.gen2"                      # gauge: gen2 collections so far
+PROC_PRESSURE_DRAIN_INBOX = "proc.pressure.drain_inbox"      # gauge: async inbox depth
+PROC_PRESSURE_TRACE_BUFFER = "proc.pressure.trace_buffer"    # gauge: tracer events buffered
+PROC_PRESSURE_FLIGHT_RING = "proc.pressure.flight_ring"      # gauge: flight events held
+PROC_PRESSURE_ADMISSION_QUEUE = "proc.pressure.admission_queue"  # gauge: serving rows queued
+PROC_PRESSURE_COMPILE_CACHE = "proc.pressure.compile_cache_files"  # gauge: cache dir entries
+# leak-slope sentinel (telemetry/slope.py): the trip counter plus the
+# per-series slope gauge family (`health.leak.slope.<series>`, set at
+# trip time so the exposition carries the offending estimate)
+HEALTH_LEAK_SUSPECT = "health.leak.suspect"        # counter: sentinel trips
+HEALTH_LEAK_SLOPE = "health.leak.slope"            # gauge family prefix: tripped slope /s
+# blackbox timeseries (telemetry/blackbox.py): snapshots appended to the
+# on-disk ring this process lifetime (also written INTO each snapshot,
+# so a tail knows how much history the ring ever held)
+BLACKBOX_SNAPSHOTS = "blackbox.snapshots"          # counter: snapshots appended
 
 
 def sample_process_gauges(metrics: "Metrics") -> Tuple[float, float]:

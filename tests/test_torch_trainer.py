@@ -167,16 +167,13 @@ _RPC = {"DSGD_ENGINE": "rpc"}
     {"DSGD_FEATURE_SHARDS": "2"},
     {"DSGD_COMPRESS": "topk", "DSGD_ASYNC": "1"},
     {"DSGD_COMPRESS": "qint8", "DSGD_ASYNC": "1", "DSGD_ASYNC_MODE": "local_sgd"},
-    # every role: the serving roles and push, the telemetry planes, chaos
-    {"DSGD_ROLE": "serve"},
-    {"DSGD_ROLE": "route"},
-    {"DSGD_SERVE_PUSH": "127.0.0.1:9000"},
+    # every role: autopilot, chaos, the telemetry scrape, the health action
+    # (the serving roles, push, the resource probe and the blackbox run
+    # now: tests/test_torch_serving.py, tests/test_torch_resources.py)
     {"DSGD_AUTOPILOT": "1"},
     {"DSGD_CHAOS": "seed=7;drop=0.05"},
     {"DSGD_TELEMETRY": "1"},
     {"DSGD_HEALTH_ACTION": "warn"},
-    {"DSGD_RESOURCE_PROBE_S": "0.2"},
-    {"DSGD_BLACKBOX_DIR": "bb"},
     {"DSGD_HOST_DEVICES": "2"},
     # the rpc fits (dev engine=rpc, and the master role); DSGD_ASYNC=1,
     # DSGD_ASYNC_DRAIN, the fault tolerance and the pipelined levers run
