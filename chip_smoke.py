@@ -139,7 +139,18 @@ Phases, each fatal (a traceback and a non-zero exit):
    ones; and the CLI's ``DSGD_ROLE=serve`` (on the card) and
    ``DSGD_ROLE=route`` as processes, 200 requests through the router, then
    SIGTERM and both exit 0.  The path launches neither kernel;
-13. summary: the card line, one JSON line of per-kernel numbers, and last
+13. the aggregation tree and the sharded master, on phase 8's full-width
+   data (3 workers, B=100, lr 0.5, 1 epoch each): DSGD_AGG_TREE=fanout:2
+   twice (bitwise equal), with DSGD_LOCAL_STEPS=4 (one ``sync_epoch`` sum
+   launch a worker a round), DSGD_MASTER_SHARDS=2 (one ``worker_grads``
+   launch a worker a round for both lanes), and both together; each K=1
+   fit within 1e-5 of phase 8's knobs-off weights (printed: bitwise or
+   not), accuracy >= 0.70, no eviction, windows/s and a window's parts,
+   the tree's and the lanes' counters and bytes, the launches and a busy
+   share (the same fit over 50,000 rows under torch.profiler); then at
+   100,000 rows ``kill_shard(1)`` mid-fit: one flat round, one rebuild,
+   no eviction and the flat fit's weights bit for bit;
+14. summary: the card line, one JSON line of per-kernel numbers, and last
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits non-zero before printing any result.
@@ -234,6 +245,26 @@ OPT_EXTRA_FLOPS = {"momentum": 2, "adam": 12}
 
 
 _T0 = time.perf_counter()
+
+
+def share_synthetic_rows() -> None:
+    """From here on every in-process ``main()`` and ``build()`` of this run
+    gets the synthetic rows of a DSGD_SYNTHETIC size from one generation:
+    the rows it would generate from the same seed (804,414 rows take ~12 s
+    a generation).  The CLI's own processes generate theirs."""
+    cache = {}
+    load = port_main.load_data
+
+    def shared(cfg):
+        n = os.environ.get("DSGD_SYNTHETIC")
+        if not n:
+            return load(cfg)
+        key = (int(n), cfg.seed)
+        if key not in cache:
+            cache[key] = load(cfg)
+        return cache[key]
+
+    port_main.load_data = shared
 
 
 def phase(name: str) -> None:
@@ -3282,6 +3313,186 @@ def run_serving_phase(w: np.ndarray, test: Dataset) -> None:
     print(f"serving phase seconds: {time.perf_counter() - t0:.1f}", flush=True)
 
 
+# -- phase 13: the aggregation tree and the sharded master -------------------------
+
+TREE_SPEC = "fanout:2"  # DSGD_AGG_TREE of the phase's tree fits
+TREE_SHARDS = 2  # DSGD_MASTER_SHARDS of its sharded fits
+TREE_ATOL = 1e-5  # a K=1 tree or sharded fit against the knobs-off fit
+SHARD_KILL_ROWS = 100000  # the kill_shard fit (80,000 train rows)
+TREE_BUSY_ROWS = 50000  # each configuration's profiled fit, for its busy share
+SHARD_KILL_AT = 50  # windows run before the kill
+TREE_FITS = (  # (label, fit_sync arguments); the first two must be bitwise equal
+    ("tree", dict(agg_tree=TREE_SPEC)),
+    ("tree again", dict(agg_tree=TREE_SPEC)),
+    (f"tree K={WINDOW_K}", dict(agg_tree=TREE_SPEC, local_steps=WINDOW_K)),
+    (f"shards {TREE_SHARDS}", dict(master_shards=TREE_SHARDS)),
+    (f"shards {TREE_SHARDS} + tree", dict(master_shards=TREE_SHARDS, agg_tree=TREE_SPEC)),
+)
+
+
+def tree_counts(m: Metrics) -> dict:
+    """The tree's and the shards' counters of a fit's registry, with its
+    bytes and evictions."""
+    from distributed_sgd_tpu_torch.utils import metrics as mm
+
+    names = (mm.AGG_CHILDREN, mm.AGG_BYTES_IN, mm.AGG_BYTES_UP, mm.AGG_PARTIAL, mm.AGG_FLAT,
+             mm.TREE_PARTIAL, mm.TREE_FLAT_FALLBACK, mm.TREE_REBUILDS, mm.SHARD_ROUNDS,
+             mm.SHARD_REBUILDS, mm.SHARD_FALLBACK_ROUNDS, mm.SHARD_BCAST_BYTES,
+             mm.SHARD_GRAD_BYTES, mm.SHARD_ASSEMBLED, mm.SHARD_ASM_TIMEOUTS,
+             mm.SYNC_BCAST_BYTES, mm.SYNC_GRAD_BYTES, mm.MASTER_EVICTIONS)
+    out = {n: m.counter(n).value for n in names}
+    gauges = {g.name: g.value for g in m.gauges()}
+    out.update({n: gauges[n] for n in (mm.TREE_DEPTH, mm.TREE_EDGES, mm.SHARD_COUNT)
+                if n in gauges})
+    return out
+
+
+def tree_busy_share(model, train, test, kw: dict) -> str:
+    """One epoch of the fit with `kw` over `train` under torch.profiler:
+    the device's busy share from its first kernel to its last."""
+    from distributed_sgd_tpu_torch.core.cluster import DevCluster
+
+    with DevCluster(model, train, test, n_workers=RPC_WORKERS, seed=0) as c:
+        dev = device_events(lambda: c.master.fit_sync(1, B, RPC_LR, **kw))
+    kernels = [(a, b) for a, b, name in dev if any(k in name for k in (
+        "margins_kernel", "scatter_kernel", "convert_kernel", "sync_epoch"))]
+    if not kernels:
+        return (f"not measured (the trace holds {len(dev)} device events and no "
+                f"worker_grads or sync_epoch kernel)")
+    lo, hi = kernels[0][0], kernels[-1][1]
+    return (f"{union_us(dev, lo, hi) / (hi - lo):.4f} over {(hi - lo) / 1e3:.1f} ms "
+            f"({len(kernels)} kernels)")
+
+
+def run_tree_fit(label: str, kw: dict, full: dict, small) -> dict:
+    """One full-width fit of phase 13 (phase 8's data, 3 workers, B=100, lr
+    0.5, 1 epoch) with `kw`: windows/s and its parts, the counters and the
+    lanes' bytes, the launches, the busy share (an epoch over the rows
+    `small`, TREE_BUSY_ROWS of them, under the profiler) and the test
+    numbers.  Checks its launches, accuracy >=
+    0.70, no eviction, that the tree or the shards acted, and at K=1 that
+    the weights are within TREE_ATOL of the knobs-off fit's."""
+    from distributed_sgd_tpu_torch.core.cluster import DevCluster
+
+    train, test, model = full["data"]
+    m = Metrics()
+    with DevCluster(model, train, test, n_workers=RPC_WORKERS, seed=0, metrics=m) as c:
+        reset_counts()
+        fit = c.master.fit_sync(1, B, RPC_LR, **kw)
+        torch.cuda.synchronize()
+        launches = (wg.worker_grads.launches, se.sync_epoch.launches)
+        lanes = c.master._last_shard_bytes if kw.get("master_shards") else None
+    counts = tree_counts(m)
+    rounds = m.counter("master.sync.rounds").value
+    epoch_s = fit.epoch_seconds[0]
+    parts = {k: round(m.histogram(name).mean * 1e3, 4) for k, name in RPC_PART_HISTS}
+    w = np.asarray(fit.weights)
+    k = kw.get("local_steps", 1)
+    err = float(np.abs(w - full["weights"]).max())
+    bitwise = bool(np.array_equal(w, full["weights"]))
+    busy = tree_busy_share(small[2], small[0], small[1], kw)
+    print(f"phase 13 {label} {kw} (full width, {RPC_WORKERS} workers, B={B}, lr {RPC_LR}, 1 "
+          f"epoch): {rounds} windows in {epoch_s:.3f} s = {rounds / epoch_s:.1f} windows/s; "
+          f"test loss {fit.test_losses[0]:.7f} accuracy {fit.test_accuracies[0]:.7f}; "
+          f"worker_grads launches {launches[0]}, sync_epoch launches {launches[1]}; max |dw| "
+          f"against the knobs-off fit {err:.3e}, bitwise {bitwise}; busy share "
+          f"({TREE_BUSY_ROWS} rows, 1 epoch) {busy}; {card_line()}", flush=True)
+    print(f"phase 13 {label} ms a window: {json.dumps(parts)}", flush=True)
+    print(f"phase 13 {label} counters: {json.dumps(counts)}; lanes (index, broadcast bytes, "
+          f"gradient bytes): {lanes}", flush=True)
+    want = ((0, RPC_WORKERS * rounds) if k > 1 else (RPC_WORKERS * rounds, 0))
+    bad = []
+    if launches != want:
+        bad.append(f"launches (worker_grads, sync_epoch) {launches}, want {want}")
+    if fit.test_accuracies[0] < RPC_ACC_FLOOR or not np.isfinite(w).all():
+        bad.append(f"test accuracy {fit.test_accuracies[0]} (want >= {RPC_ACC_FLOOR}) or "
+                   f"weights not finite")
+    if counts["master.evictions"] != 0:
+        bad.append(f"{counts['master.evictions']} evictions")
+    if kw.get("agg_tree") and counts["slave.agg.children"] == 0:
+        bad.append("no child was reduced in the tree")
+    if kw.get("master_shards") and counts["slave.shard.assembled"] != RPC_WORKERS * rounds:
+        bad.append(f"{counts['slave.shard.assembled']} rendezvous, want one a worker a round "
+                   f"({RPC_WORKERS * rounds})")
+    if k == 1 and not err <= TREE_ATOL:
+        bad.append(f"max |dw| {err:.3e} against the knobs-off fit, limit {TREE_ATOL}")
+    if bad:
+        raise AssertionError(f"phase 13 {label}: " + "; ".join(bad))
+    return {"weights": w, "launches": launches, "rounds": rounds}
+
+
+def check_shard_kill(model, train, test) -> dict:
+    """At SHARD_KILL_ROWS rows: a flat fit, then the sharded one with
+    kill_shard(1) after SHARD_KILL_AT windows: it finishes with one flat
+    fallback round, one rebuild over the survivor, no eviction, and the
+    flat fit's weights bit for bit."""
+    from distributed_sgd_tpu_torch.core.cluster import DevCluster
+
+    m = Metrics()
+    with DevCluster(model, train, test, n_workers=RPC_WORKERS, seed=0, metrics=m) as c:
+        flat = c.master.fit_sync(1, B, RPC_LR)
+        r0 = m.counter("master.sync.rounds").value
+        box = {}
+
+        def run():
+            try:
+                box["fit"] = c.master.fit_sync(1, B, RPC_LR, master_shards=TREE_SHARDS)
+            except BaseException as e:  # noqa: BLE001 - raised below, on this thread
+                box["error"] = e
+
+        reset_counts()
+        t = threading.Thread(target=run, daemon=True)
+        t.start()
+        t_end = time.monotonic() + 120
+        while (m.counter("master.sync.rounds").value < r0 + SHARD_KILL_AT
+               and time.monotonic() < t_end and t.is_alive()):
+            time.sleep(0.002)
+        c.master.kill_shard(1)
+        t.join(timeout=300)
+        if t.is_alive() or "error" in box:
+            raise AssertionError(f"kill_shard: the sharded fit did not finish: "
+                                 f"{box.get('error', 'still running')}")
+        launches = wg.worker_grads.launches
+        members = len(c.master.members)
+    counts = tree_counts(m)
+    same = bool(np.array_equal(np.asarray(box["fit"].weights), np.asarray(flat.weights)))
+    print(f"phase 13 kill_shard(1) after {SHARD_KILL_AT} windows ({SHARD_KILL_ROWS} rows, "
+          f"{TREE_SHARDS} shards): fallback rounds {counts['master.shard.fallback_rounds']}, "
+          f"rebuilds {counts['master.shard.rebuilds']}, shard count now "
+          f"{counts.get('master.shard.count')}, evictions {counts['master.evictions']}, members "
+          f"{members}; worker_grads launches {launches}; weights bitwise the flat fit's: {same}",
+          flush=True)
+    if (counts["master.shard.fallback_rounds"], counts["master.shard.rebuilds"],
+            counts["master.evictions"], members) != (1, 1, 0, RPC_WORKERS) or not same:
+        raise AssertionError(f"kill_shard: {counts}, {members} members, bitwise {same}; want "
+                             f"1 fallback round, 1 rebuild, 0 evictions, {RPC_WORKERS} members "
+                             f"and the flat fit's weights")
+    return {"launches": launches}
+
+
+def run_tree_phase(full: dict) -> dict:
+    """Phase 13 on phase 8's full-width data and knobs-off weights; returns
+    each fit's worker_grads and sync_epoch launches."""
+    t0 = time.perf_counter()
+    launches = {}
+    fits = {}
+    with cli_env(DSGD_SYNTHETIC=TREE_BUSY_ROWS):
+        busy_data = port_main.build(Config.from_env(), "cuda")
+    for label, kw in TREE_FITS:
+        fits[label] = run_tree_fit(label, kw, full, busy_data)
+        launches[label] = fits[label]["launches"]
+    del busy_data
+    with cli_env(DSGD_SYNTHETIC=SHARD_KILL_ROWS):
+        train, test, model = port_main.build(Config.from_env(), "cuda")
+    launches["kill_shard"] = check_shard_kill(model, train, test)["launches"]
+    same = np.array_equal(fits["tree"]["weights"], fits["tree again"]["weights"])
+    print(f"phase 13: the two tree fits bitwise equal: {same}", flush=True)
+    if not same:
+        raise AssertionError("phase 13: two tree fits over one plan differ")
+    print(f"tree phase seconds: {time.perf_counter() - t0:.1f}", flush=True)
+    return launches
+
+
 def main() -> None:
     phase("1 device")
     if not torch.cuda.is_available():
@@ -3298,6 +3509,8 @@ def main() -> None:
     print(f"build seconds: {time.perf_counter() - t0:.2f}")
     for name, report in reports.items():
         print(f"{name} nvcc report:\n{report.strip()}", flush=True)
+
+    share_synthetic_rows()
 
     phase("3 kernels against their plain versions")
     wg_row = check_worker_grads()
@@ -3357,14 +3570,22 @@ def main() -> None:
     phase("11 the pipelined sync RPC engine: K-step windows, delta broadcasts, streams, "
           "fan-in lanes, the stage pool and worker-local rows")
     window_row = run_pipeline_phase(rpc_full)
-    del rpc_full
 
     phase("12 online serving: Predict on the card, hot swap, weight push, the canary fleet "
           "and the serve and route roles")
     run_serving_phase(main_w, main_test)
     del main_w, main_test
 
-    phase("13 summary")
+    phase("13 the aggregation tree and the sharded master")
+    tree = run_tree_phase(rpc_full)
+    del rpc_full
+    wg_row["path"] += "; phase 13 (full width, 1 epoch each): " + ", ".join(
+        f"{label} {tree[label][0]}" for label, kw in TREE_FITS if "local_steps" not in kw)
+    wg_row["path"] += f", kill_shard (100,000 rows) {tree['kill_shard']}"
+    k_label = next(label for label, kw in TREE_FITS if "local_steps" in kw)
+    window_row["path"] += f"; phase 13 {k_label} (full width, 1 epoch) {tree[k_label][1]}"
+
+    phase("14 summary")
     print(card)
     print(json.dumps({"kernels": [wg_row, se_row, mean_row, opt_rows["momentum"],
                                   opt_rows["adam"], window_row]}))

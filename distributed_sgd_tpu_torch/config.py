@@ -22,7 +22,8 @@ barrier, ``fit_ckpt_every`` its crash-safe fit state under
 ``checkpoint_dir``, and ``elastic`` the async fit's elastic membership and,
 on the worker role, the watch of the master.  The sync fit takes the
 pipelined levers ``local_steps``, ``delta_broadcast``, ``stream``,
-``fanin_lanes`` and ``stage_pool``; the worker role maps ``row_store``
+``fanin_lanes`` and ``stage_pool``, the aggregation tree ``agg_tree``
+and the sharded master ``master_shards``; the worker role maps ``row_store``
 (data/row_store.py) and with ``host_index`` loads only its slice of the
 train rows, widened by ``host_overprovision``.  ``trace``,
 ``trace_dir``, ``trace_sample``, ``flight_recorder``, ``record``,
@@ -35,10 +36,9 @@ and validation, and ``serve_push`` streams a training role's checkpoints
 to the fleet.
 
 Settings that change what the JAX CLI does but are not ported are read
-and refused with NotImplementedError before any data is loaded: here the
-ones the JAX CLI acts on in every role, and in `refuse_for_role` the ones
-it acts on in the rpc roles only (on the mesh engine main.py warns about
-them, as the JAX mesh scenario does).  ``DSGD_KERNEL`` and
+and refused with NotImplementedError before any data is loaded (on the
+mesh engine main.py warns about the rpc topology's settings, as the JAX
+mesh scenario does).  ``DSGD_KERNEL`` and
 ``DSGD_SCATTER`` are not read: in the JAX package they pick among XLA
 formulations of the same function, so ignoring them changes no result.
 """
@@ -51,7 +51,9 @@ import os
 from dataclasses import dataclass
 from typing import Optional
 
+from distributed_sgd_tpu_torch.aggtree.plan import parse_agg_tree
 from distributed_sgd_tpu_torch.parallel.topology import parse_topology
+from distributed_sgd_tpu_torch.shardedps.plan import parse_master_shards
 
 
 def _env(name: str, default, cast):
@@ -235,10 +237,10 @@ class Config:
                              "snapshot lives under the checkpoint directory")
         if self.local_steps < 1:
             raise ValueError("local_steps must be >= 1")
-        if self.master_shards < 0:
-            raise ValueError(f"DSGD_MASTER_SHARDS must be an integer >= 0, got "
-                             f"{self.master_shards!r}")
-        if self.master_shards:
+        # the grammars are aggtree/plan.py's and shardedps/plan.py's, as in
+        # the JAX config: a typo fails here, not windows into a fit
+        parse_agg_tree(self.agg_tree)
+        if parse_master_shards(self.master_shards):
             # the JAX config's composition matrix, at construction
             for bad, knob in ((self.stream, "DSGD_STREAM"),
                               (self.quorum is not None, "DSGD_QUORUM"),
@@ -438,22 +440,6 @@ class Config:
         if (self.master_host, self.master_port) == (self.host, self.port):
             return "master"
         return "worker"
-
-    def refuse_for_role(self) -> None:
-        """Raise NotImplementedError for a setting the JAX CLI acts on in
-        this run's role that the port does not serve yet: on the rpc fits
-        (the dev role with engine 'rpc', and the master) the aggregation
-        tree and the sharded master.  The mesh engine, the worker role and
-        the serving roles ignore them (main.py warns on the mesh engine, as
-        the JAX CLI does)."""
-        role = self.role
-        if role in ("worker", "serve", "route") or (role == "dev" and self.engine == "mesh"):
-            return
-        for bad, setting, where in (
-                (self.agg_tree, "DSGD_AGG_TREE", "[A13] item 8, aggtree/"),
-                (self.master_shards, "DSGD_MASTER_SHARDS", "[A13] item 8, shardedps/")):
-            if bad:
-                raise _not_ported(f"{setting} on the {role} role", where)
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), sort_keys=True)

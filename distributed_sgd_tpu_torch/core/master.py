@@ -67,13 +67,14 @@ sparse broadcasts (``_BroadcastState``, the next version encoded ahead
 while the levers that read it are on), one persistent FitStream a worker (rpc/stream.py), the
 fan-in parsed in lanes and summed in send order (``_ArrivalDecoder``),
 and the next round's draws and requests staged on a pool during the
-barrier (``_DispatchStager``).
+barrier (``_DispatchStager``); and its aggregation tree and sharded
+master plane (`fit_sync(agg_tree=, master_shards=)`, `kill_shard`):
+aggtree/ and shardedps/.
 
 The workers compute on their own devices; the master only encodes,
 decodes and applies, and evaluates on its device.  Every lever of the JAX
 fits that is not ported raises NotImplementedError naming the ROADMAP
-item that holds it (the health monitor, the aggregation tree and the
-sharded master).
+item that holds it (the health monitor).
 """
 
 from __future__ import annotations
@@ -368,10 +369,14 @@ class _LatencyEwma:
 
 
 def _reply_weight(reply) -> int:
-    """Quorum mass of one barrier reply: one worker's gradient.  (The JAX
-    master also weighs aggregation-tree replies by their contributors,
-    ROADMAP.md Queue A [A13] item 8; the port has no tree.)"""
-    del reply
+    """Quorum mass of one barrier reply, the JAX master's: under
+    DSGD_AGG_TREE a subtree sum weighs its contributor set, a forwarded
+    ack (its gradient went up the tree) 0, and a flat reply (a hedge, a
+    worker outside the plan, or any reply of a flat fit) 1."""
+    if getattr(reply, "agg_contributors", None):
+        return len(reply.agg_contributors)
+    if getattr(reply, "agg_forwarded", False):
+        return 0
     return 1
 
 
@@ -568,7 +573,7 @@ class _BroadcastState:
     SPARSE_BREAK_EVEN = 0.5  # changed fraction above which dense is smaller
 
     def __init__(self, delta_broadcast: bool, metrics, versioned: bool = False,
-                 stage_pool=None):
+                 encode_ahead: bool = True, stage_pool=None):
         self.delta_broadcast = delta_broadcast
         self.metrics = metrics
         # pooled dispatch (DSGD_STAGE_POOL): when a stage
@@ -589,7 +594,9 @@ class _BroadcastState:
         # pending encode before reading, so the wire forms are
         # byte-identical to the synchronous path.  With those levers off
         # (and before the first advance) encoding stays lazy in populate,
-        # on the fit's thread, as the unpipelined fit encodes.
+        # on the fit's thread, as the unpipelined fit encodes; so it does
+        # with `encode_ahead` off (a shard lane's slice).
+        self.encode_ahead = bool(encode_ahead)
         self._enc_pool = None
         self._enc_future = None
         # `versioned` without delta_broadcast (the quorum barrier's mode):
@@ -648,7 +655,7 @@ class _BroadcastState:
         self._send_plan = None
         with self._stage_lock:
             self._staged = {}
-        if not (self.delta_broadcast or self._stage_ctx is not None):
+        if not (self.encode_ahead and (self.delta_broadcast or self._stage_ctx is not None)):
             return
         if self._enc_pool is None:
             import weakref
@@ -845,6 +852,15 @@ class MasterNode:
         # when its parameters are None (main.py passes the DSGD_* values)
         self.fanin_lanes = 0
         self.stage_pool = 0
+        # the same for the aggregation tree ("" = flat fan-in, "fanout:F")
+        # and the sharded master plane (0 = one master, M = M shard lanes)
+        self.agg_tree = ""
+        self.master_shards = 0
+        # the sharded fit in flight's coordinator (kill_shard reaches it),
+        # and the last sharded fit's per-lane bytes, [(index, broadcast
+        # bytes, gradient bytes)], kept after its coordinator is gone
+        self._shard_coord = None
+        self._last_shard_bytes = None
 
         self._workers: Dict[Tuple[str, int], WorkerStub] = {}
         self._channels: Dict[Tuple[str, int], grpc.Channel] = {}
@@ -1374,6 +1390,72 @@ class MasterNode:
             w = torch.as_tensor(np.asarray(weights, dtype=np.float32), device=self.device)
         return bound.evaluate(w)
 
+    # -- the aggregation tree (aggtree/) and the sharded master (shardedps/) --
+
+    def _build_tree_plan(self, keys, fanout: int):
+        """The reduce tree over the member list (aggtree/plan.py, pure:
+        each rebuild at the same membership is the same plan).  Registers
+        the tree gauges, so only a fit with DSGD_AGG_TREE calls it."""
+        from distributed_sgd_tpu_torch.aggtree import build_plan
+
+        plan = build_plan(keys, fanout, seed=self.seed)
+        self.metrics.gauge(metrics_mod.TREE_DEPTH).set(plan.depth)
+        self.metrics.gauge(metrics_mod.TREE_EDGES).set(plan.n_edges)
+        flight.record("tree.plan", members=len(keys), fanout=int(fanout), depth=plan.depth,
+                      edges=plan.n_edges, aggregators=len(plan.aggregators()),
+                      digest=plan.digest()[:12])
+        self.log.info("aggregation tree: %r", plan)
+        return plan
+
+    def kill_shard(self, index: int) -> None:
+        """Declare master shard `index` of the sharded fit in flight dead:
+        the next window is one flat single-master round, then the shard
+        plan rebuilds over the survivors, and no live worker is evicted.
+        RuntimeError when no sharded fit is in flight."""
+        coord = self._shard_coord
+        if coord is None:
+            raise RuntimeError("kill_shard: no sharded fit in flight (DSGD_MASTER_SHARDS)")
+        coord.kill(int(index))
+
+    def _tree_contributors(self, replies) -> int:
+        """The workers whose gradients a tree round's replies carry: a
+        subtree sum names them, a flat reply (a hedge, a dead parent's
+        child) is one, a forwarded ack (summed as zero) none; so a partial
+        round's mean is over its contributors.  Counts the partial and
+        flat replies."""
+        n = 0
+        for r in replies:
+            if r.agg_contributors:
+                n += len(r.agg_contributors)
+            elif not r.agg_forwarded:
+                n += 1
+            if r.agg_partial:
+                self.metrics.counter(metrics_mod.TREE_PARTIAL).increment()
+            if r.agg_flat:
+                self.metrics.counter(metrics_mod.TREE_FLAT_FALLBACK).increment()
+        return max(1, n)
+
+    @staticmethod
+    def _annotate_tree(req, key, plan, agg_round: int, grad_timeout_s: float) -> None:
+        """Stamp one worker's GradientRequest with its tree role.  A root
+        child with no children gets no stamp: its request and reply are
+        the flat wire's, so a trivial plan stamps nothing."""
+        parent = plan.parent.get(key)
+        kids = plan.children.get(key, ())
+        if parent is None and not kids:
+            return
+        if parent is not None:
+            req.agg_parent = f"{parent[0]}:{parent[1]}"
+        req.agg_round = int(agg_round)
+        if kids:
+            del req.agg_children[:]
+            req.agg_children.extend(f"{c[0]}:{c[1]}" for c in kids)
+            # the child-wait budget scaled by subtree height: the deepest
+            # nodes time out first, so partial sums cascade bottom-up
+            # within ~60% of the round's deadline
+            slice_s = 0.6 * float(grad_timeout_s) / max(1, plan.depth)
+            req.agg_wait_ms = max(1, int(1000.0 * plan.height.get(key, 1) * slice_s))
+
     # -- the sync fit (MasterSync.scala) -------------------------------------
 
     def fit_sync(
@@ -1441,7 +1523,26 @@ class MasterNode:
         - `stage_pool` P (DSGD_STAGE_POOL): the next round's sample draws
           (one task, the serial order, the generator restored on any
           discard) and request builds run on a P-thread pool during the
-          barrier (None: `self.stage_pool`).
+          barrier (None: `self.stage_pool`);
+        - `agg_tree` "fanout:F" (DSGD_AGG_TREE; None: `self.agg_tree`):
+          the workers of a reduce tree over the registration order
+          (aggtree/plan.py, rebuilt on any membership change) add their
+          children's replies onto their own in the stamped order and send
+          one sum up; the master divides the sum of the root children's
+          replies by the count of contributors they name, so a partial
+          round averages honestly.  The weights equal the flat fit's up to
+          f32 reassociation of the subtree sums, and two fits over one
+          plan are equal bit for bit;
+        - `master_shards` M (DSGD_MASTER_SHARDS; None:
+          `self.master_shards`): the weights are range-partitioned across
+          M shard lanes (shardedps/), each broadcasting its slice (deltas
+          a lane with `delta_broadcast`) and summing its slice of the
+          replies; each worker computes its gradient once for all M legs.
+          The weights equal the flat fit's bit for bit.  With `agg_tree`
+          each lane has its own shard-colored tree.  It refuses stream,
+          quorum, local_steps > 1, fan-in lanes and the stage pool, in the
+          JAX words.  `kill_shard` costs one flat round, then the plan
+          rebuilds over the surviving lanes.
 
         Quorum barrier (`quorum=Q`, DSGD_QUORUM): a window closes when
         every reply has landed, or when the soft deadline
@@ -1468,19 +1569,11 @@ class MasterNode:
         checkpoint is newer; a finished snapshot runs nothing.  Snapshots
         do not change the result.
 
-        The JAX fit_sync's health monitor, aggregation tree and sharded
-        master are not ported; a non-default value raises
-        NotImplementedError (ROADMAP.md Queue A [A13] item 8)."""
-        levers = (
-            (health is not None, "health (the training-health monitor)",
-             "[A13] item 8, telemetry/"),
-            (bool(agg_tree), f"agg_tree={agg_tree!r}", "[A13] item 8, aggtree/"),
-            (bool(master_shards), f"master_shards={master_shards}",
-             "[A13] item 8, shardedps/"),
-        )
-        for bad, what, where in levers:
-            if bad:
-                raise not_ported(f"fit_sync({what})", where)
+        The JAX fit_sync's health monitor is not ported; a `health`
+        raises NotImplementedError (ROADMAP.md Queue A [A13] item 8)."""
+        if health is not None:
+            raise not_ported("fit_sync(health (the training-health monitor))",
+                             "[A13] item 8, telemetry/")
         if on_worker_death not in ("resplit", "fail"):
             raise ValueError(f"on_worker_death must be resplit|fail, got {on_worker_death!r}")
         if quorum is not None and int(quorum) < 1:
@@ -1493,11 +1586,31 @@ class MasterNode:
         # must walk the same cursor layout
         lanes = max(0, int(self.fanin_lanes if fanin_lanes is None else fanin_lanes))
         pool_n = int(self.stage_pool if stage_pool is None else stage_pool)
+        # the aggregation tree and the sharded plane: off, no plan, lane or
+        # instrument exists and the wire is the flat fit's
+        from distributed_sgd_tpu_torch.aggtree import parse_agg_tree
+        from distributed_sgd_tpu_torch.shardedps import parse_master_shards
+
+        tree_fanout = parse_agg_tree((self.agg_tree if agg_tree is None else agg_tree) or "")
+        n_shards = parse_master_shards(
+            self.master_shards if master_shards is None else master_shards)
+        if n_shards:
+            for bad, knob in ((stream, "DSGD_STREAM"),
+                              (quorum is not None, "DSGD_QUORUM"),
+                              (local_steps > 1, "DSGD_LOCAL_STEPS"),
+                              (lanes > 0, "DSGD_FANIN_LANES"),
+                              (pool_n > 0, "DSGD_STAGE_POOL")):
+                if bad:
+                    raise ValueError(f"DSGD_MASTER_SHARDS does not compose with {knob} "
+                                     f"(docs/MASTER_SHARDING.md composition table)")
         opt = resolve_optimizer(optimizer, momentum)
         opt_kind = opt_kind_tag(optimizer)
         self._require_ready()
         members = self._members()
         keys = [k for k, _ in members]
+        # with shards, each lane builds a shard-colored tree of its own
+        tree_plan = (self._build_tree_plan(keys, tree_fanout)
+                     if tree_fanout and not n_shards else None)
         parts = split(len(self.train), len(members))
         max_samples = max(len(p) for p in parts)
         w = (np.zeros(self.model.n_features, dtype=np.float32) if initial_weights is None
@@ -1592,6 +1705,13 @@ class MasterNode:
             # base while a pre-draw is pending
             return stager.rng_state(rng) if stager is not None else rng.bit_generator.state
 
+        shard_coord = None
+        if n_shards:
+            from distributed_sgd_tpu_torch.shardedps.coordinator import ShardedCoordinator
+
+            shard_coord = self._shard_coord = ShardedCoordinator(
+                self, n_shards, self.model.n_features, keys, delta_broadcast, tree_fanout)
+        agg_round_seq = 0  # a fresh tree round each attempt of a window
         rounds_since_save = 0
         stopped_early = False
         try:
@@ -1623,6 +1743,15 @@ class MasterNode:
                         members, keys = current, [k for k, _ in current]
                         parts = split(len(self.train), len(members))
                         max_samples = max(len(p) for p in parts)
+                        if tree_plan is not None:
+                            # the tree is a pure function of the member list:
+                            # rebuilt on the hook the resplit runs on
+                            tree_plan = self._build_tree_plan(keys, tree_fanout)
+                            m.counter(metrics_mod.TREE_REBUILDS).increment()
+                            flight.record("tree.rebuild", members=len(keys),
+                                          depth=tree_plan.depth)
+                        if shard_coord is not None:
+                            shard_coord.on_membership(keys)
                         bcast.forget_missing(keys)  # a rejoin starts from full weights
                         if use_stream or stager is not None:
                             bcast.stage_for(keys, fit_token, local_steps, batch_size,
@@ -1642,13 +1771,14 @@ class MasterNode:
                                                 version=bcast.version)
                     with wspan:
                         futs = []
+                        agg_round_seq += 1
                         ids_by_key: Dict[Tuple[str, int], np.ndarray] = {}
                         rb_sent: Dict[Tuple[str, int], int] = {}
                         # with fan-in lanes each reply is parsed as it
                         # arrives: the full barrier also sums it then, in
                         # send order; a quorum's contributors are known only
                         # at round close.  Without lanes every reply is
-                        # decoded after the barrier
+                        # decoded after the barrier (and always under shards)
                         decoder = None
                         if lanes:
                             grad_acc.fill(0.0)
@@ -1660,6 +1790,8 @@ class MasterNode:
                             ids = (staged_ids[key] if staged_ids is not None
                                    else _draw_ids(rng, part, batch, window_span))
                             ids_by_key[key] = ids
+                            if shard_coord is not None:
+                                continue  # the lanes send, after the flat fit's draws
                             frame = req = None
                             if use_stream:
                                 frame = bcast.take_staged_frame(key)
@@ -1683,6 +1815,12 @@ class MasterNode:
                                     req.batch_size = batch_size
                                     req.learning_rate = learning_rate
                                 bcast.populate(req, key, w)
+                            if tree_plan is not None and not tree_plan.trivial:
+                                # staged requests and stream frames are
+                                # stamped in place: the role rides every
+                                # transport
+                                self._annotate_tree(req, key, tree_plan, agg_round_seq,
+                                                    grad_timeout_s)
                             rb = ef_rollback.pop(key, None)
                             if rb is not None:
                                 req.ef_rollback_version = rb
@@ -1692,6 +1830,10 @@ class MasterNode:
                             futs.append((key, fut))
                             if decoder is not None:
                                 decoder.watch(len(futs) - 1, fut)
+                        if shard_coord is not None:
+                            agg_round_seq = shard_coord.dispatch(
+                                members, ids_by_key, w, fit_token, grad_timeout_s,
+                                agg_round_seq)
                         if stager is not None and batch + window_span < max_samples:
                             # the next round's draws run on the pool while
                             # this round's replies fly (an epoch's last round
@@ -1699,7 +1841,14 @@ class MasterNode:
                             stager.stage(rng, keys, parts, epoch, batch + window_span,
                                          window_span)
                         t_sent = time.perf_counter()
-                        if quorum is None:
+                        if shard_coord is not None:
+                            # M x N legs, collapsed a worker
+                            good, stale, failed = shard_coord.collect(grad_bytes)
+                            replies, satisfied = None, False
+                            if (straggler_soft_s is not None
+                                    and time.perf_counter() - t_batch > straggler_soft_s):
+                                stalled.increment()
+                        elif quorum is None:
                             ok, failed = _await_futures(futs, bytes_counter=grad_bytes)
                             if decoder is not None:
                                 decoder.finish(futs)
@@ -1721,7 +1870,8 @@ class MasterNode:
                                 rb_sent)
                             if not satisfied:
                                 flight.record("quorum.below", epoch=epoch, batch=int(batch),
-                                              version=bcast.version, got=len(good),
+                                              version=bcast.version,
+                                              got=sum(_reply_weight(r) for _, r in good),
                                               quorum=min(quorum, len(members)))
                                 flight.dump("below_quorum", min_interval_s=10.0)
                         t_replies = time.perf_counter()
@@ -1770,15 +1920,22 @@ class MasterNode:
                             # still be counting `parsed`)
                             fanin_parsed.increment(decoder.reused if decoder.defer
                                                    else decoder.decoded)
-                        if decoder is not None and decoder.defer:
-                            grad_acc.fill(0.0)
-                            for reply in replies:
-                                decoder.add_into(reply, grad_acc)
-                        elif decoder is None or decoder.decoded != len(replies):
-                            grad_acc.fill(0.0)
-                            for reply in replies:
-                                codec.decode_grad_into(reply, grad_acc)
-                        grad_acc /= len(replies)
+                        if shard_coord is not None:
+                            # each lane sums its slice of the replies and
+                            # divides by its own contributors
+                            shard_coord.accumulate(grad_acc)
+                        else:
+                            if decoder is not None and decoder.defer:
+                                grad_acc.fill(0.0)
+                                for reply in replies:
+                                    decoder.add_into(reply, grad_acc)
+                            elif decoder is None or decoder.decoded != len(replies):
+                                grad_acc.fill(0.0)
+                                for reply in replies:
+                                    codec.decode_grad_into(reply, grad_acc)
+                            grad_acc /= (self._tree_contributors(replies)
+                                         if tree_plan is not None and not tree_plan.trivial
+                                         else len(replies))
                         t_decoded = time.perf_counter()
                         w_old = w
                         if local_steps > 1 and opt.kind == "sgd":
@@ -1795,7 +1952,12 @@ class MasterNode:
                         else:
                             w, opt_state = self._apply_update(w, grad_acc, learning_rate, opt,
                                                               opt_state)
-                        bcast.advance(w, w_old)
+                        if shard_coord is not None:
+                            # the lanes' versions advance over their slices;
+                            # a kill just taken in rebuilds the plan here
+                            shard_coord.advance(w, w_old)
+                        else:
+                            bcast.advance(w, w_old)
                         t_applied = time.perf_counter()
                         phase_s[SYNC_DECODE_SECONDS].record(t_decoded - t_replies)
                         phase_s[SYNC_APPLY_SECONDS].record(t_applied - t_decoded)
@@ -1834,7 +1996,11 @@ class MasterNode:
                     stopped_early = True
                     break
         finally:
-            # the streams and the stage pool are the fit's
+            # the streams, the stage pool and the shard coordinator are the
+            # fit's; the lanes' byte ledger outlives it
+            if shard_coord is not None:
+                self._last_shard_bytes = shard_coord.bytes_by_lane()
+                self._shard_coord = None
             if use_stream:
                 self._close_streams()
             if stager is not None:
@@ -1906,7 +2072,10 @@ class MasterNode:
             (stale if reply.stale_version else good).append((key, reply))
         uncovered = [k for k, _ in pending] + [k for k, _ in failed] + [k for k, _ in stale]
         h_ok = []
-        if uncovered and len(good) >= quorum_n and hedge and good:
+        # the quorum counts contributors (_reply_weight): Q forwarded acks
+        # whose gradients sit in a straggling aggregator are not Q
+        good_weight = sum(_reply_weight(r) for _, r in good)
+        if uncovered and good_weight >= quorum_n and hedge and good:
             # each missing slice to the fastest responders: the straggler's
             # drawn ids again, with this window's weights (header-only under
             # delta broadcast: the donor just proved this version)

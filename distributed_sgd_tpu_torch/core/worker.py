@@ -67,10 +67,19 @@ reads them into a scratch batch; without a reader such ids are refused.
 Each resident slice is one ``_Resident`` snapshot, swapped whole, so a
 body computes on one slice, its bounds and its sentinel row.
 
-Every request the port does not serve yet answers gRPC ``UNIMPLEMENTED``
-with a message that names the ROADMAP item that holds it, never a wrong
-reply: a Gradient with ``shard_count`` or ``agg_*``, and the methods
-``AggregateGrad`` and ``Metrics``.
+The aggregation tree (aggtree/) and the sharded master plane
+(shardedps/) are served as the JAX worker serves them: a tree-stamped
+Gradient collects its children's pushes (``AggregateGrad``), adds them
+onto its own gradient in the stamped order and sends the sum up or to the
+master; a shard-tagged Gradient meets its round's other legs, the
+gradient is computed once for all of them, and each replies its slice.
+Both go through the same ``compute_gradient`` / ``compute_local_window``
+as a flat body, and each state (``Reducer``, ``ShardAssembler``) is built
+only by the first request that needs it.
+
+A request the port does not serve yet answers gRPC ``UNIMPLEMENTED`` with
+a message that names the ROADMAP item that holds it, never a wrong reply:
+the method ``Metrics``.
 """
 
 from __future__ import annotations
@@ -107,12 +116,6 @@ from distributed_sgd_tpu_torch.utils.log import node_logger
 # where each unserved request kind is ported (ROADMAP.md Queue A, item 8's
 # modules)
 NOT_PORTED = {
-    "shard_count": "a sharded-master leg (DSGD_MASTER_SHARDS, shardedps/): "
-                   "ROADMAP.md Queue A [A13] item 8",
-    "agg": "an aggregation-tree request (DSGD_AGG_TREE, aggtree/): "
-           "ROADMAP.md Queue A [A13] item 8",
-    "AggregateGrad": "the aggregation tree (DSGD_AGG_TREE, aggtree/): "
-                     "ROADMAP.md Queue A [A13] item 8",
     "Metrics": "the cluster telemetry scrape (DSGD_TELEMETRY, telemetry/): "
                "ROADMAP.md Queue A [A13] item 8",
 }
@@ -267,6 +270,11 @@ class WorkerNode:
         self._profile = measure.ProfileWindow(
             profile_dir, profile_steps, logger=self.log, name=f"worker-{self.port}",
             cuda=self.device.type == "cuda")
+        # the aggregation tree's reduce role and the shard rendezvous, each
+        # built by the first request that needs it (none with both off)
+        self._agg = None
+        self._shard_asm = None
+        self._agg_lock = threading.Lock()
         add_worker_servicer(self.server, _WorkerServicer(self), node=self.node_label)
         self._registered = threading.Event()
         self._stopped = threading.Event()
@@ -280,6 +288,29 @@ class WorkerNode:
     def n_rows(self) -> int:
         """Resident rows."""
         return self._resident.n
+
+    def _ensure_reducer(self):
+        """The aggregation tree's reduce role (aggtree/reduce.py), built on
+        the first tree-stamped request or child push: a worker of a flat fit
+        registers no tree instrument."""
+        if self._agg is None:
+            with self._agg_lock:
+                if self._agg is None:
+                    from distributed_sgd_tpu_torch.aggtree.reduce import Reducer
+
+                    self._agg = Reducer(self)
+        return self._agg
+
+    def _ensure_shard_assembler(self):
+        """The shard rendezvous (shardedps/assemble.py), built on the first
+        shard-tagged request, as the reducer above."""
+        if self._shard_asm is None:
+            with self._agg_lock:
+                if self._shard_asm is None:
+                    from distributed_sgd_tpu_torch.shardedps.assemble import ShardAssembler
+
+                    self._shard_asm = ShardAssembler(metrics=self.metrics, log=self.log)
+        return self._shard_asm
 
     # -- lifecycle (Slave.scala:40-77) -------------------------------------
 
@@ -787,22 +818,22 @@ class _WorkerServicer:
         return pb.ForwardReply(predictions=preds)
 
     def Gradient(self, request, context):  # noqa: N802
-        return self._gradient_update(request, context)
+        return self._gradient_update(request)
 
-    def _gradient_update(self, request, context):
+    def _gradient_update(self, request):
         """One sync-window Gradient body, shared by the unary Gradient and
         the FitStream loop: streaming changes the transport, never the
-        math.  The weights resolve by version (a stale replica replies
-        ``stale_version`` and computes nothing); ``local_steps`` K > 1 runs
-        the K-step window; a hedge (another worker's slice under the
-        quorum barrier) is counted and replied as computed; an EF rollback
-        is a no-op here."""
-        if request.shard_count:
-            _not_ported(context, "shard_count")
-        if request.agg_parent or request.agg_children:
-            _not_ported(context, "agg")
+        math.  In the JAX worker's order: an EF rollback (a no-op here); a
+        shard-tagged leg goes to the rendezvous; else the weights resolve
+        by version (a stale replica replies ``stale_version`` and computes
+        nothing); ``local_steps`` K > 1 runs the K-step window; a hedge
+        (another worker's slice under the quorum barrier) is counted and
+        replied flat as computed; a tree-stamped body reduces and routes
+        its subtree's sum; any other is the plain reply."""
         if request.ef_rollback_version:
             self.w.rollback_sync_ef(request.ef_rollback_version)
+        if request.shard_count:
+            return self._sharded_update(request)
         w, stale = self.w.resolve_request_weights(request)
         if stale:
             self.w.metrics.counter("slave.sync.stale").increment()
@@ -820,10 +851,97 @@ class _WorkerServicer:
                 g = self.w.compute_gradient(w, ids)
         if request.hedge:
             self.w.metrics.counter("slave.sync.hedge").increment()
+            return self._encode_reply(request, g, k)
+        if request.agg_parent or request.agg_children:
+            return self._agg_gradient(request, g, k)
+        return self._encode_reply(request, g, k)
+
+    def _sharded_update(self, request):
+        """One lane's leg of a sharded round (shardedps/assemble.py): this
+        shard's slice resolves, the legs meet, the gradient is computed
+        once a round through ``compute_gradient``, and this leg replies
+        its [shard_lo, shard_hi) slice of that one host array, through the
+        flat or the tree tail."""
+        w = self.w
+
+        def compute(weights, ids):
+            with measure.span("slave.grad.compute", metrics=w.metrics, root=False,
+                              samples=len(ids), local_steps=1):
+                return w.compute_gradient(weights, ids)
+
+        g = w._ensure_shard_assembler().gradient(request, compute)
+        if g is None:
+            # a slice that did not resolve, or a rendezvous that timed out:
+            # every leg replies stale and the retry sends full slices
+            w.metrics.counter("slave.sync.stale").increment()
+            return pb.GradUpdate(stale_version=True, shard_index=request.shard_index)
+        g_slice = np.ascontiguousarray(g[request.shard_lo:request.shard_hi])
+        k = request.local_steps
+        if request.agg_parent or request.agg_children:
+            msg = self._agg_gradient(request, g_slice, k)
+        else:
+            msg = self._encode_reply(request, g_slice, k)
+        msg.shard_index = request.shard_index
+        return msg
+
+    def _encode_reply(self, request, g, k):
+        """The reply's encode tail, for a flat body, a hedge, a subtree sum
+        and a shard slice alike: ``codec.encode_grad`` and, for a K-step
+        window, ``n_steps``.  (The JAX worker's compressed arm,
+        ``encode_sync_grad`` with its error-feedback residual, goes here
+        with DSGD_COMPRESS, ROADMAP.md Queue A [A13] item 8, compress/;
+        a hedge stays uncompressed: its slice's residual is the
+        straggler's.)"""
+        del request
         with measure.span("slave.grad.encode", metrics=self.w.metrics, root=False):
             msg = codec.encode_grad(g)
         if k > 1:
             msg.n_steps = k  # steps a round, for the wire's accounting
+        return msg
+
+    def _agg_gradient(self, request, g, k):
+        """A tree-stamped body (aggtree/reduce.py): the stamped children's
+        sums are added onto this node's gradient in the stamped order
+        (a missing one skipped, the reply tagged partial), the reply names
+        every contributor, and the sum is pushed to the stamped parent
+        (the reply to the master is then an armless ``agg_forwarded`` ack,
+        summed as zero) or, for a root child, replied.  A failed push
+        replies to the master directly, tagged ``agg_flat``.  The encode
+        tail runs once a round either way."""
+        from distributed_sgd_tpu_torch.aggtree import reduce as agg_reduce
+
+        w = self.w
+        red = w._ensure_reducer()
+        contributors = [w.node_label]
+        partial = False
+        if request.agg_children:
+            children = list(request.agg_children)
+            with measure.span("slave.agg.reduce", metrics=w.metrics, root=False,
+                              children=len(children)):
+                got = red.collect(request.fit_token, request.agg_round, children,
+                                  agg_reduce.wait_budget_s(request))
+                g = red.reduce(np.asarray(g, dtype=np.float32),
+                               [got[c] for c in children if c in got])
+            for c in children:
+                u = got.get(c)
+                if u is None:
+                    partial = True
+                else:
+                    contributors.extend(u.agg_contributors or [c])
+        msg = self._encode_reply(request, g, k)
+        msg.agg_contributors.extend(contributors)
+        if partial:
+            msg.agg_partial = True
+            w.metrics.counter(metrics_mod.AGG_PARTIAL).increment()
+        if request.agg_parent:
+            if red.push_up(request.agg_parent, request.fit_token, request.agg_round, msg):
+                return pb.GradUpdate(agg_forwarded=True)
+            # counted here, not at the master: a dead parent usually fails
+            # its own reply too, and the master discards that round
+            w.metrics.counter(metrics_mod.AGG_FLAT).increment()
+            msg.agg_flat = True
+            flight.record("agg.flat_fallback", worker=w.node_label, parent=request.agg_parent,
+                          round=int(request.agg_round))
         return msg
 
     def StartAsync(self, request, context):  # noqa: N802
@@ -849,7 +967,11 @@ class _WorkerServicer:
         _not_ported(context, "Metrics")
 
     def AggregateGrad(self, request, context):  # noqa: N802
-        _not_ported(context, "AggregateGrad")
+        """A tree child's push: buffered for the parent's Gradient body in
+        flight or to come (aggtree/reduce.py)."""
+        self.w._ensure_reducer().offer(request.fit_token, request.round, request.origin,
+                                       request.update)
+        return pb.Ack()
 
     def FitStream(self, request_iterator, context):  # noqa: N802
         """The streaming sync fan-out (DSGD_STREAM): one persistent bidi
@@ -867,7 +989,7 @@ class _WorkerServicer:
                 if frame.WhichOneof("payload") != "request":
                     continue  # an arm this worker does not know is skipped
                 m.counter(metrics_mod.SLAVE_STREAM_FRAMES).increment()
-                update = self._gradient_update(frame.request, context)
+                update = self._gradient_update(frame.request)
                 yield pb.Frame(seq=frame.seq, fit_token=frame.fit_token, update=update)
         except grpc.RpcError:
             # the client tore the stream down (the fit ended, a cancel, a

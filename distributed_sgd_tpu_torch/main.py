@@ -290,6 +290,7 @@ def _rpc_fit(cfg: Config, master) -> FitResult:
         optimizer=cfg.optimizer, momentum=cfg.momentum,
         local_steps=cfg.local_steps, delta_broadcast=cfg.delta_broadcast,
         stream=cfg.stream, fanin_lanes=cfg.fanin_lanes, stage_pool=cfg.stage_pool,
+        agg_tree=cfg.agg_tree, master_shards=cfg.master_shards,
         quorum=cfg.quorum, straggler_soft_s=cfg.straggler_soft_s, **_fit_state_args(cfg))
 
 
@@ -628,7 +629,6 @@ def main(device: DeviceLike = None, cfg: Optional[Config] = None) -> Run:
     setup_logging()
     cfg = Config.from_env() if cfg is None else cfg
     role = cfg.role
-    cfg.refuse_for_role()
     log.info("host: %s (%s)", socket.gethostname(), sys.platform)
     log.info("config: %s", cfg.to_json())
     log.info("role: %s", role)

@@ -413,6 +413,34 @@ DATA_RELOADS = "slave.data.reloads"              # counter: resident-slice reloa
 DATA_RELOAD_ROWS = "slave.data.reload.rows"      # counter: rows read for reloads
 HEDGE_SCRATCH = "slave.data.hedge.scratch"       # counter: scratch-served hedges
 
+# -- the aggregation tree (aggtree/; DSGD_AGG_TREE) ----------------------------
+# Registered only when DSGD_AGG_TREE stamps a non-trivial plan: the master
+# side on the first plan build, the worker side when its Reducer is built
+# lazily.  With the knob off none of these exists.
+TREE_DEPTH = "master.tree.depth"                 # gauge: longest root-to-leaf edge chain
+TREE_EDGES = "master.tree.edges"                 # gauge: worker->worker edges in the plan
+TREE_PARTIAL = "master.tree.partial"             # counter: partial subtree sums accepted
+TREE_FLAT_FALLBACK = "master.tree.flat_fallback"  # counter: replies that bypassed a dead parent
+TREE_REBUILDS = "master.tree.rebuilds"           # counter: mid-fit plan rebuilds
+AGG_CHILDREN = "slave.agg.children"              # counter: child updates reduced here
+AGG_BYTES_IN = "slave.agg.bytes_in"              # counter: child push bytes received
+AGG_BYTES_UP = "slave.agg.bytes_up"              # counter: bytes pushed to the parent
+AGG_PARTIAL = "slave.agg.partial"                # counter: reduced rounds missing a child
+AGG_FLAT = "slave.agg.flat"                      # counter: dead-parent flat fallbacks (child side)
+
+# -- the sharded master plane (shardedps/; DSGD_MASTER_SHARDS) -----------------
+# Registered only when DSGD_MASTER_SHARDS builds a shard plan: the
+# coordinator's at lane build, the worker's when its ShardAssembler is
+# built lazily.  With the knob off none of these exists.
+SHARD_COUNT = "master.shard.count"               # gauge: lanes in the live shard plan
+SHARD_ROUNDS = "master.shard.rounds"             # counter: sharded fan-out rounds
+SHARD_REBUILDS = "master.shard.rebuilds"         # counter: plan rebuilds after a shard loss
+SHARD_FALLBACK_ROUNDS = "master.shard.fallback_rounds"  # counter: flat single-master rounds
+SHARD_BCAST_BYTES = "master.shard.bcast.bytes"   # counter: slice broadcast bytes, all lanes
+SHARD_GRAD_BYTES = "master.shard.grad.bytes"     # counter: slice fan-in bytes, all lanes
+SHARD_ASSEMBLED = "slave.shard.assembled"        # counter: rendezvous rounds computed once
+SHARD_ASM_TIMEOUTS = "slave.shard.timeouts"      # counter: rendezvous waits that expired stale
+
 # -- the RPC async fit (core/master.py fit_async, core/worker.py) ---------------
 #
 # A worker counts its local steps under `slave.async.batch` (k a dispatch)

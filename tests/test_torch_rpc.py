@@ -241,26 +241,45 @@ def test_the_worker_gradient_is_worker_grads_plus_the_regularizer(data):
 
 @pytest.mark.parametrize("field", ["shard_count", "agg_parent", "Metrics", "AggregateGrad"])
 def test_unserved_requests_answer_unimplemented_with_their_roadmap_item(data, field):
+    """`Metrics` is the one request left unserved, and answers UNIMPLEMENTED
+    naming its ROADMAP item.  The others once did too, and are served
+    since the aggregation tree and the sharded master were ported: a
+    one-lane shard leg replies its slice (all of the flat gradient), a
+    request stamped with an unreachable parent replies its own gradient
+    to the master tagged agg_flat, and a child's push is acknowledged."""
     train, test, _ = data
+    w0 = np.random.default_rng(3).normal(size=D).astype(np.float32) * 0.1
     with DevCluster(_models(data)[1], _torch(train), _torch(test), n_workers=1) as c:
         w = c.workers[0]
         ch = new_channel("127.0.0.1", w.port)
         stub = WorkerStub(ch)
-        req = pb.GradientRequest(samples=[0, 1], weights=codec.encode_tensor(np.zeros(D)))
+        plain = pb.GradientRequest(samples=[0, 1], weights=codec.encode_tensor(w0))
+        req = pb.GradientRequest()
+        req.CopyFrom(plain)
         call = stub.Gradient
         if field == "shard_count":
-            req.shard_count = 2
+            req.shard_count, req.shard_hi, req.fit_token = 1, D, 5
         elif field == "agg_parent":
             req.agg_parent = "127.0.0.1:1"
         elif field == "Metrics":
             call, req = stub.Metrics, pb.Empty()
         else:
-            call, req = stub.AggregateGrad, pb.AggGrad()
-        with pytest.raises(grpc.RpcError) as e:
-            call(req, timeout=10)
+            call, req = stub.AggregateGrad, pb.AggGrad(fit_token=5, round=1, origin="c:1")
+        if field == "Metrics":
+            with pytest.raises(grpc.RpcError) as e:
+                call(req, timeout=10)
+        else:
+            got, want = call(req, timeout=10), stub.Gradient(plain, timeout=10)
         ch.close()
-    assert e.value.code() == grpc.StatusCode.UNIMPLEMENTED
-    assert "ROADMAP.md Queue A" in e.value.details()
+    if field == "Metrics":
+        assert e.value.code() == grpc.StatusCode.UNIMPLEMENTED
+        assert "ROADMAP.md Queue A" in e.value.details()
+    elif field == "AggregateGrad":
+        assert got == pb.Ack() and w._agg is not None
+    else:
+        np.testing.assert_array_equal(codec.decode_grad(got), codec.decode_grad(want))
+        if field == "agg_parent":
+            assert got.agg_flat and list(got.agg_contributors) == [w.node_label]
 
 
 @pytest.mark.parametrize("field", ["hedge", "ef_rollback_version"])
@@ -293,10 +312,19 @@ def test_the_worker_serves_the_quorum_barriers_requests(data, field):
     {"agg_tree": "fanout:2"}, {"master_shards": 2}, {"health": object()}],
     ids=lambda kw: "+".join(kw))
 def test_fit_sync_levers_not_ported_raise(data, kw):
+    """The health monitor is not ported and raises.  The aggregation tree
+    and the sharded master raised too until they were ported: over one
+    worker they give the plain fit's weights bit for bit (a trivial tree,
+    and two lanes over disjoint ranges)."""
     train, test, _ = data
     with DevCluster(_models(data)[1], _torch(train), _torch(test), n_workers=1) as c:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A"):
-            c.master.fit_sync(1, B, 0.5, **kw)
+        if "health" in kw:
+            with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A"):
+                c.master.fit_sync(1, B, 0.5, **kw)
+            return
+        plain = c.master.fit_sync(1, B, 0.5)
+        got = c.master.fit_sync(1, B, 0.5, **kw)
+    np.testing.assert_array_equal(got.weights, plain.weights)
 
 
 @pytest.mark.parametrize("kw", [

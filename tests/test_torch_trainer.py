@@ -178,16 +178,31 @@ _RPC = {"DSGD_ENGINE": "rpc"}
     # the rpc fits (dev engine=rpc, and the master role); DSGD_ASYNC=1,
     # DSGD_ASYNC_DRAIN, the fault tolerance and the pipelined levers run
     # there now (tests/test_torch_rpc_async.py, the test after this one,
-    # tests/test_torch_rpc_pipeline.py)
+    # tests/test_torch_rpc_pipeline.py), and so do the aggregation tree and
+    # the sharded master (the next three: accepted now, see the test;
+    # tests/test_torch_aggtree.py, tests/test_torch_shardedps.py)
     {**_RPC, "DSGD_AGG_TREE": "fanout:2"},
     {**_RPC, "DSGD_MASTER_SHARDS": "2"},
     {**_MASTER, "DSGD_AGG_TREE": "fanout:2", "DSGD_LOCAL_STEPS": "2"},
 ], ids=lambda env: "+".join(f"{k[5:].lower()}={v}" for k, v in env.items()
                             if k not in ("DSGD_MASTER_HOST", "DSGD_NODE_HOST")))
 def test_settings_not_ported_raise_before_any_data_loads(env, monkeypatch):
-    # the JAX CLI acts on each of these; the port must not ignore one
+    # the JAX CLI acts on each of these; the port must not ignore one.
+    # DSGD_AGG_TREE and DSGD_MASTER_SHARDS once raised here too; they are
+    # accepted now, and the run goes on to load its data
     for k, v in env.items():
         monkeypatch.setenv(k, v)
+    if "DSGD_AGG_TREE" in env or "DSGD_MASTER_SHARDS" in env:
+        class _Loaded(Exception):
+            pass
+
+        def loaded(cfg):
+            raise _Loaded
+
+        monkeypatch.setattr(tmain, "load_data", loaded)
+        with pytest.raises(_Loaded):
+            tmain.main(device="cpu")
+        return
     monkeypatch.setattr(tmain, "load_data", lambda cfg: pytest.fail("data was loaded"))
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A"):
         tmain.main(device="cpu")
@@ -322,7 +337,6 @@ def test_the_mesh_engine_warns_about_the_rpc_settings_it_ignores(env, words, mon
         monkeypatch.setenv(k, v)
     cfg = Config.from_env()
     assert (cfg.role, cfg.engine) == ("dev", "mesh")
-    cfg.refuse_for_role()  # the mesh engine ignores them: no refusal
     with caplog.at_level(logging.WARNING, logger="dsgd"):
         tmain.warn_mesh_ignored(cfg)
     assert words in caplog.text
