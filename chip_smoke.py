@@ -54,9 +54,10 @@ Phases, each fatal (a traceback and a non-zero exit):
    run (0 launches); Hogwild and local SGD through ``main()`` with
    DSGD_CHECKPOINT_DIR, a fit and then a second one on the same directory
    (the restored best weights, the update counter, a resume past the
-   budget with 0 launches, no worker thread left); a 2-epoch main-path run
-   of ``python -m distributed_sgd_tpu_torch`` with DSGD_PROFILE_DIR, in a
-   process of its own, whose trace holds one ``sync_epoch`` kernel; and
+   budget with 0 launches, no worker thread left); a 2-epoch run of the
+   main path's shape at 100,000 rows of ``python -m
+   distributed_sgd_tpu_torch`` with DSGD_PROFILE_DIR, in a process of its
+   own, whose trace holds one ``sync_epoch`` kernel; and
    the host times of a save and a restore, and of Hogwild with and without
    a checkpointer; then a local SGD fit run twice (100,000 rows; sgd, then
    adam), bitwise equal, and ``tools/sync_repeatability.py`` in a process
@@ -112,13 +113,14 @@ Phases, each fatal (a traceback and a non-zero exit):
    ``sync_epoch`` launch in the sum mode, S=4, B=100, hinge,
    dim_sparsity) against its plain version for a full window and a short
    one (330 ids: 3 steps and a tail of 30), within 1e-6 and bitwise
-   repeatable over 40 launches, timed beside its bound; phase 8's fit
-   again with delta broadcasts, streams, 2 fan-in lanes and a stage pool
-   of 2, bitwise equal to it, with the broadcast bytes of both;
-   DSGD_LOCAL_STEPS=4 with every lever on for 2 epochs (ceil(part / 400)
-   rounds an epoch, one launch a worker a round, no ``worker_grads``,
-   accuracy >= 0.70, windows/s and a window's parts, and one epoch under
-   torch.profiler for the busy share); and the CLI as one master and 3
+   repeatable over 40 launches, timed beside its bound; phase 8's
+   100,000-row fit again with delta broadcasts, streams, 2 fan-in lanes
+   and a stage pool of 2, bitwise equal to it, with the broadcast bytes
+   of both; DSGD_LOCAL_STEPS=4 with every lever on for 1 epoch at full
+   width (ceil(part / 400) rounds an epoch, one launch a worker a round,
+   no ``worker_grads``, accuracy >= 0.70, windows/s and a window's parts,
+   and one epoch at 100,000 rows under torch.profiler for the busy
+   share); and the CLI as one master and 3
    workers that map a row store built from the same synthetic rows in a
    temporary directory, each holding its third of the train rows and a
    10% margin, with every lever on: after the first epoch one worker
@@ -141,7 +143,8 @@ Phases, each fatal (a traceback and a non-zero exit):
    SIGTERM and both exit 0.  The path launches neither kernel;
 13. the aggregation tree and the sharded master, on phase 8's full-width
    data (3 workers, B=100, lr 0.5, 1 epoch each): DSGD_AGG_TREE=fanout:2
-   twice (bitwise equal), with DSGD_LOCAL_STEPS=4 (one ``sync_epoch`` sum
+   (and again on phase 8's 100,000 rows, bitwise phase 8's knobs-off fit
+   there), with DSGD_LOCAL_STEPS=4 (one ``sync_epoch`` sum
    launch a worker a round), DSGD_MASTER_SHARDS=2 (one ``worker_grads``
    launch a worker a round for both lanes), and both together; each K=1
    fit within 1e-5 of phase 8's knobs-off weights (printed: bitwise or
@@ -150,7 +153,28 @@ Phases, each fatal (a traceback and a non-zero exit):
    share (the same fit over 50,000 rows under torch.profiler); then at
    100,000 rows ``kill_shard(1)`` mid-fit: one flat round, one rebuild,
    no eviction and the flat fit's weights bit for bit;
-14. summary: the card line, one JSON line of per-kernel numbers, and last
+14. the telemetry scrape and the rest of the model, BASELINE configs 3
+   and 5: config 5 at full width (1,000,000 x 1,024 dense least squares
+   made as benches/baseline_configs.py makes it, 1 worker, B=256, lr 0.05,
+   2 epochs: 3,125 steps an epoch, no ``sync_epoch`` or ``worker_grads``
+   launch, a test MSE falling to <= 2e-4 and then rising by 1% at most,
+   f32 matmul precision throughout, the epoch seconds and the kernel
+   launches a step printed), then the same fit on its first 100,000 rows
+   on the card and on the CPU from the same ids (weights within 1e-5
+   relative); config 3 at full width on phase 5's rows (logistic, l2, 3
+   workers, B=100, lr 0.5, 2 epochs: one ``sync_epoch`` launch an epoch,
+   no ``worker_grads``, ``SyncTrainer.evaluate`` bitwise the fit's last
+   test numbers, the test accuracy rising every epoch to >= 0.70, the
+   objective printed);
+   ``SyncTrainer.predict`` on phase 5's weights against float64 margins;
+   a knobs-off RPC sync fit at 100,000 rows with the telemetry scrape (3
+   snapshots, 0 errors, each worker's ``health.grad.norm`` its last
+   reply's norm, ``slave.grad.compute`` its Gradient bodies, the cluster
+   ``slave.sync.backward`` the sum, an HTTP GET of the exporter), its
+   windows/s with telemetry off and on in turns, split by part (a registry
+   a node, the scrape, the health gauges), and the host time of one call
+   of each part; ``flat_sparse`` on the card against the CPU;
+15. summary: the card line, one JSON line of per-kernel numbers, and last
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits non-zero before printing any result.
@@ -158,6 +182,7 @@ Without a CUDA device it exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import gc
 import hashlib
 import json
 import os
@@ -1306,6 +1331,7 @@ RESUME_LOSS_RTOL = 5e-6
 RESUME_W_ATOL = 1e-5
 LOCAL_TWICE_ROWS = 100000  # the local SGD fit run twice
 REPEAT_FITS = 4  # fits of sync_repeatability: each lands at one place
+PROFILE_ROWS = 100000  # the DSGD_PROFILE_DIR run (80,000 train rows)
 
 
 def sync_trainer(model, kind: str, **kw) -> SyncTrainer:
@@ -1510,14 +1536,16 @@ def check_async_resume(label: str, tmp: str, per_launch: int, **env) -> dict:
 
 def check_profile(tmp: str, train, test, model) -> dict:
     """``python -m distributed_sgd_tpu_torch`` with DSGD_PROFILE_DIR on a
-    2-epoch main-path run, in a process of its own as a user runs it (in
-    this process the busy-share phases' torch.profiler sessions came first,
-    and a later session can lose kernel records): the trace of epoch 1
+    2-epoch run of the main path's shape at PROFILE_ROWS rows (`train` and
+    `test` are those rows, not full width, to keep the smoke's time),
+    in a process of its own as a user runs it (in this process the
+    busy-share phases' torch.profiler sessions came first, and a later
+    session can lose kernel records): the trace of epoch 1
     holds exactly one sync_epoch kernel.  Its duration is printed beside
     the same two epochs run here, each timed by CUDA events (the id draw
     and the launch)."""
     d = os.path.join(tmp, "profile")
-    env = {**os.environ, "DSGD_SYNTHETIC": str(MAIN_ROWS), "DSGD_MAX_EPOCHS": "2",
+    env = {**os.environ, "DSGD_SYNTHETIC": str(PROFILE_ROWS), "DSGD_MAX_EPOCHS": "2",
            "DSGD_PROFILE_DIR": d}
     root = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
@@ -1637,10 +1665,11 @@ def run_checkpoint_phase() -> None:
                                                   DSGD_ASYNC_MODE="local_sgd",
                                                   DSGD_SYNC_PERIOD=LOCAL_SGD_PERIOD,
                                                   DSGD_CHECK_EVERY=LOCAL_SGD_CHECK_EVERY)
-            out["profile"] = check_profile(tmp, train, test, model)
             out["checkpoint_ms"] = time_checkpoints(tmp)
             out["hogwild_checkpointer"] = time_hogwild_checkpointer(train, test, model, tmp)
-            print(json.dumps({"checkpoints": out}), flush=True)
+        with rows_of(PROFILE_ROWS) as (train, test, model):
+            out["profile"] = check_profile(tmp, train, test, model)
+        print(json.dumps({"checkpoints": out}), flush=True)
     finally:
         shutil.rmtree(tmp)
     print(json.dumps({"repeats": {"local_sgd_twice": check_local_sgd_twice(),
@@ -1769,20 +1798,23 @@ def check_rpc_profiled(model, train, test, w: np.ndarray) -> None:
         raise AssertionError("rpc: two runs of one fit gave different weights")
 
 
-def check_rpc_card_against_cpu() -> None:
+def check_rpc_card_against_cpu() -> dict:
     """A RPC_SMALL_ROWS-row fit with the nodes on the card and again on the
     CPU: test losses rtol 1e-5, weights atol 1e-5; then the card's fit
     again under torch.profiler for the busy share, with bitwise the same
     weights.  (The profiled fit was once phase 8's full-width one: cut to
-    these rows to keep the smoke's time.)"""
+    these rows to keep the smoke's time.)  Returns the card fit's weights,
+    broadcast bytes and data: the knobs-off reference of the checks that
+    phases 11 and 13 run at these rows."""
     data = rcv1_like(RPC_SMALL_ROWS, seed=0, idf_values=True)
     train, test = train_test_split(data)
     ds = dim_sparsity(train)
-    fits = {}
+    fits, models, m = {}, {}, Metrics()
     for dev in ("cuda", "cpu"):
-        model = make_model("hinge", LAM, train.n_features, dim_sparsity=ds, device=dev)
+        models[dev] = model = make_model("hinge", LAM, train.n_features, dim_sparsity=ds,
+                                         device=dev)
         t0 = time.perf_counter()
-        fits[dev] = rpc_fit(model, train, test)[0]
+        fits[dev] = rpc_fit(model, train, test, metrics=m if dev == "cuda" else None)[0]
         print(f"rpc {RPC_SMALL_ROWS}-row fit on {dev}: {time.perf_counter() - t0:.2f} s, test "
               f"loss {fits[dev].test_losses[0]:.7f}", flush=True)
         if dev == "cuda":
@@ -1792,6 +1824,8 @@ def check_rpc_card_against_cpu() -> None:
     if err > 1e-5 or not np.allclose(fits["cuda"].test_losses, fits["cpu"].test_losses,
                                      rtol=1e-5, atol=0):
         raise AssertionError("rpc: the fit on the card disagrees with the fit on the CPU")
+    return {"weights": np.asarray(fits["cuda"].weights), "data": (train, test, models["cuda"]),
+            "bcast_bytes": m.counter("master.sync.bcast.bytes").value}
 
 
 def check_rpc_cli() -> None:
@@ -1884,7 +1918,7 @@ def run_rpc_phase() -> dict:
     """Phase 8; returns check_rpc_full_width's dict."""
     rpc_versions()
     full = check_rpc_full_width()
-    check_rpc_card_against_cpu()
+    full["small"] = check_rpc_card_against_cpu()
     check_rpc_cli()
     check_profiler_sessions()
     return full
@@ -2571,7 +2605,7 @@ def run_fault_tolerance_phase() -> dict:
 WINDOW_K = 4  # DSGD_LOCAL_STEPS of the window checks and of the K-step fit
 WINDOW_ATOL = 1e-6  # the window kernel against its plain version
 WINDOW_ROWS = 20000  # rows the window kernel's checks draw from
-WINDOW_FIT_EPOCHS = 2
+WINDOW_FIT_EPOCHS = 1
 PIPE_CLI_ROWS = 100000  # the row-store CLI run (80,000 train rows)
 PIPE_CLI_EPOCHS = 3
 PIPE_CLI_OVERPROVISION = 0.1
@@ -2702,11 +2736,13 @@ def check_levers_ran(m: Metrics, epochs: int, label: str) -> None:
 
 
 def check_levers_at_k1(full: dict) -> None:
-    """The full-width RPC fit of phase 8 (3 workers in one process, lr 0.5,
-    1 epoch, every lever off) run again with delta broadcasts, streams, 2
-    fan-in lanes and a stage pool of 2: bitwise the same weights."""
+    """Phase 8's knobs-off RPC fit at RPC_SMALL_ROWS rows (3 workers in one
+    process, lr 0.5, 1 epoch) run again with delta broadcasts, streams, 2
+    fan-in lanes and a stage pool of 2: bitwise the same weights.  (These
+    rows, not full width, keep the smoke's time.)"""
     from distributed_sgd_tpu_torch.core.cluster import DevCluster
 
+    full = full["small"]
     train, test, model = full["data"]
     m = Metrics()
     with DevCluster(model, train, test, n_workers=RPC_WORKERS, seed=0, metrics=m) as c:
@@ -2716,7 +2752,8 @@ def check_levers_at_k1(full: dict) -> None:
     counts = bcast_counts(m)
     same = np.array_equal(np.asarray(fit.weights), full["weights"])
     windows = m.counter("master.sync.rounds").value
-    print(f"levers at K=1 (delta, stream, 2 lanes, stage pool 2; full width, 1 epoch): "
+    print(f"levers at K=1 (delta, stream, 2 lanes, stage pool 2; {RPC_SMALL_ROWS:,} rows, 1 "
+          f"epoch): "
           f"{windows} windows in {fit_s:.2f} s = {windows / fit_s:.1f} windows/s; weights "
           f"bitwise equal to the knobs-off fit's: {same}; broadcast bytes an epoch "
           f"{counts['bytes']} (knobs off {full['bcast_bytes']}); master.sync.bcast: {counts}; "
@@ -2731,11 +2768,12 @@ def check_levers_at_k1(full: dict) -> None:
 
 
 def check_local_steps_fit(full: dict) -> dict:
-    """DSGD_LOCAL_STEPS=4 with every lever on, full width, 2 epochs: the
-    rounds an epoch are ceil(part / 400), each round one sync_epoch launch a
-    worker and no worker_grads; test accuracy >= 0.70; windows/s and the
-    parts of a window; then one epoch under torch.profiler for the busy
-    share.  Returns the sync_epoch launches of the 2-epoch fit."""
+    """DSGD_LOCAL_STEPS=4 with every lever on, full width, WINDOW_FIT_EPOCHS
+    epochs: the rounds an epoch are ceil(part / 400), each round one
+    sync_epoch launch a worker and no worker_grads; test accuracy >= 0.70;
+    windows/s and the parts of a window; then one epoch over phase 8's
+    RPC_SMALL_ROWS rows under torch.profiler for the busy share.  Returns
+    the sync_epoch launches of the full-width fit."""
     from distributed_sgd_tpu_torch.core.cluster import DevCluster
 
     train, test, model = full["data"]
@@ -2754,7 +2792,7 @@ def check_local_steps_fit(full: dict) -> dict:
     rounds = m.counter("master.sync.rounds").value
     parts = {label: m.histogram(name).mean * 1e3 for label, name in RPC_PART_HISTS}
     epoch_s = sum(fit.epoch_seconds)
-    print(f"local steps K={WINDOW_K}, every lever on (full width, {WINDOW_FIT_EPOCHS} epochs): "
+    print(f"local steps K={WINDOW_K}, every lever on (full width, {WINDOW_FIT_EPOCHS} epoch(s)): "
           f"{rounds} rounds (want {rounds_want}) in {epoch_s:.3f} s of epochs = "
           f"{rounds / epoch_s:.1f} windows/s ({fit_s:.2f} s with evaluation); sync_epoch "
           f"launches {launches} ({steps} steps), worker_grads launches {wg_launches}; test "
@@ -2771,7 +2809,8 @@ def check_local_steps_fit(full: dict) -> dict:
                              f"(want >= {RPC_ACC_FLOOR}) or weights not finite")
     check_levers_ran(m, WINDOW_FIT_EPOCHS, f"local steps K={WINDOW_K}")
 
-    with DevCluster(model, train, test, n_workers=RPC_WORKERS, seed=0) as c:
+    s_train, s_test, s_model = full["small"]["data"]
+    with DevCluster(s_model, s_train, s_test, n_workers=RPC_WORKERS, seed=0) as c:
         dev = device_events(lambda: c.master.fit_sync(1, B, RPC_LR, local_steps=WINDOW_K,
                                                       **PIPE_LEVERS))
     kernels = [(a, b) for a, b, name in dev if "sync_epoch" in name]
@@ -2779,7 +2818,8 @@ def check_local_steps_fit(full: dict) -> dict:
         lo, hi = kernels[0][0], kernels[-1][1]
         busy = union_us(dev, lo, hi)
         kernel_us = sum(max(0.0, min(b, hi) - max(a, lo)) for a, b in kernels)
-        print(f"local steps device busy share over one profiled epoch ({(hi - lo) / 1e3:.1f} ms "
+        print(f"local steps device busy share over one profiled epoch at {RPC_SMALL_ROWS:,} rows "
+              f"({(hi - lo) / 1e3:.1f} ms "
               f"from its first window kernel to its last): {busy / (hi - lo):.4f}; "
               f"{len(kernels)} sync_epoch kernels {kernel_us / 1e3:.1f} ms, other device work "
               f"{(busy - kernel_us) / 1e3:.1f} ms", flush=True)
@@ -2913,7 +2953,7 @@ def run_pipeline_phase(full: dict) -> dict:
     check_levers_at_k1(full)
     row["launches"] = check_local_steps_fit(full)
     row["path"] = (f"rpc K={WINDOW_K} local steps, every lever on (full width, "
-                   f"{WINDOW_FIT_EPOCHS} epochs): one launch a worker a round")
+                   f"{WINDOW_FIT_EPOCHS} epoch(s)): one launch a worker a round")
     with tempfile.TemporaryDirectory(prefix="chip-smoke-pipe-") as tmp:
         check_row_store_cli(tmp)
     print(f"pipeline phase seconds: {time.perf_counter() - t0:.1f}", flush=True)
@@ -3321,9 +3361,8 @@ TREE_ATOL = 1e-5  # a K=1 tree or sharded fit against the knobs-off fit
 SHARD_KILL_ROWS = 100000  # the kill_shard fit (80,000 train rows)
 TREE_BUSY_ROWS = 50000  # each configuration's profiled fit, for its busy share
 SHARD_KILL_AT = 50  # windows run before the kill
-TREE_FITS = (  # (label, fit_sync arguments); the first two must be bitwise equal
+TREE_FITS = (  # (label, fit_sync arguments): full-width fits
     ("tree", dict(agg_tree=TREE_SPEC)),
-    ("tree again", dict(agg_tree=TREE_SPEC)),
     (f"tree K={WINDOW_K}", dict(agg_tree=TREE_SPEC, local_steps=WINDOW_K)),
     (f"shards {TREE_SHARDS}", dict(master_shards=TREE_SHARDS)),
     (f"shards {TREE_SHARDS} + tree", dict(master_shards=TREE_SHARDS, agg_tree=TREE_SPEC)),
@@ -3364,14 +3403,17 @@ def tree_busy_share(model, train, test, kw: dict) -> str:
             f"({len(kernels)} kernels)")
 
 
-def run_tree_fit(label: str, kw: dict, full: dict, small) -> dict:
-    """One full-width fit of phase 13 (phase 8's data, 3 workers, B=100, lr
-    0.5, 1 epoch) with `kw`: windows/s and its parts, the counters and the
-    lanes' bytes, the launches, the busy share (an epoch over the rows
-    `small`, TREE_BUSY_ROWS of them, under the profiler) and the test
-    numbers.  Checks its launches, accuracy >=
-    0.70, no eviction, that the tree or the shards acted, and at K=1 that
-    the weights are within TREE_ATOL of the knobs-off fit's."""
+def run_tree_fit(label: str, kw: dict, full: dict, small, acc_floor: float) -> dict:
+    """One fit of phase 13 (3 workers, B=100, lr 0.5, 1 epoch) with `kw` on
+    the data of `full` (phase 8's full-width fit, or its RPC_SMALL_ROWS
+    one): windows/s and its parts, the counters and the lanes' bytes, the
+    launches, the busy share (an epoch over the rows `small`,
+    TREE_BUSY_ROWS of them, under the profiler; None: not measured) and
+    the test numbers.  Checks its launches, finite weights, no eviction,
+    that the tree or the shards acted, at K=1 that the weights are within
+    TREE_ATOL of the knobs-off fit's, and accuracy >= `acc_floor` (0.70 at
+    full width; one epoch over RPC_SMALL_ROWS rows reaches less, and there
+    the caller holds the weights to the knobs-off fit's bit for bit)."""
     from distributed_sgd_tpu_torch.core.cluster import DevCluster
 
     train, test, model = full["data"]
@@ -3390,8 +3432,9 @@ def run_tree_fit(label: str, kw: dict, full: dict, small) -> dict:
     k = kw.get("local_steps", 1)
     err = float(np.abs(w - full["weights"]).max())
     bitwise = bool(np.array_equal(w, full["weights"]))
-    busy = tree_busy_share(small[2], small[0], small[1], kw)
-    print(f"phase 13 {label} {kw} (full width, {RPC_WORKERS} workers, B={B}, lr {RPC_LR}, 1 "
+    busy = tree_busy_share(small[2], small[0], small[1], kw) if small else "not measured"
+    print(f"phase 13 {label} {kw} ({len(train) + len(test):,} rows, {RPC_WORKERS} workers, B={B}, "
+          f"lr {RPC_LR}, 1 "
           f"epoch): {rounds} windows in {epoch_s:.3f} s = {rounds / epoch_s:.1f} windows/s; "
           f"test loss {fit.test_losses[0]:.7f} accuracy {fit.test_accuracies[0]:.7f}; "
           f"worker_grads launches {launches[0]}, sync_epoch launches {launches[1]}; max |dw| "
@@ -3404,8 +3447,8 @@ def run_tree_fit(label: str, kw: dict, full: dict, small) -> dict:
     bad = []
     if launches != want:
         bad.append(f"launches (worker_grads, sync_epoch) {launches}, want {want}")
-    if fit.test_accuracies[0] < RPC_ACC_FLOOR or not np.isfinite(w).all():
-        bad.append(f"test accuracy {fit.test_accuracies[0]} (want >= {RPC_ACC_FLOOR}) or "
+    if fit.test_accuracies[0] < acc_floor or not np.isfinite(w).all():
+        bad.append(f"test accuracy {fit.test_accuracies[0]} (want >= {acc_floor}) or "
                    f"weights not finite")
     if counts["master.evictions"] != 0:
         bad.append(f"{counts['master.evictions']} evictions")
@@ -3418,7 +3461,7 @@ def run_tree_fit(label: str, kw: dict, full: dict, small) -> dict:
         bad.append(f"max |dw| {err:.3e} against the knobs-off fit, limit {TREE_ATOL}")
     if bad:
         raise AssertionError(f"phase 13 {label}: " + "; ".join(bad))
-    return {"weights": w, "launches": launches, "rounds": rounds}
+    return {"weights": w, "launches": launches, "rounds": rounds, "bitwise": bitwise}
 
 
 def check_shard_kill(model, train, test) -> dict:
@@ -3471,26 +3514,456 @@ def check_shard_kill(model, train, test) -> dict:
 
 
 def run_tree_phase(full: dict) -> dict:
-    """Phase 13 on phase 8's full-width data and knobs-off weights; returns
-    each fit's worker_grads and sync_epoch launches."""
+    """Phase 13 on phase 8's full-width data and knobs-off weights, then the
+    tree again on phase 8's RPC_SMALL_ROWS rows, which must give that fit's
+    weights bit for bit (these rows, not full width, keep the smoke's
+    time); returns each fit's worker_grads
+    and sync_epoch launches."""
     t0 = time.perf_counter()
     launches = {}
     fits = {}
     with cli_env(DSGD_SYNTHETIC=TREE_BUSY_ROWS):
         busy_data = port_main.build(Config.from_env(), "cuda")
     for label, kw in TREE_FITS:
-        fits[label] = run_tree_fit(label, kw, full, busy_data)
+        fits[label] = run_tree_fit(label, kw, full, busy_data, RPC_ACC_FLOOR)
         launches[label] = fits[label]["launches"]
     del busy_data
+    again = run_tree_fit("tree again", dict(agg_tree=TREE_SPEC), full["small"], None, 0.0)
+    launches["tree again"] = again["launches"]
     with cli_env(DSGD_SYNTHETIC=SHARD_KILL_ROWS):
         train, test, model = port_main.build(Config.from_env(), "cuda")
     launches["kill_shard"] = check_shard_kill(model, train, test)["launches"]
-    same = np.array_equal(fits["tree"]["weights"], fits["tree again"]["weights"])
-    print(f"phase 13: the two tree fits bitwise equal: {same}", flush=True)
-    if not same:
-        raise AssertionError("phase 13: two tree fits over one plan differ")
+    print(f"phase 13: the tree again ({RPC_SMALL_ROWS:,} rows) bitwise the knobs-off fit: "
+          f"{again['bitwise']}", flush=True)
+    if not again["bitwise"]:
+        raise AssertionError("phase 13: the tree fit again differs from the knobs-off fit")
     print(f"tree phase seconds: {time.perf_counter() - t0:.1f}", flush=True)
     return launches
+
+
+# -- phase 14: the telemetry scrape and the rest of the model ---------------------
+
+# BASELINE config 5 (benches/baseline_configs.py config5): dense least
+# squares, 1,000,000 x 1,024, 1 worker, B=256, lr 0.05, no regularizer
+DENSE_ROWS, DENSE_D = 1_000_000, 1024
+DENSE_B, DENSE_LR, DENSE_EPOCHS = 256, 0.05, 2
+DENSE_STEPS = 3125  # 800,000 train rows / 256
+DENSE_NOISE = 0.01  # the label noise the generator plants
+DENSE_MSE_MAX = 2 * DENSE_NOISE ** 2  # twice its variance: a bound from the data
+# under the bound an epoch's MSE may exceed the one before by this share at
+# most: there a constant-step SGD iterate moves with its last batches
+DENSE_FLOOR_RTOL = 0.01
+DENSE_CPU_ROWS = 100_000  # the card-against-CPU fit
+DENSE_CPU_RTOL = 1e-5  # max |w_card - w_cpu| / max |w_cpu|
+DENSE_LAUNCH_STEPS = 50  # steps profiled for the launches a step
+# BASELINE config 3: logistic with l2 on the RCV1 shape (phase 5's rows)
+CFG3_LAM, CFG3_LR, CFG3_EPOCHS = 1e-5, 0.5, 2
+TEL_ROWS = 100_000  # the telemetry fits: 80,000 train rows, 3 workers, 1 epoch
+TEL_HEARTBEAT_S = 0.5  # the scrape rides the heartbeat in every fit of the phase
+TEL_NORM_RTOL = 1e-6
+# telemetry's cost, split: each variant adds one part to the one before
+# ("registries": a registry a node, no scrape and no health gauges;
+# "scrape": the master's scrape on the heartbeat too; "on": the workers'
+# health gauges too), each fit in turns from off to on and back
+TEL_VARIANTS = ("off", "registries", "scrape", "on")
+TEL_TIMED_CALLS = 50  # calls a median of one part's host time is taken over
+PREDICT_MARGIN = 1e-5  # SyncTrainer.predict against float64 margins past this
+FLAT_ATOL = 1e-5
+PHASE14_BUDGET_S = 90  # printed against the phase's time, not gated
+
+
+def check_precision(label: str) -> None:
+    """f32 products stay f32 on the card: PyTorch's defaults, which the
+    port never changes (the JAX dense path runs at Precision.HIGHEST)."""
+    prec, tf32 = torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32
+    if prec != "highest" or tf32:
+        raise AssertionError(f"{label}: float32 matmul precision {prec!r}, allow_tf32 {tf32}; "
+                             f"want 'highest' and False")
+
+
+def config5_rows() -> Dataset:
+    """benches/baseline_configs.py config5's rows, with numpy:
+    ``normal(size=(n, d)) / sqrt(d)``, ``w_true``, ``y = x @ w_true +
+    0.01 normal``.  The draws come a block of rows at a time, which gives
+    the one draw's stream with no 8 GB float64 copy; sqrt(1024) = 32 is a
+    power of two, so dividing the f32 draws in place gives the bench's f32
+    values bit for bit; the labels are its float64 products, block by
+    block."""
+    rng = np.random.default_rng(0)
+    blk = 100_000
+    val = np.empty((DENSE_ROWS, DENSE_D), np.float32)
+    for s in range(0, DENSE_ROWS, blk):
+        val[s:s + blk] = rng.normal(size=(blk, DENSE_D))
+        val[s:s + blk] /= np.float32(np.sqrt(DENSE_D))
+    w_true = rng.normal(size=DENSE_D).astype(np.float32).astype(np.float64)
+    y = np.empty(DENSE_ROWS, np.float64)
+    for s in range(0, DENSE_ROWS, blk):
+        y[s:s + blk] = val[s:s + blk].astype(np.float64) @ w_true
+    y += DENSE_NOISE * rng.normal(size=DENSE_ROWS)
+    return Dataset.dense(val, y.astype(np.float32))
+
+
+def launch_counts(fn) -> tuple:
+    """(kernel launch calls on the host, device kernel events) while `fn`
+    runs under torch.profiler."""
+    with tempfile.TemporaryDirectory() as tmp:
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    calls = sum(1 for e in events if e.get("ph") == "X" and "LaunchKernel" in e.get("name", ""))
+    kernels = sum(1 for e in events if e.get("ph") == "X" and e.get("cat") == "kernel")
+    return calls, kernels
+
+
+def dense_fit(train: Dataset, test: Dataset, device: str, epochs: int, ids_from=None):
+    """SyncTrainer on config 5's model; with `ids_from` (a bound split on
+    the card) each epoch's ids are that split's draws, copied here."""
+    model = make_model("least_squares", 0.0, DENSE_D, regularizer="none", device=device)
+    trainer = SyncTrainer(model, batch_size=DENSE_B, learning_rate=DENSE_LR, device=device)
+    bound = {}
+    bind = trainer.engine.bind
+
+    def keep(data, *a, **kw):
+        b = bind(data, *a, **kw)
+        if ids_from is not None and "train" not in bound:
+            b._sample_ids = lambda key: ids_from._sample_ids(key).to(device)
+        bound.setdefault("train", b)
+        return b
+
+    trainer.engine.bind = keep
+    fit = trainer.fit(train, test, epochs)
+    return fit, bound["train"]
+
+
+def check_config5() -> dict:
+    """Config 5 at full width on the card: 3,125 steps an epoch, no
+    sync_epoch or worker_grads launch, a test MSE that falls until it is
+    <= DENSE_MSE_MAX and then rises by DENSE_FLOOR_RTOL at most, f32
+    matmuls throughout; then at DENSE_CPU_ROWS the same fit on the card and
+    on the CPU from the same ids."""
+    check_precision("config 5, before")
+    t0 = time.perf_counter()
+    data = config5_rows()
+    gen_s = time.perf_counter() - t0
+    train, test = train_test_split(data)
+    reset_counts()
+    fit, bound = dense_fit(train, test, "cuda", DENSE_EPOCHS)
+    torch.cuda.synchronize()
+    kernels_run = (se.sync_epoch.launches, wg.worker_grads.launches)
+    check_precision("config 5, after the fit")
+    w = fit.weights
+    ids = bound._sample_ids(0)[:DENSE_LAUNCH_STEPS]
+    calls, kernels = launch_counts(lambda: bound._run(w.clone(), ids))
+    launches = calls / DENSE_LAUNCH_STEPS
+    mse0 = float(torch.mean(torch.as_tensor(test.labels, device="cuda") ** 2))  # at w = 0
+    # an epoch's least time: every drawn row (its values, label and id)
+    # read once, w read and written once a step; two GEMVs of B x D a step
+    rows = DENSE_STEPS * DENSE_B
+    bound_ms = 1e3 * max((rows * (DENSE_D * 4 + 4 + 8) + DENSE_STEPS * DENSE_D * 8)
+                         / HBM_BYTES_PER_S, DENSE_STEPS * 4 * DENSE_B * DENSE_D / F32_FLOPS)
+    print(f"phase 14 config 5 ({DENSE_ROWS:,} x {DENSE_D} dense least squares, 1 worker, "
+          f"B={DENSE_B}, lr {DENSE_LR}, {DENSE_EPOCHS} epochs): data generation {gen_s:.2f} s; "
+          f"{fit.steps_per_epoch} steps an epoch; epoch seconds {fit.epoch_seconds} (bound "
+          f"{bound_ms:.3f} ms an epoch, bytes); test MSE "
+          f"at w = 0 {mse0:.6f}, after each epoch {fit.test_losses}; kernel launches a step "
+          f"{launches:.2f} ({calls} launch calls, {kernels} device kernels over "
+          f"{DENSE_LAUNCH_STEPS} steps); sync_epoch and worker_grads launches in the fit "
+          f"{kernels_run}; precision {torch.get_float32_matmul_precision()}, "
+          f"allow_tf32 {torch.backends.cuda.matmul.allow_tf32}; {card_line()}", flush=True)
+    losses = [mse0] + fit.test_losses
+    if fit.steps_per_epoch != DENSE_STEPS or fit.epochs_run != DENSE_EPOCHS:
+        raise AssertionError(f"config 5: {fit.epochs_run} epochs of {fit.steps_per_epoch} "
+                             f"steps, want {DENSE_EPOCHS} of {DENSE_STEPS}")
+    if kernels_run != (0, 0):
+        raise AssertionError(f"config 5: (sync_epoch, worker_grads) launches {kernels_run}, "
+                             f"want none: dense rows take the matmul steps")
+    rises = [b / a - 1 for a, b in zip(losses, losses[1:])]
+    print(f"phase 14 config 5: the test MSE's change at each epoch "
+          f"{[f'{r:+.4%}' for r in rises]}", flush=True)
+    held = all(r < 0 or (max(a, b) <= DENSE_MSE_MAX and r <= DENSE_FLOOR_RTOL)
+               for a, b, r in zip(losses, losses[1:], rises))
+    if not held or not losses[-1] <= DENSE_MSE_MAX:
+        raise AssertionError(f"config 5: test MSE {losses} must fall until it is <= "
+                             f"{DENSE_MSE_MAX}, then rise by {DENSE_FLOOR_RTOL:.0%} at most")
+    del fit, bound, w, ids, train, test
+    gc.collect()  # the trainer's bind wrapper holds its bound split in a cycle
+    torch.cuda.empty_cache()
+
+    # the first DENSE_CPU_ROWS rows, on the card and on the CPU, same ids
+    small = data.slice(slice(0, DENSE_CPU_ROWS))
+    tr, te = train_test_split(small)
+    card, card_bound = dense_fit(tr, te, "cuda", DENSE_EPOCHS)
+    cpu, _ = dense_fit(tr, te, "cpu", DENSE_EPOCHS, ids_from=card_bound)
+    wc, wh = card.weights.cpu().numpy(), cpu.weights.numpy()
+    rel = float(np.abs(wc - wh).max() / np.abs(wh).max())
+    print(f"phase 14 config 5 card against CPU ({DENSE_CPU_ROWS:,} rows, same ids): max "
+          f"|dw| / max |w| {rel:.3e}; test MSE card {card.test_losses}, CPU "
+          f"{cpu.test_losses}", flush=True)
+    if not rel <= DENSE_CPU_RTOL:
+        raise AssertionError(f"config 5: card and CPU weights differ by {rel:.3e} relative, "
+                             f"limit {DENSE_CPU_RTOL}")
+    del data, small, tr, te, card, card_bound, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_precision("config 5, after")
+    return {"launches_a_step": launches, "sync_epoch": kernels_run[0],
+            "worker_grads": kernels_run[1]}
+
+
+def check_config3() -> dict:
+    """Config 3 at full width on phase 5's rows: one sync_epoch launch an
+    epoch and no worker_grads; evaluate on the final weights = the fit's
+    last test numbers bit for bit; the test accuracy rises every epoch and
+    ends >= 0.70."""
+    with cli_env(DSGD_SYNTHETIC=MAIN_ROWS):
+        train, test = train_test_split(port_main.load_data(Config.from_env()))
+    model = make_model("logistic", CFG3_LAM, D, regularizer="l2", device="cuda")
+    trainer = SyncTrainer(model, batch_size=B, learning_rate=CFG3_LR, virtual_workers=K,
+                          device="cuda")
+    reset_counts()
+    fit = trainer.fit(train, test, CFG3_EPOCHS)
+    torch.cuda.synchronize()
+    launches = (se.sync_epoch.launches, wg.worker_grads.launches)
+    again = trainer.evaluate(fit.weights, test)
+    loss0 = trainer.evaluate(np.zeros(D, np.float32), test)[0]
+    print(f"phase 14 config 3 (logistic, l2, lambda {CFG3_LAM}, {K} workers, B={B}, lr "
+          f"{CFG3_LR}, {CFG3_EPOCHS} epochs, {len(train):,} train rows): epoch seconds "
+          f"{fit.epoch_seconds}; test objective at w = 0 {loss0:.7f}, then {fit.test_losses}; "
+          f"accuracy {fit.test_accuracies}; sync_epoch launches {launches[0]}, worker_grads "
+          f"{launches[1]}; evaluate again {again}; {card_line()}", flush=True)
+    bad = []
+    if launches != (CFG3_EPOCHS, 0):
+        bad.append(f"launches (sync_epoch, worker_grads) {launches}, want ({CFG3_EPOCHS}, 0)")
+    if again != (fit.test_losses[-1], fit.test_accuracies[-1]):
+        bad.append(f"evaluate {again} is not the fit's last test numbers "
+                   f"{(fit.test_losses[-1], fit.test_accuracies[-1])}")
+    # the test objective is printed, not gated: at lr 0.5 on summed
+    # gradients the logistic margins outgrow the noisy labels and the mean
+    # log loss climbs above ln 2 while the accuracy rises.  The JAX package
+    # does the same at this width: benches/results/baseline_configs_r4.json
+    # and _r5.json hold its config 3 at test loss 0.8977 and 0.8966,
+    # accuracy 0.8212 and 0.8209
+    accs = fit.test_accuracies
+    if not all(b > a for a, b in zip(accs, accs[1:])) or accs[-1] < RPC_ACC_FLOOR:
+        bad.append(f"test accuracy {accs} must rise every epoch and end >= {RPC_ACC_FLOOR}")
+    if bad:
+        raise AssertionError("config 3: " + "; ".join(bad))
+    return {"launches": launches[0], "epoch_seconds": fit.epoch_seconds}
+
+
+def check_predict(w: np.ndarray, test: Dataset) -> None:
+    """SyncTrainer.predict on phase 5's weights over its held-out rows:
+    the hinge rule -sign(margin) of a float64 numpy margin wherever
+    |margin| > PREDICT_MARGIN."""
+    model = make_model("hinge", LAM, D, regularizer="l2", device="cuda")
+    preds = SyncTrainer(model, batch_size=B, learning_rate=0.5, device="cuda").predict(w, test)
+    m64 = np.einsum("np,np->n", test.values.astype(np.float64),
+                    w.astype(np.float64)[test.indices])
+    firm = np.abs(m64) > PREDICT_MARGIN
+    wrong = int(np.sum(preds[firm] != -np.sign(m64[firm])))
+    print(f"phase 14 SyncTrainer.predict on phase 5's weights: {len(preds)} rows, {int(firm.sum())} "
+          f"with |margin| > {PREDICT_MARGIN}, {wrong} differ from the float64 rule", flush=True)
+    if preds.shape != (len(test),) or wrong:
+        raise AssertionError(f"predict: {wrong} of {int(firm.sum())} firm rows differ")
+
+
+def telemetry_fit(model, train, test, variant: str, check: bool = False) -> dict:
+    """One knobs-off RPC sync fit (TEL_ROWS, 3 workers, 1 epoch) with the
+    heartbeat on, with telemetry's parts as `variant` (TEL_VARIANTS) says:
+    every part but "off" gives each node its own registry, "scrape" and
+    "on" install the master's scrape, and "on" has the workers publish
+    their health gauges.  With `check` the scrape is held to the fit (see
+    check_telemetry) and each part's host time is taken."""
+    from distributed_sgd_tpu_torch.core import master as master_mod
+    from distributed_sgd_tpu_torch.core import worker as worker_mod
+    from distributed_sgd_tpu_torch.core.cluster import DevCluster
+
+    replies, bodies = {}, {}
+    servicer = worker_mod._WorkerServicer
+    encode, update = servicer._encode_reply, servicer._gradient_update
+    enable = master_mod.MasterNode.enable_telemetry
+
+    def keep_reply(self, request, g, k):
+        msg = encode(self, request, g, k)
+        replies[self.w.node_label] = msg
+        return msg
+
+    def count_body(self, request):
+        bodies[self.w.node_label] = bodies.get(self.w.node_label, 0) + 1
+        return update(self, request)
+
+    servicer._encode_reply, servicer._gradient_update = keep_reply, count_body
+    if variant == "registries":
+        master_mod.MasterNode.enable_telemetry = lambda self, port=None, **kw: None
+    try:
+        with DevCluster(model, train, test, n_workers=RPC_WORKERS, seed=0, metrics=Metrics(),
+                        heartbeat_s=TEL_HEARTBEAT_S,
+                        telemetry_port=None if variant == "off" else 0) as c:
+            for w in c.workers:
+                w.telemetry = variant == "on"
+            reset_counts()
+            fit = c.master.fit_sync(1, B, RPC_LR)
+            torch.cuda.synchronize()
+            rounds = c.master.metrics.counter("master.sync.rounds").value
+            out = {"windows_s": rounds / fit.epoch_seconds[0], "rounds": rounds,
+                   "launches": wg.worker_grads.launches, "fit": fit}
+            if check:
+                out.update(scrape_checks(c, replies, bodies))
+                out["part_ms"] = telemetry_part_ms(c, replies)
+    finally:
+        servicer._encode_reply, servicer._gradient_update = encode, update
+        master_mod.MasterNode.enable_telemetry = enable
+    return out
+
+
+def telemetry_part_ms(c, replies: dict) -> dict:
+    """The host milliseconds of one call of each part of telemetry, the
+    median of TEL_TIMED_CALLS calls, after the fit: a worker's snapshot,
+    the master's scrape of its 3 workers, the process gauges that each
+    scrape samples first, the exporter's text, and one record_health of a
+    reply-sized gradient."""
+    from distributed_sgd_tpu_torch.rpc import codec
+    from distributed_sgd_tpu_torch.telemetry.aggregate import snapshot_metrics
+    from distributed_sgd_tpu_torch.utils import metrics as mm
+
+    w0 = c.workers[0]
+    g = codec.decode_grad(replies[w0.node_label])
+    parts = {
+        "worker snapshot": lambda: snapshot_metrics(w0.metrics, role="worker",
+                                                    node=w0.node_label),
+        "master scrape of 3": lambda: c.master.scrape_telemetry(),
+        "process gauges": lambda: mm.sample_process_gauges(c.master.metrics),
+        "cluster text": lambda: c.master.telemetry.prometheus_text(),
+        "record_health": lambda: w0.record_health(g),
+    }
+    out = {}
+    for name, fn in parts.items():
+        times = []
+        for _ in range(TEL_TIMED_CALLS):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        out[name] = round(statistics.median(times) * 1e3, 4)
+    return out
+
+
+def scrape_checks(c, replies: dict, bodies: dict) -> dict:
+    """The master's scrape of its 3 workers after the fit, and an HTTP GET
+    of its exporter."""
+    from distributed_sgd_tpu_torch.rpc import codec
+    from distributed_sgd_tpu_torch.utils import metrics as mm
+
+    got = c.master.scrape_telemetry()
+    m = c.master.metrics
+    errors = m.counter(mm.TELEMETRY_SCRAPE_ERRORS).value
+    with urllib.request.urlopen(f"http://127.0.0.1:{c.master.telemetry_exporter.port}/metrics",
+                                timeout=30) as r:
+        text = r.read().decode()
+    bad = []
+    if got != RPC_WORKERS or errors != 0:
+        bad.append(f"{got} snapshots a scrape and {errors} scrape errors, want "
+                   f"{RPC_WORKERS} and 0")
+    norms, computes = {}, {}
+    for w in c.workers:
+        label = w.node_label
+        norm = float(np.linalg.norm(codec.decode_grad(replies[label])))
+        gauge = w.metrics.gauge(mm.HEALTH_GRAD_NORM).value
+        norms[label] = (gauge, norm)
+        if not abs(gauge - norm) <= TEL_NORM_RTOL * norm:
+            bad.append(f"{label}: health.grad.norm {gauge} against |last reply| {norm}")
+        snap = c.master.telemetry._snaps[(w.host, w.port)]
+        hist = {h.name: h.count for h in snap.hists}
+        computes[label] = (hist.get("span.slave.grad.compute"), bodies.get(label))
+        if hist.get("span.slave.grad.compute") != bodies.get(label):
+            bad.append(f"{label}: slave.grad.compute count {hist.get('span.slave.grad.compute')}"
+                       f", Gradient bodies {bodies.get(label)}")
+    backward = sum(w.metrics.counter("slave.sync.backward").value for w in c.workers)
+    line = f'slave_sync_backward_total{{role="cluster"}} {backward}'
+    if line not in text:
+        bad.append(f"the exporter's text lacks {line!r}")
+    for w in c.workers:
+        if f'health_grad_norm{{role="worker",worker="{w.node_label}"}}' not in text:
+            bad.append(f"the exporter's text lacks {w.node_label}'s health_grad_norm")
+    scrapes = m.counter(mm.TELEMETRY_SCRAPES).value
+    print(f"phase 14 telemetry scrape: {got} snapshots, {errors} errors, {scrapes} scrapes "
+          f"(the heartbeat's and these), health.grad.norm (gauge, |last reply|) {norms}; "
+          f"slave.grad.compute (count, Gradient bodies) {computes}; cluster slave.sync.backward "
+          f"{backward}; exporter text {len(text)} bytes", flush=True)
+    if bad:
+        raise AssertionError("telemetry: " + "; ".join(bad))
+    return {"scrapes": scrapes}
+
+
+def check_telemetry() -> dict:
+    """The scrape's checks on a telemetry fit, then the cost: windows/s of
+    each of TEL_VARIANTS in turns, from off to on and back, and the host
+    time of one call of each part."""
+    with cli_env(DSGD_SYNTHETIC=TEL_ROWS):
+        train, test, model = port_main.build(Config.from_env(), "cuda")
+    first = telemetry_fit(model, train, test, "on", check=True)
+    turns = []
+    for variant in TEL_VARIANTS + TEL_VARIANTS[::-1]:
+        r = telemetry_fit(model, train, test, variant)
+        turns.append((variant, r["windows_s"]))
+    means = {v: statistics.mean(x for name, x in turns if name == v) for v in TEL_VARIANTS}
+    against_off = {v: f"{means[v] / means['off'] - 1:+.2%}" for v in TEL_VARIANTS[1:]}
+    print(f"phase 14 telemetry's cost ({TEL_ROWS:,} rows, {RPC_WORKERS} workers, 1 epoch, "
+          f"heartbeat {TEL_HEARTBEAT_S} s, all nodes in this process): windows/s in turns "
+          f"{turns}; means {means}; against off {against_off}; "
+          f"host ms of one call (median of {TEL_TIMED_CALLS}) {first['part_ms']}; the checked "
+          f"fit {first['windows_s']:.1f} windows/s, test accuracy "
+          f"{first['fit'].test_accuracies[0]:.4f}, worker_grads launches {first['launches']} over "
+          f"{first['rounds']} windows; {card_line()}", flush=True)
+    if first["launches"] != RPC_WORKERS * first["rounds"]:
+        raise AssertionError(f"telemetry fit: {first['launches']} worker_grads launches over "
+                             f"{first['rounds']} windows")
+    return {"launches": first["launches"]}
+
+
+def check_flat_sparse() -> None:
+    """flat_sparse matvec and scatter_add on the card against the CPU on
+    one full-width batch (B rows of the main path's shape)."""
+    from distributed_sgd_tpu_torch.ops import flat_sparse
+    from distributed_sgd_tpu_torch.ops.sparse import SparseBatch
+
+    idx, val, _ = main_path_batch(5)
+    batch = SparseBatch(torch.from_numpy(idx[0]), torch.from_numpy(val[0]))
+    rng = np.random.default_rng(6)
+    w = torch.from_numpy(rng.normal(size=D).astype(np.float32))
+    coeff = torch.from_numpy(rng.choice([-1.0, 1.0], B).astype(np.float32))
+
+    def run(dev):
+        flat = flat_sparse.from_padded(batch, device=dev)
+        return (flat_sparse.matvec(flat, w.to(dev)).cpu(),
+                flat_sparse.scatter_add(flat, coeff.to(dev), D).cpu(), int(flat.indices.shape[0]))
+
+    card, host = run("cuda"), run("cpu")
+    errs = [float((a - b).abs().max()) for a, b in zip(card[:2], host[:2])]
+    print(f"phase 14 flat_sparse ({B} rows, {card[2]} stored entries): max |card - CPU| "
+          f"matvec {errs[0]:.3e}, scatter_add {errs[1]:.3e}", flush=True)
+    if not max(errs) <= FLAT_ATOL:
+        raise AssertionError(f"flat_sparse: card and CPU differ by {errs}, limit {FLAT_ATOL}")
+
+
+def run_model_phase(main_w: np.ndarray, main_test: Dataset) -> dict:
+    """Phase 14; returns the launches of its paths."""
+    t0 = time.perf_counter()
+    dense = check_config5()
+    cfg3 = check_config3()
+    check_predict(main_w, main_test)
+    tel = check_telemetry()
+    check_flat_sparse()
+    check_precision("phase 14, end")
+    took = time.perf_counter() - t0
+    print(f"model phase seconds: {took:.1f} (budget {PHASE14_BUDGET_S})", flush=True)
+    return {"dense_launches_a_step": dense["launches_a_step"], "cfg3": cfg3["launches"],
+            "telemetry": tel["launches"], "dense_sync_epoch": dense["sync_epoch"],
+            "dense_worker_grads": dense["worker_grads"]}
 
 
 def main() -> None:
@@ -3574,18 +4047,26 @@ def main() -> None:
     phase("12 online serving: Predict on the card, hot swap, weight push, the canary fleet "
           "and the serve and route roles")
     run_serving_phase(main_w, main_test)
-    del main_w, main_test
 
     phase("13 the aggregation tree and the sharded master")
     tree = run_tree_phase(rpc_full)
     del rpc_full
     wg_row["path"] += "; phase 13 (full width, 1 epoch each): " + ", ".join(
         f"{label} {tree[label][0]}" for label, kw in TREE_FITS if "local_steps" not in kw)
-    wg_row["path"] += f", kill_shard (100,000 rows) {tree['kill_shard']}"
+    wg_row["path"] += (f", tree again ({RPC_SMALL_ROWS:,} rows) {tree['tree again'][0]}, "
+                       f"kill_shard ({SHARD_KILL_ROWS:,} rows) {tree['kill_shard']}")
     k_label = next(label for label, kw in TREE_FITS if "local_steps" in kw)
     window_row["path"] += f"; phase 13 {k_label} (full width, 1 epoch) {tree[k_label][1]}"
 
-    phase("14 summary")
+    phase("14 the telemetry scrape and the rest of the model: BASELINE configs 3 and 5")
+    model = run_model_phase(main_w, main_test)
+    del main_w, main_test
+    se_row["path"] += (f"; phase 14 config 3 (logistic, l2, full width, {CFG3_EPOCHS} epochs) "
+                       f"{model['cfg3']}; config 5 (dense) {model['dense_sync_epoch']}")
+    wg_row["path"] += (f"; phase 14 telemetry fit ({TEL_ROWS:,} rows, 1 epoch) "
+                       f"{model['telemetry']}; config 5 (dense) {model['dense_worker_grads']}")
+
+    phase("15 summary")
     print(card)
     print(json.dumps({"kernels": [wg_row, se_row, mean_row, opt_rows["momentum"],
                                   opt_rows["adam"], window_row]}))

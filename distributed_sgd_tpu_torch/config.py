@@ -29,11 +29,13 @@ train rows, widened by ``host_overprovision``.  ``trace``,
 ``trace_dir``, ``trace_sample``, ``flight_recorder``, ``record``,
 ``metrics_port`` and ``influx_url`` drive the observability planes
 (main.py), ``resource_probe_s`` (with ``blackbox_dir``) the resource probe
-in every role.  ``DSGD_ROLE=serve`` runs a serving replica (or, with
-``serve_replicas``, an in-process fleet) and ``DSGD_ROLE=route`` the fleet
-router; the ``serve_*`` fields are the JAX Config's, with its defaults
-and validation, and ``serve_push`` streams a training role's checkpoints
-to the fleet.
+in every role, and ``telemetry`` (with ``telemetry_port``) the cluster
+telemetry scrape in every role: the master's and the router's merged
+``/metrics`` endpoint, the workers' health gauges.  ``DSGD_ROLE=serve``
+runs a serving replica (or, with ``serve_replicas``, an in-process fleet)
+and ``DSGD_ROLE=route`` the fleet router; the ``serve_*`` fields are the
+JAX Config's, with its defaults and validation, and ``serve_push``
+streams a training role's checkpoints to the fleet.
 
 Settings that change what the JAX CLI does but are not ported are read
 and refused with NotImplementedError before any data is loaded (on the
@@ -138,7 +140,12 @@ class Config:
     master_shards: int = 0
     host_devices: int = 1
     chaos: Optional[str] = None
+    # the cluster telemetry plane (telemetry/aggregate.py): the master (or
+    # router) scrapes its members' registries over the Metrics RPC and
+    # serves the merged view on telemetry_port (0: OS-assigned); workers
+    # publish their health gauges.  Off: no Metrics RPC is ever sent
     telemetry: bool = False
+    telemetry_port: int = 9091
     health_action: Optional[str] = None
     autopilot: bool = False
     # the resource plane (telemetry/): the probe's period (0: no probe) and
@@ -173,10 +180,11 @@ class Config:
                              f"dev | master | worker | serve | route")
         for bad, setting in ((self.autopilot, "DSGD_AUTOPILOT"),
                              (self.chaos, "DSGD_CHAOS"),
-                             (self.telemetry, "DSGD_TELEMETRY"),
                              (self.health_action, "DSGD_HEALTH_ACTION")):
             if bad:
                 raise _not_ported(setting, "[A13] item 8")
+        if self.telemetry_port < 0:
+            raise ValueError("telemetry_port must be >= 0 (0 = OS-assigned)")
         if self.resource_probe_s < 0:
             raise ValueError("DSGD_RESOURCE_PROBE_S must be >= 0 (0 = no resource probe)")
         if self.blackbox_dir and self.resource_probe_s <= 0:
@@ -403,6 +411,7 @@ class Config:
                                     float),
             chaos=_env("DSGD_CHAOS", None, str),
             telemetry=_env("DSGD_TELEMETRY", cls.telemetry, bool),
+            telemetry_port=_env("DSGD_TELEMETRY_PORT", cls.telemetry_port, int),
             health_action=_env("DSGD_HEALTH_ACTION", None, str),
             resource_probe_s=_env("DSGD_RESOURCE_PROBE_S", cls.resource_probe_s, float),
             blackbox_dir=_env("DSGD_BLACKBOX_DIR", None, str),
@@ -443,3 +452,8 @@ class Config:
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), sort_keys=True)
+
+    @classmethod
+    def from_json(cls, s: str) -> "Config":
+        """The inverse of `to_json` (validated as any Config is)."""
+        return cls(**json.loads(s))

@@ -15,9 +15,12 @@ workers' master watch (`master_watch_s`) are the JAX cluster's; so are
 (a worker leaves it gracefully), the churn of an elastic fit, and
 `host_local` (each worker holds only its contiguous slice of the train
 rows, widened by `host_overprovision`, with an in-memory row reader over
-the corpus, so an elastic resplit reloads only the delta).  The JAX
-cluster's compression, hierarchical, chaos and telemetry arguments have
-no counterpart here (ROADMAP.md Queue A [A10], [A13]).
+the corpus, so an elastic resplit reloads only the delta).  With
+`telemetry_port` (DSGD_TELEMETRY) every node gets a registry of its own,
+the workers publish their health gauges and the master scrapes them and
+serves the merged view on that port (0: OS-assigned), as the JAX
+cluster does.  The JAX cluster's compression, hierarchical and chaos
+arguments have no counterpart here (ROADMAP.md Queue A [A10], [A13]).
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ class DevCluster:
         master_watch_s: Optional[float] = None,
         host_local: bool = False,
         host_overprovision: float = 0.0,
+        telemetry_port: Optional[int] = None,
     ):
         """The nodes run on the model's device (`make_model(...,
         device=...)`; the card unless the caller asks for the CPU).  All
@@ -62,17 +66,25 @@ class DevCluster:
         heartbeat; `master_watch_s` the workers' watch of the master.
         `host_local` gives worker i only rows ``overprovisioned_slice(len(
         train), i, n_workers, host_overprovision)`` of the vanilla split,
-        with a row reader over `train` (data/host_shard.py)."""
+        with a row reader over `train` (data/host_shard.py).  With
+        `telemetry_port` each node has a fresh registry instead of
+        `metrics`: in one process a shared one would make every worker's
+        Metrics reply the same and the cluster sum count it N times."""
+        telemetry = telemetry_port is not None
+        node_metrics = metrics_mod.Metrics if telemetry else (lambda: metrics)
         self._host, self._seed, self._train, self._model = host, seed, train, model
         self._host_local = bool(host_local)
         self._overprovision = max(0.0, float(host_overprovision))
-        self._worker_kwargs = dict(metrics=metrics, steps_per_dispatch=steps_per_dispatch,
+        self._node_metrics = node_metrics
+        self._worker_kwargs = dict(steps_per_dispatch=steps_per_dispatch,
                                    gossip_topology=gossip_topology,
-                                   master_watch_s=master_watch_s)
+                                   master_watch_s=master_watch_s, telemetry=telemetry)
         self.master = MasterNode(host, base_port, train, test, model,
                                  expected_workers=n_workers, seed=seed,
-                                 metrics=metrics).start(
+                                 metrics=node_metrics()).start(
             heartbeat_s=heartbeat_s, heartbeat_max_misses=heartbeat_max_misses)
+        if telemetry:
+            self.master.enable_telemetry(telemetry_port)
         self.workers: List[WorkerNode] = []
         try:
             for i in range(n_workers):
@@ -83,8 +95,8 @@ class DevCluster:
                         len(train), i, n_workers, overprovision=self._overprovision)
                     wdata, extra = train.slice(slice(lo, hi)), self._local_kwargs(lo)
                 self.workers.append(WorkerNode(host, port, host, self.master.port, wdata,
-                                               model, seed=seed + i, **self._worker_kwargs,
-                                               **extra))
+                                               model, seed=seed + i, metrics=node_metrics(),
+                                               **self._worker_kwargs, **extra))
             for w in self.workers:
                 w.start(wait_registered=True)
             self.master.await_ready()
@@ -109,8 +121,8 @@ class DevCluster:
         if self._host_local:
             wdata, extra = self._train.slice(slice(0, 0)), self._local_kwargs(0)
         w = WorkerNode(self._host, 0, self._host, self.master.port, wdata, self._model,
-                       seed=self._seed + i if seed is None else seed, **self._worker_kwargs,
-                       **extra)
+                       seed=self._seed + i if seed is None else seed,
+                       metrics=self._node_metrics(), **self._worker_kwargs, **extra)
         self.workers.append(w)
         w.start(wait_registered=True)
         return w

@@ -71,6 +71,11 @@ barrier (``_DispatchStager``); and its aggregation tree and sharded
 master plane (`fit_sync(agg_tree=, master_shards=)`, `kill_shard`):
 aggtree/ and shardedps/.
 
+The cluster telemetry plane (`enable_telemetry`, `scrape_telemetry`;
+telemetry/aggregate.py): the members' registries scraped over their
+Metrics RPC, on the heartbeat's cadence and on each pull of the cluster
+`/metrics` endpoint; a member's series leave with its membership.
+
 The workers compute on their own devices; the master only encodes,
 decodes and applies, and evaluates on its device.  Every lever of the JAX
 fits that is not ported raises NotImplementedError naming the ROADMAP
@@ -904,6 +909,11 @@ class MasterNode:
         # process restarted on the same endpoint): the fit's loop re-kicks
         # each with its slice, since no membership change shows it
         self._rereg_pending: set = set()
+        # the cluster telemetry plane (telemetry/aggregate.py,
+        # DSGD_TELEMETRY): `enable_telemetry` installs the scrape and its
+        # endpoint; None (default) means no Metrics RPC is ever sent
+        self.telemetry = None
+        self.telemetry_exporter = None
 
         self.server = new_server(port, host="0.0.0.0")
         self.port = self.port or self.server.bound_port
@@ -937,6 +947,34 @@ class MasterNode:
             self._hb_thread.start()
         return self
 
+    def enable_telemetry(self, port: Optional[int] = None, scrape_min_age_s: float = 0.5):
+        """Install the cluster telemetry plane (telemetry/aggregate.py), as
+        the JAX master does: every member's registry is scraped over the
+        Metrics RPC, on the heartbeat's cadence when the heartbeat runs
+        and on demand (throttled by `scrape_min_age_s`) whenever the
+        endpoint is pulled, and re-exported merged with the master's own
+        on one `/metrics` endpoint bound to `port` (0: OS-assigned; None:
+        no endpoint).  Returns the ClusterTelemetry."""
+        from distributed_sgd_tpu_torch.telemetry.aggregate import (
+            ClusterExporter,
+            ClusterTelemetry,
+        )
+
+        self.telemetry = ClusterTelemetry(self.metrics, node="master", role="master")
+        if port is not None:
+            self.telemetry_exporter = ClusterExporter(
+                self.telemetry.prometheus_text, port,
+                refresh=lambda: self.scrape_telemetry(min_age_s=scrape_min_age_s)).start()
+            self.log.info("cluster telemetry endpoint on :%d", self.telemetry_exporter.port)
+        return self.telemetry
+
+    def scrape_telemetry(self, min_age_s: float = 0.0) -> int:
+        """One (throttled) scrape over the current members; returns the
+        snapshots merged.  Safe from any thread; never raises."""
+        if self.telemetry is None:
+            return 0
+        return self.telemetry.scrape(self._members(), self.rpc_policy, min_age_s=min_age_s)
+
     # at most this many probes in flight at once; a probe past the cap
     # waits for the next wake
     HB_PROBE_POOL = 16
@@ -949,9 +987,9 @@ class MasterNode:
         New members' first probes are staggered across one interval.  The
         decisions (`max_failures` misses in a row, a success resets, then
         ``unregister_worker(evicted=True)``) run on this thread; the gRPC
-        callbacks only queue what they saw.  (The JAX master also scrapes
-        the workers' metrics at this cadence: ROADMAP.md Queue A [A13]
-        item 8.)"""
+        callbacks only queue what they saw.  With telemetry enabled (even
+        after `start`), a sidecar thread scrapes the members at the same
+        cadence, so a slow scrape delays the view and never a probe."""
         from distributed_sgd_tpu_torch.rpc.stream import Wheel
 
         tracker = _FailureTracker(max_failures)
@@ -963,6 +1001,13 @@ class MasterNode:
         scheduled: set = set()  # keys with a wheel entry or a probe in flight
         in_flight: set = set()
         deferred: List[Tuple[str, int]] = []  # due past the probe pool's cap
+        scrape_armed = False
+
+        def _scrape_loop():
+            while not self._hb_stop.wait(interval_s):
+                metrics_mod.sample_process_gauges(self.metrics)
+                self.telemetry.scrape(self._members(), self.rpc_policy,
+                                      deadline_s=probe_timeout)
 
         def _fire(key):
             due_ready.append(key)
@@ -988,6 +1033,10 @@ class MasterNode:
             fut.add_done_callback(_done)
 
         while not self._hb_stop.is_set():
+            if self.telemetry is not None and not scrape_armed:
+                scrape_armed = True
+                threading.Thread(target=_scrape_loop, daemon=True,
+                                 name="telemetry-scrape").start()
             now = time.monotonic()
             members = self._members()
             stub_by_key = dict(members)
@@ -1043,6 +1092,8 @@ class MasterNode:
                                       self._inbox_pressure_token)
         if self._hb_thread is not None:
             self._hb_thread.join(timeout=10.0)
+        if self.telemetry_exporter is not None:
+            self.telemetry_exporter.stop()
         self.server.stop(grace=1.0)
         with self._members_lock:
             channels = list(self._channels.values())
@@ -1134,6 +1185,9 @@ class MasterNode:
             self._stream_unsupported.discard(key)
         if stream is not None:
             stream.close()
+        if self.telemetry is not None:
+            # a departed worker's series leave the exposition with it
+            self.telemetry.drop(key)
         with self._members_lock:
             self._workers.pop(key, None)
             ch = self._channels.pop(key, None)

@@ -232,3 +232,16 @@ class SyncTrainer:
             weights=w, loss=result.losses[-1] if result.losses else float("nan")
         ).finish()
         return result
+
+    def predict(self, weights, data: Dataset) -> np.ndarray:
+        """The model's predictions over a split (Master.predict)."""
+        return self.engine.bind(data).predict(self._on_device(weights))
+
+    def evaluate(self, weights, data: Dataset):
+        """(objective, accuracy) over a split, as `fit` evaluates it."""
+        return self.engine.bind(data).evaluate(self._on_device(weights))
+
+    def _on_device(self, weights) -> torch.Tensor:
+        if isinstance(weights, torch.Tensor):
+            return weights.to(self.engine.device)
+        return torch.as_tensor(np.asarray(weights, dtype=np.float32), device=self.engine.device)

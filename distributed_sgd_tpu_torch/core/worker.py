@@ -77,14 +77,21 @@ Both go through the same ``compute_gradient`` / ``compute_local_window``
 as a flat body, and each state (``Reducer``, ``ShardAssembler``) is built
 only by the first request that needs it.
 
-A request the port does not serve yet answers gRPC ``UNIMPLEMENTED`` with
-a message that names the ROADMAP item that holds it, never a wrong reply:
-the method ``Metrics``.
+The cluster telemetry scrape (telemetry/aggregate.py): ``Metrics``
+answers the node's registry as a ``MetricsSnapshot`` (role "worker", the
+node's ``host:port`` label), always, pull-only.  With ``telemetry`` on
+(DSGD_TELEMETRY) the worker also publishes its health gauges
+(``record_health``): after each flat or tree-stamped sync reply, once a
+round on leg 0 of a sharded one, and after each async dispatch.  A hedge
+(another worker's slice) publishes none, as in the JAX worker: the norm
+belongs to the straggler.  With it off no ``health.*`` instrument
+registers.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import grpc
@@ -112,19 +119,6 @@ from distributed_sgd_tpu_torch.trace import flight
 from distributed_sgd_tpu_torch.utils import measure
 from distributed_sgd_tpu_torch.utils import metrics as metrics_mod
 from distributed_sgd_tpu_torch.utils.log import node_logger
-
-# where each unserved request kind is ported (ROADMAP.md Queue A, item 8's
-# modules)
-NOT_PORTED = {
-    "Metrics": "the cluster telemetry scrape (DSGD_TELEMETRY, telemetry/): "
-               "ROADMAP.md Queue A [A13] item 8",
-}
-
-
-def _not_ported(context, what: str):
-    context.abort(grpc.StatusCode.UNIMPLEMENTED,
-                  f"not ported to the torch worker yet: {NOT_PORTED[what]}")
-
 
 class _Resident(NamedTuple):
     """One consistent snapshot of the worker's resident rows, swapped whole
@@ -188,6 +182,7 @@ class WorkerNode:
         row_reader=None,
         total_rows: Optional[int] = None,
         host_overprovision: float = 0.0,
+        telemetry: bool = False,
     ):
         """`device` defaults to the model's, and must equal it: the
         regularizer's vector lives there.  `steps_per_dispatch` local steps
@@ -202,7 +197,8 @@ class WorkerNode:
         len(data)) (None: the full corpus, ids untouched); `row_reader`
         (data/host_shard.py ``RowReader`` over `total_rows` rows) lets the
         slice reload, widened by `host_overprovision` (a fraction of the
-        span on each side)."""
+        span on each side).  `telemetry` (DSGD_TELEMETRY) publishes the
+        health gauges (`record_health`)."""
         self.host, self.port = host, port
         self.log = node_logger(host, port, master=False)
         self.metrics = metrics or metrics_mod.global_metrics()
@@ -218,6 +214,8 @@ class WorkerNode:
         self._dispatch_no = 0
         self._master_watch_s = master_watch_s
         self._master_watch_misses = max(1, int(master_watch_misses))
+        self.telemetry = bool(telemetry)
+        self._last_dispatch_t: Optional[float] = None
         # the weights of the last applied broadcast, versioned:
         # (fit_token, step_version, weights)
         self._replica_lock = threading.Lock()
@@ -625,6 +623,19 @@ class WorkerNode:
         self.metrics.counter("slave.sync.backward").increment(steps)
         return (wt - w_end).cpu().numpy()
 
+    def record_health(self, g: np.ndarray) -> None:
+        """The health gauges of one reply or dispatch (DSGD_TELEMETRY), as
+        the JAX worker publishes them: the norm of `g` and the gap since
+        the previous call.  (The JAX worker's error-feedback residual norm
+        needs a compressor, which the port's worker does not have.)
+        Called only with ``self.telemetry`` set, so the knobs-off path pays
+        nothing."""
+        now = time.monotonic()
+        prev, self._last_dispatch_t = self._last_dispatch_t, now
+        self.metrics.gauge(metrics_mod.HEALTH_GRAD_NORM).set(float(np.linalg.norm(g)))
+        if prev is not None:
+            self.metrics.gauge(metrics_mod.HEALTH_STALENESS).set(now - prev)
+
     def rollback_sync_ef(self, version: int) -> None:
         """The quorum's contribution mask (GradientRequest.
         ef_rollback_version): the master discarded this worker's reply for
@@ -741,6 +752,9 @@ class WorkerNode:
             while self._running_async.is_set():
                 self._profile.tick()
                 delta_np, state = self._dispatch(state)
+                if self.telemetry:
+                    # the delta is this node's update signal
+                    self.record_health(delta_np)
                 with measure.span("slave.async.gossip", metrics=self.metrics,
                                   node=self.node_label, k=k):
                     self._gossip_dispatch(delta_np, k)
@@ -850,8 +864,11 @@ class _WorkerServicer:
             else:
                 g = self.w.compute_gradient(w, ids)
         if request.hedge:
+            # no health gauges: the norm belongs to the straggler's slice
             self.w.metrics.counter("slave.sync.hedge").increment()
             return self._encode_reply(request, g, k)
+        if self.w.telemetry:
+            self.w.record_health(g)
         if request.agg_parent or request.agg_children:
             return self._agg_gradient(request, g, k)
         return self._encode_reply(request, g, k)
@@ -875,6 +892,8 @@ class _WorkerServicer:
             # every leg replies stale and the retry sends full slices
             w.metrics.counter("slave.sync.stale").increment()
             return pb.GradUpdate(stale_version=True, shard_index=request.shard_index)
+        if w.telemetry and request.shard_index == 0:
+            w.record_health(g)  # once a round: the round's one full gradient
         g_slice = np.ascontiguousarray(g[request.shard_lo:request.shard_hi])
         k = request.local_steps
         if request.agg_parent or request.agg_children:
@@ -964,7 +983,10 @@ class _WorkerServicer:
         return pb.Ack()
 
     def Metrics(self, request, context):  # noqa: N802
-        _not_ported(context, "Metrics")
+        # the cluster telemetry scrape: pull-only, so it needs no knob
+        from distributed_sgd_tpu_torch.telemetry.aggregate import snapshot_metrics
+
+        return snapshot_metrics(self.w.metrics, role="worker", node=self.w.node_label)
 
     def AggregateGrad(self, request, context):  # noqa: N802
         """A tree child's push: buffered for the parent's Gradient body in

@@ -58,8 +58,20 @@ class Dataset:
     @property
     def is_dense(self) -> bool:
         """Dense layout: no index array (zero-width), values hold every
-        feature."""
+        feature.  The engines route these rows to the models' matmul path,
+        and no int32 index array is ever made for them."""
         return self.indices.shape[1] == 0 and self.values.shape[1] == self.n_features
+
+    @classmethod
+    def dense(cls, values: np.ndarray, labels: np.ndarray) -> "Dataset":
+        """A dense-layout dataset from values[N, D] and labels[N]."""
+        values = np.ascontiguousarray(values, dtype=np.float32)
+        return cls(
+            indices=np.empty((values.shape[0], 0), dtype=np.int32),
+            values=values,
+            labels=np.asarray(labels),
+            n_features=values.shape[1],
+        )
 
     def slice(self, sel) -> "Dataset":
         return Dataset(self.indices[sel], self.values[sel], self.labels[sel], self.n_features)

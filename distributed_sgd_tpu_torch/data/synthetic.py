@@ -1,10 +1,11 @@
-"""Synthetic RCV1-shaped data for tests, the CLI and the chip smoke run.
+"""Synthetic data for tests, the CLI and the chip smoke run.
 
 `rcv1_like` generates a packed sparse classification set with RCV1-shaped
 statistics (cosine-normalized rows, ~76 nnz per row over 47,236 features by
-default) from a planted linear separator with label noise.  It draws the
-same numpy stream as the JAX package's generator, so one seed gives
-bit-identical arrays in both packages.
+default) from a planted linear separator with label noise;
+`dense_regression` a dense least-squares set in the dense layout.  Each
+draws the same numpy stream as the JAX package's generator, so one seed
+gives bit-identical arrays in both packages.
 """
 
 from __future__ import annotations
@@ -53,3 +54,18 @@ def rcv1_like(
     flip = rng.random(n_samples) < noise
     y[flip] = -y[flip]
     return Dataset(indices=idx, values=val, labels=y, n_features=n_features)
+
+
+def dense_regression(
+    n_samples: int,
+    n_features: int = 1024,
+    noise: float = 0.01,
+    seed: int = 0,
+) -> Dataset:
+    """Dense least-squares data in the dense layout (``Dataset.dense``:
+    values[N, D], no index array): ``y = x @ w_true + noise * N(0, 1)``."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n_samples, n_features)).astype(np.float32)
+    w_true = rng.normal(size=n_features).astype(np.float32)
+    y = x @ w_true + noise * rng.normal(size=n_samples).astype(np.float32)
+    return Dataset.dense(x, y.astype(np.float32))

@@ -54,8 +54,13 @@ each new checkpoint to a serving fleet (serving/push.py).
 DSGD_PROFILE_DIR writes a torch.profiler trace of one sync epoch (or, on
 the worker role, of its first dispatches; on the serve role, of its first
 Predict batches).  DSGD_RESOURCE_PROBE_S starts the resource probe in any
-role (telemetry/resources.py), DSGD_BLACKBOX_DIR its on-disk ring.  DSGD_TRACE
-writes per-process span timelines under DSGD_TRACE_DIR (merge them with
+role (telemetry/resources.py), DSGD_BLACKBOX_DIR its on-disk ring.
+DSGD_TELEMETRY acts in every role as in the JAX CLI: the master (and the
+dev rpc cluster's) scrapes its workers' registries over the Metrics RPC
+and serves the merged view on DSGD_TELEMETRY_PORT, the workers publish
+their health gauges, and the route role (and the fleet's router) scrapes
+its replicas.  DSGD_TRACE writes per-process span timelines under
+DSGD_TRACE_DIR (merge them with
 ``python -m distributed_sgd_tpu_torch.trace.merge``), DSGD_FLIGHT_RECORDER
 sizes the post-mortem ring (SIGUSR2 dumps it), and DSGD_RECORD ships the
 metrics registry to DSGD_METRICS_PORT (Prometheus) and/or
@@ -227,8 +232,8 @@ def warn_mesh_ignored(cfg: Config) -> None:
     """The JAX mesh scenario's warnings (distributed_sgd_tpu/main.py:
     152-206), in its words, for the settings of the rpc topology that the
     in-process engines ignore.  The JAX scenario also warns about
-    DSGD_CHAOS, DSGD_TELEMETRY, DSGD_HEALTH_ACTION and DSGD_HOST_DEVICES
-    > 1, which the port refuses in every role (config.py)."""
+    DSGD_CHAOS, DSGD_HEALTH_ACTION and DSGD_HOST_DEVICES > 1, which the
+    port refuses in every role (config.py)."""
     if (cfg.local_steps > 1 or cfg.delta_broadcast or cfg.stream
             or cfg.fanin_lanes or cfg.stage_pool or cfg.agg_tree
             or cfg.master_shards):
@@ -254,6 +259,11 @@ def warn_mesh_ignored(cfg: Config) -> None:
             "DSGD_GOSSIP_TOPOLOGY=%s ignored: only the gossip engines "
             "(async_mode=gossip or engine=rpc async) have a peer fan-out",
             cfg.gossip_topology)
+    if cfg.telemetry or cfg.health_action:
+        log.warning(
+            "DSGD_TELEMETRY/DSGD_HEALTH_ACTION ignored: the cluster "
+            "telemetry plane is the rpc topology's (use engine=rpc; "
+            "docs/OBSERVABILITY.md)")
     if cfg.host_devices != 1:
         log.warning(
             "DSGD_HOST_DEVICES ignored: the mesh engine already spans "
@@ -306,7 +316,8 @@ def scenario_rpc(cfg: Config, train: Dataset, test: Dataset, model,
     with DevCluster(model, train, test, n_workers=cfg.node_count, seed=cfg.seed,
                     metrics=metrics, steps_per_dispatch=cfg.steps_per_dispatch,
                     gossip_topology=cfg.gossip_topology, heartbeat_s=cfg.heartbeat_s,
-                    heartbeat_max_misses=cfg.heartbeat_max_misses) as c:
+                    heartbeat_max_misses=cfg.heartbeat_max_misses,
+                    telemetry_port=cfg.telemetry_port if cfg.telemetry else None) as c:
         w0 = np.zeros(model.n_features, dtype=np.float32)
         loss0, acc0 = c.master.local_loss(w0, test=False)
         log.info("initial loss=%.6f acc=%.4f", loss0, acc0)
@@ -333,6 +344,9 @@ def _run_master(cfg: Config, train: Dataset, test: Dataset, model) -> FitResult:
                         expected_workers=cfg.node_count, seed=cfg.seed).start(
         heartbeat_s=cfg.heartbeat_s, heartbeat_max_misses=cfg.heartbeat_max_misses)
     try:
+        if cfg.telemetry:
+            # the scrape and the one cluster-level /metrics endpoint
+            master.enable_telemetry(cfg.telemetry_port)
         master.await_ready()
         res = _rpc_fit(cfg, master)
         _finish(res, evaluator=lambda w: master.local_loss(w, test=True))
@@ -405,7 +419,7 @@ def _run_worker(cfg: Config, train: Dataset, model, extra: Optional[dict] = None
                         steps_per_dispatch=cfg.steps_per_dispatch,
                         gossip_topology=cfg.gossip_topology,
                         master_watch_s=(cfg.heartbeat_s or 5.0) if cfg.elastic else None,
-                        **(extra or {}))
+                        telemetry=cfg.telemetry, **(extra or {}))
 
     def _on_signal(signum, _frame):
         log.info("signal %d: stopping the worker", signum)
@@ -500,6 +514,7 @@ def _run_serving(cfg: Config, role: str, device) -> None:
             parse_targets(cfg.serve_targets), port=cfg.serve_port, model=cfg.model,
             lam=cfg.lam, canary_fraction=cfg.serve_canary, probe=_load_probe(cfg),
             hedge_ms=cfg.serve_hedge_ms, health_s=cfg.serve_health_s,
+            telemetry_port=cfg.telemetry_port if cfg.telemetry else None,
             metrics=metrics_mod.global_metrics(), seed=cfg.seed,
             state_path=cfg.serve_state, probe_path=cfg.serve_probe,
             probe_refresh_s=cfg.serve_probe_refresh_s).start()
@@ -526,7 +541,9 @@ def _run_serving(cfg: Config, role: str, device) -> None:
             max_delay_ms=cfg.serve_max_delay_ms, queue_depth=cfg.serve_queue_depth,
             ckpt_poll_s=cfg.serve_ckpt_poll_s, canary_fraction=cfg.serve_canary,
             probe=_load_probe(cfg), hedge_ms=cfg.serve_hedge_ms,
-            health_s=cfg.serve_health_s, metrics=metrics_mod.global_metrics(),
+            health_s=cfg.serve_health_s,
+            telemetry_port=cfg.telemetry_port if cfg.telemetry else None,
+            metrics=metrics_mod.global_metrics(),
             seed=cfg.seed, state_path=cfg.serve_state, probe_path=cfg.serve_probe,
             probe_refresh_s=cfg.serve_probe_refresh_s, device=device).start()
         before_stop = []

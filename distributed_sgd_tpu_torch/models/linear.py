@@ -17,6 +17,15 @@ Each model names its coefficient rule (`coeff_kind`, ops/worker_grads.py)
 and its regularizer (`reg_kind`, ops/sync_epoch.py) for the CUDA kernels,
 since a Python function cannot be traced into CUDA; ``grad_coeff`` and
 ``regularize`` evaluate those same rules in torch.
+
+Dense-layout rows (``Dataset.dense``: values ``[B, D]``, a zero-width
+index array) take the dense path: ``margins_dense`` (``x @ w``) and
+``grad_dense`` (``coeff @ x``), plain f32 ``torch.matmul``, where the JAX
+package runs ``jnp.dot`` at ``Precision.HIGHEST`` outside any Pallas
+kernel.  On the card f32 products stay f32 only while PyTorch's matmul
+precision is "highest" and TF32 is off, which are its defaults; the port
+never changes them.  ``margins``, ``forward``, ``grad_sum`` and
+``grad_regularized`` route a dense batch there by its layout.
 """
 
 from __future__ import annotations
@@ -81,6 +90,8 @@ class LinearModel:
 
     # -- shared ------------------------------------------------------------
     def margins(self, w: torch.Tensor, batch: SparseBatch) -> torch.Tensor:
+        if batch.is_dense:
+            return self.margins_dense(w, batch.values)
         return matvec(batch, w)
 
     def forward(self, w: torch.Tensor, batch: SparseBatch) -> torch.Tensor:
@@ -95,8 +106,19 @@ class LinearModel:
         """Per-sample losses given precomputed margins."""
         return self.sample_loss(self.predict(margins), y)
 
+    def objective(self, w: torch.Tensor, batch: SparseBatch, y: torch.Tensor) -> torch.Tensor:
+        """lambda*||w||^2 + mean sample loss."""
+        reg = self.lam * torch.sum(w.float() ** 2)
+        return reg + torch.mean(self.sample_loss(self.forward(w, batch), y))
+
+    def accuracy(self, w: torch.Tensor, batch: SparseBatch, y: torch.Tensor) -> torch.Tensor:
+        """fraction(forward == y)."""
+        return torch.mean((self.forward(w, batch) == y.float()).float())
+
     def grad_sum(self, w: torch.Tensor, batch: SparseBatch, y: torch.Tensor) -> torch.Tensor:
         """Sum of per-sample backward over one batch (plain torch)."""
+        if batch.is_dense:
+            return self.grad_dense(w, batch.values, y, reduce="sum")
         coeff = self.grad_coeff(self.margins(w, batch), y)
         return scatter_add(batch, coeff, self.n_features)
 
@@ -106,12 +128,32 @@ class LinearModel:
         mode computes it)."""
         return self.grad_sum(w, batch, y) / batch.batch_size
 
+    # -- the dense layout ----------------------------------------------------
+    def margins_dense(self, w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """Per-sample dots of dense rows: ``x[..., B, D] @ w[D]`` in f32."""
+        return torch.matmul(x.float(), w.float())
+
+    def grad_dense(self, w: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                   reduce: str = "sum") -> torch.Tensor:
+        """The backward of dense rows: ``coeff[..., B] @ x[..., B, D]``, the
+        sum over the batch, or with reduce='mean' each coefficient first
+        divided by B (the JAX package's order).  Leading dimensions batch
+        workers: x[K, B, D] gives [K, D]."""
+        if reduce not in ("sum", "mean"):
+            raise ValueError(f"reduce must be 'sum' or 'mean', got {reduce!r}")
+        coeff = self.grad_coeff(self.margins_dense(w, x), y)
+        if reduce == "mean":
+            coeff = coeff / x.shape[-2]
+        return torch.matmul(coeff.float().unsqueeze(-2), x.float()).squeeze(-2)
+
     def grad_regularized(self, w: torch.Tensor, batch: SparseBatch,
                          y: torch.Tensor) -> torch.Tensor:
         """The RPC worker's Gradient body (Slave.scala:142-157): the sum of
         per-sample backwards over `batch`, then `regularize`.  The sum is
         ``ops.worker_grads`` at K=1: the CUDA kernel on a CUDA tensor, its
-        plain version on a CPU tensor."""
+        plain version on a CPU tensor; a dense batch takes `grad_dense`."""
+        if batch.is_dense:
+            return self.regularize(self.grad_dense(w, batch.values, y), w)
         g = wg.worker_grads(w, batch.indices[None].contiguous(),
                             batch.values[None].float().contiguous(),
                             y.float()[None].contiguous(), self.coeff_kind)[0]
@@ -151,6 +193,10 @@ class LogisticRegression(LinearModel):
         # log(1 + exp(-y m)), stable
         return torch.nn.functional.softplus(-y.float() * margins)
 
+    def objective(self, w: torch.Tensor, batch: SparseBatch, y: torch.Tensor) -> torch.Tensor:
+        reg = self.lam * torch.sum(w.float() ** 2)
+        return reg + torch.mean(self.sample_losses(w, batch, y))
+
 
 class LeastSquares(LinearModel):
     """Squared-error regression."""
@@ -162,6 +208,10 @@ class LeastSquares(LinearModel):
 
     def sample_loss(self, preds: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         return (preds - y.float()) ** 2
+
+    def accuracy(self, w: torch.Tensor, batch: SparseBatch, y: torch.Tensor) -> torch.Tensor:
+        # accuracy means nothing for regression: the negative MSE
+        return -torch.mean((self.forward(w, batch) - y.float()) ** 2)
 
 
 MODELS = {

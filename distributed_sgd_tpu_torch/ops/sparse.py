@@ -13,6 +13,10 @@ so no explicit mask is carried.
 
 ``pad_rows`` is the host-side row packer (numpy) that builds such a batch
 from variable-nnz rows: the serving batcher's (serving/bucketing.py).
+``take_batch`` selects rows of packed host arrays onto a device, and
+``nnz_per_row`` counts each row's stored nonzeros.  A batch whose index
+array has width 0 is a dense-layout batch (``is_dense``): its values hold
+every feature, and the models route it to their matmul path.
 
 The training step's fused gather + coefficient + scatter for all workers
 is the hand-written kernel in ops/worker_grads.py; these ops serve the
@@ -25,6 +29,8 @@ from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from distributed_sgd_tpu_torch.parallel.mesh import DeviceLike, resolve_device
 
 
 class SparseBatch(NamedTuple):
@@ -44,6 +50,12 @@ class SparseBatch(NamedTuple):
     @property
     def pad_width(self) -> int:
         return self.indices.shape[1]
+
+    @property
+    def is_dense(self) -> bool:
+        """Dense-layout batch (Dataset.dense): a zero-width index array,
+        values holding every feature."""
+        return self.indices.shape[1] == 0
 
 
 def matvec(batch: SparseBatch, w: torch.Tensor) -> torch.Tensor:
@@ -87,3 +99,21 @@ def pad_rows(
         out_idx[i, :n] = idx
         out_val[i, :n] = val
     return out_idx, out_val
+
+
+def take_batch(indices: np.ndarray, values: np.ndarray, sample_ids: np.ndarray,
+               device: DeviceLike = None) -> SparseBatch:
+    """Rows `sample_ids` of packed [N, P] host arrays as a SparseBatch on
+    `device` (the card unless the caller asks for the CPU)."""
+    dev = resolve_device(device)
+    return SparseBatch(
+        indices=torch.as_tensor(np.ascontiguousarray(indices[sample_ids]), dtype=torch.int32,
+                                device=dev),
+        values=torch.as_tensor(np.ascontiguousarray(values[sample_ids]), dtype=torch.float32,
+                               device=dev),
+    )
+
+
+def nnz_per_row(values: np.ndarray) -> np.ndarray:
+    """Stored nonzeros of each row of packed [N, P] host values."""
+    return (values != 0).sum(axis=1)

@@ -33,9 +33,17 @@ its bits.  ``sampling='fresh'`` draws uniform ids per step (with
 replacement); ``sampling='epoch'`` walks one per-epoch permutation of each
 worker's sub-shard.
 
+Dense-layout data (``Dataset.dense``: values ``[N, D]``, no index array)
+binds the ``"dense"`` backend, picked by the layout as the JAX engine
+picks it: no kernel of the port applies (``sync_epoch`` reads index
+rows), so each step runs on its own with the same draws as the sparse
+path: every worker's ``grad_dense`` sum (one batched f32 ``torch.matmul``
+for all K), the regularizer, the mean over workers and the update.  The
+JAX engine runs ``jnp.dot`` there too, outside any Pallas kernel.
+
 Evaluation (objective + accuracy over a split) runs chunked on the device
 with the label-0 pad mask, in plain torch: the JAX package computes it
-outside any Pallas kernel.
+outside any Pallas kernel (dense chunks through ``margins_dense``).
 """
 
 from __future__ import annotations
@@ -98,10 +106,14 @@ def _permutations(gen: torch.Generator, k: int, n: int, device) -> torch.Tensor:
 
 
 class ShardedData(NamedTuple):
-    indices: torch.Tensor  # int32[N_pad, P], this card's rows
+    indices: torch.Tensor  # int32[N_pad, P], this card's rows ([N_pad, 0]: dense layout)
     values: torch.Tensor  # f32[N_pad, P]
     labels: torch.Tensor  # [N_pad]; 0 = padding mask
     n_true: int  # real sample count over all cards
+
+    @property
+    def is_dense(self) -> bool:
+        return SparseBatch(self.indices, self.values).is_dense
 
 
 class BoundSync:
@@ -120,10 +132,18 @@ class BoundSync:
         optimizer=None,
         momentum: float = 0.9,
     ):
+        """The layout picks `kernel`: 'dense' (the matmul steps) for
+        dense-layout rows, else 'sparse' (the sync_epoch or worker_grads
+        kernels)."""
         if sampling not in ("fresh", "epoch"):
             raise ValueError(f"sampling must be 'fresh' or 'epoch', got {sampling!r}")
         if virtual_workers < 1:
             raise ValueError("virtual_workers must be >= 1")
+        if data.is_dense and data.values.shape[1] != model.n_features:
+            raise ValueError(
+                f"dense-layout rows must span the model's {model.n_features} features, "
+                f"got width {data.values.shape[1]}")
+        self.kernel = "dense" if data.is_dense else "sparse"
         self.optimizer = resolve_optimizer(optimizer, momentum)
         self.model = model
         self.data = data
@@ -145,8 +165,9 @@ class BoundSync:
         # labels enter the kernels as f32 (pads stay 0)
         self._labels_f32 = data.labels.float().contiguous()
         self._opt_state = self._init_opt_state()
-        # the epoch kernel reduces over this card's workers only
-        self.epoch_kernel = (self.n_workers == 1 and cluster_plan(
+        # the epoch kernel reduces over this card's workers only, and
+        # reads index rows
+        self.epoch_kernel = (self.kernel == "sparse" and self.n_workers == 1 and cluster_plan(
             self.virtual_workers, model.n_features, self.optimizer.n_state) is not None)
         self._told_per_step = False
 
@@ -189,8 +210,11 @@ class BoundSync:
         """One sync DP step with ids[K, B]; returns the new weights and
         advances the optimizer state."""
         d = self.data
-        gk = worker_grads(w, d.indices[ids], d.values[ids], self._labels_f32[ids],
-                          self.model.coeff_kind)  # [K, D], one launch for every worker
+        if self.kernel == "dense":
+            gk = self.model.grad_dense(w, d.values[ids], self._labels_f32[ids])  # [K, D]
+        else:
+            gk = worker_grads(w, d.indices[ids], d.values[ids], self._labels_f32[ids],
+                              self.model.coeff_kind)  # [K, D], one launch for every worker
         gk = self.model.regularize(gk, w)
         # master mean over ALL workers
         g = all_reduce_sum(gk.sum(dim=0)) / (self.n_workers * self.virtual_workers)
@@ -229,7 +253,7 @@ class BoundSync:
                 n_total_workers=self.n_workers * self.virtual_workers,
                 optimizer=self.optimizer, opt_state=self._opt_state)
             return w
-        if not self._told_per_step:
+        if not self._told_per_step and self.kernel == "sparse":
             log.info("K=%d workers at D=%d with optimizer %s do not fit one cluster's shared "
                      "memory: running the per-step path (worker_grads per step)",
                      self.virtual_workers, self.model.n_features, self.optimizer.kind)
@@ -318,8 +342,10 @@ class MeanSteps:
     154,848 for sgd, 116,128 for momentum, 92,896 for adam), `run` is one
     ``sync_epoch`` launch in the mean mode (K = 1, grad_divisor = B).
     Otherwise each step is one ``worker_grads`` launch, with the mean, the
-    regularizer and the update in torch.  The route is picked by shape when
-    this is built, before any launch.
+    regularizer and the update in torch.  Dense-layout rows (a zero-width
+    index array) take ``grad_dense(reduce="mean")`` a step, as the JAX
+    engines' dense branch does.  The route is picked by shape when this is
+    built, before any launch.
     """
 
     def __init__(self, model: LinearModel, indices: torch.Tensor, values: torch.Tensor,
@@ -330,8 +356,10 @@ class MeanSteps:
         self.labels_f32 = labels.float().contiguous()
         self.learning_rate = float(learning_rate)
         self.optimizer = optimizer or Optimizer()
-        self.fused = cluster_plan(1, model.n_features, self.optimizer.n_state) is not None
-        if not self.fused:
+        self.dense = SparseBatch(indices, values).is_dense
+        self.fused = (not self.dense and cluster_plan(1, model.n_features,
+                                                       self.optimizer.n_state) is not None)
+        if not self.fused and not self.dense:
             log.info("w at D=%d with optimizer %s does not fit one cluster's shared memory: "
                      "the async steps run one worker_grads launch each", model.n_features,
                      self.optimizer.kind)
@@ -354,9 +382,14 @@ class MeanSteps:
                 dim_sparsity=m.dim_sparsity, lr=self.learning_rate, n_total_workers=1,
                 grad_divisor=div, optimizer=self.optimizer, opt_state=state)
         for rows in ids:
-            g = worker_grads(w, self.indices[rows], self.values[rows], self.labels_f32[rows],
-                             m.coeff_kind)[0]
-            w, state = apply_update(w, m.regularize(g / div, w), self.learning_rate,
+            if self.dense:
+                # the mean divides each coefficient before the product
+                g = m.grad_dense(w, self.values[rows], self.labels_f32[rows],
+                                 reduce="sum" if div == 1 else "mean")[0]
+            else:
+                g = worker_grads(w, self.indices[rows], self.values[rows],
+                                 self.labels_f32[rows], m.coeff_kind)[0] / div
+            w, state = apply_update(w, m.regularize(g, w), self.learning_rate,
                                     self.optimizer, state)
         return w, state
 
@@ -435,10 +468,8 @@ class SyncEngine:
         self.momentum = momentum
 
     def bind(self, data: Dataset, steps_per_epoch: Optional[int] = None) -> BoundSync:
-        if data.is_dense:
-            raise NotImplementedError(
-                "dense-layout data is not ported yet (ROADMAP.md Queue A: "
-                "'the dense layout'); pass padded sparse rows")
+        """`data` on the device, padded and sharded; dense-layout data binds
+        the 'dense' backend (it has no index array to gather with)."""
         n_workers = world_size()
         n_true = len(data)
         if n_true < n_workers:

@@ -36,9 +36,11 @@ cannot tell one node from a fleet:
   -> the canaries are rolled back to the promoted weights, the version
   is rejected (re-pushes NACK), and ``router.canary.rollback`` counts it.
 - **ServeHealth** aggregates the fleet (ok = any replica serving).
-  **Metrics** answers UNIMPLEMENTED, and the JAX router's fleet telemetry
-  endpoint (``telemetry_port``) raises: the cluster telemetry scrape
-  waits for ROADMAP.md Queue A [A13] item 8.
+  **Metrics** answers the router's own registry (role "route"), and with
+  ``telemetry_port`` (DSGD_TELEMETRY) the router scrapes its replicas'
+  registries over their Metrics RPC and serves the merged fleet view on
+  that port (telemetry/aggregate.py: per-replica labels, exact cluster
+  bucket sums), as the JAX router does.
 
 Wired into main.py as ``DSGD_ROLE=route``; knobs in config.py
 (``DSGD_SERVE_TARGETS`` etc.); in-process fleet harness in
@@ -71,7 +73,6 @@ from distributed_sgd_tpu_torch.rpc.service import (
     new_channel,
     new_server,
 )
-from distributed_sgd_tpu_torch.serving.server import METRICS_NOT_PORTED
 from distributed_sgd_tpu_torch.trace import flight
 from distributed_sgd_tpu_torch.utils import measure
 from distributed_sgd_tpu_torch.utils import metrics as metrics_mod
@@ -213,10 +214,6 @@ class ServingRouter:
                 "two refresh feeds would fight over the canary baseline")
         if not 0.0 <= canary_fraction <= 1.0:
             raise ValueError("canary_fraction must be in [0, 1]")
-        if telemetry_port is not None:
-            raise NotImplementedError(
-                "the router's fleet telemetry endpoint (DSGD_TELEMETRY): not ported "
-                "yet (ROADMAP.md Queue A [A13] item 8)")
         if metrics is None:
             # fresh per-router registry, NOT the process global: an HA pair
             # runs two routers in one process (tests, fleet drills), each
@@ -306,6 +303,23 @@ class ServingRouter:
         add_serve_servicer(self._server, self,
                            node=f"route:{self._server.bound_port}")
         self._node = f"route:{self._server.bound_port}"
+
+        # the fleet telemetry endpoint: the replicas' registries scraped over
+        # their Metrics RPC (the members fixed at construction, as in JAX),
+        # merged with the router's own
+        self.telemetry = None
+        self.telemetry_exporter = None
+        if telemetry_port is not None:
+            from distributed_sgd_tpu_torch.telemetry.aggregate import (
+                ClusterExporter,
+                ClusterTelemetry,
+            )
+
+            self.telemetry = ClusterTelemetry(self.metrics, node=self._node, role="route")
+            members = [(r.key, r.stub) for r in self._replicas]
+            self.telemetry_exporter = ClusterExporter(
+                self.telemetry.prometheus_text, telemetry_port,
+                refresh=lambda: self.telemetry.scrape(members, self._policy, min_age_s=0.5))
 
     # -- replica selection ---------------------------------------------------
 
@@ -1067,7 +1081,9 @@ class ServingRouter:
         )
 
     def Metrics(self, request, context):  # noqa: N802 - gRPC method name
-        context.abort(grpc.StatusCode.UNIMPLEMENTED, METRICS_NOT_PORTED)
+        from distributed_sgd_tpu_torch.telemetry.aggregate import snapshot_metrics
+
+        return snapshot_metrics(self.metrics, role="route", node=self._node)
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -1079,6 +1095,8 @@ class ServingRouter:
         self._health_pass()  # route nothing before one synchronous look
         self._health_thread.start()
         self._server.start()
+        if self.telemetry_exporter is not None:
+            self.telemetry_exporter.start()
         log.info("routing on :%d over %d replicas (%s); canary=%g hedge=%gms",
                  self.bound_port, len(self._replicas),
                  ", ".join(r.endpoint for r in self._replicas),
@@ -1095,6 +1113,8 @@ class ServingRouter:
         self._server.stop(grace).wait()
         if self._health_thread.is_alive():
             self._health_thread.join(timeout=self.health_s + 1.0)
+        if self.telemetry_exporter is not None:
+            self.telemetry_exporter.stop()
         for r in self._replicas:
             r.close()
 

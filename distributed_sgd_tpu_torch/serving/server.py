@@ -50,11 +50,6 @@ from distributed_sgd_tpu_torch.utils import metrics as metrics_mod
 
 log = logging.getLogger("dsgd.serving")
 
-# what Metrics answers: the cluster telemetry scrape is not ported
-METRICS_NOT_PORTED = ("not ported to the torch server yet: the cluster telemetry scrape "
-                      "(DSGD_TELEMETRY, telemetry/): ROADMAP.md Queue A [A13] item 8")
-
-
 class ModelUnavailable(Exception):
     """No checkpoint snapshot has been loaded yet."""
 
@@ -256,7 +251,12 @@ class ServingServicer:
         return pb.PushWeightsReply(ok=ok, model_step=step)
 
     def Metrics(self, request, context):  # noqa: N802 - gRPC method name
-        context.abort(grpc.StatusCode.UNIMPLEMENTED, METRICS_NOT_PORTED)
+        # the cluster telemetry scrape (telemetry/aggregate.py): a router
+        # folds each replica in under its OWN worker label; pull-only
+        from distributed_sgd_tpu_torch.telemetry.aggregate import snapshot_metrics
+
+        return snapshot_metrics(self._metrics or metrics_mod.global_metrics(),
+                                role="serve", node=self._node)
 
 
 class ServingServer:

@@ -8,13 +8,15 @@
   series;
 - ``blackbox``: the crash-surviving on-disk snapshot ring under
   ``DSGD_BLACKBOX_DIR``, with its post-mortem CLI
-  (``python -m distributed_sgd_tpu_torch.telemetry.blackbox``).
+  (``python -m distributed_sgd_tpu_torch.telemetry.blackbox``);
+- ``aggregate``: the cluster telemetry scrape (DSGD_TELEMETRY), a node's
+  ``Metrics`` snapshot and the merged exposition of a master or router.
 
 Everything is default-off: with ``DSGD_RESOURCE_PROBE_S`` unset no probe
-thread starts and no file is written.  The cluster telemetry scrape
-(``aggregate``), the training-health monitor (``health``) and the
-dashboard generator (``provision``) wait for ROADMAP.md Queue A [A13]
-item 8.
+thread starts and no file is written, and with DSGD_TELEMETRY unset no
+node is scraped (the ``Metrics`` RPC is served, pull-only).  The
+training-health monitor (``health``, DSGD_HEALTH_ACTION) and the dashboard
+generator (``provision``) wait for ROADMAP.md Queue A [A13] item 8.
 """
 
 # NOTE: blackbox is deliberately NOT imported here — it is a `-m`-runnable

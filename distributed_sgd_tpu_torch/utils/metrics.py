@@ -17,9 +17,10 @@ recorded values.  Exporters:
 
 The instrument constants are those the port records: the sync trainer,
 the async engines, the RPC master and worker (core/master.py,
-core/worker.py), the async RPC fit included, the serving fleet
-(serving/) and the resource probe (telemetry/).  The tree, shard and
-autopilot families wait for their modules (ROADMAP.md Queue A).
+core/worker.py), the async RPC fit included, the aggregation tree and
+the sharded master, the serving fleet (serving/), the resource probe and
+the cluster telemetry scrape (telemetry/).  The autopilot family waits
+for its module (ROADMAP.md Queue A).
 """
 
 from __future__ import annotations
@@ -457,6 +458,22 @@ ASYNC_DRAIN_FALLBACK = "master.async.drain.fallback"  # full inbox -> per-messag
 TOPOLOGY_RESELECT = "slave.async.topology.reselect"  # edges re-routed past breakers
 ASYNC_RESPLITS = "master.async.resplit"            # elastic membership resplits
 HEALTH_DRAIN_BACKLOG = "health.drain.backlog"       # gauge: async inbox depth (master)
+
+# -- the cluster telemetry plane (telemetry/aggregate.py; DSGD_TELEMETRY) -------
+# The scrape's own accounting on a master or router: a scrape consults the
+# per-peer breakers read-only (`skipped`) and never feeds them, so its
+# failures count here and nowhere else.
+TELEMETRY_SCRAPES = "master.telemetry.scrapes"      # counter: scrape fan-outs run
+TELEMETRY_SCRAPE_ERRORS = "master.telemetry.scrape.errors"  # counter: failed worker scrapes
+TELEMETRY_SCRAPE_SKIPPED = "master.telemetry.scrape.skipped"  # counter: breaker-suppressed
+TELEMETRY_WORKERS = "master.telemetry.workers"      # gauge: snapshots currently held
+# a worker's health gauges under DSGD_TELEMETRY (core/worker.py
+# record_health): its gradient norm, the gap since its previous dispatch,
+# and the error-feedback residual's norm (the JAX name; the port's worker
+# has no compressor and never sets it).  With telemetry off none registers.
+HEALTH_GRAD_NORM = "health.grad.norm"               # gauge: ||g||2 of the last round
+HEALTH_STALENESS = "health.reply.staleness_s"       # gauge: round latency / dispatch gap
+HEALTH_EF_RESIDUAL_NORM = "health.ef.residual.norm"  # gauge: ||EF residual||2 (workers)
 
 
 def record_broadcast(metrics: "Metrics", form: str, n_bytes: int) -> None:

@@ -134,3 +134,44 @@ def test_weights_cross_between_flat_and_blocked_layouts(n_features):
     np.testing.assert_array_equal(convert.weights_to_jax(torch.from_numpy(w), blocked=True), w2)
     with pytest.raises(ValueError, match="neither"):
         convert.weights_from_jax(w[:-1], n_features, device="cpu")
+
+
+@pytest.mark.parametrize("layout", ["sparse", "dense"])
+@pytest.mark.parametrize("regularizer", ["l2", "none"])
+@pytest.mark.parametrize("name", NAMES)
+def test_objective_and_accuracy_match_jax_in_each_layout(name, regularizer, layout):
+    """lambda*||w||^2 + mean sample loss (logistic's from its margins), and
+    fraction(forward == y) (least squares: -MSE), within 1e-6 relative."""
+    idx, val, y, w, ds = _inputs(4)
+    if layout == "dense":
+        x = np.zeros((B, D), np.float32)
+        np.add.at(x, (np.arange(B)[:, None], idx), val)  # the same rows, every feature
+        idx, val = np.zeros((B, 0), np.int32), x
+    if name == "least_squares":
+        y = np.random.default_rng(5).normal(size=B).astype(np.float32)
+    jm, tm = _pair(name, ds, regularizer)
+    jb, tb = JBatch(jnp.asarray(idx), jnp.asarray(val)), TBatch(torch.from_numpy(idx),
+                                                                torch.from_numpy(val))
+    assert tb.is_dense == jb.is_dense == (layout == "dense")
+    jw, tw = jnp.asarray(w), torch.from_numpy(w)
+    for fn in ("objective", "accuracy"):
+        got = float(getattr(tm, fn)(tw, tb, torch.from_numpy(y)))
+        want = float(getattr(jm, fn)(jw, jb, jnp.asarray(y)))
+        assert got == pytest.approx(want, rel=1e-6), fn
+    if name == "least_squares":
+        assert float(tm.accuracy(tw, tb, torch.from_numpy(y))) < 0
+
+
+def test_take_batch_and_nnz_per_row_match_jax():
+    from distributed_sgd_tpu.ops.sparse import nnz_per_row as jnnz
+    from distributed_sgd_tpu.ops.sparse import take_batch as jtake
+    from distributed_sgd_tpu_torch.ops.sparse import nnz_per_row, take_batch
+
+    idx, val, _, _, _ = _inputs(6)
+    ids = np.array([3, 0, 15, 3])
+    got, want = take_batch(idx, val, ids, device="cpu"), jtake(idx, val, ids)
+    assert got.indices.dtype == torch.int32 and got.values.dtype == torch.float32
+    np.testing.assert_array_equal(got.indices.numpy(), np.asarray(want.indices))
+    np.testing.assert_array_equal(got.values.numpy(), np.asarray(want.values))
+    np.testing.assert_array_equal(nnz_per_row(val), jnnz(val))
+    assert nnz_per_row(val).max() == P - 1  # the pad slot

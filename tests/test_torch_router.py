@@ -9,12 +9,13 @@ probe set; a JAX checkpoint distributor pushes to port replicas and the
 port's to JAX replicas, bitwise.  The port's router fails over a killed
 replica with no dropped request, persists its promoted state in the JAX
 sidecar format (each package's router restores the other's), and
-answers Metrics UNIMPLEMENTED."""
+answers Metrics with its own registry."""
 
 import json
 import signal
 import threading
 import time
+import urllib.request
 
 import grpc
 import numpy as np
@@ -351,21 +352,27 @@ def test_router_state_persists_in_the_jax_sidecar_format(tmp_path):
 
 
 def test_the_router_answers_metrics_unimplemented_and_refuses_a_telemetry_port():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ServingRouter([("127.0.0.1", 1)], port=0, telemetry_port=0)
-    router = ServingRouter([("127.0.0.1", 1)], port=0, host="127.0.0.1",
-                           metrics=Metrics()).start()
+    """The router answers Metrics with its own registry (role "route"),
+    and `telemetry_port` serves the fleet's merged view; a dead replica's
+    scrape is counted, not fatal (tests/test_torch_telemetry.py holds the
+    scrape across packages)."""
+    m = Metrics()
+    router = ServingRouter([("127.0.0.1", 1)], port=0, host="127.0.0.1", metrics=m,
+                           telemetry_port=0).start()
     channel = new_channel("127.0.0.1", router.bound_port)
     try:
-        with pytest.raises(grpc.RpcError) as err:
-            ServeStub(channel).Metrics(pb.Empty(), timeout=5)
-        assert err.value.code() == grpc.StatusCode.UNIMPLEMENTED
-        assert "item 8" in err.value.details()
+        snap = ServeStub(channel).Metrics(pb.Empty(), timeout=5)
+        assert (snap.role, snap.node) == ("route", f"route:{router.bound_port}")
         health = ServeStub(channel).ServeHealth(pb.Empty(), timeout=5)
         assert not health.ok  # no replica answered
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{router.telemetry_exporter.port}/metrics", timeout=30) as r:
+            text = r.read().decode()
     finally:
         channel.close()
         router.stop()
+    assert f'worker="route:{router.bound_port}"' in text
+    assert m.counter(mm.TELEMETRY_SCRAPE_ERRORS).value == 1
 
 
 def test_a_jax_pusher_and_the_port_pusher_send_the_same_bytes(tmp_path):

@@ -241,12 +241,11 @@ def test_the_worker_gradient_is_worker_grads_plus_the_regularizer(data):
 
 @pytest.mark.parametrize("field", ["shard_count", "agg_parent", "Metrics", "AggregateGrad"])
 def test_unserved_requests_answer_unimplemented_with_their_roadmap_item(data, field):
-    """`Metrics` is the one request left unserved, and answers UNIMPLEMENTED
-    naming its ROADMAP item.  The others once did too, and are served
-    since the aggregation tree and the sharded master were ported: a
-    one-lane shard leg replies its slice (all of the flat gradient), a
-    request stamped with an unreachable parent replies its own gradient
-    to the master tagged agg_flat, and a child's push is acknowledged."""
+    """Each of these is served: a one-lane shard leg replies its slice (all
+    of the flat gradient), a request stamped with an unreachable parent
+    replies its own gradient to the master tagged agg_flat, a child's push
+    is acknowledged, and `Metrics` answers the worker's registry as a
+    snapshot."""
     train, test, _ = data
     w0 = np.random.default_rng(3).normal(size=D).astype(np.float32) * 0.1
     with DevCluster(_models(data)[1], _torch(train), _torch(test), n_workers=1) as c:
@@ -266,14 +265,16 @@ def test_unserved_requests_answer_unimplemented_with_their_roadmap_item(data, fi
         else:
             call, req = stub.AggregateGrad, pb.AggGrad(fit_token=5, round=1, origin="c:1")
         if field == "Metrics":
-            with pytest.raises(grpc.RpcError) as e:
-                call(req, timeout=10)
+            stub.Gradient(plain, timeout=10)
+            got = call(req, timeout=10)
+            backward = w.metrics.counter("slave.sync.backward").value
         else:
             got, want = call(req, timeout=10), stub.Gradient(plain, timeout=10)
         ch.close()
     if field == "Metrics":
-        assert e.value.code() == grpc.StatusCode.UNIMPLEMENTED
-        assert "ROADMAP.md Queue A" in e.value.details()
+        assert (got.role, got.node) == ("worker", w.node_label)
+        counters = {c.name: c.value for c in got.counters}
+        assert counters["slave.sync.backward"] == backward >= 1
     elif field == "AggregateGrad":
         assert got == pb.Ack() and w._agg is not None
     else:

@@ -478,10 +478,9 @@ def test_a_jax_client_against_a_port_replica(replica):
     with pytest.raises(grpc.RpcError) as err:  # a feature past the model's width
         stub.Predict(jpb.PredictRequest(indices=[D], values=[1.0]), timeout=5)
     assert err.value.code() == grpc.StatusCode.INVALID_ARGUMENT
-    with pytest.raises(grpc.RpcError) as err:
-        stub.Metrics(jpb.Empty(), timeout=5)
-    assert err.value.code() == grpc.StatusCode.UNIMPLEMENTED
-    assert "item 8" in err.value.details()
+    snap = stub.Metrics(jpb.Empty(), timeout=5)  # the telemetry scrape, in the JAX proto
+    assert snap.role == "serve"
+    assert {h.name: h.count for h in snap.hists}["serve.predict.duration"] == len(rows)
 
 
 def test_answers_for_one_row_in_one_bucket_repeat_bit_for_bit(replica):
@@ -654,8 +653,24 @@ def test_a_bad_serving_setting_is_refused_as_jax_refuses_it(kw):
     {"DSGD_ROLE": "serve", "DSGD_CHECKPOINT_DIR": "c", "DSGD_HOST_DEVICES": "2"},
 ], ids=lambda env: "+".join(f"{k[5:].lower()}={v}" for k, v in env.items()))
 def test_what_stays_refused_still_raises_on_the_serving_roles(env, monkeypatch):
+    # DSGD_TELEMETRY is acted on: the route role builds its router with
+    # the fleet telemetry endpoint on DSGD_TELEMETRY_PORT (default 9091)
     for k, v in env.items():
         monkeypatch.setenv(k, v)
+    if "DSGD_TELEMETRY" in env:
+        from distributed_sgd_tpu_torch.serving import router as trouter
+
+        class _Built(Exception):
+            pass
+
+        def built(*a, **kw):
+            raise _Built(kw.get("telemetry_port"))
+
+        monkeypatch.setattr(trouter, "ServingRouter", built)
+        with pytest.raises(_Built) as got:
+            tmain.main(device="cpu")
+        assert got.value.args == (9091,)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A"):
         tmain.main(device="cpu")
 
