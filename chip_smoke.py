@@ -143,14 +143,15 @@ Phases, each fatal (a traceback and a non-zero exit):
    SIGTERM and both exit 0.  The path launches neither kernel;
 13. the aggregation tree and the sharded master, on phase 8's full-width
    data (3 workers, B=100, lr 0.5, 1 epoch each): DSGD_AGG_TREE=fanout:2
-   (and again on phase 8's 100,000 rows, bitwise phase 8's knobs-off fit
-   there), with DSGD_LOCAL_STEPS=4 (one ``sync_epoch`` sum
-   launch a worker a round), DSGD_MASTER_SHARDS=2 (one ``worker_grads``
-   launch a worker a round for both lanes), and both together; each K=1
-   fit within 1e-5 of phase 8's knobs-off weights (printed: bitwise or
-   not), accuracy >= 0.70, no eviction, windows/s and a window's parts,
-   the tree's and the lanes' counters and bytes, the launches and a busy
-   share (the same fit over 50,000 rows under torch.profiler); then at
+   and with DSGD_LOCAL_STEPS=4 (one ``sync_epoch`` sum launch a worker a
+   round), each with its busy share (the same fit over 50,000 rows under
+   torch.profiler), accuracy >= 0.70; then on phase 8's 100,000 rows
+   (since PR 13, a depth cut: the shard fits were full width) the tree
+   again, bitwise phase 8's knobs-off fit there, DSGD_MASTER_SHARDS=2 (one
+   ``worker_grads`` launch a worker a round for both lanes), and shards
+   with the tree; each K=1 fit within 1e-5 of the knobs-off weights
+   (printed: bitwise or not), no eviction, windows/s and a window's parts,
+   the tree's and the lanes' counters and bytes, the launches; then at
    100,000 rows ``kill_shard(1)`` mid-fit: one flat round, one rebuild,
    no eviction and the flat fit's weights bit for bit;
 14. the telemetry scrape and the rest of the model, BASELINE configs 3
@@ -174,7 +175,27 @@ Phases, each fatal (a traceback and a non-zero exit):
    windows/s with telemetry off and on in turns, split by part (a registry
    a node, the scrape, the health gauges), and the host time of one call
    of each part; ``flat_sparse`` on the card against the CPU;
-15. summary: the card line, one JSON line of per-kernel numbers, and last
+15. the process group (torch.distributed): (a) the main path at full
+   width for 1 epoch through the CLI inside an NCCL group of one rank
+   (torchrun's environment), bitwise the fit without a group, one
+   ``sync_epoch`` launch, the NCCL version printed; (b) two gloo ranks on
+   the one card (tools/process_group_ranks.py, each with a limit of its
+   own), each mapping phase 5's train rows written once as ``.npy`` files
+   and binding its half host-local, K=3 workers a rank, B=100, lr 0.5, 1
+   epoch on the per-step path: the ranks' weights bitwise equal,
+   ``worker_grads`` launches = steps a rank and no ``sync_epoch``,
+   accuracy >= 0.70, within 1e-5 after 100 steps of one process's K=6
+   per-step fit driven by the same real rows for each worker and step and
+   within 0.01 of its accuracy after the epoch, the epoch seconds and a
+   step's µs split into ``worker_grads``, the all_reduce and the update
+   (CUDA events); (c) ``HostMeshEngine`` on [cuda:0, cuda:0] over a
+   worker's full-width rows: a Gradient body and a K=4 window within 1e-6
+   relative of the flat worker's, 2 ``worker_grads`` launches a body; (d)
+   the dp x tp engine at W=1 x F=2 on two gloo ranks at full width, the
+   first third of an epoch (2,146 of 6,436 steps), no kernel, within 1e-5
+   after 100 steps of the 1-D sync fit at one worker from the same ids and
+   within 0.01 of its accuracy at the end, >= 0.70;
+16. summary: the card line, one JSON line of per-kernel numbers, and last
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits non-zero before printing any result.
@@ -3364,6 +3385,10 @@ SHARD_KILL_AT = 50  # windows run before the kill
 TREE_FITS = (  # (label, fit_sync arguments): full-width fits
     ("tree", dict(agg_tree=TREE_SPEC)),
     (f"tree K={WINDOW_K}", dict(agg_tree=TREE_SPEC, local_steps=WINDOW_K)),
+)
+# fits on phase 8's RPC_SMALL_ROWS rows against its knobs-off fit there
+# (full width until PR 13, which cut them in depth to keep the smoke's time)
+SMALL_TREE_FITS = (
     (f"shards {TREE_SHARDS}", dict(master_shards=TREE_SHARDS)),
     (f"shards {TREE_SHARDS} + tree", dict(master_shards=TREE_SHARDS, agg_tree=TREE_SPEC)),
 )
@@ -3530,6 +3555,8 @@ def run_tree_phase(full: dict) -> dict:
     del busy_data
     again = run_tree_fit("tree again", dict(agg_tree=TREE_SPEC), full["small"], None, 0.0)
     launches["tree again"] = again["launches"]
+    for label, kw in SMALL_TREE_FITS:
+        launches[label] = run_tree_fit(label, kw, full["small"], None, 0.0)["launches"]
     with cli_env(DSGD_SYNTHETIC=SHARD_KILL_ROWS):
         train, test, model = port_main.build(Config.from_env(), "cuda")
     launches["kill_shard"] = check_shard_kill(model, train, test)["launches"]
@@ -3966,6 +3993,269 @@ def run_model_phase(main_w: np.ndarray, main_test: Dataset) -> dict:
             "dense_worker_grads": dense["worker_grads"]}
 
 
+# -- phase 15: the process group ----------------------------------------------
+
+PG_WORLD = 2  # gloo ranks on the one card: NCCL refuses two ranks on one device
+PG_STEPS_FIRST = 100  # steps after which the two-rank fits are held to one process's
+PG_ATOL = 1e-5  # ... within this
+PG_ACC_GAP = 0.01  # the epoch's test accuracy against one process's
+PG_ACC_FLOOR = 0.70
+PG_TIMED_STEPS = 200  # per-step path steps split into parts by CUDA events
+PG_FS_STEPS = 2146  # (d)'s steps: a third of its 6,436-step epoch (a depth cut, PR 13)
+PG_RANK_TIMEOUT_S = 300  # each rank's own limit
+PG_BUDGET_S = 90  # printed against the phase's time, not gated
+HIER_RTOL = 1e-6  # the in-host group's reply against the flat worker's, relative
+HIER_WINDOW_K = 4
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def check_nccl_one_rank() -> int:
+    """(a) The main path for 1 epoch in the CLI without a process group,
+    then inside an NCCL group of one rank (torchrun's environment: the CLI
+    joins it): bitwise the same weights and test numbers, one sync_epoch
+    launch, the evaluation's sums through NCCL.  Returns the launches."""
+    import torch.distributed as dist
+
+    from distributed_sgd_tpu_torch.parallel import multihost
+
+    runs, seen = {}, {}
+    init = multihost.initialize
+
+    def spy(*args, **kw):
+        dev = init(*args, **kw)
+        seen.update(backend=dist.get_backend(), world=dist.get_world_size())
+        return dev
+
+    multihost.initialize = spy
+    try:
+        for label, extra in (("no group", {}),
+                             ("nccl", dict(WORLD_SIZE=1, RANK=0, LOCAL_RANK=0,
+                                           MASTER_ADDR="127.0.0.1", MASTER_PORT=free_port()))):
+            with cli_env(DSGD_SYNTHETIC=MAIN_ROWS, DSGD_MAX_EPOCHS=1, **extra):
+                reset_counts()
+                run = port_main.main()
+                torch.cuda.synchronize()
+            runs[label] = (run.fit, se.sync_epoch.launches, wg.worker_grads.launches)
+    finally:
+        multihost.initialize = init
+    (plain, _, _), (grouped, launches, wg_launches) = runs["no group"], runs["nccl"]
+    print(f"(a) NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}, group {seen}: the main "
+          f"path's epoch {grouped.epoch_seconds[0]:.4f} s in the group, "
+          f"{plain.epoch_seconds[0]:.4f} s without; sync_epoch launches {launches}, "
+          f"worker_grads {wg_launches}; test loss {grouped.test_losses[0]:.7f} accuracy "
+          f"{grouped.test_accuracies[0]:.7f}", flush=True)
+    if seen != {"backend": "nccl", "world": 1} or dist.is_initialized():
+        raise AssertionError(f"(a): the group was {seen}, and is left initialized: "
+                             f"{dist.is_initialized()}")
+    if not torch.equal(grouped.weights, plain.weights) or (
+            grouped.test_losses, grouped.test_accuracies) != (plain.test_losses,
+                                                              plain.test_accuracies):
+        raise AssertionError("(a): the fit inside an NCCL group of one rank differs from the "
+                             "fit without a group")
+    if (launches, wg_launches) != (1, 0):
+        raise AssertionError(f"(a): {launches} sync_epoch and {wg_launches} worker_grads "
+                             f"launches; want 1 and 0")
+    return launches
+
+
+def check_host_mesh(train: Dataset, model, w: np.ndarray) -> int:
+    """(c) HostMeshEngine on ["cuda:0", "cuda:0"] over phase 8's full-width
+    slice (a worker's train rows): a Gradient body and a K=4 window, each
+    against the flat worker's reply for the same ids, two worker_grads
+    launches a body.  Returns the launches of the body."""
+    from distributed_sgd_tpu_torch.core.worker import WorkerNode
+
+    rng = np.random.default_rng(15)
+    ids = rng.choice(len(train), size=B, replace=False)
+    window_ids = rng.choice(len(train), size=HIER_WINDOW_K * B, replace=False)
+    nodes = {}
+    try:
+        for label, kw in (("flat", {}),
+                          ("hier", dict(host_devices=2, devices=["cuda:0", "cuda:0"]))):
+            nodes[label] = WorkerNode("127.0.0.1", 0, "127.0.0.1", 1, train, model, seed=0,
+                                      metrics=Metrics(), **kw)
+        flat, hier = nodes["flat"], nodes["hier"]
+        g_flat = flat.compute_gradient(w, ids)
+        win_flat = flat.compute_local_window(w, window_ids, HIER_WINDOW_K, B, RPC_LR)
+        torch.cuda.synchronize()
+        reset_counts()
+        g_hier = hier.compute_gradient(w, ids)
+        torch.cuda.synchronize()
+        body_launches = wg.worker_grads.launches
+        win_hier = hier.compute_local_window(w, window_ids, HIER_WINDOW_K, B, RPC_LR)
+        torch.cuda.synchronize()
+        win_launches = wg.worker_grads.launches - body_launches
+        se_launches = se.sync_epoch.launches
+        t_hier = time_ms(lambda: hier.compute_gradient(w, ids), iters=50, warmup=5)
+        t_flat = time_ms(lambda: flat.compute_gradient(w, ids), iters=50, warmup=5)
+    finally:
+        for node in nodes.values():
+            node.stop()
+    rel_g = float(np.abs(g_hier - g_flat).max() / np.abs(g_flat).max())
+    rel_win = float(np.abs(win_hier - win_flat).max() / np.abs(win_flat).max())
+    print(f"(c) HostMeshEngine on [cuda:0, cuda:0] ({len(train):,} rows, B={B}): Gradient "
+          f"body relative gap {rel_g:.3e}, K={HIER_WINDOW_K} window {rel_win:.3e} (limit "
+          f"{HIER_RTOL}); worker_grads launches {body_launches} a body, {win_launches} a "
+          f"window, sync_epoch {se_launches}; a body {t_hier:.4f} ms host-timed against "
+          f"{t_flat:.4f} ms flat", flush=True)
+    if not (rel_g <= HIER_RTOL and rel_win <= HIER_RTOL):
+        raise AssertionError(f"(c): the group's replies differ from the flat worker's by "
+                             f"{rel_g} and {rel_win}, relative")
+    if (body_launches, win_launches, se_launches) != (2, 2 * HIER_WINDOW_K, 0):
+        raise AssertionError(f"(c): {body_launches} launches a body, {win_launches} a window, "
+                             f"{se_launches} sync_epoch; want 2, {2 * HIER_WINDOW_K}, 0")
+    return body_launches
+
+
+def write_rank_rows(tmp: str, train: Dataset, test: Dataset) -> None:
+    """Phase 5's rows as .npy files, written once, that every rank maps."""
+    for split, data in (("train", train), ("test", test)):
+        for name in ("indices", "values", "labels"):
+            np.save(os.path.join(tmp, f"{split}_{name}.npy"), getattr(data, name))
+    np.save(os.path.join(tmp, "dim_sparsity.npy"), dim_sparsity(train))
+    np.save(os.path.join(tmp, "n_features.npy"), np.int64(train.n_features))
+    with open(os.path.join(tmp, "meta.json"), "w") as f:
+        json.dump(dict(lam=LAM, batch=B, lr=RPC_LR, virtual_workers=K, seed=0,
+                       steps_first=PG_STEPS_FIRST, timed_steps=PG_TIMED_STEPS,
+                       fs_steps=PG_FS_STEPS), f)
+
+
+def run_ranks(tmp: str) -> list:
+    """The two gloo ranks of tools/process_group_ranks.py, each a process
+    with a limit of its own; a rank that fails fails the phase."""
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "distributed_sgd_tpu_torch.tools.process_group_ranks", tmp,
+         str(r), str(PG_WORLD), str(port)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(PG_WORLD)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=PG_RANK_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"rank {r} exited {p.returncode}:\n{log[-6000:]}")
+    out = []
+    for r in range(PG_WORLD):
+        with np.load(os.path.join(tmp, f"rank{r}.npz")) as z:
+            out.append({k: z[k] for k in z.files})
+    return out
+
+
+def check_two_ranks_sync(ranks: list, train: Dataset, test: Dataset, model) -> int:
+    """(b) The two ranks' sync fit against one process's K=6 per-step fit
+    driven by the same real rows for each worker and step."""
+    r0, r1 = ranks
+    n = len(train)
+    shard_n = int(r0["sync_shard_n"])
+    steps = r0["sync_ids"].shape[0]
+    # rank r's local id i is padded row r * shard_n + i, real when below n;
+    # one process's layout pads from row n on
+    glob = [r["sync_ids"] + i * shard_n for i, r in enumerate(ranks)]
+    ids6 = np.concatenate([np.where(g < n, g, n) for g in glob], axis=1)
+    eng = SyncEngine(model, B, RPC_LR, virtual_workers=PG_WORLD * K, device="cuda")
+    one = eng.bind(train)
+    if one.steps_per_epoch != steps or one.epoch_kernel:
+        raise AssertionError(f"(b): one process's K=6 fit has {one.steps_per_epoch} steps "
+                             f"(want {steps}), epoch kernel {one.epoch_kernel}")
+    t_ids = torch.from_numpy(ids6).cuda()
+    w = one._run(torch.zeros(D, device="cuda"), t_ids[:PG_STEPS_FIRST])
+    gap_first = float((w.cpu() - torch.from_numpy(r0["sync_w_first"])).abs().max())
+    w = one._run(w, t_ids[PG_STEPS_FIRST:])
+    acc_one = eng.bind(test).evaluate(w)[1]
+    gap_end = float((w.cpu() - torch.from_numpy(r0["sync_w"])).abs().max())
+    acc = float(r0["sync_test"][1])
+    print(f"(b) gloo, {PG_WORLD} ranks on the card, K={K} a rank, B={B}, lr {RPC_LR}, "
+          f"1 epoch of {steps} steps: epoch seconds "
+          f"{[round(float(r['sync_epoch_s']), 4) for r in ranks]} (bind "
+          f"{[round(float(r['sync_bind_s']), 3) for r in ranks]} s); us a step "
+          f"{ {k[8:]: round(float(r0[k]), 2) for k in r0 if k.startswith('sync_us_')} } "
+          f"(rank 0, {PG_TIMED_STEPS} steps); worker_grads launches "
+          f"{[int(r['sync_worker_grads']) for r in ranks]}, sync_epoch "
+          f"{[int(r['sync_sync_epoch']) for r in ranks]}; test accuracy {acc:.4f} against "
+          f"{acc_one:.4f} for one process's K=6 fit; weights gap {gap_first:.3e} after "
+          f"{PG_STEPS_FIRST} steps, {gap_end:.3e} after the epoch", flush=True)
+    if not np.array_equal(r0["sync_w"], r1["sync_w"]):
+        raise AssertionError("(b): the two ranks' weights differ")
+    if any((int(r["sync_worker_grads"]), int(r["sync_sync_epoch"])) != (steps, 0)
+           for r in ranks):
+        raise AssertionError(f"(b): launches {[(int(r['sync_worker_grads']), int(r['sync_sync_epoch'])) for r in ranks]}; "
+                             f"want ({steps}, 0) a rank")
+    if not (acc >= PG_ACC_FLOOR and abs(acc - acc_one) <= PG_ACC_GAP and gap_first <= PG_ATOL):
+        raise AssertionError(f"(b): accuracy {acc} (one process {acc_one}), gap after "
+                             f"{PG_STEPS_FIRST} steps {gap_first}")
+    return steps
+
+
+def check_two_ranks_feature_sharded(ranks: list, train: Dataset, test: Dataset,
+                                    model) -> float:
+    """(d) The dp x tp fit at W=1, F=2 (its first PG_FS_STEPS steps)
+    against the 1-D sync fit at one worker from the same ids."""
+    r0, r1 = ranks
+    ids = torch.from_numpy(r0["fs_ids"]).cuda()[:, None, :]
+    eng = SyncEngine(model, B, RPC_LR, virtual_workers=1, device="cuda")
+    one = eng.bind(train)
+    w = one._run(torch.zeros(D, device="cuda"), ids[:PG_STEPS_FIRST])
+    gap_first = float((w.cpu() - torch.from_numpy(r0["fs_w_first"])).abs().max())
+    w = one._run(w, ids[PG_STEPS_FIRST:])
+    acc_one = eng.bind(test).evaluate(w)[1]
+    gap_end = float((w.cpu() - torch.from_numpy(r0["fs_w"])).abs().max())
+    acc = float(r0["fs_test"][1])
+    print(f"(d) dp x tp W=1 x F={PG_WORLD} (gloo, the features "
+          f"{[r['fs_bounds'].tolist() for r in ranks]}), B={B}, lr {RPC_LR}, {ids.shape[0]} "
+          f"steps of a {int(r0['fs_epoch_steps'])}-step epoch: seconds "
+          f"{[round(float(r['fs_epoch_s']), 3) for r in ranks]}"
+          f" (bind {[round(float(r['fs_bind_s']), 3) for r in ranks]} s); kernel launches "
+          f"{[int(r['fs_launches']) for r in ranks]}; test accuracy {acc:.4f} against "
+          f"{acc_one:.4f} for the 1-D fit; weights gap {gap_first:.3e} after "
+          f"{PG_STEPS_FIRST} steps, {gap_end:.3e} at the end", flush=True)
+    if not (np.array_equal(r0["fs_w"], r1["fs_w"]) and np.array_equal(r0["fs_ids"],
+                                                                       r1["fs_ids"])):
+        raise AssertionError("(d): the feature ranks' gathered weights or ids differ")
+    if any(int(r["fs_launches"]) != 0 for r in ranks):
+        raise AssertionError("(d): the dp x tp path launched a kernel")
+    if not (acc >= PG_ACC_FLOOR and abs(acc - acc_one) <= PG_ACC_GAP and gap_first <= PG_ATOL):
+        raise AssertionError(f"(d): accuracy {acc} (1-D {acc_one}), gap after "
+                             f"{PG_STEPS_FIRST} steps {gap_first}")
+    return float(r0["fs_epoch_s"])
+
+
+def run_process_group_phase(main_w: np.ndarray) -> dict:
+    """Phase 15; returns the launches of its paths."""
+    t0 = time.perf_counter()
+    nccl_launches = check_nccl_one_rank()
+    with cli_env(DSGD_SYNTHETIC=MAIN_ROWS):
+        train, test, model = port_main.build(Config.from_env(), "cuda")
+    hier_launches = check_host_mesh(train, model, main_w)
+    tmp = tempfile.mkdtemp(prefix="dsgd-ranks-")
+    try:
+        t1 = time.perf_counter()
+        write_rank_rows(tmp, train, test)
+        print(f"rank rows written in {time.perf_counter() - t1:.2f} s", flush=True)
+        t1 = time.perf_counter()
+        ranks = run_ranks(tmp)
+        print(f"ranks ran in {time.perf_counter() - t1:.2f} s", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    steps = check_two_ranks_sync(ranks, train, test, model)
+    check_two_ranks_feature_sharded(ranks, train, test, model)
+    print(f"process group phase seconds: {time.perf_counter() - t0:.1f} "
+          f"(budget {PG_BUDGET_S})", flush=True)
+    return {"nccl": nccl_launches, "hier": hier_launches, "ranks": steps}
+
+
 def main() -> None:
     phase("1 device")
     if not torch.cuda.is_available():
@@ -4053,20 +4343,31 @@ def main() -> None:
     del rpc_full
     wg_row["path"] += "; phase 13 (full width, 1 epoch each): " + ", ".join(
         f"{label} {tree[label][0]}" for label, kw in TREE_FITS if "local_steps" not in kw)
-    wg_row["path"] += (f", tree again ({RPC_SMALL_ROWS:,} rows) {tree['tree again'][0]}, "
-                       f"kill_shard ({SHARD_KILL_ROWS:,} rows) {tree['kill_shard']}")
+    wg_row["path"] += f", at {RPC_SMALL_ROWS:,} rows: tree again {tree['tree again'][0]}, " + (
+        ", ".join(f"{label} {tree[label][0]}" for label, _ in SMALL_TREE_FITS)) + (
+        f", kill_shard ({SHARD_KILL_ROWS:,} rows) {tree['kill_shard']}")
     k_label = next(label for label, kw in TREE_FITS if "local_steps" in kw)
     window_row["path"] += f"; phase 13 {k_label} (full width, 1 epoch) {tree[k_label][1]}"
 
     phase("14 the telemetry scrape and the rest of the model: BASELINE configs 3 and 5")
     model = run_model_phase(main_w, main_test)
+    pg_w = main_w
     del main_w, main_test
     se_row["path"] += (f"; phase 14 config 3 (logistic, l2, full width, {CFG3_EPOCHS} epochs) "
                        f"{model['cfg3']}; config 5 (dense) {model['dense_sync_epoch']}")
     wg_row["path"] += (f"; phase 14 telemetry fit ({TEL_ROWS:,} rows, 1 epoch) "
                        f"{model['telemetry']}; config 5 (dense) {model['dense_worker_grads']}")
 
-    phase("15 summary")
+    phase("15 the process group: NCCL at one rank, two gloo ranks on the card, the in-host "
+          "group and the dp x tp engine")
+    pg = run_process_group_phase(pg_w)
+    del pg_w
+    se_row["path"] += f"; phase 15 (a) the main path in an NCCL group of one rank {pg['nccl']}"
+    wg_row["path"] += (f"; phase 15 (b) {PG_WORLD} gloo ranks, K={K} a rank, 1 epoch (full "
+                       f"width) {pg['ranks']} a rank; (c) HostMeshEngine on 2 devices "
+                       f"{pg['hier']} a Gradient body; (d) dp x tp 0")
+
+    phase("16 summary")
     print(card)
     print(json.dumps({"kernels": [wg_row, se_row, mean_row, opt_rows["momentum"],
                                   opt_rows["adam"], window_row]}))

@@ -157,6 +157,35 @@ class Checkpointer:
         """Nothing to release: no file or thread outlives a call."""
 
 
+class RestoreOnly:
+    """A checkpointer as a rank other than 0 sees it: it restores the
+    snapshots, and its `save` writes nothing, so a fit over N ranks leaves
+    one snapshot a step, rank 0's."""
+
+    def __init__(self, checkpointer):
+        self.checkpointer = checkpointer
+
+    def save(self, step: int, weights, extra: Optional[Dict[str, Any]] = None) -> bool:
+        return False
+
+    def latest_step(self) -> Optional[int]:
+        return self.checkpointer.latest_step()
+
+    def restore_latest(self):
+        return self.checkpointer.restore_latest()
+
+    def close(self) -> None:
+        """Nothing to release."""
+
+
+def for_rank(checkpointer, rank: int):
+    """`checkpointer` itself at rank 0 (or None), else its `RestoreOnly`
+    view: every rank restores, rank 0 alone writes."""
+    if checkpointer is None or rank == 0:
+        return checkpointer
+    return RestoreOnly(checkpointer)
+
+
 # -- the shared sync-fit snapshot contract ------------------------------------
 #
 # The JAX package's keys: the weights, the newest-first test-loss history,

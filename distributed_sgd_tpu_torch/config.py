@@ -25,7 +25,11 @@ pipelined levers ``local_steps``, ``delta_broadcast``, ``stream``,
 ``fanin_lanes`` and ``stage_pool``, the aggregation tree ``agg_tree``
 and the sharded master ``master_shards``; the worker role maps ``row_store``
 (data/row_store.py) and with ``host_index`` loads only its slice of the
-train rows, widened by ``host_overprovision``.  ``trace``,
+train rows, widened by ``host_overprovision``.  ``host_devices`` (D > 1;
+0 sizes it from the host's cards) makes a worker one host of D devices
+(parallel/hier.py), and ``feature_shards`` (F > 1) routes the dev role's
+sync fit to the dp x tp engine over the process group
+(parallel/feature_sharded.py).  ``trace``,
 ``trace_dir``, ``trace_sample``, ``flight_recorder``, ``record``,
 ``metrics_port`` and ``influx_url`` drive the observability planes
 (main.py), ``resource_probe_s`` (with ``blackbox_dir``) the resource probe
@@ -132,13 +136,13 @@ class Config:
     row_store: Optional[str] = None  # the packed corpus to map
     host_index: Optional[int] = None  # this worker's slot in the split
     host_overprovision: float = 0.0  # neighbour rows loaded, a fraction a side
+    feature_shards: int = 1  # F > 1: the dp x tp engine (mesh, sync, sgd)
+    host_devices: int = 1  # a worker host's devices (0: the host's cards)
     # read so that none is ignored without a word; each raises (or, on the
     # mesh engine, warns) when set
     compress: str = "none"  # none | topk | qint8
-    feature_shards: int = 1
     agg_tree: str = ""
     master_shards: int = 0
-    host_devices: int = 1
     chaos: Optional[str] = None
     # the cluster telemetry plane (telemetry/aggregate.py): the master (or
     # router) scrapes its members' registries over the Metrics RPC and
@@ -192,10 +196,9 @@ class Config:
                              "resource probe is the blackbox's only writer")
         self._check_serving()
         if self.host_devices < 0:
-            raise ValueError("host_devices must be >= 0")
-        if self.host_devices > 1:
-            raise _not_ported(f"DSGD_HOST_DEVICES={self.host_devices}",
-                              "[A10], torch.distributed")
+            raise ValueError(
+                "host_devices must be >= 0 (0 = auto from "
+                "torch.cuda.device_count(); 1 = flat single-device worker)")
         if not 0.0 <= self.trace_sample <= 1.0:
             raise ValueError("trace_sample must be a probability in [0, 1]")
         if self.flight_recorder < 0:
@@ -214,10 +217,18 @@ class Config:
                 f"(ROADMAP.md Queue A 13: compress/)")
         if self.feature_shards < 1:
             raise ValueError("feature_shards must be >= 1")
-        if self.feature_shards > 1:
-            raise NotImplementedError(
-                f"DSGD_FEATURE_SHARDS={self.feature_shards}: the dp x tp engine is not "
-                f"ported yet (ROADMAP.md Queue A 11: parallel/feature_sharded.py)")
+        if self.feature_shards > 1 and self.use_async:
+            raise ValueError(
+                "feature_shards is a sync (2-D mesh) engine; it cannot be "
+                "combined with use_async")
+        if self.feature_shards > 1 and self.engine == "rpc":
+            raise ValueError(
+                "feature_shards needs the mesh engine (2-D shard_map); the "
+                "rpc topology has no feature axis")
+        if self.feature_shards > 1 and self.optimizer != "sgd":
+            raise ValueError(
+                "the feature-sharded engine runs the reference's plain SGD "
+                "update; optimizer must be 'sgd' when feature_shards > 1")
         parse_topology(self.gossip_topology)
         for name in ("checkpoint_every", "steps_per_dispatch", "sync_period"):
             if getattr(self, name) < 1:
@@ -278,6 +289,11 @@ class Config:
             if not 0 <= self.host_index < self.node_count:
                 raise ValueError(f"DSGD_HOST_INDEX={self.host_index} outside "
                                  f"[0, node_count={self.node_count})")
+        if self.host_index is not None and self.host_devices not in (0, 1):
+            raise ValueError(
+                "DSGD_HOST_INDEX with DSGD_HOST_DEVICES > 1 is not "
+                "supported yet: the in-host mesh binds its slice at build "
+                "time (no incremental reload)")
 
     def _check_serving(self) -> None:
         """The JAX Config's validation of the serving fields."""

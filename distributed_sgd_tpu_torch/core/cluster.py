@@ -19,8 +19,11 @@ the corpus, so an elastic resplit reloads only the delta).  With
 `telemetry_port` (DSGD_TELEMETRY) every node gets a registry of its own,
 the workers publish their health gauges and the master scrapes them and
 serves the merged view on that port (0: OS-assigned), as the JAX
-cluster does.  The JAX cluster's compression, hierarchical and chaos
-arguments have no counterpart here (ROADMAP.md Queue A [A10], [A13]).
+cluster does.  With `host_devices` = D > 1 each worker is a hierarchical
+host over a contiguous group of D of `devices` (parallel/mesh.py
+``local_device_groups``; parallel/hier.py).  The JAX cluster's
+compression and chaos arguments have no counterpart here (ROADMAP.md
+Queue A [A13]).
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from distributed_sgd_tpu_torch.core.worker import WorkerNode
 from distributed_sgd_tpu_torch.data import host_shard
 from distributed_sgd_tpu_torch.data.rcv1 import Dataset
 from distributed_sgd_tpu_torch.models.linear import LinearModel
+from distributed_sgd_tpu_torch.parallel.mesh import local_device_groups
 from distributed_sgd_tpu_torch.utils import metrics as metrics_mod
 
 log = logging.getLogger("dsgd.cluster")
@@ -57,6 +61,8 @@ class DevCluster:
         host_local: bool = False,
         host_overprovision: float = 0.0,
         telemetry_port: Optional[int] = None,
+        host_devices: int = 1,
+        devices=None,
     ):
         """The nodes run on the model's device (`make_model(...,
         device=...)`; the card unless the caller asks for the CPU).  All
@@ -69,13 +75,23 @@ class DevCluster:
         with a row reader over `train` (data/host_shard.py).  With
         `telemetry_port` each node has a fresh registry instead of
         `metrics`: in one process a shared one would make every worker's
-        Metrics reply the same and the cluster sum count it N times."""
+        Metrics reply the same and the cluster sum count it N times.
+        `host_devices` > 1 makes every worker a host of that many devices,
+        worker i the i-th contiguous group of `devices` (the model's
+        device `n_workers * host_devices` times when None: groups on one
+        card); each group's first device must be the model's."""
         telemetry = telemetry_port is not None
         node_metrics = metrics_mod.Metrics if telemetry else (lambda: metrics)
         self._host, self._seed, self._train, self._model = host, seed, train, model
         self._host_local = bool(host_local)
         self._overprovision = max(0.0, float(host_overprovision))
         self._node_metrics = node_metrics
+        host_devices = max(1, int(host_devices))
+        groups = None
+        if host_devices > 1:
+            devs = (list(devices) if devices is not None
+                    else [model.device] * (n_workers * host_devices))
+            groups = local_device_groups(devs, n_workers, host_devices)
         self._worker_kwargs = dict(steps_per_dispatch=steps_per_dispatch,
                                    gossip_topology=gossip_topology,
                                    master_watch_s=master_watch_s, telemetry=telemetry)
@@ -93,7 +109,12 @@ class DevCluster:
                 if host_local:
                     lo, hi, _, _ = host_shard.overprovisioned_slice(
                         len(train), i, n_workers, overprovision=self._overprovision)
-                    wdata, extra = train.slice(slice(lo, hi)), self._local_kwargs(lo)
+                    wdata = train.slice(slice(lo, hi))
+                    # a hierarchical host binds its slice once: no reader
+                    extra = (self._local_kwargs(lo) if groups is None
+                             else dict(data_offset=lo))
+                if groups is not None:
+                    extra.update(host_devices=host_devices, devices=groups[i])
                 self.workers.append(WorkerNode(host, port, host, self.master.port, wdata,
                                                model, seed=seed + i, metrics=node_metrics(),
                                                **self._worker_kwargs, **extra))

@@ -76,6 +76,11 @@ telemetry/aggregate.py): the members' registries scraped over their
 Metrics RPC, on the heartbeat's cadence and on each pull of the cluster
 `/metrics` endpoint; a member's series leave with its membership.
 
+Membership takes hierarchical worker hosts (``Node.devices`` = D > 1,
+from a JAX or port worker with DSGD_HOST_DEVICES): the default split is
+weighted by each host's device count (``_split_parts``, core/split.py
+``weighted_split``), as the JAX master's.
+
 The workers compute on their own devices; the master only encodes,
 decodes and applies, and evaluates on its device.  Every lever of the JAX
 fits that is not ported raises NotImplementedError naming the ROADMAP
@@ -110,7 +115,7 @@ from distributed_sgd_tpu_torch.convert import opt_state_from_jax, opt_state_to_j
 from distributed_sgd_tpu_torch.core.early_stopping import Criterion
 from distributed_sgd_tpu_torch.core.grad_state import GradState
 from distributed_sgd_tpu_torch.core.loss_check import LossChecker, async_fit_result
-from distributed_sgd_tpu_torch.core.split import vanilla_split
+from distributed_sgd_tpu_torch.core.split import vanilla_split, weighted_split
 from distributed_sgd_tpu_torch.core.trainer import FitResult, record_epoch
 from distributed_sgd_tpu_torch.data.rcv1 import Dataset
 from distributed_sgd_tpu_torch.models.linear import LinearModel
@@ -870,6 +875,9 @@ class MasterNode:
         self._workers: Dict[Tuple[str, int], WorkerStub] = {}
         self._channels: Dict[Tuple[str, int], grpc.Channel] = {}
         self._order: List[Tuple[str, int]] = []  # registration order
+        # each host's device count from its registration (Node.devices);
+        # absent = a flat single-device worker
+        self._worker_devices: Dict[Tuple[str, int], int] = {}
         self._members_lock = threading.Lock()
         self.cluster_ready = threading.Event()  # Master.scala:34-35
         # the persistent gradient streams of a fit with stream=True, opened
@@ -1111,7 +1119,7 @@ class MasterNode:
 
     # -- membership (Master.scala:222-253) ---------------------------------
 
-    def register_worker(self, host: str, port: int) -> None:
+    def register_worker(self, host: str, port: int, devices: int = 0) -> None:
         """At most `expected_workers` members at any instant (the
         reference `require`s the same cap, Master.scala:224); the cap is on
         current membership, so an eviction or a leave frees a slot, and a
@@ -1121,10 +1129,16 @@ class MasterNode:
         retry, or a process restarted on the same endpoint) is re-introduced
         to its peers, and during an async fit re-kicked with a fresh
         StartAsync: the restarted process passes every heartbeat, so
-        nothing else would re-issue its slice."""
+        nothing else would re-issue its slice.  `devices` is the host's
+        device count (0: a flat worker), recorded on every registration,
+        since a restarted process may change it; it weights the split."""
         key = (host, port)
         rereg_stub = None
         with self._members_lock:
+            if devices > 0:
+                self._worker_devices[key] = int(devices)
+            else:
+                self._worker_devices.pop(key, None)
             if key in self._workers:
                 if self._async_running.is_set():
                     self._rereg_pending.add(key)
@@ -1190,6 +1204,7 @@ class MasterNode:
             self.telemetry.drop(key)
         with self._members_lock:
             self._workers.pop(key, None)
+            self._worker_devices.pop(key, None)
             ch = self._channels.pop(key, None)
             if key in self._order:
                 self._order.remove(key)
@@ -1207,6 +1222,19 @@ class MasterNode:
     def _members(self) -> List[Tuple[Tuple[str, int], WorkerStub]]:
         with self._members_lock:
             return [(k, self._workers[k]) for k in self._order]
+
+    def _split_parts(self, split: SplitFn, members) -> List[np.ndarray]:
+        """The members' rows, as the JAX master splits them: `split`
+        untouched when every host is flat, or all hosts have one shape, or
+        the split is not `vanilla_split`; else the contiguous split weighted
+        by each host's device count (`weighted_split`), so every device of
+        the cluster owns about as many rows."""
+        with self._members_lock:
+            devs = [max(1, self._worker_devices.get(k, 1)) for k, _ in members]
+        if split is not vanilla_split or not devs or len(set(devs)) == 1:
+            return split(len(self.train), len(members))
+        self.log.info("host-granular split: weighting partitions by device count %s", devs)
+        return weighted_split(len(self.train), devs)
 
     @property
     def members(self) -> List[Tuple[str, int]]:
@@ -1300,7 +1328,7 @@ class MasterNode:
             members = self._members()
             if not members:
                 raise RuntimeError("all workers lost during predict")
-            parts = split(len(self.train), len(members))
+            parts = self._split_parts(split, members)
             part_by_key = {key: ids for (key, _), ids in zip(members, parts)}
             # one trace per eval fan-out attempt
             with trace_mod.root_span(trace_mod.SPAN_EVAL_FORWARD, node="master",
@@ -1665,7 +1693,7 @@ class MasterNode:
         # with shards, each lane builds a shard-colored tree of its own
         tree_plan = (self._build_tree_plan(keys, tree_fanout)
                      if tree_fanout and not n_shards else None)
-        parts = split(len(self.train), len(members))
+        parts = self._split_parts(split, members)
         max_samples = max(len(p) for p in parts)
         w = (np.zeros(self.model.n_features, dtype=np.float32) if initial_weights is None
              else np.asarray(initial_weights, dtype=np.float32))
@@ -1795,7 +1823,7 @@ class MasterNode:
                             # it and rewind the generator
                             stager.discard(rng)
                         members, keys = current, [k for k, _ in current]
-                        parts = split(len(self.train), len(members))
+                        parts = self._split_parts(split, members)
                         max_samples = max(len(p) for p in parts)
                         if tree_plan is not None:
                             # the tree is a pure function of the member list:
@@ -2294,7 +2322,7 @@ class MasterNode:
         if self._async_running.is_set():
             raise RuntimeError("a computation is already running")  # MasterAsync.scala:42
         members = self._members()
-        parts = split(len(self.train), len(members))
+        parts = self._split_parts(split, members)
         # each worker's rows, kept for the watchdog's re-issue
         assignments = {key: part for (key, _), part in zip(members, parts)}
         w0 = (np.zeros(self.model.n_features, dtype=np.float32) if initial_weights is None
@@ -2510,7 +2538,7 @@ class MasterNode:
         it when the unregistration was broadcast."""
         if not member_order:
             raise RuntimeError("async fit: all workers lost mid-fit")
-        parts = split(len(self.train), len(member_order))
+        parts = self._split_parts(split, [(k, None) for k in member_order])
         new_assign = dict(zip(member_order, parts))
         changed = [key for key in member_order
                    if key not in assignments
@@ -2643,12 +2671,9 @@ class _MasterServicer:
         self.m = m
 
     def RegisterSlave(self, request, context):  # noqa: N802
-        if request.devices > 1:
-            context.abort(grpc.StatusCode.UNIMPLEMENTED,
-                          "a multi-device worker host (DSGD_HOST_DEVICES > 1): not ported "
-                          "to the torch master yet (ROADMAP.md Queue A [A10])")
         try:
-            self.m.register_worker(request.host, request.port)
+            # Node.devices: 0 from flat workers, D from a host of D devices
+            self.m.register_worker(request.host, request.port, devices=request.devices)
         except ValueError as e:
             context.abort(grpc.StatusCode.FAILED_PRECONDITION, str(e))
         return pb.Ack()

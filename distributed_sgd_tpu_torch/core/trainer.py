@@ -13,6 +13,12 @@ saves every `checkpoint_every` epochs and at an off-cadence end.  With
 `profile_dir` one epoch's training (no evaluation) runs under
 ``torch.profiler`` and its Chrome trace is written to
 ``<profile_dir>/trainer-epoch<e>.trace.json``.
+
+Over a process group (parallel/mesh.py) every rank runs the same loop on
+its shard: the evaluations are all-reduced, so every rank sees the same
+history and stops at the same epoch.  Every rank restores the latest
+snapshot; only rank 0 writes, and the fit ends with a barrier so that a
+next fit on any rank finds rank 0's last snapshot.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import numpy as np
 import torch
 
 from distributed_sgd_tpu_torch.checkpoint import (
+    for_rank,
     opt_kind_tag,
     restore_sync_fit,
     save_sync_fit,
@@ -36,7 +43,7 @@ from distributed_sgd_tpu_torch.core.early_stopping import Criterion
 from distributed_sgd_tpu_torch.core.grad_state import GradState
 from distributed_sgd_tpu_torch.data.rcv1 import Dataset
 from distributed_sgd_tpu_torch.models.linear import LinearModel
-from distributed_sgd_tpu_torch.parallel.mesh import DeviceLike
+from distributed_sgd_tpu_torch.parallel.mesh import DeviceLike, barrier, rank, world_size
 from distributed_sgd_tpu_torch.parallel.sync import SyncEngine, fold_in
 from distributed_sgd_tpu_torch.utils import measure
 from distributed_sgd_tpu_torch.utils import metrics as metrics_mod
@@ -80,7 +87,7 @@ def profile_trace_path(profile_dir: str, epoch: int) -> str:
 
 
 class SyncTrainer:
-    """Bulk-synchronous data-parallel trainer on one device."""
+    """Bulk-synchronous data-parallel trainer, one rank a device."""
 
     def __init__(
         self,
@@ -97,22 +104,25 @@ class SyncTrainer:
         profile_dir: Optional[str] = None,
         metrics: Optional[metrics_mod.Metrics] = None,
         device: DeviceLike = None,
+        group=None,
     ):
         """`checkpointer`: a checkpoint.Checkpointer (or any object with
         ``save``/``restore_latest``) to resume from and save to every
         `checkpoint_every` epochs; `profile_dir`: where the profiled
-        epoch's trace goes (`profile_trace_path`)."""
+        epoch's trace goes (`profile_trace_path`); `group`: the process
+        group whose ranks are the workers (the default group when None)."""
         if checkpoint_every < 1:
             raise ValueError("checkpoint_every must be >= 1")
         self.engine = SyncEngine(
             model, batch_size, learning_rate, sampling=sampling,
             virtual_workers=virtual_workers, optimizer=optimizer, momentum=momentum,
-            device=device,
+            device=device, group=group,
         )
         self._opt_kind = opt_kind_tag(optimizer)
         self.model = model
         self.seed = seed
-        self.checkpointer = checkpointer
+        self.group = group
+        self.checkpointer = for_rank(checkpointer, rank(group))
         self.checkpoint_every = int(checkpoint_every)
         self.profile_dir = profile_dir
         self.metrics = metrics or metrics_mod.global_metrics()
@@ -227,6 +237,8 @@ class SyncTrainer:
         if self.profile_dir is not None and not profiled:
             log.warning("no profiler trace captured: the fit stopped before epoch %d",
                         profile_epoch)
+        if world_size(self.group) > 1:
+            barrier(self.group)  # rank 0's last snapshot is written before any rank goes on
 
         result.state = GradState(
             weights=w, loss=result.losses[-1] if result.losses else float("nan")

@@ -67,6 +67,16 @@ reads them into a scratch batch; without a reader such ids are refused.
 Each resident slice is one ``_Resident`` snapshot, swapped whole, so a
 body computes on one slice, its bounds and its sentinel row.
 
+A hierarchical host (``host_devices=D`` > 1, DSGD_HOST_DEVICES): the
+worker binds its slice to a group of D devices (parallel/hier.py
+``HostMeshEngine``, the first device the model's), and each Gradient and
+local-window body splits its batch over them, one ``worker_grads`` launch
+a device, the partials summed and regularized once: one reply a host.
+It registers with ``Node.devices = D``, so the master weights its split
+by device count.  Forward and the async loop run on the first device, as
+the JAX worker runs them replicated.  A row reader does not go with it:
+the group binds its slice once.
+
 The aggregation tree (aggtree/) and the sharded master plane
 (shardedps/) are served as the JAX worker serves them: a tree-stamped
 Gradient collects its children's pushes (``AggregateGrad``), adds them
@@ -150,6 +160,14 @@ def _with_sentinel(arr: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
     return out
 
 
+def _local_devices(device: torch.device) -> list:
+    """The devices a hierarchical host may group: every card of the host
+    for a CUDA worker, the CPU once for a CPU one."""
+    if device.type == "cuda":
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [device]
+
+
 def _resident(data: Dataset, offset: Optional[int], keep_host: bool, device) -> _Resident:
     return _Resident(offset, len(data), _with_sentinel(data.indices, torch.int32, device),
                      _with_sentinel(data.values, torch.float32, device),
@@ -183,6 +201,8 @@ class WorkerNode:
         total_rows: Optional[int] = None,
         host_overprovision: float = 0.0,
         telemetry: bool = False,
+        host_devices: int = 1,
+        devices=None,
     ):
         """`device` defaults to the model's, and must equal it: the
         regularizer's vector lives there.  `steps_per_dispatch` local steps
@@ -198,7 +218,10 @@ class WorkerNode:
         (data/host_shard.py ``RowReader`` over `total_rows` rows) lets the
         slice reload, widened by `host_overprovision` (a fraction of the
         span on each side).  `telemetry` (DSGD_TELEMETRY) publishes the
-        health gauges (`record_health`)."""
+        health gauges (`record_health`).  `host_devices` > 1 binds the
+        slice to the first `host_devices` of `devices` (the host's cards,
+        or the CPU once, when None), the first of which must be the
+        model's device."""
         self.host, self.port = host, port
         self.log = node_logger(host, port, master=False)
         self.metrics = metrics or metrics_mod.global_metrics()
@@ -227,6 +250,22 @@ class WorkerNode:
             if data_offset is None:
                 raise ValueError("row_reader without data_offset: a full-corpus worker "
                                  "has nothing to reload")
+            if host_devices > 1:
+                raise ValueError(
+                    "row_reader is incompatible with host_devices > 1: "
+                    "the in-host mesh replicates its slice at build time "
+                    "(elastic reload would need a mesh rebind)")
+        self.host_devices = max(1, int(host_devices))
+        self._hier = None
+        if self.host_devices > 1:
+            from distributed_sgd_tpu_torch.parallel.hier import HostMeshEngine
+
+            devs = list(devices) if devices is not None else _local_devices(self.device)
+            if len(devs) < self.host_devices:
+                raise ValueError(
+                    f"host_devices={self.host_devices} but only "
+                    f"{len(devs)} local device(s) are available")
+            self._hier = HostMeshEngine(model, devs[: self.host_devices], data)
         self._row_reader = row_reader
         self._total_rows = total_rows
         self._overprovision = max(0.0, float(host_overprovision))
@@ -332,6 +371,10 @@ class WorkerNode:
         `master_watch_misses` misses in a row (a slow restart, a partition)
         register again through the backoff."""
         node = pb.Node(host=self.host, port=self.port)
+        if self.host_devices > 1:
+            # the host's shape rides the registration: the master weights
+            # its split by devices.  A flat worker leaves the field unset
+            node.devices = self.host_devices
         while not self._stopped.is_set():
             attempt = 0
             while not self._stopped.is_set() and not self._registered.is_set():
@@ -532,6 +575,10 @@ class WorkerNode:
         regularizer (Slave.scala:142-157), as f32[D] on the host."""
         self._profile.tick()
         ids, res = self._local_ids(ids)
+        if self._hier is not None:
+            g = self._hier.grad(np.asarray(w, dtype=np.float32), ids)
+            self.metrics.counter("slave.sync.backward").increment()
+            return g
         return self._gradient(w, *self._rows(ids, res))
 
     def _gradient(self, w: np.ndarray, batch: SparseBatch, y: torch.Tensor) -> np.ndarray:
@@ -611,6 +658,11 @@ class WorkerNode:
         ids = np.asarray(ids, dtype=np.int64)
         bs = max(1, int(batch_size))
         steps = max(1, min(-(-len(ids) // bs), max(1, int(k))))
+        if self._hier is not None:
+            delta = self._hier.local_window(np.asarray(w, dtype=np.float32), ids, steps, bs,
+                                            float(learning_rate))
+            self.metrics.counter("slave.sync.backward").increment(steps)
+            return delta
         n = min(len(ids), steps * bs)
         if n and (ids[:n].min() < 0 or ids[:n].max() >= res.n):
             raise ValueError(f"sample ids outside this worker's {res.n} rows")
@@ -670,6 +722,11 @@ class WorkerNode:
             self.log.info("StartAsync re-issued: replacing the running async loop")
             self._running_async.clear()
             self._async_thread.join()
+        if self._hier is not None:
+            self.log.warning(
+                "host_devices=%d: the async loop runs replicated on the "
+                "local mesh (the in-host psum accelerates the sync "
+                "Gradient plane)", self.host_devices)
         opt = self._prepare_async(w0, assignment, batch_size, learning_rate, optimizer,
                                   momentum)
         self._running_async.set()

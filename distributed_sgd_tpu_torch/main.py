@@ -9,19 +9,28 @@ role (config.py ``Config.role``) picks what runs:
   train split's dim-sparsity regularizer, and fit, early-stopping on the
   test loss.  With DSGD_ENGINE=mesh (the default) the fit is the sync
   engine with K virtual workers, or with DSGD_ASYNC=1 the Hogwild gossip
-  engine (DSGD_ASYNC_MODE=gossip) or local SGD (local_sgd).  With
+  engine (DSGD_ASYNC_MODE=gossip) or local SGD (local_sgd), or with
+  DSGD_FEATURE_SHARDS=F > 1 the dp x tp engine (parallel/
+  feature_sharded.py).  Under ``torchrun`` (WORLD_SIZE set) the dev role
+  joins the process group first (parallel/multihost.py), one rank a card
+  (``cuda:LOCAL_RANK``), and the mesh engines span the ranks: the sync
+  and local SGD fits over min(DSGD_NODE_COUNT, world) ranks (the rest wait
+  for the result), the dp x tp fit over world / F data ranks.  With
   DSGD_ENGINE=rpc it is the fit of an in-process gRPC cluster
   (core/cluster.py: a master and DSGD_NODE_COUNT workers on loopback):
   the sync fit, or with DSGD_ASYNC=1 the async fit (Hogwild gossip
   between the workers, DSGD_STEPS_PER_DISPATCH local steps a dispatch,
-  DSGD_GOSSIP_TOPOLOGY, DSGD_ASYNC_DRAIN);
+  DSGD_GOSSIP_TOPOLOGY, DSGD_ASYNC_DRAIN), DSGD_HOST_DEVICES=D making each
+  worker a host of D devices;
 - master (DSGD_MASTER_HOST/PORT equal DSGD_NODE_HOST/PORT): load the
   data, serve on DSGD_NODE_PORT, wait for DSGD_NODE_COUNT workers, run
   the sync fit (or with DSGD_ASYNC=1 the async one) and exit;
 - worker (any other DSGD_MASTER_HOST/PORT): load the data, serve on
   DSGD_NODE_PORT, register with the master and answer its calls
   (Gradient and Forward; StartAsync, UpdateGrad and StopAsync, with
-  DSGD_STEPS_PER_DISPATCH and DSGD_GOSSIP_TOPOLOGY) until SIGTERM;
+  DSGD_STEPS_PER_DISPATCH and DSGD_GOSSIP_TOPOLOGY) until SIGTERM; with
+  DSGD_HOST_DEVICES=D (0: every card of the host) it is one host of D
+  cards (parallel/hier.py);
 - serve (DSGD_ROLE=serve): no data; answer Predict on DSGD_SERVE_PORT
   from the weights under DSGD_CHECKPOINT_DIR, on the card, hot-reloading
   each newer checkpoint and applying pushed weights, until SIGTERM; with
@@ -66,11 +75,13 @@ sizes the post-mortem ring (SIGUSR2 dumps it), and DSGD_RECORD ships the
 metrics registry to DSGD_METRICS_PORT (Prometheus) and/or
 DSGD_INFLUX_URL.
 
-Run: ``python -m distributed_sgd_tpu_torch``
+Run: ``python -m distributed_sgd_tpu_torch``, or across N ranks
+``torchrun --nproc_per_node=N -m distributed_sgd_tpu_torch.main``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
 import signal
@@ -82,6 +93,8 @@ from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from distributed_sgd_tpu_torch import trace as trace_mod
 from distributed_sgd_tpu_torch.checkpoint import Checkpointer, fit_state_path
@@ -93,7 +106,14 @@ from distributed_sgd_tpu_torch.data.synthetic import rcv1_like
 from distributed_sgd_tpu_torch.models.linear import make_model
 from distributed_sgd_tpu_torch.parallel.hogwild import HogwildEngine
 from distributed_sgd_tpu_torch.parallel.local_sgd import LocalSGDEngine
-from distributed_sgd_tpu_torch.parallel.mesh import DeviceLike, resolve_device, world_size
+from distributed_sgd_tpu_torch.parallel import multihost
+from distributed_sgd_tpu_torch.parallel.mesh import (
+    DeviceLike,
+    distributed,
+    rank,
+    resolve_device,
+    world_size,
+)
 from distributed_sgd_tpu_torch.trace import flight
 from distributed_sgd_tpu_torch.utils import metrics as metrics_mod
 from distributed_sgd_tpu_torch.utils.log import setup as setup_logging
@@ -188,17 +208,48 @@ def select_topology(
 
 def scenario_mesh(cfg: Config, train: Dataset, test: Dataset, model,
                   device: DeviceLike = None) -> FitResult:
-    """Dev-mode scenario on one device: the sync trainer, or an async
-    engine with DSGD_ASYNC=1."""
-    n, virtual = select_topology(
-        cfg.node_count, world_size(), cfg.use_async,
-        cfg.virtual_workers, cfg.exact_topology)
+    """Dev-mode scenario over the ranks of the process group (one rank
+    without one): the sync trainer, an async engine with DSGD_ASYNC=1, or
+    the dp x tp engine with DSGD_FEATURE_SHARDS > 1.  The sync and local
+    SGD fits take min(node_count, world) ranks, as the JAX scenario takes
+    that many devices; the ranks past them take no part and return rank
+    0's result.  The Hogwild engine runs on rank 0 alone."""
+    world = world_size()
     criterion = no_improvement(patience=cfg.patience, min_delta=cfg.conv_delta)
     warn_mesh_ignored(cfg)
+    ckpt = _make_checkpointer(cfg)
+    if cfg.feature_shards > 1:
+        # dp x tp: the config already refused async, rpc and optimizers
+        from distributed_sgd_tpu_torch.parallel.feature_sharded import (
+            FeatureShardedEngine,
+            make_mesh_2d,
+        )
+
+        if world % cfg.feature_shards:
+            raise ValueError(f"DSGD_FEATURE_SHARDS={cfg.feature_shards} does not divide the "
+                             f"world of {world} rank(s)")
+        n_w = max(1, world // cfg.feature_shards)
+        log.info("engine=mesh 2-D dp=%d x tp=%d (feature_shards)", n_w, cfg.feature_shards)
+        eng = FeatureShardedEngine(model, make_mesh_2d(n_w, cfg.feature_shards, device),
+                                   batch_size=cfg.batch_size, learning_rate=cfg.learning_rate)
+        res = eng.fit(train, test, cfg.max_epochs, criterion, checkpointer=ckpt,
+                      checkpoint_every=cfg.checkpoint_every, seed=cfg.seed)
+        _finish(res)
+        return res
+    gossip = cfg.use_async and cfg.async_mode == "gossip"
+    n, virtual = select_topology(
+        cfg.node_count, 1 if gossip else world, cfg.use_async,
+        cfg.virtual_workers, cfg.exact_topology)
     log.info("engine=mesh devices=%d virtual_workers=%d model=%s async=%s device=%s",
              n, virtual, cfg.model, cfg.use_async, resolve_device(device))
-    ckpt = _make_checkpointer(cfg)
-    if cfg.use_async and cfg.async_mode == "gossip":
+    group = None
+    if n < world:
+        group = dist.new_group(list(range(n)))  # every rank makes it
+    res = None
+    if rank() >= n:
+        log.info("rank %d takes no part in the fit (ranks 0..%d run it): waiting for "
+                 "the result", rank(), n - 1)
+    elif gossip:
         eng = HogwildEngine(
             model, n_workers=cfg.node_count, batch_size=cfg.batch_size,
             learning_rate=cfg.learning_rate, check_every=cfg.check_every,
@@ -213,7 +264,7 @@ def scenario_mesh(cfg: Config, train: Dataset, test: Dataset, model,
             model, batch_size=cfg.batch_size, learning_rate=cfg.learning_rate,
             sync_period=cfg.sync_period, check_every=cfg.check_every,
             leaky_loss=cfg.leaky_loss, seed=cfg.seed, checkpointer=ckpt,
-            optimizer=cfg.optimizer, momentum=cfg.momentum, device=device)
+            optimizer=cfg.optimizer, momentum=cfg.momentum, device=device, group=group)
         res = eng.fit(train, test, cfg.max_epochs, criterion,
                       initial_weights=_restore_weights(ckpt))
     else:
@@ -222,9 +273,23 @@ def scenario_mesh(cfg: Config, train: Dataset, test: Dataset, model,
             seed=cfg.seed, virtual_workers=virtual, optimizer=cfg.optimizer,
             momentum=cfg.momentum, checkpointer=ckpt,
             checkpoint_every=cfg.checkpoint_every, profile_dir=cfg.profile_dir,
-            device=device)
+            device=device, group=group)
         res = trainer.fit(train, test, cfg.max_epochs, criterion)
+    if n < world:
+        res = _from_rank0(res, device)
     _finish(res)
+    return res
+
+
+def _from_rank0(res: Optional[FitResult], device) -> FitResult:
+    """Rank 0's fit result on every rank of the default group (the ranks
+    that took no part have none), its weights on this rank's device."""
+    if res is not None:
+        res.state = dataclasses.replace(res.state, weights=torch.as_tensor(res.state.weights).cpu())
+    box = [res]
+    dist.broadcast_object_list(box, src=0)
+    res = box[0]
+    res.state = dataclasses.replace(res.state, weights=res.state.weights.to(resolve_device(device)))
     return res
 
 
@@ -232,8 +297,8 @@ def warn_mesh_ignored(cfg: Config) -> None:
     """The JAX mesh scenario's warnings (distributed_sgd_tpu/main.py:
     152-206), in its words, for the settings of the rpc topology that the
     in-process engines ignore.  The JAX scenario also warns about
-    DSGD_CHAOS, DSGD_HEALTH_ACTION and DSGD_HOST_DEVICES > 1, which the
-    port refuses in every role (config.py)."""
+    DSGD_CHAOS and DSGD_HEALTH_ACTION, which the port refuses in every
+    role (config.py)."""
     if (cfg.local_steps > 1 or cfg.delta_broadcast or cfg.stream
             or cfg.fanin_lanes or cfg.stage_pool or cfg.agg_tree
             or cfg.master_shards):
@@ -269,6 +334,39 @@ def warn_mesh_ignored(cfg: Config) -> None:
             "DSGD_HOST_DEVICES ignored: the mesh engine already spans "
             "every device — the hierarchical in-host layer is the rpc "
             "topology's (use engine=rpc; docs/HIERARCHY.md)")
+
+
+def _resolve_host_devices(cfg: Config, dev_workers: int = 0) -> int:
+    """DSGD_HOST_DEVICES -> a worker host's device count: 0 = auto, every
+    card of the host on a standalone worker role, or in dev mode the share
+    of each of the `dev_workers` in-process workers (at least 1); 1 = the
+    flat single-device worker, D = exactly D devices."""
+    if cfg.host_devices == 0:
+        d = torch.cuda.device_count()
+        if dev_workers:
+            d = d // dev_workers
+        d = max(1, d)
+        log.info("DSGD_HOST_DEVICES=0: auto-sized the in-host mesh to %d device(s)", d)
+        return d
+    return cfg.host_devices
+
+
+def _rank_device(device: DeviceLike):
+    """The device of this torchrun rank: `device` when given, else
+    ``cuda:LOCAL_RANK``.  One rank a card: a LOCAL_RANK past the host's
+    cards raises."""
+    if device is not None:
+        return device
+    local = int(os.environ.get("LOCAL_RANK", "0"))
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if cards == 0:
+        return resolve_device(None)  # raises: no card and no device asked for
+    if local >= cards:
+        raise RuntimeError(
+            f"rank {os.environ.get('RANK', '?')} has LOCAL_RANK {local} but this host has "
+            f"{cards} card(s): the CLI runs one rank a card (at most "
+            f"--nproc_per_node={cards}); of {os.environ.get('WORLD_SIZE')} ranks in all")
+    return torch.device("cuda", local)
 
 
 def _fit_state_args(cfg: Config) -> dict:
@@ -317,7 +415,8 @@ def scenario_rpc(cfg: Config, train: Dataset, test: Dataset, model,
                     metrics=metrics, steps_per_dispatch=cfg.steps_per_dispatch,
                     gossip_topology=cfg.gossip_topology, heartbeat_s=cfg.heartbeat_s,
                     heartbeat_max_misses=cfg.heartbeat_max_misses,
-                    telemetry_port=cfg.telemetry_port if cfg.telemetry else None) as c:
+                    telemetry_port=cfg.telemetry_port if cfg.telemetry else None,
+                    host_devices=_resolve_host_devices(cfg, dev_workers=cfg.node_count)) as c:
         w0 = np.zeros(model.n_features, dtype=np.float32)
         loss0, acc0 = c.master.local_loss(w0, test=False)
         log.info("initial loss=%.6f acc=%.4f", loss0, acc0)
@@ -413,13 +512,15 @@ def _run_worker(cfg: Config, train: Dataset, model, extra: Optional[dict] = None
     from distributed_sgd_tpu_torch.core.worker import WorkerNode
 
     # an elastic deployment survives a master restart: the watch pings
-    # the master and registers again when it forgets or loses this worker
+    # the master and registers again when it forgets or loses this worker;
+    # DSGD_HOST_DEVICES makes it one host of that many cards
     worker = WorkerNode(cfg.host, cfg.port, cfg.master_host, cfg.master_port, train, model,
                         seed=cfg.seed, profile_dir=cfg.profile_dir,
                         steps_per_dispatch=cfg.steps_per_dispatch,
                         gossip_topology=cfg.gossip_topology,
                         master_watch_s=(cfg.heartbeat_s or 5.0) if cfg.elastic else None,
-                        telemetry=cfg.telemetry, **(extra or {}))
+                        telemetry=cfg.telemetry, host_devices=_resolve_host_devices(cfg),
+                        **(extra or {}))
 
     def _on_signal(signum, _frame):
         log.info("signal %d: stopping the worker", signum)
@@ -641,11 +742,17 @@ def _observability(cfg: Config, role: str):
 def main(device: DeviceLike = None, cfg: Optional[Config] = None) -> Run:
     """Run this process's role (see the module docstring) with `cfg`
     (default: the DSGD_* environment).  Every setting the port does not
-    serve in that role raises before any data loads."""
-    device = resolve_device(device)
+    serve in that role raises before any data loads.  Under torchrun
+    (WORLD_SIZE set) the dev role joins the process group first, on
+    ``cuda:LOCAL_RANK`` unless `device` is given, and leaves it at the
+    end."""
     setup_logging()
     cfg = Config.from_env() if cfg is None else cfg
     role = cfg.role
+    joined = role == "dev" and "WORLD_SIZE" in os.environ and not distributed()
+    if joined:
+        device = multihost.initialize(device=_rank_device(device))
+    device = resolve_device(device)
     log.info("host: %s (%s)", socket.gethostname(), sys.platform)
     log.info("config: %s", cfg.to_json())
     log.info("role: %s", role)
@@ -658,6 +765,11 @@ def main(device: DeviceLike = None, cfg: Optional[Config] = None) -> Run:
             return Run(fit=None, data_seconds=0.0)
         t0 = time.perf_counter()
         if role == "worker" and cfg.row_store:
+            if cfg.host_index is not None and _resolve_host_devices(cfg) > 1:
+                raise ValueError(
+                    "DSGD_HOST_INDEX with a multi-device in-host mesh is "
+                    "not supported (the mesh binds its slice at build "
+                    "time); set DSGD_HOST_DEVICES=1")
             train, model, extra = _build_worker_row_store(cfg, device)
             data_s = time.perf_counter() - t0
             log.info("data mapped: %d rows resident in %.2fs", len(train), data_s)
@@ -690,6 +802,8 @@ def main(device: DeviceLike = None, cfg: Optional[Config] = None) -> Run:
     finally:
         # flush and stop on every exit path: a crashed run's tail metrics
         # and trace are the ones that matter
+        if joined:
+            dist.destroy_process_group()
         trace_mod.flush()
         if probe is not None:
             probe.stop()

@@ -307,6 +307,11 @@ class HogwildEngine:
         if updates % 1000 < max(1, n_steps):  # crossing check: strides of k
             log.info("%d updates received", updates)
         if updates >= self._max_steps:
+            # the budget is spent: the workers stop at their dispatch's end,
+            # not when the coordinator next wakes (it may be inside a long
+            # evaluation), so a fit overshoots by at most a dispatch a worker
+            for w in self._workers:
+                w.stop_async()
             self._stop.set()
 
     def _shards(self, train: Dataset) -> List[ShardedData]:

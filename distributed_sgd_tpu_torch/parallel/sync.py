@@ -1,8 +1,9 @@
-"""Synchronous data-parallel SGD on one CUDA card.
+"""Synchronous data-parallel SGD on CUDA cards, one rank a card.
 
 The port of distributed_sgd_tpu/parallel/sync.py.  The JAX engine compiles
 an epoch into one XLA program over a device mesh; this engine runs the
-same step on one card (world size 1):
+same step on each rank of a process group (parallel/mesh.py; one process
+and no group is a world of one):
 
 1. draw ``[K, B]`` sample ids, each virtual worker from its own disjoint
    contiguous sub-shard (the vanilla split);
@@ -20,16 +21,20 @@ sums) fits one thread-block cluster's shared memory
 (``cluster_plan``, checked when the engine is bound), a whole epoch's steps
 are one launch of the ``sync_epoch`` kernel (ops/sync_epoch.py).  Otherwise
 each step runs on its own (``_one_step``): one ``worker_grads`` launch
-(ops/worker_grads.py), then the regularizer, the cross-card reduce
-(`all_reduce_sum`, identity on one card) and the update in torch, as the
-JAX engine applies optax outside its Pallas kernel.  The path is picked by
-shape alone, before any launch.
+(ops/worker_grads.py), then the regularizer, the all_reduce of the
+``[D]`` sum over the ranks (`all_reduce_sum`) and the update in torch, as
+the JAX engine applies optax outside its Pallas kernel.  The epoch kernel
+cannot reduce across ranks inside its launch, so a world of more than one
+rank always takes the per-step path.  The path is picked by shape and
+world size alone, before any launch.  Every rank applies the update to the
+same all-reduced bits, so the ranks' weights and optimizer state stay
+bitwise equal.
 
 Sampling mirrors the JAX engine's index arithmetic exactly; only the
 random source differs.  An epoch's draws come from one ``torch.Generator``
-on the engine's device, seeded by the epoch key (`fold_in` of the run's
-seed and the epoch index): the structure of ``jax.random.fold_in``, not
-its bits.  ``sampling='fresh'`` draws uniform ids per step (with
+on the engine's device, seeded by the epoch key folded with the rank
+(`fold_in`, as the JAX engine folds in its mesh position): the structure
+of ``jax.random.fold_in``, not its bits.  ``sampling='fresh'`` draws uniform ids per step (with
 replacement); ``sampling='epoch'`` walks one per-epoch permutation of each
 worker's sub-shard.
 
@@ -42,8 +47,13 @@ for all K), the regularizer, the mean over workers and the update.  The
 JAX engine runs ``jnp.dot`` there too, outside any Pallas kernel.
 
 Evaluation (objective + accuracy over a split) runs chunked on the device
-with the label-0 pad mask, in plain torch: the JAX package computes it
-outside any Pallas kernel (dense chunks through ``margins_dense``).
+with the label-0 pad mask, in plain torch, and its two sums are one
+all_reduce: the JAX package computes it outside any Pallas kernel (dense
+chunks through ``margins_dense``).
+
+At a world of more than one rank `SyncEngine.bind` loads only the rank's
+rows of the padded layout (parallel/multihost.py ``host_shard_bounds``),
+and ``bind_host_local`` binds a row reader's slice without the corpus.
 """
 
 from __future__ import annotations
@@ -70,6 +80,7 @@ from distributed_sgd_tpu_torch.ops.sync_epoch import (
 from distributed_sgd_tpu_torch.ops.worker_grads import worker_grads
 from distributed_sgd_tpu_torch.parallel.mesh import (
     DeviceLike,
+    all_gather_cat,
     all_reduce_sum,
     pad_rows,
     rank,
@@ -106,10 +117,10 @@ def _permutations(gen: torch.Generator, k: int, n: int, device) -> torch.Tensor:
 
 
 class ShardedData(NamedTuple):
-    indices: torch.Tensor  # int32[N_pad, P], this card's rows ([N_pad, 0]: dense layout)
+    indices: torch.Tensor  # int32[N_pad, P], this rank's rows ([N_pad, 0]: dense layout)
     values: torch.Tensor  # f32[N_pad, P]
     labels: torch.Tensor  # [N_pad]; 0 = padding mask
-    n_true: int  # real sample count over all cards
+    n_true: int  # real sample count over all ranks
 
     @property
     def is_dense(self) -> bool:
@@ -117,7 +128,8 @@ class ShardedData(NamedTuple):
 
 
 class BoundSync:
-    """Sync engine bound to one dataset's shapes on one device."""
+    """Sync engine bound to one dataset's shapes: this rank's shard on its
+    device."""
 
     def __init__(
         self,
@@ -131,10 +143,12 @@ class BoundSync:
         virtual_workers: int = 1,
         optimizer=None,
         momentum: float = 0.9,
+        group=None,
     ):
         """The layout picks `kernel`: 'dense' (the matmul steps) for
         dense-layout rows, else 'sparse' (the sync_epoch or worker_grads
-        kernels)."""
+        kernels).  `group`: the process group whose ranks are the workers
+        (the default group when None)."""
         if sampling not in ("fresh", "epoch"):
             raise ValueError(f"sampling must be 'fresh' or 'epoch', got {sampling!r}")
         if virtual_workers < 1:
@@ -151,8 +165,10 @@ class BoundSync:
         self.batch_size = int(batch_size)
         self.learning_rate = float(learning_rate)
         self.sampling = sampling
-        self.n_workers = world_size()
-        # K reference workers emulated on this card: each step draws K
+        self.group = group
+        self.n_workers = world_size(group)
+        self.rank = rank(group)
+        # K reference workers emulated on this rank: each step draws K
         # per-worker batches from K disjoint contiguous sub-shards
         self.virtual_workers = int(virtual_workers)
         self.shard_n = data.indices.shape[0]
@@ -165,7 +181,7 @@ class BoundSync:
         # labels enter the kernels as f32 (pads stay 0)
         self._labels_f32 = data.labels.float().contiguous()
         self._opt_state = self._init_opt_state()
-        # the epoch kernel reduces over this card's workers only, and
+        # the epoch kernel reduces over this rank's workers only, and
         # reads index rows
         self.epoch_kernel = (self.kernel == "sparse" and self.n_workers == 1 and cluster_plan(
             self.virtual_workers, model.n_features, self.optimizer.n_state) is not None)
@@ -173,7 +189,7 @@ class BoundSync:
 
     def _subshards(self):
         """(sub, starts, sizes): the per-virtual-worker ceil-split of this
-        card's shard — the single source of sample ownership for both
+        rank's shard — the single source of sample ownership for both
         sampling modes and the trainability check."""
         k = self.virtual_workers
         sub = -(-self.shard_n // k)  # ceil
@@ -182,7 +198,7 @@ class BoundSync:
         return sub, starts, sizes
 
     def _place(self, sel: torch.Tensor) -> torch.Tensor:
-        """Raw draws sel[..., K, B] in [0, sub) -> ids into this card's
+        """Raw draws sel[..., K, B] in [0, sub) -> ids into this rank's
         shard.  The short trailing sub-shard maps out-of-range draws in by
         modulo."""
         sub, starts, sizes = self._subshards()
@@ -216,8 +232,8 @@ class BoundSync:
             gk = worker_grads(w, d.indices[ids], d.values[ids], self._labels_f32[ids],
                               self.model.coeff_kind)  # [K, D], one launch for every worker
         gk = self.model.regularize(gk, w)
-        # master mean over ALL workers
-        g = all_reduce_sum(gk.sum(dim=0)) / (self.n_workers * self.virtual_workers)
+        # master mean over ALL workers: one all_reduce of the [D] sum
+        g = all_reduce_sum(gk.sum(dim=0), self.group) / (self.n_workers * self.virtual_workers)
         w, self._opt_state = apply_update(w, g, self.learning_rate, self.optimizer,
                                           self._opt_state)
         return w
@@ -254,9 +270,14 @@ class BoundSync:
                 optimizer=self.optimizer, opt_state=self._opt_state)
             return w
         if not self._told_per_step and self.kernel == "sparse":
-            log.info("K=%d workers at D=%d with optimizer %s do not fit one cluster's shared "
-                     "memory: running the per-step path (worker_grads per step)",
-                     self.virtual_workers, self.model.n_features, self.optimizer.kind)
+            if self.n_workers > 1:
+                log.info("a world of %d ranks: running the per-step path (worker_grads per "
+                         "step, then one all_reduce); the epoch kernel cannot reduce across "
+                         "ranks", self.n_workers)
+            else:
+                log.info("K=%d workers at D=%d with optimizer %s do not fit one cluster's "
+                         "shared memory: running the per-step path (worker_grads per step)",
+                         self.virtual_workers, self.model.n_features, self.optimizer.kind)
             self._told_per_step = True
         for rows in ids:
             w = self._one_step(w, rows)
@@ -264,7 +285,7 @@ class BoundSync:
 
     def epoch(self, w: torch.Tensor, key: int) -> torch.Tensor:
         self._check_trainable()
-        return self._run(w, self._sample_ids(fold_in(key, rank())))
+        return self._run(w, self._sample_ids(fold_in(key, self.rank)))
 
     def multi_epoch(self, w: torch.Tensor, key: int, n_epochs: int) -> torch.Tensor:
         """`n_epochs` epochs, epoch e keyed by fold_in(key, e)."""
@@ -275,7 +296,7 @@ class BoundSync:
     def step(self, w: torch.Tensor, key: int) -> torch.Tensor:
         """One step: the first step of the epoch keyed by `key`."""
         self._check_trainable()
-        return self._run(w, self._sample_ids(fold_in(key, rank()))[:1])
+        return self._run(w, self._sample_ids(fold_in(key, self.rank))[:1])
 
     def _init_opt_state(self) -> OptState:
         return init_opt_state(self.optimizer, self.model.n_features, self.device)
@@ -305,10 +326,12 @@ class BoundSync:
             yield SparseBatch(d.indices[s:s + c], d.values[s:s + c]), d.labels[s:s + c]
 
     def predict(self, w: torch.Tensor) -> np.ndarray:
-        """Model predictions for every (true) sample in the bound split."""
-        preds = [self.model.predict(self.model.margins(w, batch))
-                 for batch, _ in self._chunks()]
-        return torch.cat(preds).cpu().numpy()[: self.data.n_true]
+        """Model predictions for every (true) sample in the bound split:
+        each rank predicts its rows, and at a world of more than one the
+        ranks' shards are gathered in rank order."""
+        preds = torch.cat([self.model.predict(self.model.margins(w, batch))
+                           for batch, _ in self._chunks()])
+        return all_gather_cat(preds, self.group).cpu().numpy()[: self.data.n_true]
 
     def evaluate(self, w: torch.Tensor) -> Tuple[float, float]:
         """(objective, accuracy) over the bound split.
@@ -325,7 +348,7 @@ class BoundSync:
             hits = (self.model.predict(margins) == cy.float()).float()
             loss_sum = loss_sum + torch.sum(losses * mask)
             hit_sum = hit_sum + torch.sum(hits * mask)
-        sums = all_reduce_sum(torch.stack([loss_sum, hit_sum])).cpu()
+        sums = all_reduce_sum(torch.stack([loss_sum, hit_sum]), self.group).cpu()
         n = self.data.n_true
         reg = self.model.lam * float(torch.sum(w.float() ** 2))
         return reg + float(sums[0]) / n, float(sums[1]) / n
@@ -440,7 +463,8 @@ def resolve_optimizer(optimizer, momentum: float = 0.9) -> Optimizer:
 
 
 class SyncEngine:
-    """Factory: pads datasets, places them on the device, binds loops."""
+    """Factory: pads datasets, places this rank's shard on the device,
+    binds loops."""
 
     def __init__(
         self,
@@ -453,11 +477,15 @@ class SyncEngine:
         optimizer=None,
         momentum: float = 0.9,
         device: DeviceLike = None,
+        group=None,
     ):
+        """`group`: the process group whose ranks are the workers (the
+        default group when None; no group at all is a world of one)."""
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine on {self.device}")
         resolve_optimizer(optimizer, momentum)  # a bad name fails here, not at bind
+        self.group = group
         self.model = model
         self.batch_size = batch_size
         self.learning_rate = learning_rate
@@ -469,17 +497,26 @@ class SyncEngine:
 
     def bind(self, data: Dataset, steps_per_epoch: Optional[int] = None) -> BoundSync:
         """`data` on the device, padded and sharded; dense-layout data binds
-        the 'dense' backend (it has no index array to gather with)."""
-        n_workers = world_size()
+        the 'dense' backend (it has no index array to gather with).  At a
+        world of more than one rank every rank passes the same full
+        dataset and pads and copies ONLY its own row range
+        (``host_shard_bounds``), as the JAX engine's multi-host bind."""
+        n_workers = world_size(self.group)
         n_true = len(data)
         if n_true < n_workers:
             raise ValueError(f"dataset of {n_true} rows < {n_workers} workers")
+        if n_workers > 1:
+            from distributed_sgd_tpu_torch.data.host_shard import dataset_reader
+
+            return self.bind_host_local(
+                dataset_reader(data), n_true, data.n_features,
+                data.indices.shape[1], steps_per_epoch=steps_per_epoch,
+                labels_dtype=data.labels.dtype)
         total, chunk = padded_layout(n_true, n_workers, self.eval_chunk)
         local = _pad_to_exact(data, total)
-        shard = slice(rank() * (total // n_workers), (rank() + 1) * (total // n_workers))
 
         def put(arr, dtype):
-            return torch.as_tensor(np.ascontiguousarray(arr[shard]), dtype=dtype).to(self.device)
+            return torch.as_tensor(np.ascontiguousarray(arr), dtype=dtype).to(self.device)
 
         labels_dtype = torch.int32 if np.issubdtype(local.labels.dtype, np.integer) else torch.float32
         sharded = ShardedData(
@@ -488,11 +525,33 @@ class SyncEngine:
             labels=put(local.labels, labels_dtype),
             n_true=n_true,
         )
+        return self._bound(sharded, chunk, steps_per_epoch)
+
+    def bind_host_local(self, reader, n_samples: int, n_features: int, pad_width: int,
+                        steps_per_epoch: Optional[int] = None,
+                        labels_dtype=None) -> BoundSync:
+        """Bind WITHOUT the global corpus: each rank hands in a row reader
+        (data/host_shard.py ``RowReader``) and loads ONLY its
+        ``host_shard_bounds`` extent, real rows through one clipped read
+        and padding rows as zeros.  ``pad_width=0`` is the dense layout.
+        `labels_dtype` must be the corpus's on every rank; None is float32
+        for the dense layout (the regression path) and int32 otherwise."""
+        from distributed_sgd_tpu_torch.parallel.multihost import host_local_sharded
+
+        if labels_dtype is None:
+            labels_dtype = np.float32 if pad_width == 0 else np.int32
+        sharded, chunk = host_local_sharded(
+            reader, n_samples, n_features, pad_width, eval_chunk=self.eval_chunk,
+            labels_dtype=labels_dtype, device=self.device, group=self.group)
+        return self._bound(sharded, chunk, steps_per_epoch)
+
+    def _bound(self, sharded: ShardedData, chunk: int,
+               steps_per_epoch: Optional[int]) -> BoundSync:
         return BoundSync(
             self.model, sharded, self.batch_size, self.learning_rate,
             sampling=self.sampling, steps_per_epoch=steps_per_epoch,
             eval_chunk=chunk, virtual_workers=self.virtual_workers,
-            optimizer=self.optimizer, momentum=self.momentum,
+            optimizer=self.optimizer, momentum=self.momentum, group=self.group,
         )
 
 

@@ -18,6 +18,7 @@ import logging
 import os
 import shutil
 import threading
+import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -602,12 +603,29 @@ def _local(model, ckpt):
 def test_an_async_fit_resumes_from_its_best_weights(engine, async_data, tmp_path):
     train, test, model = async_data
     make = _hogwild if engine == "hogwild" else _local
-    res1 = make(model, tckpt.Checkpointer(str(tmp_path))).fit(train, test, max_epochs=1)
-    step, state = tckpt.Checkpointer(str(tmp_path)).restore_latest()
+    first = str(tmp_path / "first")
+    res1 = make(model, tckpt.Checkpointer(first)).fit(train, test, max_epochs=1)
+    step, state = tckpt.Checkpointer(first).restore_latest()
     np.testing.assert_array_equal(state["weights"], res1.weights.numpy())  # the best weights
+    assert int(state["updates"]) <= res1.state.updates
+    # the fit resumes from a snapshot set up here: under load the first
+    # fit's coordinator may make only its first check, cold (w = 0) at ~0
+    # updates, and leave nothing warm to resume from.  Its best weights are
+    # one sync epoch's, checked by the JAX checker at n updates after a cold
+    # check at n / 2
+    n = len(train)
+    w_warm = tsync.SyncEngine(model, 8, 0.1, device="cpu").bind(train).epoch(
+        torch.zeros(64), key=0)
+    loss_warm, acc_warm = tsync.SyncEngine(model, 8, 0.0, device="cpu").bind(test).evaluate(w_warm)
+    resume = str(tmp_path / "resume")
+    jc = JaxChecker(0.9, checkpointer=tckpt.Checkpointer(resume), save_every=1)
+    jc.check(1.0, 0.5, np.zeros(64, np.float32), step=n // 2)
+    jc.check(loss_warm, acc_warm, w_warm.numpy(), step=n)
+    step, state = tckpt.Checkpointer(resume).restore_latest()
+    np.testing.assert_array_equal(state["weights"], w_warm.numpy())
     restored = int(state["updates"])
-    assert restored <= res1.state.updates
-    res2 = make(model, tckpt.Checkpointer(str(tmp_path))).fit(
+    assert restored == n
+    res2 = make(model, tckpt.Checkpointer(resume)).fit(
         train, test, max_epochs=3, initial_weights=state["weights"])
     # the restored history goes on, and the first new check is warm: not
     # the cold w = 0 loss (1.0 for the hinge)
@@ -617,6 +635,22 @@ def test_an_async_fit_resumes_from_its_best_weights(engine, async_data, tmp_path
     # the lifetime budget: 3n in all, counted on from the restored updates
     assert res2.state.updates >= 3 * len(train)
     assert res2.state.updates - restored < 3 * len(train)
+
+
+def test_hogwild_workers_stop_at_the_budget_while_a_check_runs(async_data, monkeypatch):
+    # a slow evaluation (as under load) must not let the workers run on past
+    # the budget: each stops at the end of its dispatch
+    train, test, model = async_data
+    evaluate = tsync.BoundSync.evaluate
+
+    def slow_evaluate(self, w):
+        time.sleep(0.3)
+        return evaluate(self, w)
+
+    monkeypatch.setattr(tsync.BoundSync, "evaluate", slow_evaluate)
+    res = _hogwild(model, None).fit(train, test, max_epochs=1)
+    n_workers, k = 2, 4
+    assert len(train) <= res.state.updates < len(train) + n_workers * k
 
 
 @pytest.mark.parametrize("engine", ["hogwild", "local_sgd"])

@@ -310,13 +310,30 @@ def test_dim_sparsity_dense_matches_sparse():
 
 
 def test_feature_sharded_trains_dense(monkeypatch):
-    """The JAX feature-sharded engine trains dense rows; the port has no
-    feature-sharded engine yet (ROADMAP Queue A item 7), so
-    DSGD_FEATURE_SHARDS still raises before any data loads."""
-    monkeypatch.setenv("DSGD_FEATURE_SHARDS", "2")
-    monkeypatch.setattr(tmain, "load_data", lambda cfg: pytest.fail("data was loaded"))
-    with pytest.raises(NotImplementedError, match="feature_sharded"):
-        tmain.main(device="cpu")
+    """The feature-sharded engine trains dense rows in both packages: at one
+    data rank and one feature rank (no process group) the port's epoch
+    over column tiles equals the JAX engine's on a 1 x 1 mesh within 1e-5,
+    both fed the same ids (the JAX engine's randint replaced, see
+    tests/test_torch_feature_sharded.py), and so do their evaluations."""
+    from distributed_sgd_tpu.parallel import feature_sharded as jfs
+    from distributed_sgd_tpu_torch.parallel import feature_sharded as tfs
+
+    dense = dense_regression(300, n_features=40, seed=4)
+    train = dense.slice(slice(0, 240))
+    jm, tm = _models("least_squares", 1e-4, 40, reg="l2")
+    jeng = jfs.FeatureShardedEngine(jm, jfs.make_mesh_2d(1, 1), 8, 0.01).bind(_jax(train))
+    teng = tfs.FeatureShardedEngine(tm, tfs.make_mesh_2d(1, 1, device="cpu"), 8, 0.01)
+    teng.bind(train)
+    ids = np.random.default_rng(0).integers(0, teng.shard_n, (1, teng.steps_per_epoch, 8))
+    monkeypatch.setattr(jax.random, "fold_in", lambda k, d: k * 1000 + d)
+    monkeypatch.setattr(jax.random, "randint",
+                        lambda k, shape, lo, hi: jnp.asarray(ids)[k // 1000, k % 1000])
+    w_j = jeng.epoch(jeng.init_weights(), jnp.int32(0))
+    teng._sample_ids = lambda key: torch.from_numpy(ids[0])
+    w_t = teng.epoch(teng.init_weights(), 0)
+    assert np.abs(jeng.to_dense(w_j)).max() > 1e-3  # the epoch moved the weights
+    np.testing.assert_allclose(teng.to_dense(w_t), jeng.to_dense(w_j), atol=1e-5)
+    np.testing.assert_allclose(teng.evaluate(w_t), jeng.evaluate(w_j), rtol=1e-5)
 
 
 def test_a_jax_master_trains_dense_rows_on_torch_workers():

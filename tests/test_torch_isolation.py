@@ -51,7 +51,10 @@ def test_every_port_module_imports_with_jax_blocked():
             "distributed_sgd_tpu_torch.core.split",
             "distributed_sgd_tpu_torch.tools.sync_epoch_routes",
             "distributed_sgd_tpu_torch.utils.pool", "distributed_sgd_tpu_torch.data.host_shard",
-            "distributed_sgd_tpu_torch.data.row_store"} <= set(mods)
+            "distributed_sgd_tpu_torch.data.row_store",
+            "distributed_sgd_tpu_torch.parallel.multihost", "distributed_sgd_tpu_torch.parallel.hier",
+            "distributed_sgd_tpu_torch.parallel.feature_sharded",
+            "distributed_sgd_tpu_torch.tools.process_group_ranks"} <= set(mods)
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"

@@ -427,8 +427,9 @@ def test_local_sgd_averages_the_state_like_the_weights(monkeypatch):
     train, test = train_test_split(data)
     tm = convert.model_from_jax("hinge", 1e-4, 200, dim_sparsity(train), device="cpu")
     summed, maxed = [], []
-    monkeypatch.setattr(tlocal, "all_reduce_sum", lambda t: summed.append(t.shape) or t)
-    monkeypatch.setattr(tlocal, "all_reduce_max", lambda n: maxed.append(n) or n)
+    monkeypatch.setattr(tlocal, "all_reduce_sum",
+                        lambda t, group=None: summed.append(t.shape) or t)
+    monkeypatch.setattr(tlocal, "all_reduce_max", lambda n, group=None: maxed.append(n) or n)
     eng = tlocal.LocalSGDEngine(tm, 8, 0.01, sync_period=4, check_every=1000,
                                 optimizer="adam", metrics=Metrics(), device="cpu")
     eng.fit(_torch(train), _torch(test), 1)

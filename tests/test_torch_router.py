@@ -351,7 +351,7 @@ def test_router_state_persists_in_the_jax_sidecar_format(tmp_path):
         ported.stop()
 
 
-def test_the_router_answers_metrics_unimplemented_and_refuses_a_telemetry_port():
+def test_the_router_answers_metrics_and_serves_the_fleet_view_on_its_telemetry_port():
     """The router answers Metrics with its own registry (role "route"),
     and `telemetry_port` serves the fleet's merged view; a dead replica's
     scrape is counted, not fatal (tests/test_torch_telemetry.py holds the

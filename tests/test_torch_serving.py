@@ -652,11 +652,27 @@ def test_a_bad_serving_setting_is_refused_as_jax_refuses_it(kw):
     {"DSGD_ROLE": "serve", "DSGD_CHECKPOINT_DIR": "c", "DSGD_CHAOS": "seed=1;drop=0.1"},
     {"DSGD_ROLE": "serve", "DSGD_CHECKPOINT_DIR": "c", "DSGD_HOST_DEVICES": "2"},
 ], ids=lambda env: "+".join(f"{k[5:].lower()}={v}" for k, v in env.items()))
-def test_what_stays_refused_still_raises_on_the_serving_roles(env, monkeypatch):
+def test_a_serving_role_refuses_what_is_not_ported_and_takes_the_rest(env, monkeypatch):
     # DSGD_TELEMETRY is acted on: the route role builds its router with
-    # the fleet telemetry endpoint on DSGD_TELEMETRY_PORT (default 9091)
+    # the fleet telemetry endpoint on DSGD_TELEMETRY_PORT (default 9091).
+    # DSGD_HOST_DEVICES is a worker host's setting, which the serve role
+    # takes and ignores, as the JAX CLI does: it builds its server
     for k, v in env.items():
         monkeypatch.setenv(k, v)
+    if "DSGD_HOST_DEVICES" in env:
+        from distributed_sgd_tpu_torch.serving import server as tserver
+
+        class _Served(Exception):
+            pass
+
+        def served(cfg, **kw):
+            raise _Served(cfg.host_devices)
+
+        monkeypatch.setattr(tserver.ServingServer, "from_config", served)
+        with pytest.raises(_Served) as got:
+            tmain.main(device="cpu")
+        assert got.value.args == (2,)
+        return
     if "DSGD_TELEMETRY" in env:
         from distributed_sgd_tpu_torch.serving import router as trouter
 

@@ -198,6 +198,8 @@ _RPC = {"DSGD_ENGINE": "rpc"}
 
 
 @pytest.mark.parametrize("env", [
+    # the dp x tp engine and the hierarchical host: accepted now, see the
+    # test (tests/test_torch_feature_sharded.py, tests/test_torch_hier.py)
     {"DSGD_FEATURE_SHARDS": "2"},
     {"DSGD_COMPRESS": "topk", "DSGD_ASYNC": "1"},
     {"DSGD_COMPRESS": "qint8", "DSGD_ASYNC": "1", "DSGD_ASYNC_MODE": "local_sgd"},
@@ -223,11 +225,13 @@ _RPC = {"DSGD_ENGINE": "rpc"}
                             if k not in ("DSGD_MASTER_HOST", "DSGD_NODE_HOST")))
 def test_settings_not_ported_raise_before_any_data_loads(env, monkeypatch):
     # the JAX CLI acts on each of these; the port must not ignore one.
-    # DSGD_AGG_TREE, DSGD_MASTER_SHARDS and DSGD_TELEMETRY are acted on:
-    # the run goes on to load its data
+    # DSGD_AGG_TREE, DSGD_MASTER_SHARDS, DSGD_TELEMETRY, DSGD_FEATURE_SHARDS
+    # and DSGD_HOST_DEVICES are acted on: the run goes on to load its data
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    if "DSGD_AGG_TREE" in env or "DSGD_MASTER_SHARDS" in env or "DSGD_TELEMETRY" in env:
+    acted = ("DSGD_AGG_TREE", "DSGD_MASTER_SHARDS", "DSGD_TELEMETRY", "DSGD_FEATURE_SHARDS",
+             "DSGD_HOST_DEVICES")
+    if any(k in env for k in acted):
         class _Loaded(Exception):
             pass
 
