@@ -171,10 +171,11 @@ Phases, each fatal (a traceback and a non-zero exit):
    a knobs-off RPC sync fit at 100,000 rows with the telemetry scrape (3
    snapshots, 0 errors, each worker's ``health.grad.norm`` its last
    reply's norm, ``slave.grad.compute`` its Gradient bodies, the cluster
-   ``slave.sync.backward`` the sum, an HTTP GET of the exporter), its
-   windows/s with telemetry off and on in turns, split by part (a registry
-   a node, the scrape, the health gauges), and the host time of one call
-   of each part; ``flat_sparse`` on the card against the CPU;
+   ``slave.sync.backward`` the sum, an HTTP GET of the exporter), the
+   windows/s of the same fit at 50,000 rows with telemetry off and on in
+   turns, split by part (a registry a node, the scrape, the health gauges),
+   and the host time of one call of each part; ``flat_sparse`` on the card
+   against the CPU;
 15. the process group (torch.distributed): (a) the main path at full
    width for 1 epoch through the CLI inside an NCCL group of one rank
    (torchrun's environment), bitwise the fit without a group, one
@@ -195,7 +196,28 @@ Phases, each fatal (a traceback and a non-zero exit):
    first third of an epoch (2,146 of 6,436 steps), no kernel, within 1e-5
    after 100 steps of the 1-D sync fit at one worker from the same ids and
    within 0.01 of its accuracy at the end, >= 0.70;
-16. summary: the card line, one JSON line of per-kernel numbers, and last
+16. gradient compression and the training-health monitor: (a) ops/topk.py's
+   selection on the card against the CPU on planted ties, a sparse delta
+   with fewer nonzeros than k and one repeated magnitude (the index lists
+   equal, and equal to torch.topk with its boundary repaired), one
+   selection at D, k = 472 timed by CUDA events beside the repaired
+   torch.topk and torch.topk alone, and a compressor's whole call; (b)
+   Hogwild at full width with phase 6's settings (3 workers, 64 steps a
+   dispatch) with compress none, topk (1%, EF) and qint8, each for one
+   budget of 130,000 updates, checked every 10,000: one mean-mode ``sync_epoch``
+   launch a dispatch, updates/s, the bytes on the wire against their dense
+   equivalent, the best weights' accuracy >= 0.70, qint8's no more than
+   0.02 below the uncompressed fit's and top-k's within 0.02 of the JAX
+   engine's at the same settings (it settles ~0.05 below uncompressed
+   there too); (c) the RPC sync fit at full width (1 epoch) with
+   topk 1% + EF against phase 8's knobs-off fit: one ``worker_grads``
+   launch a body, windows/s, the reply bytes, accuracy >= 0.70 and no more
+   than 0.02 below, and at 100,000 rows the compressed fit on the card within 1e-5 of
+   the same on the CPU; (d) DSGD_HEALTH_ACTION=halt on the RPC sync fit at
+   100,000 rows with one NaN reply: the trip, the flight-*-health.json dump,
+   the fit-state snapshot at the tripped window and the stop, then a
+   restart that resumes from it and completes the epoch;
+17. summary: the card line, one JSON line of per-kernel numbers, and last
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits non-zero before printing any result.
@@ -1722,13 +1744,15 @@ def rpc_versions() -> None:
     print(f"grpc {grpc.__version__} protobuf {google.protobuf.__version__}", flush=True)
 
 
-def rpc_fit(model, train, test, metrics=None, profile: bool = False):
+def rpc_fit(model, train, test, metrics=None, profile: bool = False, **cluster_kw):
     """One epoch of the sync fit of a DevCluster of RPC_WORKERS workers on
-    `model`'s device; returns (fit, initial test loss, worker_grads and
-    sync_epoch launches, device events or None)."""
+    `model`'s device (with `cluster_kw`, e.g. a compressor); returns (fit,
+    initial test loss, worker_grads and sync_epoch launches, device events
+    or None)."""
     from distributed_sgd_tpu_torch.core.cluster import DevCluster
 
-    with DevCluster(model, train, test, n_workers=RPC_WORKERS, seed=0, metrics=metrics) as c:
+    with DevCluster(model, train, test, n_workers=RPC_WORKERS, seed=0, metrics=metrics,
+                    **cluster_kw) as c:
         loss0 = c.master.local_loss(np.zeros(D, np.float32), test=True)[0]
         out = []
         reset_counts()
@@ -1791,7 +1815,9 @@ def check_rpc_full_width() -> dict:
         raise AssertionError(f"rpc: the scrape shows no rounds or gradient bytes: {counters}")
 
     return {"launches": launches, "weights": w, "data": (train, test, model),
-            "bcast_bytes": m.counter("master.sync.bcast.bytes").value}
+            "bcast_bytes": m.counter("master.sync.bcast.bytes").value,
+            "grad_bytes": m.counter("master.sync.grad.bytes").value,
+            "test_acc": fit.test_accuracies[0], "windows_per_s": windows / epoch_s}
 
 
 def check_rpc_profiled(model, train, test, w: np.ndarray) -> None:
@@ -1846,7 +1872,8 @@ def check_rpc_card_against_cpu() -> dict:
                                      rtol=1e-5, atol=0):
         raise AssertionError("rpc: the fit on the card disagrees with the fit on the CPU")
     return {"weights": np.asarray(fits["cuda"].weights), "data": (train, test, models["cuda"]),
-            "bcast_bytes": m.counter("master.sync.bcast.bytes").value}
+            "bcast_bytes": m.counter("master.sync.bcast.bytes").value,
+            "test_loss": fits["cuda"].test_losses[0]}
 
 
 def check_rpc_cli() -> None:
@@ -3585,7 +3612,8 @@ DENSE_CPU_RTOL = 1e-5  # max |w_card - w_cpu| / max |w_cpu|
 DENSE_LAUNCH_STEPS = 50  # steps profiled for the launches a step
 # BASELINE config 3: logistic with l2 on the RCV1 shape (phase 5's rows)
 CFG3_LAM, CFG3_LR, CFG3_EPOCHS = 1e-5, 0.5, 2
-TEL_ROWS = 100_000  # the telemetry fits: 80,000 train rows, 3 workers, 1 epoch
+TEL_ROWS = 100_000  # the checked telemetry fit: 80,000 train rows, 3 workers, 1 epoch
+TEL_TURN_ROWS = 50_000  # the fits in turns (100,000 until PR 14: a depth cut)
 TEL_HEARTBEAT_S = 0.5  # the scrape rides the heartbeat in every fit of the phase
 TEL_NORM_RTOL = 1e-6
 # telemetry's cost, split: each variant adds one part to the one before
@@ -3800,7 +3828,7 @@ def check_predict(w: np.ndarray, test: Dataset) -> None:
 
 
 def telemetry_fit(model, train, test, variant: str, check: bool = False) -> dict:
-    """One knobs-off RPC sync fit (TEL_ROWS, 3 workers, 1 epoch) with the
+    """One knobs-off RPC sync fit (3 workers, 1 epoch) with the
     heartbeat on, with telemetry's parts as `variant` (TEL_VARIANTS) says:
     every part but "off" gives each node its own registry, "scrape" and
     "on" install the master's scrape, and "on" has the workers publish
@@ -3933,17 +3961,19 @@ def check_telemetry() -> dict:
     with cli_env(DSGD_SYNTHETIC=TEL_ROWS):
         train, test, model = port_main.build(Config.from_env(), "cuda")
     first = telemetry_fit(model, train, test, "on", check=True)
+    with cli_env(DSGD_SYNTHETIC=TEL_TURN_ROWS):
+        train, test, model = port_main.build(Config.from_env(), "cuda")
     turns = []
     for variant in TEL_VARIANTS + TEL_VARIANTS[::-1]:
         r = telemetry_fit(model, train, test, variant)
         turns.append((variant, r["windows_s"]))
     means = {v: statistics.mean(x for name, x in turns if name == v) for v in TEL_VARIANTS}
     against_off = {v: f"{means[v] / means['off'] - 1:+.2%}" for v in TEL_VARIANTS[1:]}
-    print(f"phase 14 telemetry's cost ({TEL_ROWS:,} rows, {RPC_WORKERS} workers, 1 epoch, "
+    print(f"phase 14 telemetry's cost ({TEL_TURN_ROWS:,} rows, {RPC_WORKERS} workers, 1 epoch, "
           f"heartbeat {TEL_HEARTBEAT_S} s, all nodes in this process): windows/s in turns "
           f"{turns}; means {means}; against off {against_off}; "
           f"host ms of one call (median of {TEL_TIMED_CALLS}) {first['part_ms']}; the checked "
-          f"fit {first['windows_s']:.1f} windows/s, test accuracy "
+          f"fit ({TEL_ROWS:,} rows) {first['windows_s']:.1f} windows/s, test accuracy "
           f"{first['fit'].test_accuracies[0]:.4f}, worker_grads launches {first['launches']} over "
           f"{first['rounds']} windows; {card_line()}", flush=True)
     if first["launches"] != RPC_WORKERS * first["rounds"]:
@@ -4255,6 +4285,314 @@ def run_process_group_phase(main_w: np.ndarray) -> dict:
           f"(budget {PG_BUDGET_S})", flush=True)
     return {"nccl": nccl_launches, "hier": hier_launches, "ranks": steps}
 
+# -- phase 16: gradient compression and the training-health monitor -------------
+
+COMP_K = 0.01  # DSGD_COMPRESS_K of the compressed fits: 472 of 47,236 coordinates
+COMP_SEL_K = 472  # the selection timed: 1% of D
+# how far a compressed fit's test accuracy may trail the uncompressed
+# fit's; one-sided, as the JAX package's tests/test_compress.py holds its
+# compressed fits (compression must not hurt; doing better passes)
+COMP_ACC_GAP = 0.02
+COMP_CPU_ATOL = 1e-5  # the compressed RPC fit on the card against the same on the CPU
+HOG_COMP_UPDATES = 130000  # (b)'s budget: each codec's fit stops at its first check past it
+HOG_COMP_CHECK_EVERY = 10000  # updates between the smoothed test loss's checks
+# the JAX engine's best weights' test accuracy at (b)'s settings with topk
+# 1% + EF, on the CPU (tests/torch_hogwild_compress_reference.py).  Top-k
+# of a 64-step delta ships 1% of its support: the coordinator settles
+# ~0.05 below the uncompressed fit in JAX too (0.8638 there), so top-k is
+# held to JAX's compressed fit; qint8 to the uncompressed one
+HOG_TOPK_JAX_ACC = 0.8117
+HEALTH_POISON_CALL = 31  # worker 0's Gradient body that replies NaN: window 30 of 267
+# the resumed fit's test loss against the knobs-off fit's: its windows from
+# the tripped one on draw from the generator past that window's ids (the
+# snapshot's state), so it is a fit of other draws, not the same one
+HEALTH_LOSS_GAP = 0.05
+COMP_BUDGET_S = 90  # printed against the phase's time, not gated
+
+
+def comms_counts(m: Metrics) -> tuple:
+    return (m.counter("comms.bytes_on_wire").value,
+            m.counter("comms.bytes_dense_equiv").value)
+
+
+def topk_then_ties(x: torch.Tensor, k: int) -> torch.Tensor:
+    """The support lax.top_k picks, found another way: torch.topk's k-th
+    largest magnitude, every index above it and the lowest indices tied at
+    it, ascending.  Timed beside ops/topk.py's stable sort; the port does
+    not use it."""
+    a = x.abs()
+    t = torch.topk(a, k, sorted=False).values.min()
+    above = a > t
+    tie = a == t
+    take = tie & (torch.cumsum(tie, 0) <= k - above.sum())
+    return torch.nonzero(above | take).squeeze(1)
+
+
+def selection_cases() -> list:
+    """(label, x, k): tests/test_torch_compress.py's planted ties; at D a
+    sparse delta of 7,600 nonzeros (100 rows of ~76) with ties among them,
+    whose zeros tie at k = 23,618 (DSGD_COMPRESS_K 0.5); one repeated
+    magnitude; a dense vector."""
+    rng = np.random.default_rng(16)
+    ties = np.array([0, 3, -3, 0, 1, 3, 0, -1, 2, 0, 0], np.float32)
+    sparse = np.zeros(D, np.float32)
+    hit = rng.choice(D, 7600, replace=False)
+    sparse[hit] = rng.normal(size=7600).astype(np.float32)
+    sparse[hit[:400]] = 0.5
+    return [("ties k=2", ties, 2), ("ties k=8", ties, 8), ("ties k=10", ties, 10),
+            ("sparse delta k=472", sparse, COMP_SEL_K),
+            ("sparse delta k=23618", sparse, 23618),
+            ("one magnitude k=472", np.full(D, -0.25, np.float32), COMP_SEL_K),
+            ("dense k=472", rng.normal(size=D).astype(np.float32), COMP_SEL_K)]
+
+
+def check_topk_selection() -> dict:
+    """(a) ops/topk.py's selection on the card against the CPU (the index
+    lists equal) and against torch.topk with its boundary repaired; one
+    selection at D, k = 472 by CUDA events, beside the repaired torch.topk
+    and torch.topk alone (its ties unordered); a compressor's whole call
+    from host numpy on the host clock."""
+    from distributed_sgd_tpu_torch.compress import QInt8Compressor, TopKCompressor
+    from distributed_sgd_tpu_torch.ops.topk import select, topk_magnitude
+
+    cases = selection_cases()
+    for label, x, k in cases:
+        card_idx, card_val = topk_magnitude(x, k)
+        cpu_idx, cpu_val = topk_magnitude(x, k, device="cpu")
+        alt = topk_then_ties(torch.from_numpy(x).cuda(), k).to(torch.int32).cpu().numpy()
+        same = card_idx.tobytes() == cpu_idx.tobytes() and card_val.tobytes() == cpu_val.tobytes()
+        print(f"(a) topk {label} (D={len(x)}): card == CPU {same}; torch.topk with its "
+              f"boundary repaired == {alt.tobytes() == card_idx.tobytes()}; first indices "
+              f"{card_idx[:8].tolist()}", flush=True)
+        if not same or alt.tobytes() != card_idx.tobytes():
+            raise AssertionError(f"(a) topk {label}: the card's support differs from the CPU's "
+                                 f"or from the repaired torch.topk's")
+    x = torch.from_numpy(cases[-1][1]).cuda()
+    sel_ms = time_ms(lambda: select(x, COMP_SEL_K))
+    alt_ms = time_ms(lambda: topk_then_ties(x, COMP_SEL_K))
+    lib_ms = time_ms(lambda: torch.topk(x.abs(), COMP_SEL_K))
+    bound_us = (4 * D + 8 * COMP_SEL_K) / HBM_BYTES_PER_S * 1e6
+    g = cases[-1][1] * np.float32(1e-3)
+    host = {}
+    for label, comp in (("topk", TopKCompressor(k=COMP_K, metrics=Metrics(), device="cuda")),
+                        ("qint8", QInt8Compressor(metrics=Metrics()))):
+        ts = []
+        for _ in range(60):
+            t0 = time.perf_counter()
+            comp.compress(g, dest="d")
+            ts.append(time.perf_counter() - t0)
+        host[label] = statistics.median(ts[10:]) * 1e3
+    print(f"(a) one selection at D={D}, k={COMP_SEL_K} (CUDA events, mean of 200): the stable "
+          f"sort (ops/topk.py select) {sel_ms * 1e3:.2f} us, torch.topk with its boundary "
+          f"repaired {alt_ms * 1e3:.2f} us, torch.topk alone (ties unordered) "
+          f"{lib_ms * 1e3:.2f} us; bound {bound_us:.4f} us (bytes); a whole compress call "
+          f"with EF from host numpy (host clock, median of 50): topk {host['topk']:.4f} ms, "
+          f"qint8 {host['qint8']:.4f} ms; {card_line()}", flush=True)
+    return {"select_us": sel_ms * 1e3, "repaired_us": alt_ms * 1e3, "topk_us": lib_ms * 1e3}
+
+
+def run_compressed_hogwild(train: Dataset, test: Dataset, model) -> dict:
+    """(b) Hogwild at full width with phase 6's settings (3 workers, 64
+    steps a dispatch, B=100, lr 0.5), compress none, topk (1%, EF) and
+    qint8 (EF), each for one budget of HOG_COMP_UPDATES updates, its
+    smoothed test loss checked every HOG_COMP_CHECK_EVERY.  Each dispatch one
+    mean-mode sync_epoch launch, no worker_grads; the best weights' test
+    accuracy >= 0.70 and qint8's no more than COMP_ACC_GAP below the
+    uncompressed fit's; updates/s and the bytes on the wire against their
+    dense f32 equivalent; top-k's accuracy within COMP_ACC_GAP of the JAX
+    engine's at the same settings instead (HOG_TOPK_JAX_ACC), both ways.
+    Returns each codec's launches."""
+    test_bound = SyncEngine(model, B, 0.0).bind(test)
+    out = {}
+    for label, kw in (("none", {}), ("topk", {"compress": "topk", "compress_k": COMP_K}),
+                      ("qint8", {"compress": "qint8"})):
+        m = Metrics()
+        eng = hw.HogwildEngine(model, n_workers=RPC_WORKERS, batch_size=B,
+                               learning_rate=RPC_LR, check_every=HOG_COMP_CHECK_EVERY,
+                               backoff_s=0.05, seed=0, metrics=m, steps_per_dispatch=HOGWILD_K,
+                               device="cuda", **kw)
+        reset_counts()
+        t0 = time.perf_counter()
+        # the workers' step counter: the checks fall behind a fast fit
+        fit = eng.fit(train, test, max_epochs=1, criterion=lambda hist, m=m: (
+            m.counter("slave.async.batch").value >= HOG_COMP_UPDATES))
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches, mean_launches = se.sync_epoch.launches, se.sync_epoch.opt_launches["sgd"]
+        wg_launches = wg.worker_grads.launches
+        dispatches = m.counter("slave.async.batch").value // HOGWILD_K
+        wire, dense = comms_counts(m)
+        loss, acc = test_bound.evaluate(fit.weights)
+        out[label] = {"launches": launches, "acc": acc, "updates": fit.state.updates}
+        print(f"(b) Hogwild {label} (full width, {RPC_WORKERS} workers, k={HOGWILD_K}, B={B}, "
+              f"lr {RPC_LR}): {fit.state.updates} updates in {fit_s:.3f} s = "
+              f"{fit.state.updates / fit_s:.1f} updates/s; {dispatches} dispatches, sync_epoch "
+              f"launches {launches} ({mean_launches} in the mean mode), worker_grads "
+              f"{wg_launches}; comms.bytes_on_wire {wire} against comms.bytes_dense_equiv "
+              f"{dense} ({dense / wire if wire else float('nan'):.2f}x); peer deltas dropped "
+              f"{m.counter('slave.async.grad.dropped').value}; best weights' test loss "
+              f"{loss:.7f} accuracy {acc:.7f}; {card_line()}", flush=True)
+        if (launches, mean_launches, wg_launches) != (dispatches, dispatches, 0) or not dispatches:
+            raise AssertionError(f"(b) Hogwild {label}: sync_epoch {launches} ({mean_launches} "
+                                 f"mean mode), worker_grads {wg_launches} over {dispatches} "
+                                 f"dispatches")
+        if live_worker_threads():
+            raise AssertionError(f"(b) Hogwild {label}: worker threads left")
+        ref_acc = HOG_TOPK_JAX_ACC if label == "topk" else out["none"]["acc"]
+        gap = acc - ref_acc
+        print(f"(b) Hogwild {label}: accuracy {acc - out['none']['acc']:+.4f} from the "
+              f"uncompressed fit's, {gap:+.4f} from "
+              f"{'the JAX engine' if label == 'topk' else 'uncompressed'} ({ref_acc:.4f})",
+              flush=True)
+        if acc < ASYNC_ACC_FLOOR or gap < -COMP_ACC_GAP or (
+                label == "topk" and gap > COMP_ACC_GAP):
+            raise AssertionError(f"(b) Hogwild {label}: accuracy {acc} (want >= "
+                                 f"{ASYNC_ACC_FLOOR} and within {COMP_ACC_GAP} of {ref_acc})")
+        want_ratio = {"none": None, "topk": 20.0, "qint8": 3.5}[label]
+        if (want_ratio is None) != (wire == 0) or (want_ratio and dense / wire < want_ratio):
+            raise AssertionError(f"(b) Hogwild {label}: {wire} bytes on the wire for {dense} "
+                                 f"dense")
+    return out
+
+
+def check_compressed_rpc(ref: dict) -> dict:
+    """(c) The RPC sync fit over gRPC at full width (3 workers, B=100,
+    lr 0.5, 1 epoch) with topk 1% + EF, against phase 8's knobs-off fit over
+    the same windows: one worker_grads launch a body, accuracy >= 0.70 and
+    no more than COMP_ACC_GAP below knobs off, windows/s and the reply
+    bytes; then at
+    RPC_SMALL_ROWS the compressed fit on the card against the same fit on
+    the CPU, within COMP_CPU_ATOL.  Returns the launches."""
+    train, test, model = ref["data"]
+    m = Metrics()
+    fit, loss0, (launches, se_launches), _ = rpc_fit(model, train, test, m, compress="topk",
+                                                     compress_k=COMP_K)
+    windows = m.counter("master.sync.rounds").value
+    epoch_s = fit.epoch_seconds[0]
+    acc = fit.test_accuracies[0]
+    wire, dense = comms_counts(m)
+    grad_bytes = m.counter("master.sync.grad.bytes").value
+    parts = {label: m.histogram(name).mean * 1e3 for label, name in RPC_PART_HISTS}
+    print(f"(c) rpc topk {COMP_K} + EF (full width, {RPC_WORKERS} workers, B={B}, lr {RPC_LR}, "
+          f"1 epoch): test loss {fit.test_losses[0]:.7f} from {loss0:.6f}, accuracy {acc:.7f} "
+          f"against {ref['test_acc']:.7f} knobs off; {windows} windows in {epoch_s:.3f} s = "
+          f"{windows / epoch_s:.1f} windows/s ({ref['windows_per_s']:.1f} knobs off); "
+          f"master.sync.grad.bytes {grad_bytes} ({ref['grad_bytes']} knobs off); "
+          f"comms.bytes_on_wire {wire} against {dense} dense; worker_grads launches "
+          f"{launches}, sync_epoch {se_launches}; {card_line()}", flush=True)
+    print("(c) rpc topk ms a window: " + json.dumps({k: round(v, 4) for k, v in parts.items()}),
+          flush=True)
+    if launches != windows * RPC_WORKERS or se_launches != 0 or not windows:
+        raise AssertionError(f"(c): {launches} worker_grads and {se_launches} sync_epoch "
+                             f"launches over {windows} windows")
+    if acc < RPC_ACC_FLOOR or acc < ref["test_acc"] - COMP_ACC_GAP or not (
+            np.isfinite(np.asarray(fit.weights)).all()):
+        raise AssertionError(f"(c): accuracy {acc} against {ref['test_acc']} knobs off")
+    strain, stest, smodel = ref["small"]["data"]
+    cpu_model = make_model("hinge", LAM, D, dim_sparsity=dim_sparsity(strain), device="cpu")
+    fits = {}
+    for dev, mdl in (("cuda", smodel), ("cpu", cpu_model)):
+        t0 = time.perf_counter()
+        fits[dev] = rpc_fit(mdl, strain, stest, compress="topk", compress_k=COMP_K)[0]
+        print(f"(c) rpc topk {RPC_SMALL_ROWS}-row fit on {dev}: "
+              f"{time.perf_counter() - t0:.2f} s, test loss {fits[dev].test_losses[0]:.7f}",
+              flush=True)
+    err = float(np.abs(np.asarray(fits["cuda"].weights) - np.asarray(fits["cpu"].weights)).max())
+    off = float(np.abs(np.asarray(fits["cuda"].weights) - ref["small"]["weights"]).max())
+    print(f"(c) rpc topk card against CPU ({RPC_SMALL_ROWS} rows): weights max_abs_err "
+          f"{err:.3e}; max |dw| against the knobs-off fit {off:.3e}", flush=True)
+    if err > COMP_CPU_ATOL or not np.allclose(fits["cuda"].test_losses, fits["cpu"].test_losses,
+                                              rtol=1e-5, atol=0):
+        raise AssertionError(f"(c): the compressed fit on the card is {err} from the CPU's")
+    return {"launches": launches}
+
+
+def check_health_halt(ref: dict, tmp: str) -> int:
+    """(d) DSGD_HEALTH_ACTION=halt on the RPC sync fit at RPC_SMALL_ROWS
+    (3 workers on the card, 1 epoch): worker 0's HEALTH_POISON_CALL-th
+    Gradient body replies NaN.  The monitor trips, the round is not
+    applied, the flight-*-health.json dump and the fit-state snapshot at
+    that window are written and the fit stops; a restart resumes from the
+    snapshot and completes the epoch, its test loss within HEALTH_LOSS_GAP
+    of the knobs-off fit's; a third run finds nothing to run.  Returns the
+    worker_grads launches of the two runs."""
+    from distributed_sgd_tpu_torch.checkpoint import fit_state_path, restore_fit_state
+    from distributed_sgd_tpu_torch.core.cluster import DevCluster
+    from distributed_sgd_tpu_torch.core.split import vanilla_split
+    from distributed_sgd_tpu_torch.telemetry.health import HealthMonitor
+    from distributed_sgd_tpu_torch.trace import flight
+
+    train, test, model = ref["small"]["data"]
+    path = fit_state_path(tmp)
+    total = -(-max(len(p) for p in vanilla_split(len(train), RPC_WORKERS)) // B)
+    recorder = flight.get()
+    flight.configure(capacity=recorder.capacity, service="phase16", dir=tmp)
+    runs = []
+    try:
+        for label, poison in (("halted", True), ("resumed", False), ("again", False)):
+            m = Metrics()
+            monitor = HealthMonitor(metrics=m, action="halt")
+            with DevCluster(model, train, test, n_workers=RPC_WORKERS, seed=0, metrics=m) as c:
+                if poison:
+                    real, seen = c.workers[0].compute_gradient, [0]
+
+                    def poisoned(w, ids, real=real, seen=seen):
+                        seen[0] += 1
+                        g = real(w, ids)
+                        return np.full_like(g, np.nan) if seen[0] == HEALTH_POISON_CALL else g
+
+                    c.workers[0].compute_gradient = poisoned
+                reset_counts()
+                t0 = time.perf_counter()
+                fit = c.master.fit_sync(1, B, RPC_LR, health=monitor, fit_state_path=path)
+                torch.cuda.synchronize()
+            fs = restore_fit_state(path, "sgd", [])
+            runs.append((label, fit, monitor, m.counter("master.sync.rounds").value,
+                         wg.worker_grads.launches, fs))
+            print(f"(d) {label}: {time.perf_counter() - t0:.2f} s, epochs run {fit.epochs_run}, "
+                  f"windows {runs[-1][3]}, worker_grads launches {runs[-1][4]}, tripped "
+                  f"{monitor.tripped} ({monitor.trip_reason}); the snapshot at epoch {fs.epoch} "
+                  f"window cursor {fs.batch}; test losses {fit.test_losses}", flush=True)
+    finally:
+        flight.configure(capacity=recorder.capacity, service=recorder.service,
+                         dir=recorder.dir)
+    (_, halted, mon, h_windows, h_launches, h_fs), (_, resumed, mon2, r_windows, r_launches,
+                                                     r_fs), (_, again, _, a_windows, _, _) = runs
+    dump = os.path.join(tmp, f"flight-phase16-{os.getpid()}-health.json")
+    print(f"(d) the dump {os.path.basename(dump)} exists: {os.path.exists(dump)}; the resumed "
+          f"fit's test loss {resumed.test_losses[0]:.7f} against {ref['small']['test_loss']:.7f} "
+          f"knobs off; {card_line()}", flush=True)
+    if not (mon.tripped and mon.trip_reason == "non_finite_grad" and os.path.exists(dump)):
+        raise AssertionError("(d): the monitor did not trip on the NaN reply, or left no dump")
+    if (halted.epochs_run, h_windows, h_fs.epoch, h_fs.batch) != (
+            0, HEALTH_POISON_CALL, 0, (HEALTH_POISON_CALL - 1) * B) or not (
+            np.array_equal(h_fs.weights, np.asarray(halted.weights))
+            and np.isfinite(h_fs.weights).all()):
+        raise AssertionError("(d): the halt did not stop at the tripped window with its snapshot")
+    if (mon2.tripped or resumed.epochs_run != 1 or r_windows != total - HEALTH_POISON_CALL + 1
+            or r_launches != r_windows * RPC_WORKERS or r_fs.epoch != 1
+            or abs(resumed.test_losses[0] - ref["small"]["test_loss"]) > HEALTH_LOSS_GAP):
+        raise AssertionError(f"(d): the restart did not resume from the snapshot and complete "
+                             f"({r_windows} windows of {total}, epochs {resumed.epochs_run})")
+    if a_windows != 0 or again.epochs_run != 1:
+        raise AssertionError("(d): a third run found something to run")
+    return h_launches + r_launches
+
+
+def run_compression_phase(ref: dict) -> dict:
+    """Phase 16; returns the launches of its paths."""
+    t0 = time.perf_counter()
+    check_topk_selection()
+    train, test, model = ref["data"]
+    hog = run_compressed_hogwild(train, test, model)
+    rpc = check_compressed_rpc(ref)
+    with tempfile.TemporaryDirectory(prefix="dsgd-health-") as tmp:
+        health = check_health_halt(ref, tmp)
+    print(f"compression phase seconds: {time.perf_counter() - t0:.1f} "
+          f"(budget {COMP_BUDGET_S})", flush=True)
+    return {"hogwild": {k: v["launches"] for k, v in hog.items()}, "rpc": rpc["launches"],
+            "health": health}
+
 
 def main() -> None:
     phase("1 device")
@@ -4340,6 +4678,8 @@ def main() -> None:
 
     phase("13 the aggregation tree and the sharded master")
     tree = run_tree_phase(rpc_full)
+    comp_ref = {k: rpc_full[k] for k in ("data", "small", "test_acc", "windows_per_s",
+                                         "grad_bytes")}
     del rpc_full
     wg_row["path"] += "; phase 13 (full width, 1 epoch each): " + ", ".join(
         f"{label} {tree[label][0]}" for label, kw in TREE_FITS if "local_steps" not in kw)
@@ -4367,7 +4707,16 @@ def main() -> None:
                        f"width) {pg['ranks']} a rank; (c) HostMeshEngine on 2 devices "
                        f"{pg['hier']} a Gradient body; (d) dp x tp 0")
 
-    phase("16 summary")
+    phase("16 gradient compression and the training-health monitor")
+    comp = run_compression_phase(comp_ref)
+    del comp_ref
+    mean_row["path"] += (f"; phase 16 (b) Hogwild at full width, k={HOGWILD_K}, one budget: "
+                         + ", ".join(f"{label} {n}" for label, n in comp["hogwild"].items()))
+    wg_row["path"] += (f"; phase 16 (c) rpc topk {COMP_K} + EF (full width, 1 epoch) "
+                       f"{comp['rpc']}; (d) the health halt and its resume ({RPC_SMALL_ROWS:,} "
+                       f"rows) {comp['health']}")
+
+    phase("17 summary")
     print(card)
     print(json.dumps({"kernels": [wg_row, se_row, mean_row, opt_rows["momentum"],
                                   opt_rows["adam"], window_row]}))

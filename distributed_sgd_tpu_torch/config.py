@@ -35,7 +35,12 @@ sync fit to the dp x tp engine over the process group
 (main.py), ``resource_probe_s`` (with ``blackbox_dir``) the resource probe
 in every role, and ``telemetry`` (with ``telemetry_port``) the cluster
 telemetry scrape in every role: the master's and the router's merged
-``/metrics`` endpoint, the workers' health gauges.  ``DSGD_ROLE=serve``
+``/metrics`` endpoint, the workers' health gauges.  ``health_action``
+('warn' | 'snapshot' | 'halt') puts the training-health monitor on the
+rpc sync fit (telemetry/health.py; the last two need ``checkpoint_dir``).
+``compress`` ('topk' | 'qint8', with ``compress_k`` and ``compress_ef``)
+encodes the gradients that cross a wire: the Hogwild gossip, the rpc
+workers' sync replies and async gossip.  ``DSGD_ROLE=serve``
 runs a serving replica (or, with ``serve_replicas``, an in-process fleet)
 and ``DSGD_ROLE=route`` the fleet router; the ``serve_*`` fields are the
 JAX Config's, with its defaults and validation, and ``serve_push``
@@ -138,11 +143,15 @@ class Config:
     host_overprovision: float = 0.0  # neighbour rows loaded, a fraction a side
     feature_shards: int = 1  # F > 1: the dp x tp engine (mesh, sync, sgd)
     host_devices: int = 1  # a worker host's devices (0: the host's cards)
-    # read so that none is ignored without a word; each raises (or, on the
-    # mesh engine, warns) when set
+    # gradient compression on the wire paths (compress/): 'none' keeps every
+    # send byte-identical to the uncompressed wire
     compress: str = "none"  # none | topk | qint8
+    compress_k: float = 0.01  # topk size: fraction of dim if < 1, count if >= 1
+    compress_ef: bool = True  # error-feedback residual accumulation
     agg_tree: str = ""
     master_shards: int = 0
+    # read so that it is not ignored without a word: it raises when set, as
+    # autopilot below does
     chaos: Optional[str] = None
     # the cluster telemetry plane (telemetry/aggregate.py): the master (or
     # router) scrapes its members' registries over the Metrics RPC and
@@ -150,6 +159,8 @@ class Config:
     # publish their health gauges.  Off: no Metrics RPC is ever sent
     telemetry: bool = False
     telemetry_port: int = 9091
+    # the rpc sync fit's training-health monitor (telemetry/health.py):
+    # None = no observation; warn | snapshot | halt on a trip
     health_action: Optional[str] = None
     autopilot: bool = False
     # the resource plane (telemetry/): the probe's period (0: no probe) and
@@ -183,12 +194,20 @@ class Config:
             raise ValueError(f"DSGD_ROLE={self.role_override!r} must be one of "
                              f"dev | master | worker | serve | route")
         for bad, setting in ((self.autopilot, "DSGD_AUTOPILOT"),
-                             (self.chaos, "DSGD_CHAOS"),
-                             (self.health_action, "DSGD_HEALTH_ACTION")):
+                             (self.chaos, "DSGD_CHAOS")):
             if bad:
                 raise _not_ported(setting, "[A13] item 8")
         if self.telemetry_port < 0:
             raise ValueError("telemetry_port must be >= 0 (0 = OS-assigned)")
+        if self.health_action not in (None, "warn", "snapshot", "halt"):
+            raise ValueError(
+                f"DSGD_HEALTH_ACTION={self.health_action!r} must be one of "
+                f"warn | snapshot | halt (unset = no health monitor)")
+        if self.health_action in ("snapshot", "halt") and not self.checkpoint_dir:
+            raise ValueError(
+                f"DSGD_HEALTH_ACTION={self.health_action} needs "
+                f"DSGD_CHECKPOINT_DIR: the resumable trip snapshot lives "
+                f"under the checkpoint directory")
         if self.resource_probe_s < 0:
             raise ValueError("DSGD_RESOURCE_PROBE_S must be >= 0 (0 = no resource probe)")
         if self.blackbox_dir and self.resource_probe_s <= 0:
@@ -211,10 +230,8 @@ class Config:
         if self.compress not in ("none", "topk", "qint8"):
             raise ValueError(
                 f"config field compress={self.compress!r} must be 'none', 'topk' or 'qint8'")
-        if self.compress != "none":
-            raise NotImplementedError(
-                f"DSGD_COMPRESS={self.compress}: gossip compression is not ported yet "
-                f"(ROADMAP.md Queue A 13: compress/)")
+        if self.compress_k <= 0:
+            raise ValueError("compress_k must be > 0 (fraction of dim or count)")
         if self.feature_shards < 1:
             raise ValueError("feature_shards must be >= 1")
         if self.feature_shards > 1 and self.use_async:
@@ -394,6 +411,8 @@ class Config:
             steps_per_dispatch=_env("DSGD_STEPS_PER_DISPATCH", cls.steps_per_dispatch, int),
             gossip_topology=_env("DSGD_GOSSIP_TOPOLOGY", cls.gossip_topology, str),
             compress=_env("DSGD_COMPRESS", cls.compress, str),
+            compress_k=_env("DSGD_COMPRESS_K", cls.compress_k, float),
+            compress_ef=_env("DSGD_COMPRESS_EF", cls.compress_ef, bool),
             checkpoint_dir=_env("DSGD_CHECKPOINT_DIR", None, str),
             checkpoint_every=_env("DSGD_CHECKPOINT_EVERY", cls.checkpoint_every, int),
             profile_dir=_env("DSGD_PROFILE_DIR", None, str),

@@ -21,8 +21,10 @@ the workers publish their health gauges and the master scrapes them and
 serves the merged view on that port (0: OS-assigned), as the JAX
 cluster does.  With `host_devices` = D > 1 each worker is a hierarchical
 host over a contiguous group of D of `devices` (parallel/mesh.py
-``local_device_groups``; parallel/hier.py).  The JAX cluster's
-compression and chaos arguments have no counterpart here (ROADMAP.md
+``local_device_groups``; parallel/hier.py).  `compress`, `compress_k`
+and `compress_ef` (DSGD_COMPRESS) give every worker its compressor
+(compress/): the sync replies and the async gossip are encoded by it.
+The JAX cluster's chaos argument has no counterpart here (ROADMAP.md
 Queue A [A13]).
 """
 
@@ -54,6 +56,9 @@ class DevCluster:
         seed: int = 0,
         metrics: Optional[metrics_mod.Metrics] = None,
         steps_per_dispatch: int = 1,
+        compress: str = "none",
+        compress_k: float = 0.01,
+        compress_ef: bool = True,
         gossip_topology: str = "all",
         heartbeat_s: Optional[float] = None,
         heartbeat_max_misses: int = 3,
@@ -93,6 +98,8 @@ class DevCluster:
                     else [model.device] * (n_workers * host_devices))
             groups = local_device_groups(devs, n_workers, host_devices)
         self._worker_kwargs = dict(steps_per_dispatch=steps_per_dispatch,
+                                   compress=compress, compress_k=compress_k,
+                                   compress_ef=compress_ef,
                                    gossip_topology=gossip_topology,
                                    master_watch_s=master_watch_s, telemetry=telemetry)
         self.master = MasterNode(host, base_port, train, test, model,

@@ -81,10 +81,13 @@ from a JAX or port worker with DSGD_HOST_DEVICES): the default split is
 weighted by each host's device count (``_split_parts``, core/split.py
 ``weighted_split``), as the JAX master's.
 
+The training-health monitor (``fit_sync(health=)``, telemetry/
+health.py, DSGD_HEALTH_ACTION) watches each round's fan-in and each
+epoch's loss: a non-finite round is never applied, and a trip's snapshot
+and halt act at the exact window the trip interrupted.
+
 The workers compute on their own devices; the master only encodes,
-decodes and applies, and evaluates on its device.  Every lever of the JAX
-fits that is not ported raises NotImplementedError naming the ROADMAP
-item that holds it (the health monitor).
+decodes and applies, and evaluates on its device.
 """
 
 from __future__ import annotations
@@ -144,11 +147,6 @@ SYNC_BARRIER_SECONDS = "master.sync.barrier.seconds"  # wait for the replies
 # and the decode span is only the tail left after it
 SYNC_DECODE_SECONDS = "master.sync.decode.seconds"    # sum and divide the replies
 SYNC_APPLY_SECONDS = "master.sync.apply.seconds"      # the update
-
-
-def not_ported(what: str, where: str) -> NotImplementedError:
-    return NotImplementedError(f"{what}: not ported to the torch master yet "
-                               f"(ROADMAP.md Queue A {where})")
 
 
 class _FailureTracker:
@@ -1651,11 +1649,17 @@ class MasterNode:
         checkpoint is newer; a finished snapshot runs nothing.  Snapshots
         do not change the result.
 
-        The JAX fit_sync's health monitor is not ported; a `health`
-        raises NotImplementedError (ROADMAP.md Queue A [A13] item 8)."""
-        if health is not None:
-            raise not_ported("fit_sync(health (the training-health monitor))",
-                             "[A13] item 8, telemetry/")
+        The training-health monitor (`health`, a telemetry.health.
+        HealthMonitor; DSGD_HEALTH_ACTION): each round's fan-in norm and
+        staleness, and each epoch's loss trend.  A non-finite fan-in trips
+        BEFORE it is applied and is dropped whatever the action; a loss
+        divergence trips at the epoch's evaluation.  On a trip the monitor
+        dumps the flight recorder, and by its action the fit also writes
+        a resumable fit-state snapshot to `fit_state_path` ('snapshot') and
+        stops ('halt'); a halted fit writes no terminal snapshot, which
+        would roll the trip's cursor back.  With a monitor the terminal
+        snapshot is written even at `fit_state_every` 0, so a resume that
+        completes replaces the trip's.  None runs no health observation."""
         if on_worker_death not in ("resplit", "fail"):
             raise ValueError(f"on_worker_death must be resplit|fail, got {on_worker_death!r}")
         if quorum is not None and int(quorum) < 1:
@@ -1794,6 +1798,24 @@ class MasterNode:
             shard_coord = self._shard_coord = ShardedCoordinator(
                 self, n_shards, self.model.n_features, keys, delta_broadcast, tree_fanout)
         agg_round_seq = 0  # a fresh tree round each attempt of a window
+        if health is not None and health.action != "warn" and not fit_state_path:
+            self.log.warning(
+                "health action %r has no fit-state path (set DSGD_CHECKPOINT_DIR): a trip "
+                "will leave flight evidence but no resumable snapshot", health.action)
+        halted = False
+
+        def health_snapshot(epoch_, batch_, rng_state_, w_):
+            """The fit state where a health trip interrupted the loop
+            ('snapshot' and 'halt'); nothing without a path."""
+            if not fit_state_path:
+                return
+            save_fit_state(
+                fit_state_path, weights=w_, epoch=epoch_, batch=batch_, rng_state=rng_state_,
+                test_losses_nf=test_newest_first, opt_kind=opt_kind, opt_leaves=leaves(),
+                bcast_version=bcast.version, fit_tokens=fit_tokens)
+            self.log.warning("health watchdog wrote a resumable fit-state snapshot to %s",
+                             fit_state_path)
+
         rounds_since_save = 0
         stopped_early = False
         try:
@@ -2018,6 +2040,26 @@ class MasterNode:
                             grad_acc /= (self._tree_contributors(replies)
                                          if tree_plan is not None and not tree_plan.trivial
                                          else len(replies))
+                        if health is not None and health.observe_round(
+                                float(np.linalg.norm(grad_acc)),
+                                staleness_s=time.perf_counter() - t_batch):
+                            # the NaN/Inf sentinel: a non-finite fan-in never
+                            # reaches the weights; the snapshot holds the last
+                            # good state, its cursor at this window
+                            wspan.set(health_tripped=True)
+                            if health.action in ("snapshot", "halt"):
+                                health_snapshot(epoch, batch, serial_rng_state(rng), w)
+                            if health.action == "halt":
+                                halted = True
+                                break
+                            # warn and snapshot drop the round and go on from
+                            # the last finite weights (every later non-finite
+                            # round is dropped too)
+                            self.log.error("dropping non-finite fan-in at epoch %d window %d "
+                                           "(health action %s)", epoch, int(batch),
+                                           health.action)
+                            batch += window_span
+                            continue
                         t_decoded = time.perf_counter()
                         w_old = w
                         if local_steps > 1 and opt.kind == "sgd":
@@ -2058,6 +2100,10 @@ class MasterNode:
                                 opt_leaves=leaves(), bcast_version=bcast.version,
                                 fit_tokens=fit_tokens)
                             rounds_since_save = 0
+                if halted:
+                    self.log.error("fit halted by the training-health watchdog (%s) at epoch "
+                                   "%d window %d", health.trip_reason, epoch, int(batch))
+                    break
                 epoch_s = time.perf_counter() - t0
 
                 loss, acc = self.local_loss(w)
@@ -2070,6 +2116,18 @@ class MasterNode:
                 self.log.info(
                     "epoch %d: loss=%.6f acc=%.4f test_loss=%.6f test_acc=%.4f (%.2fs)",
                     epoch, loss, acc, test_loss, test_acc, epoch_s)
+                if health is not None and health.observe_loss(loss):
+                    # the loss-trend watchdog: snapshot at the epoch's end
+                    # (the next epoch's cursor and fresh stream, the shape
+                    # of the terminal snapshot)
+                    if health.action in ("snapshot", "halt"):
+                        health_snapshot(epoch + 1, 0, np.random.default_rng(
+                            (self.seed, epoch + 1)).bit_generator.state, w)
+                    if health.action == "halt":
+                        self.log.error("fit halted by the training-health watchdog (%s) after "
+                                       "epoch %d", health.trip_reason, epoch)
+                        halted = True
+                        break
                 if checkpointer is not None and (epoch + 1) % checkpoint_every == 0:
                     save_sync_fit(checkpointer, epoch + 1, w, test_newest_first, opt_kind,
                                   leaves())
@@ -2092,10 +2150,11 @@ class MasterNode:
 
         save_sync_fit_final(checkpointer, result.epochs_run, start_epoch, checkpoint_every,
                             w, test_newest_first, opt_kind, leaves())
-        if fit_state_path and fit_state_every:
-            # the terminal snapshot: `finished` marks a converged fit; a
-            # spent budget is not marked (the cursor says it), so a raised
-            # max_epochs resumes
+        if fit_state_path and (fit_state_every or health is not None) and not halted:
+            # the terminal snapshot (none after a health halt: the trip's
+            # own holds the exact cursor).  `finished` marks a converged
+            # fit; a spent budget is not marked (the cursor says it), so a
+            # raised max_epochs resumes
             save_fit_state(
                 fit_state_path, weights=w, epoch=result.epochs_run, batch=0,
                 rng_state=np.random.default_rng(

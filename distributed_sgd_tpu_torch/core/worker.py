@@ -50,8 +50,8 @@ The pipelined sync levers (docs/SYNC_PIPELINE.md of the JAX package):
 The quorum barrier's requests are served: a ``hedge`` (another worker's
 slice) is the plain Gradient body (or the window) on the ids it names,
 replied uncompressed and counted ``slave.sync.hedge``; an
-``ef_rollback_version`` is a no-op, since the port's worker has no
-compressor and so no error-feedback residual.  With ``master_watch_s``
+``ef_rollback_version`` rolls back the error-feedback drain of the reply
+the quorum discarded (``rollback_sync_ef``).  With ``master_watch_s``
 the worker watches the master after registering (``Master.Ping`` with its
 own identity) and registers again when the master forgets it or stops
 answering.
@@ -87,6 +87,16 @@ Both go through the same ``compute_gradient`` / ``compute_local_window``
 as a flat body, and each state (``Reducer``, ``ShardAssembler``) is built
 only by the first request that needs it.
 
+Gradient compression (compress/, DSGD_COMPRESS 'topk' | 'qint8'): the
+worker's compressor, seeded ``seed + port`` as the JAX worker's, encodes
+every sync reply (a flat body, a K-step window, a subtree sum) with an
+error-feedback residual for the master (``encode_sync_grad``: a retried
+window restores the residual first, a new fit drops it), and every async
+gossip message once a destination, each peer and the master with a
+residual of its own.  A hedge replies uncompressed.  A StartAsync drops
+every residual, and a departed peer's goes with it.  With it off every
+reply and message is ``codec.encode_grad``'s, byte for byte.
+
 The cluster telemetry scrape (telemetry/aggregate.py): ``Metrics``
 answers the node's registry as a ``MetricsSnapshot`` (role "worker", the
 node's ``host:port`` label), always, pull-only.  With ``telemetry`` on
@@ -108,6 +118,8 @@ import grpc
 import numpy as np
 import torch
 
+from distributed_sgd_tpu_torch import trace as trace_mod
+from distributed_sgd_tpu_torch.compress import make_compressor
 from distributed_sgd_tpu_torch.data import host_shard
 from distributed_sgd_tpu_torch.data.rcv1 import Dataset
 from distributed_sgd_tpu_torch.models.linear import LinearModel
@@ -203,6 +215,9 @@ class WorkerNode:
         telemetry: bool = False,
         host_devices: int = 1,
         devices=None,
+        compress: str = "none",
+        compress_k: float = 0.01,
+        compress_ef: bool = True,
     ):
         """`device` defaults to the model's, and must equal it: the
         regularizer's vector lives there.  `steps_per_dispatch` local steps
@@ -221,7 +236,9 @@ class WorkerNode:
         health gauges (`record_health`).  `host_devices` > 1 binds the
         slice to the first `host_devices` of `devices` (the host's cards,
         or the CPU once, when None), the first of which must be the
-        model's device."""
+        model's device.  `compress` ('none' | 'topk' | 'qint8', with
+        `compress_k` top-k's size and `compress_ef` error feedback) encodes
+        the sync replies and the async gossip."""
         self.host, self.port = host, port
         self.log = node_logger(host, port, master=False)
         self.metrics = metrics or metrics_mod.global_metrics()
@@ -232,6 +249,20 @@ class WorkerNode:
             raise ValueError(f"worker device {self.device} differs from the model's "
                              f"{model.device}")
         self.seed = seed
+        # None keeps every send codec.encode_grad's, byte for byte.  The
+        # residuals are per destination: the sync replies ("sync:master"),
+        # each gossip peer and the async master accumulate apart
+        self._compressor = make_compressor(compress, k=compress_k, error_feedback=compress_ef,
+                                           seed=seed + port, metrics=self.metrics,
+                                           device=self.device)
+        # the sync replies' EF retry guard, (window key, residual snapshot)
+        # of the last Gradient, and the fit token last seen
+        # (encode_sync_grad).  The lock is for the quorum barrier: a
+        # straggler may still encode window v when the request for v + 1,
+        # perhaps with an ef_rollback_version, arrives on another thread
+        self._sync_guard_lock = threading.Lock()
+        self._sync_ef_guard: Tuple[Optional[object], Optional[np.ndarray]] = (None, None)
+        self._sync_fit_token = 0
         self.steps_per_dispatch = max(1, int(steps_per_dispatch))
         self._topo_mode, self._topo_k = topo.parse_topology(gossip_topology)
         self._dispatch_no = 0
@@ -465,6 +496,12 @@ class WorkerNode:
         with self._peers_lock:
             stub = self._peers.pop((host, port), None)
             sender = self._gossip.pop((host, port), None)
+            if self._compressor is not None:
+                # a rejoining peer starts from a zero residual, and a
+                # departed one pins no dim-sized array.  A gossip compress
+                # in flight may re-create it: the dispatch's sweep (under
+                # this lock) drops it again
+                self._compressor.residual_drop(("peer", (host, port)))
         if sender is not None:
             sender.close()
         if stub is not None:
@@ -675,11 +712,41 @@ class WorkerNode:
         self.metrics.counter("slave.sync.backward").increment(steps)
         return (wt - w_end).cpu().numpy()
 
+    def encode_sync_grad(self, g, window_key, fit_token: int = 0) -> pb.GradUpdate:
+        """A compressed Gradient reply whose residual drains at most once.
+
+        `compress` takes the shipped mass out of the EF residual when it
+        encodes, but the sync master DISCARDS every ok reply of a window
+        when a sibling fails and retries the window: without a rollback each
+        retry would lose this worker's largest coordinates for good.  A
+        retry is known by `window_key`: the broadcast step_version when the
+        master versions its broadcasts (a retry repeats the version even
+        when the wire form changed, full to header-only), the raw weight
+        bytes otherwise.  On a repeated key the residual from before the
+        first drain is restored before the encode.
+
+        `fit_token` scopes the residual to one fit: the master stamps each
+        fit_sync's requests with a fresh token, and a new token drops the
+        residual and the guard, so one fit's unsent mass never leaks into
+        the next.  0 (a master without fit tokens) carries it on."""
+        with self._sync_guard_lock:
+            if fit_token and fit_token != self._sync_fit_token:
+                self._sync_fit_token = fit_token
+                self._compressor.residual_drop("sync:master")
+                self._sync_ef_guard = (None, None)
+            prev_key, prev_res = self._sync_ef_guard
+            if prev_key is not None and prev_key == window_key:
+                self._compressor.residual_restore("sync:master", prev_res)
+            else:
+                self._sync_ef_guard = (window_key,
+                                       self._compressor.residual_snapshot("sync:master"))
+            return self._compressor.compress(g, dest="sync:master")
+
     def record_health(self, g: np.ndarray) -> None:
         """The health gauges of one reply or dispatch (DSGD_TELEMETRY), as
-        the JAX worker publishes them: the norm of `g` and the gap since
-        the previous call.  (The JAX worker's error-feedback residual norm
-        needs a compressor, which the port's worker does not have.)
+        the JAX worker publishes them: the norm of `g`, the gap since the
+        previous call, and with a compressor the norm of the residual this
+        worker accumulates (the sync replies', else the async master's).
         Called only with ``self.telemetry`` set, so the knobs-off path pays
         nothing."""
         now = time.monotonic()
@@ -687,14 +754,33 @@ class WorkerNode:
         self.metrics.gauge(metrics_mod.HEALTH_GRAD_NORM).set(float(np.linalg.norm(g)))
         if prev is not None:
             self.metrics.gauge(metrics_mod.HEALTH_STALENESS).set(now - prev)
+        if self._compressor is not None:
+            res = self._compressor.residual_snapshot("sync:master")
+            if res is None:
+                res = self._compressor.residual_snapshot("master")
+            if res is not None:
+                self.metrics.gauge(metrics_mod.HEALTH_EF_RESIDUAL_NORM).set(
+                    float(np.linalg.norm(res)))
 
     def rollback_sync_ef(self, version: int) -> None:
         """The quorum's contribution mask (GradientRequest.
         ef_rollback_version): the master discarded this worker's reply for
-        broadcast `version`.  A worker with a compressor restores the
-        residual drained for that window; the port's worker replies
-        uncompressed and keeps no residual, so there is nothing to undo."""
-        del version
+        broadcast `version`, so that window's residual drain is rolled
+        back: the round contributed nothing, and its unsent mass must be
+        neither lost nor shipped twice (the master never applied the
+        shipped part, so the snapshot from before the drain is exact).
+        Only on an exact match: a guard on another key means the window
+        was never encoded here, and the call is a no-op, safe to repeat."""
+        if self._compressor is None:
+            return
+        with self._sync_guard_lock:
+            prev_key, prev_res = self._sync_ef_guard
+            if prev_key is not None and prev_key == version:
+                self._compressor.residual_restore("sync:master", prev_res)
+                self._sync_ef_guard = (None, None)
+                self.metrics.counter("slave.sync.ef.rollback").increment()
+                trace_mod.event(trace_mod.EVENT_EF_ROLLBACK, version=version)
+                flight.record("ef.rollback", worker=self.node_label, version=version)
 
     def compute_forward(self, w: np.ndarray, ids: np.ndarray):
         """Forward body (Slave.scala:129-140) -> (predictions, margins).
@@ -755,6 +841,12 @@ class WorkerNode:
             assignment = assignment - res.offset
         if assignment.min() < 0 or assignment.max() >= res.n:
             raise ValueError(f"StartAsync samples outside this worker's {res.n} resident rows")
+        if self._compressor is not None:
+            # the residuals belong to the trajectory that left them: a new
+            # session from fresh weights starts from none, the sync
+            # replies' of an earlier fit included
+            self._compressor.reset()
+            self._sync_ef_guard = (None, None)
         # momentum passes through as given: an explicit 0.0 is honoured
         opt = resolve_optimizer(optimizer or None, float(momentum))
         with torch.cuda.stream(self._stream):
@@ -854,13 +946,32 @@ class WorkerNode:
 
     def _gossip_dispatch(self, delta_np: np.ndarray, k: int) -> None:
         """One dispatch's delta to the selected peers and to the master,
-        which always receives it: it counts the budget."""
+        which always receives it: it counts the budget.  With a compressor
+        each destination gets its own encode (its own residual)."""
         self._dispatch_no += 1
-        msg = codec.encode_grad(delta_np)
+        if self._compressor is None:
+            msg = codec.encode_grad(delta_np)
+            msg.n_steps = k
+            for _key, sender in self._select_gossip():
+                sender.send(msg)  # fire-and-forget (Slave.scala:103-105)
+            self._master_gossip.send(msg)
+            return
+        # outside _peers_lock, so registration never waits on an encode; a
+        # transport drop loses a message as on the uncompressed wire (EF
+        # keeps only what the selection left out).  The sweep after closes
+        # the race with a remove_peer whose drop a compress re-created
+        senders = self._select_gossip()
+        for peer_key, sender in senders:
+            msg = self._compressor.compress(delta_np, dest=("peer", peer_key))
+            msg.n_steps = k
+            sender.send(msg)
+        msg = self._compressor.compress(delta_np, dest="master")
         msg.n_steps = k
-        for _key, sender in self._select_gossip():
-            sender.send(msg)  # fire-and-forget (Slave.scala:103-105)
         self._master_gossip.send(msg)
+        with self._peers_lock:
+            for peer_key, _ in senders:
+                if peer_key not in self._gossip:
+                    self._compressor.residual_drop(("peer", peer_key))
 
 
 class _WorkerServicer:
@@ -894,13 +1005,13 @@ class _WorkerServicer:
     def _gradient_update(self, request):
         """One sync-window Gradient body, shared by the unary Gradient and
         the FitStream loop: streaming changes the transport, never the
-        math.  In the JAX worker's order: an EF rollback (a no-op here); a
-        shard-tagged leg goes to the rendezvous; else the weights resolve
-        by version (a stale replica replies ``stale_version`` and computes
-        nothing); ``local_steps`` K > 1 runs the K-step window; a hedge
-        (another worker's slice under the quorum barrier) is counted and
-        replied flat as computed; a tree-stamped body reduces and routes
-        its subtree's sum; any other is the plain reply."""
+        math.  In the JAX worker's order: an EF rollback; a shard-tagged
+        leg goes to the rendezvous; else the weights resolve by version (a
+        stale replica replies ``stale_version`` and computes nothing);
+        ``local_steps`` K > 1 runs the K-step window; a hedge (another
+        worker's slice under the quorum barrier) is counted and replied
+        uncompressed; a tree-stamped body reduces and routes its subtree's
+        sum; any other is the plain reply."""
         if request.ef_rollback_version:
             self.w.rollback_sync_ef(request.ef_rollback_version)
         if request.shard_count:
@@ -921,9 +1032,10 @@ class _WorkerServicer:
             else:
                 g = self.w.compute_gradient(w, ids)
         if request.hedge:
-            # no health gauges: the norm belongs to the straggler's slice
+            # uncompressed, and neither this worker's residual nor its
+            # health gauges are touched: the slice is the straggler's
             self.w.metrics.counter("slave.sync.hedge").increment()
-            return self._encode_reply(request, g, k)
+            return self._encode_reply(request, g, k, compress=False)
         if self.w.telemetry:
             self.w.record_health(g)
         if request.agg_parent or request.agg_children:
@@ -960,17 +1072,19 @@ class _WorkerServicer:
         msg.shard_index = request.shard_index
         return msg
 
-    def _encode_reply(self, request, g, k):
+    def _encode_reply(self, request, g, k, compress: bool = True):
         """The reply's encode tail, for a flat body, a hedge, a subtree sum
-        and a shard slice alike: ``codec.encode_grad`` and, for a K-step
-        window, ``n_steps``.  (The JAX worker's compressed arm,
-        ``encode_sync_grad`` with its error-feedback residual, goes here
-        with DSGD_COMPRESS, ROADMAP.md Queue A [A13] item 8, compress/;
-        a hedge stays uncompressed: its slice's residual is the
-        straggler's.)"""
-        del request
+        and a shard slice alike: ``codec.encode_grad``, or with a
+        compressor ``encode_sync_grad`` (an aggregator's residual then
+        accumulates against its subtree's sum), and for a K-step window
+        ``n_steps``.  The retry key is the broadcast's step_version when
+        the master versions them, else the weight bytes."""
         with measure.span("slave.grad.encode", metrics=self.w.metrics, root=False):
-            msg = codec.encode_grad(g)
+            if compress and self.w._compressor is not None:
+                window_key = request.step_version or request.weights.data
+                msg = self.w.encode_sync_grad(g, window_key, request.fit_token)
+            else:
+                msg = codec.encode_grad(g)
         if k > 1:
             msg.n_steps = k  # steps a round, for the wire's accounting
         return msg

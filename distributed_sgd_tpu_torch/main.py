@@ -54,7 +54,17 @@ DSGD_DELTA_BROADCAST, DSGD_STREAM, DSGD_FANIN_LANES and DSGD_STAGE_POOL.
 A worker with DSGD_ROW_STORE maps the packed corpus (data/row_store.py)
 instead of building the data, and with DSGD_HOST_INDEX holds only its
 slice of the train rows (+ DSGD_HOST_OVERPROVISION), reloading the delta
-when an elastic resplit moves it.
+when an elastic resplit moves it.  DSGD_HEALTH_ACTION (warn | snapshot |
+halt) puts the training-health monitor on the sync fit (telemetry/
+health.py): a non-finite round is dropped, a trip leaves its flight dump,
+and snapshot and halt write the fit state where the trip stopped it, from
+which any later run under DSGD_CHECKPOINT_DIR resumes.
+
+DSGD_COMPRESS (topk | qint8, with DSGD_COMPRESS_K and DSGD_COMPRESS_EF)
+encodes every gradient that crosses a wire (compress/): the Hogwild
+engine's gossip and the rpc workers' sync replies and async gossip; the
+sync, local SGD and dp x tp engines have no wire and warn, as the JAX CLI
+does.
 
 Every engine takes DSGD_OPTIMIZER (sgd | momentum | adam) with
 DSGD_MOMENTUM.  DSGD_CHECKPOINT_DIR saves and resumes every fit
@@ -255,8 +265,9 @@ def scenario_mesh(cfg: Config, train: Dataset, test: Dataset, model,
             learning_rate=cfg.learning_rate, check_every=cfg.check_every,
             leaky_loss=cfg.leaky_loss, seed=cfg.seed, checkpointer=ckpt,
             steps_per_dispatch=cfg.steps_per_dispatch, optimizer=cfg.optimizer,
-            momentum=cfg.momentum, compress=cfg.compress,
-            gossip_topology=cfg.gossip_topology, device=device)
+            momentum=cfg.momentum, compress=cfg.compress, compress_k=cfg.compress_k,
+            compress_ef=cfg.compress_ef, gossip_topology=cfg.gossip_topology,
+            device=device)
         res = eng.fit(train, test, cfg.max_epochs, criterion,
                       initial_weights=_restore_weights(ckpt))
     elif cfg.use_async:
@@ -297,8 +308,13 @@ def warn_mesh_ignored(cfg: Config) -> None:
     """The JAX mesh scenario's warnings (distributed_sgd_tpu/main.py:
     152-206), in its words, for the settings of the rpc topology that the
     in-process engines ignore.  The JAX scenario also warns about
-    DSGD_CHAOS and DSGD_HEALTH_ACTION, which the port refuses in every
-    role (config.py)."""
+    DSGD_CHAOS, which the port refuses in every role (config.py)."""
+    if cfg.compress != "none" and not (cfg.use_async and cfg.async_mode == "gossip"):
+        # the sync, local SGD and dp x tp engines exchange gradients through
+        # collectives: there is no wire to compress
+        log.warning(
+            "DSGD_COMPRESS=%s ignored: in-mesh engines have no wire path "
+            "(use engine=rpc or async_mode=gossip)", cfg.compress)
     if (cfg.local_steps > 1 or cfg.delta_broadcast or cfg.stream
             or cfg.fanin_lanes or cfg.stage_pool or cfg.agg_tree
             or cfg.master_shards):
@@ -372,12 +388,31 @@ def _rank_device(device: DeviceLike):
 def _fit_state_args(cfg: Config) -> dict:
     """DSGD_FIT_CKPT_EVERY -> fit_sync's crash-safe fit-state arguments,
     empty when it is off (the config checked that DSGD_CHECKPOINT_DIR is
-    set).  (The JAX CLI also passes the path for DSGD_HEALTH_ACTION, which
-    the port refuses.)"""
-    if not cfg.fit_ckpt_every or not cfg.checkpoint_dir:
+    set).  Any health action gets the path too (with fit_ckpt_every 0 the
+    path alone, so no cadence snapshot runs): snapshot and halt write the
+    trip's snapshot there, and every action, warn included, restores one
+    that a halted run left, whatever the action of the restart."""
+    if not (cfg.fit_ckpt_every or cfg.health_action) or not cfg.checkpoint_dir:
         return {}
     return {"fit_state_path": fit_state_path(cfg.checkpoint_dir),
             "fit_state_every": cfg.fit_ckpt_every}
+
+
+def _health_monitor(cfg: Config, metrics=None):
+    """DSGD_HEALTH_ACTION -> a telemetry.health.HealthMonitor (None when
+    unset).  The resource probe's leak sentinel routes its trips through
+    it, as a loss divergence's."""
+    if not cfg.health_action:
+        return None
+    from distributed_sgd_tpu_torch.telemetry import resources
+    from distributed_sgd_tpu_torch.telemetry.health import HealthMonitor
+
+    log.info("training-health monitor on: action=%s", cfg.health_action)
+    monitor = HealthMonitor(metrics=metrics, action=cfg.health_action)
+    probe = resources.active()
+    if probe is not None and probe.sentinel is not None:
+        probe.sentinel.attach_health(monitor)
+    return monitor
 
 
 def _rpc_fit(cfg: Config, master) -> FitResult:
@@ -399,7 +434,8 @@ def _rpc_fit(cfg: Config, master) -> FitResult:
         local_steps=cfg.local_steps, delta_broadcast=cfg.delta_broadcast,
         stream=cfg.stream, fanin_lanes=cfg.fanin_lanes, stage_pool=cfg.stage_pool,
         agg_tree=cfg.agg_tree, master_shards=cfg.master_shards,
-        quorum=cfg.quorum, straggler_soft_s=cfg.straggler_soft_s, **_fit_state_args(cfg))
+        quorum=cfg.quorum, straggler_soft_s=cfg.straggler_soft_s,
+        health=_health_monitor(cfg, metrics=master.metrics), **_fit_state_args(cfg))
 
 
 def scenario_rpc(cfg: Config, train: Dataset, test: Dataset, model,
@@ -413,6 +449,8 @@ def scenario_rpc(cfg: Config, train: Dataset, test: Dataset, model,
              cfg.use_async, model.device)
     with DevCluster(model, train, test, n_workers=cfg.node_count, seed=cfg.seed,
                     metrics=metrics, steps_per_dispatch=cfg.steps_per_dispatch,
+                    compress=cfg.compress, compress_k=cfg.compress_k,
+                    compress_ef=cfg.compress_ef,
                     gossip_topology=cfg.gossip_topology, heartbeat_s=cfg.heartbeat_s,
                     heartbeat_max_misses=cfg.heartbeat_max_misses,
                     telemetry_port=cfg.telemetry_port if cfg.telemetry else None,
@@ -517,6 +555,8 @@ def _run_worker(cfg: Config, train: Dataset, model, extra: Optional[dict] = None
     worker = WorkerNode(cfg.host, cfg.port, cfg.master_host, cfg.master_port, train, model,
                         seed=cfg.seed, profile_dir=cfg.profile_dir,
                         steps_per_dispatch=cfg.steps_per_dispatch,
+                        compress=cfg.compress, compress_k=cfg.compress_k,
+                        compress_ef=cfg.compress_ef,
                         gossip_topology=cfg.gossip_topology,
                         master_watch_s=(cfg.heartbeat_s or 5.0) if cfg.elastic else None,
                         telemetry=cfg.telemetry, host_devices=_resolve_host_devices(cfg),

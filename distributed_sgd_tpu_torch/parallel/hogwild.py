@@ -39,8 +39,16 @@ asynchrony lives on the host, as in the JAX engine:
 With a checkpointer the loss checker saves the best weights and its
 history and the fit resumes from them, spending only the rest of the
 lifetime budget (core/loss_check.py); the workers' optimizer state is not
-saved, as in the JAX engine.  Not ported yet: the compressed gossip
-(``compress``); it raises.
+saved, as in the JAX engine.
+
+With ``compress`` ('topk' | 'qint8', compress/) each worker has a
+compressor of its own, seeded ``seed + i`` as in the JAX engine, with an
+error-feedback residual for each destination: every peer, then the
+coordinator, receives the decoded lossy delta that its own encode
+produced, while the worker's own weights keep the full delta.  The
+message is built, so ``comms.*`` counts the bytes a wire would carry.
+Top-k selects on the worker's device and stream; only the k chosen
+values cross to the host.
 """
 
 from __future__ import annotations
@@ -54,6 +62,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from distributed_sgd_tpu_torch.compress import COMPRESS_CHOICES, make_compressor
 from distributed_sgd_tpu_torch.core.early_stopping import Criterion
 from distributed_sgd_tpu_torch.core.loss_check import LossChecker, async_fit_result
 from distributed_sgd_tpu_torch.core.split import vanilla_split
@@ -70,6 +79,7 @@ from distributed_sgd_tpu_torch.parallel.sync import (
     resolve_optimizer,
 )
 from distributed_sgd_tpu_torch.parallel.topology import parse_topology, select_gossip_peers
+from distributed_sgd_tpu_torch.rpc import codec
 from distributed_sgd_tpu_torch.utils import metrics as metrics_mod
 
 log = logging.getLogger("dsgd.hogwild")
@@ -97,9 +107,12 @@ class _Worker:
         steps_per_dispatch: int = 1,
         gossip_topology: str = "all",
         optimizer: Optional[Optimizer] = None,
+        compressor=None,
     ):
         """`shard` holds this worker's rows on the device, unpadded;
-        `optimizer` shapes its local steps (sgd when None)."""
+        `optimizer` shapes its local steps (sgd when None); `compressor`
+        (compress/, None: the uncompressed wire) encodes each gossiped
+        delta once a destination."""
         self.wid = wid
         self.metrics = metrics
         self._topo_mode, self._topo_k = parse_topology(gossip_topology)
@@ -122,6 +135,7 @@ class _Worker:
         self.w: Optional[torch.Tensor] = None
         with torch.cuda.stream(self._stream):
             self._opt_state = self._steps.init_state()  # made anew at each StartAsync
+        self._compressor = compressor
         self._peers: List["_Worker"] = []
         self._master: Optional["HogwildEngine"] = None
 
@@ -220,12 +234,25 @@ class _Worker:
                 with self._lock:
                     self.w = self.w - delta
                 self.metrics.counter("slave.async.batch").increment(self.k)
-                delta_np = delta.cpu().numpy()  # the host hop is the wire
                 self._dispatch_no += 1
-                for peer in self._gossip_peers():
-                    peer.push_delta(delta_np)
+                peers = self._gossip_peers()
+                if self._compressor is None:
+                    delta_np = delta.cpu().numpy()  # the host hop is the wire
+                    for peer in peers:
+                        peer.push_delta(delta_np)
+                    if self._master is not None:
+                        self._master._update_grad(delta_np, n_steps=self.k)
+                    continue
+                # the wire modelled faithfully: each destination receives
+                # the decoded lossy delta its own encode produced (its own
+                # EF residual); what it does not get now, its residual
+                # ships later, and the merges stay commutative subtractions
+                for peer in peers:
+                    msg = self._compressor.compress(delta, dest=("peer", peer.wid))
+                    peer.push_delta(codec.decode_grad(msg))
                 if self._master is not None:
-                    self._master._update_grad(delta_np, n_steps=self.k)
+                    msg = self._compressor.compress(delta, dest="master")
+                    self._master._update_grad(codec.decode_grad(msg), n_steps=self.k)
 
 
 class HogwildEngine:
@@ -248,6 +275,8 @@ class HogwildEngine:
         optimizer=None,
         momentum: float = 0.9,
         compress: str = "none",
+        compress_k: float = 0.01,
+        compress_ef: bool = True,
         gossip_topology: str = "all",
         device: DeviceLike = None,
     ):
@@ -257,7 +286,9 @@ class HogwildEngine:
         'momentum' | 'adam', `momentum` its decay) shapes each worker's
         local steps; its state stays with the worker.  gossip_topology:
         all | ring | random:k (parallel/topology.py); the coordinator
-        receives every delta whatever the topology."""
+        receives every delta whatever the topology.  `compress` ('none' |
+        'topk' | 'qint8', with `compress_k` top-k's size and `compress_ef`
+        error feedback) encodes every gossiped delta."""
         if not (0.0 <= leaky_loss <= 1.0):
             raise ValueError("leaking coefficient must be between 0 and 1")
         if steps_per_dispatch < 1:
@@ -265,15 +296,14 @@ class HogwildEngine:
         if n_workers < 1:
             raise ValueError("n_workers must be >= 1")
         self.optimizer = resolve_optimizer(optimizer, momentum)
-        if compress != "none":
-            raise NotImplementedError(
-                f"compress={compress!r} is not ported yet (ROADMAP.md Queue A 13: "
-                f"compress/); use 'none'")
+        if compress not in COMPRESS_CHOICES:
+            raise ValueError(f"unknown compressor {compress!r} (none | topk | qint8)")
         parse_topology(gossip_topology)  # fail typos at construction
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine on {self.device}")
         self.gossip_topology = gossip_topology
+        self.compress, self.compress_k, self.compress_ef = compress, compress_k, compress_ef
         self.model = model
         self.n_workers = int(n_workers)
         self.batch_size = int(batch_size)
@@ -369,7 +399,10 @@ class HogwildEngine:
         workers = [
             _Worker(i, self.model, shard, self.batch_size, self.learning_rate, self.seed,
                     self.metrics, steps_per_dispatch=self.steps_per_dispatch,
-                    gossip_topology=self.gossip_topology, optimizer=self.optimizer)
+                    gossip_topology=self.gossip_topology, optimizer=self.optimizer,
+                    compressor=make_compressor(
+                        self.compress, k=self.compress_k, error_feedback=self.compress_ef,
+                        seed=self.seed + i, metrics=self.metrics, device=self.device))
             for i, shard in enumerate(self._shards(train))
         ]
         for w in workers:

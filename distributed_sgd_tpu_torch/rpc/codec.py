@@ -57,13 +57,15 @@ def encode_grad(x: np.ndarray, sparse_threshold: float = 0.25) -> pb.GradUpdate:
 
 
 def encode_topk(indices: np.ndarray, values: np.ndarray, size: int) -> pb.GradUpdate:
-    """Top-k support as a CompressedGrad (compress/ picks the support)."""
+    """Top-k support as a CompressedGrad (compress/ picks the support).
+    The repeated fields take Python lists: filled from numpy scalars they
+    cost about 3x the time, for the same bytes."""
     return pb.GradUpdate(
         compressed=pb.CompressedGrad(
             codec="topk",
             size=int(size),
-            indices=np.asarray(indices, dtype=np.int32),
-            values=np.asarray(values, dtype=np.float32),
+            indices=np.asarray(indices, dtype=np.int32).tolist(),
+            values=np.asarray(values, dtype=np.float32).tolist(),
         )
     )
 

@@ -24,11 +24,12 @@ single digits — with optional per-series ABSOLUTE units/s overrides
 
 A trip LATCHES per series: "rss" tripping once must not re-dump the
 flight recorder every tick, but must also never silence a later,
-independent "fds" leak.  The trip logs and counts as the JAX package's
-``DSGD_HEALTH_ACTION=warn`` does: counter + slope gauge + trace event +
-flight record + flight dump.  The JAX sentinel can also route a trip to
-its training-health monitor (telemetry/health.py), whose snapshot and
-halt actions wait for ROADMAP.md Queue A [A13] item 8.
+independent "fds" leak.  The trip is the health monitor's pattern:
+counter + slope gauge + trace event + flight record + flight dump, then,
+when a :class:`~distributed_sgd_tpu_torch.telemetry.health.HealthMonitor`
+is attached (``attach_health``; the CLI attaches the rpc sync fit's under
+DSGD_HEALTH_ACTION), its ``trip_external``, so the fit's snapshot and halt
+cover a leak as they cover a diverging loss.
 """
 
 from __future__ import annotations
@@ -88,6 +89,12 @@ class LeakSentinel:
         self.tripped_series: set = set()
         self._series: Dict[str, Deque[Tuple[float, float]]] = {}
         self._lock = threading.Lock()
+        self._monitor = None
+
+    def attach_health(self, monitor) -> None:
+        """Route later trips through a HealthMonitor's DSGD_HEALTH_ACTION
+        (telemetry/health.py) besides the local latch."""
+        self._monitor = monitor
 
     # -- accessors ---------------------------------------------------------
 
@@ -165,3 +172,9 @@ class LeakSentinel:
         flight.record("leak.suspect", series=series, slope_per_s=slope,
                       horizon_s=horizon, level=level)
         flight.dump("leak")
+        if self._monitor is not None:
+            try:
+                self._monitor.trip_external(
+                    f"leak:{series}", slope_per_s=slope, horizon_s=horizon)
+            except Exception:  # noqa: BLE001 - the sentinel must not die on a monitor bug
+                log.exception("leak sentinel: health-monitor routing failed")

@@ -58,8 +58,10 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 # ASCII per the gRPC metadata rules); absence = untraced call
 METADATA_KEY = "dsgd-trace"
 
-# -- span/event name constants (consistency-tested like the metrics
-# constants of the JAX package) --------------------------------------------
+# -- span/event name constants (consistency-tested with the metrics
+# constants, tests/test_torch_provision.py).  The JAX package's
+# "kernel.scatter" (its DSGD_SCATTER formulation) has no counterpart: the
+# port has one formulation and reads no DSGD_SCATTER --------------------
 SPAN_SYNC_WINDOW = "sync.window"        # master: one fan-out round
 SPAN_EVAL_FORWARD = "eval.forward"      # master: one predict fan-out
 EVENT_QUORUM_DEGRADED = "quorum.degraded"  # round closed < full strength
@@ -72,7 +74,6 @@ EVENT_EF_ROLLBACK = "ef.rollback"          # worker rolled back an EF drain
 EVENT_TOPOLOGY_RESELECT = "topology.reselect"  # gossip edge re-routed past a breaker
 EVENT_HEALTH_TRIPPED = "health.tripped"        # training-health watchdog trip
 EVENT_AUTOPILOT_TRANSITION = "autopilot.transition"  # flywheel state change
-EVENT_SCATTER_SELECTED = "kernel.scatter"      # which scatter formulation ran
 EVENT_LEAK_SUSPECT = "leak.suspect"            # resource-slope sentinel trip
 
 

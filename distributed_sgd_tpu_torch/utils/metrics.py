@@ -18,8 +18,9 @@ recorded values.  Exporters:
 The instrument constants are those the port records: the sync trainer,
 the async engines, the RPC master and worker (core/master.py,
 core/worker.py), the async RPC fit included, the aggregation tree and
-the sharded master, the serving fleet (serving/), the resource probe and
-the cluster telemetry scrape (telemetry/).  The autopilot family waits
+the sharded master, the gradient compressors (compress/), the serving
+fleet (serving/), the resource probe, the cluster telemetry scrape and
+the training-health monitor (telemetry/).  The autopilot family waits
 for its module (ROADMAP.md Queue A).
 """
 
@@ -332,7 +333,7 @@ class Metrics:
         return "\n".join(lines) + ("\n" if lines else "")
 
 
-# -- comms accounting (wire bytes of the gradient replies) --------------------
+# -- comms accounting (compress/: the wire bytes of each encoded gradient) ----
 COMMS_BYTES_ON_WIRE = "comms.bytes_on_wire"        # counter: serialized bytes sent
 COMMS_BYTES_DENSE = "comms.bytes_dense_equiv"      # counter: 4*dim raw-f32 baseline
 COMMS_RATIO = "comms.compression_ratio"            # histogram: dense/wire per message
@@ -344,18 +345,6 @@ def record_wire(metrics: "Metrics", wire_bytes: int, dense_bytes: int) -> None:
     raw dense-f32 bytes the same vector would have cost, plus the per-message
     compression ratio.  Called on the SEND side only, so a dev-mode cluster
     (sender and receiver sharing the global registry) never double-counts."""
-    metrics.counter(COMMS_BYTES_ON_WIRE).increment(int(wire_bytes))
-    metrics.counter(COMMS_BYTES_DENSE).increment(int(dense_bytes))
-    if wire_bytes > 0:
-        metrics.histogram(COMMS_RATIO).record(dense_bytes / wire_bytes)
-
-
-
-
-def record_wire(metrics: "Metrics", wire_bytes: int, dense_bytes: int) -> None:
-    """Account one encoded gradient message: its serialized size, the raw
-    dense-f32 bytes of the same vector, and their ratio.  Called on the
-    SEND side only, so a one-process cluster never double-counts."""
     metrics.counter(COMMS_BYTES_ON_WIRE).increment(int(wire_bytes))
     metrics.counter(COMMS_BYTES_DENSE).increment(int(dense_bytes))
     if wire_bytes > 0:
@@ -469,11 +458,15 @@ TELEMETRY_SCRAPE_SKIPPED = "master.telemetry.scrape.skipped"  # counter: breaker
 TELEMETRY_WORKERS = "master.telemetry.workers"      # gauge: snapshots currently held
 # a worker's health gauges under DSGD_TELEMETRY (core/worker.py
 # record_health): its gradient norm, the gap since its previous dispatch,
-# and the error-feedback residual's norm (the JAX name; the port's worker
-# has no compressor and never sets it).  With telemetry off none registers.
+# and with DSGD_COMPRESS the error-feedback residual's norm; the master's
+# training-health monitor (telemetry/health.py, DSGD_HEALTH_ACTION) sets
+# the same two per round, its smoothed loss and its trips.  With both off
+# none registers.
 HEALTH_GRAD_NORM = "health.grad.norm"               # gauge: ||g||2 of the last round
 HEALTH_STALENESS = "health.reply.staleness_s"       # gauge: round latency / dispatch gap
 HEALTH_EF_RESIDUAL_NORM = "health.ef.residual.norm"  # gauge: ||EF residual||2 (workers)
+HEALTH_LOSS_EWMA = "health.loss.ewma"               # gauge: watchdog's smoothed loss
+HEALTH_TRIPPED = "health.tripped"                   # counter: watchdog trips
 
 
 def record_broadcast(metrics: "Metrics", form: str, n_bytes: int) -> None:

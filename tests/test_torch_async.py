@@ -256,8 +256,17 @@ def test_hogwild_refuses_what_is_not_ported():
         thog.HogwildEngine(tm, 2, 8, 0.5, optimizer="adagrad", device="cpu")
     with pytest.raises(TypeError, match="optax"):
         thog.HogwildEngine(tm, 2, 8, 0.5, optimizer=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="compress"):
-        thog.HogwildEngine(tm, 2, 8, 0.5, compress="topk", device="cpu")
+    # the compressed gossip is ported: it constructs and trains; an
+    # unknown codec is refused
+    train, test = train_test_split(rcv1_like(120, n_features=10, nnz=3, seed=5))
+    for codec in ("topk", "qint8"):
+        eng = thog.HogwildEngine(tm, 2, 8, 0.5, compress=codec, compress_k=0.3, check_every=24,
+                                 backoff_s=0.01, device="cpu", metrics=Metrics())
+        res = eng.fit(_torch(train), _torch(test), max_epochs=1)
+        assert res.state.updates >= len(train)
+        assert eng.metrics.counter("comms.bytes_on_wire").value > 0
+    with pytest.raises(ValueError, match="compress"):
+        thog.HogwildEngine(tm, 2, 8, 0.5, compress="gzip", device="cpu")
     with pytest.raises(ValueError, match="DSGD_GOSSIP_TOPOLOGY"):
         thog.HogwildEngine(tm, 2, 8, 0.5, gossip_topology="mesh", device="cpu")
     with pytest.raises(ValueError, match="leaking"):

@@ -54,7 +54,10 @@ def test_every_port_module_imports_with_jax_blocked():
             "distributed_sgd_tpu_torch.data.row_store",
             "distributed_sgd_tpu_torch.parallel.multihost", "distributed_sgd_tpu_torch.parallel.hier",
             "distributed_sgd_tpu_torch.parallel.feature_sharded",
-            "distributed_sgd_tpu_torch.tools.process_group_ranks"} <= set(mods)
+            "distributed_sgd_tpu_torch.tools.process_group_ranks",
+            "distributed_sgd_tpu_torch.compress", "distributed_sgd_tpu_torch.compress.codecs",
+            "distributed_sgd_tpu_torch.ops.topk", "distributed_sgd_tpu_torch.telemetry.health",
+            "distributed_sgd_tpu_torch.telemetry.provision"} <= set(mods)
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"

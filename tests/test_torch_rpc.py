@@ -310,22 +310,25 @@ def test_the_worker_serves_the_quorum_barriers_requests(data, field):
 
 
 @pytest.mark.parametrize("kw", [
-    {"agg_tree": "fanout:2"}, {"master_shards": 2}, {"health": object()}],
+    {"agg_tree": "fanout:2"}, {"master_shards": 2}, {"health": "warn"}],
     ids=lambda kw: "+".join(kw))
 def test_fit_sync_levers_not_ported_raise(data, kw):
-    """The health monitor is not ported and raises.  The aggregation tree
-    and the sharded master raised too until they were ported: over one
-    worker they give the plain fit's weights bit for bit (a trivial tree,
-    and two lanes over disjoint ranges)."""
+    """The aggregation tree, the sharded master and the health monitor
+    raised until they were ported: over one worker they give the plain
+    fit's weights bit for bit (a trivial tree, two lanes over disjoint
+    ranges, a monitor that only observes a healthy fit)."""
+    from distributed_sgd_tpu_torch.telemetry.health import HealthMonitor
+    from distributed_sgd_tpu_torch.utils.metrics import Metrics
+
     train, test, _ = data
+    if "health" in kw:
+        kw = {"health": HealthMonitor(metrics=Metrics(), action=kw["health"])}
     with DevCluster(_models(data)[1], _torch(train), _torch(test), n_workers=1) as c:
-        if "health" in kw:
-            with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A"):
-                c.master.fit_sync(1, B, 0.5, **kw)
-            return
         plain = c.master.fit_sync(1, B, 0.5)
         got = c.master.fit_sync(1, B, 0.5, **kw)
     np.testing.assert_array_equal(got.weights, plain.weights)
+    if "health" in kw:
+        assert not kw["health"].tripped
 
 
 @pytest.mark.parametrize("kw", [
@@ -342,6 +345,8 @@ def test_fit_sync_fault_tolerance_levers_run(data, kw, tmp_path):
         plain = c.master.fit_sync(1, B, 0.5)
         got = c.master.fit_sync(1, B, 0.5, **kw)
     np.testing.assert_array_equal(got.weights, plain.weights)
+    if "health" in kw:
+        assert not kw["health"].tripped
     if "fit_state_path" in kw:
         with np.load(kw["fit_state_path"]) as z:
             assert (int(z["epoch"]), int(z["batch"])) == (1, 0)

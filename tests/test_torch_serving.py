@@ -655,11 +655,12 @@ def test_a_bad_serving_setting_is_refused_as_jax_refuses_it(kw):
 def test_a_serving_role_refuses_what_is_not_ported_and_takes_the_rest(env, monkeypatch):
     # DSGD_TELEMETRY is acted on: the route role builds its router with
     # the fleet telemetry endpoint on DSGD_TELEMETRY_PORT (default 9091).
-    # DSGD_HOST_DEVICES is a worker host's setting, which the serve role
-    # takes and ignores, as the JAX CLI does: it builds its server
+    # DSGD_HOST_DEVICES is a worker host's setting, and DSGD_HEALTH_ACTION
+    # a training fit's, which the serve role takes and ignores, as the JAX
+    # CLI does: it builds its server
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    if "DSGD_HOST_DEVICES" in env:
+    if "DSGD_HOST_DEVICES" in env or "DSGD_HEALTH_ACTION" in env:
         from distributed_sgd_tpu_torch.serving import server as tserver
 
         class _Served(Exception):
@@ -671,7 +672,7 @@ def test_a_serving_role_refuses_what_is_not_ported_and_takes_the_rest(env, monke
         monkeypatch.setattr(tserver.ServingServer, "from_config", served)
         with pytest.raises(_Served) as got:
             tmain.main(device="cpu")
-        assert got.value.args == (2,)
+        assert got.value.args == (int(env.get("DSGD_HOST_DEVICES", 1)),)
         return
     if "DSGD_TELEMETRY" in env:
         from distributed_sgd_tpu_torch.serving import router as trouter

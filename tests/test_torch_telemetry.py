@@ -10,8 +10,8 @@ port master scrapes JAX workers, and routers of either package scrape
 replicas of the other.  A torch worker's health gauge is the norm of its
 last reply, a hedge publishes none, and with telemetry off no ``health.*``
 instrument registers.  DSGD_TELEMETRY acts through ``main`` in the master
-and worker roles; DSGD_HEALTH_ACTION still raises.  Each test runs under a
-time limit of its own (`LIMIT_S`)."""
+and worker roles; DSGD_HEALTH_ACTION gives the dev rpc fit its monitor.
+Each test runs under a time limit of its own (`LIMIT_S`)."""
 
 import re
 import signal
@@ -418,9 +418,23 @@ def test_telemetry_acts_on_the_dev_rpc_cluster(monkeypatch):
 
 
 def test_the_health_action_still_raises_before_any_data_loads(monkeypatch):
-    monkeypatch.setenv("DSGD_HEALTH_ACTION", "warn")
-    monkeypatch.setattr(tmain, "load_data", lambda cfg: pytest.fail("data was loaded"))
-    with pytest.raises(NotImplementedError, match=r"DSGD_HEALTH_ACTION.*item 8"):
-        tmain.main(device="cpu")
+    # the health action is acted on now (tests/test_torch_health.py): the
+    # dev rpc fit gets its monitor, and a bad value is refused as JAX does
+    seen = []
+    real = MasterNode.fit_sync
+
+    def fit_sync(self, *a, **kw):
+        seen.append(kw.get("health"))
+        return real(self, *a, **kw)
+
+    monkeypatch.setattr(MasterNode, "fit_sync", fit_sync)
+    for k, v in {"DSGD_ENGINE": "rpc", "DSGD_SYNTHETIC": "600", "DSGD_MAX_EPOCHS": "1",
+                 "DSGD_NODE_COUNT": "2", "DSGD_HEALTH_ACTION": "warn",
+                 "DSGD_TELEMETRY": "1", "DSGD_TELEMETRY_PORT": "0"}.items():
+        monkeypatch.setenv(k, v)
+    assert tmain.main(device="cpu").fit.epochs_run == 1
+    assert len(seen) == 1 and seen[0].action == "warn"
+    with pytest.raises(ValueError, match="DSGD_HEALTH_ACTION"):
+        Config(health_action="page")
     with pytest.raises(ValueError, match="telemetry_port"):
         Config(telemetry=True, telemetry_port=-1)

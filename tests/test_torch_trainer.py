@@ -201,12 +201,15 @@ _RPC = {"DSGD_ENGINE": "rpc"}
     # the dp x tp engine and the hierarchical host: accepted now, see the
     # test (tests/test_torch_feature_sharded.py, tests/test_torch_hier.py)
     {"DSGD_FEATURE_SHARDS": "2"},
+    # compression: accepted now, Hogwild gossips compressed and local SGD
+    # warns as the JAX CLI does (tests/test_torch_compress.py)
     {"DSGD_COMPRESS": "topk", "DSGD_ASYNC": "1"},
     {"DSGD_COMPRESS": "qint8", "DSGD_ASYNC": "1", "DSGD_ASYNC_MODE": "local_sgd"},
-    # every role: autopilot, chaos, the health action (the serving roles,
-    # push, the resource probe and the blackbox run now: tests/test_torch_
-    # serving.py, tests/test_torch_resources.py; and so does the telemetry
-    # scrape: accepted now, see the test; tests/test_torch_telemetry.py)
+    # every role: autopilot and chaos (the serving roles, push, the resource
+    # probe and the blackbox run now: tests/test_torch_serving.py,
+    # tests/test_torch_resources.py; and so do the telemetry scrape and the
+    # health action, which the mesh engine warns about: accepted now, see
+    # the test; tests/test_torch_telemetry.py, tests/test_torch_health.py)
     {"DSGD_AUTOPILOT": "1"},
     {"DSGD_CHAOS": "seed=7;drop=0.05"},
     {"DSGD_TELEMETRY": "1"},
@@ -225,12 +228,13 @@ _RPC = {"DSGD_ENGINE": "rpc"}
                             if k not in ("DSGD_MASTER_HOST", "DSGD_NODE_HOST")))
 def test_settings_not_ported_raise_before_any_data_loads(env, monkeypatch):
     # the JAX CLI acts on each of these; the port must not ignore one.
-    # DSGD_AGG_TREE, DSGD_MASTER_SHARDS, DSGD_TELEMETRY, DSGD_FEATURE_SHARDS
-    # and DSGD_HOST_DEVICES are acted on: the run goes on to load its data
+    # DSGD_AGG_TREE, DSGD_MASTER_SHARDS, DSGD_TELEMETRY, DSGD_FEATURE_SHARDS,
+    # DSGD_HOST_DEVICES, DSGD_COMPRESS and DSGD_HEALTH_ACTION are acted on:
+    # the run goes on to load its data
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     acted = ("DSGD_AGG_TREE", "DSGD_MASTER_SHARDS", "DSGD_TELEMETRY", "DSGD_FEATURE_SHARDS",
-             "DSGD_HOST_DEVICES")
+             "DSGD_HOST_DEVICES", "DSGD_COMPRESS", "DSGD_HEALTH_ACTION")
     if any(k in env for k in acted):
         class _Loaded(Exception):
             pass
