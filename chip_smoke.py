@@ -141,13 +141,14 @@ Phases, each fatal (a traceback and a non-zero exit):
    ones; and the CLI's ``DSGD_ROLE=serve`` (on the card) and
    ``DSGD_ROLE=route`` as processes, 200 requests through the router, then
    SIGTERM and both exit 0.  The path launches neither kernel;
-13. the aggregation tree and the sharded master, on phase 8's full-width
-   data (3 workers, B=100, lr 0.5, 1 epoch each): DSGD_AGG_TREE=fanout:2
-   and with DSGD_LOCAL_STEPS=4 (one ``sync_epoch`` sum launch a worker a
-   round), each with its busy share (the same fit over 50,000 rows under
-   torch.profiler), accuracy >= 0.70; then on phase 8's 100,000 rows
-   (since PR 13, a depth cut: the shard fits were full width) the tree
-   again, bitwise phase 8's knobs-off fit there, DSGD_MASTER_SHARDS=2 (one
+13. the aggregation tree and the sharded master (3 workers, B=100, lr
+   0.5, 1 epoch each): on phase 8's full-width data DSGD_AGG_TREE=fanout:2
+   with DSGD_LOCAL_STEPS=4 (one ``sync_epoch`` sum launch a worker a
+   round), accuracy >= 0.70; then on phase 8's 100,000 rows (depth cuts:
+   the shard fits and the K=1 tree were once full width)
+   DSGD_AGG_TREE=fanout:2, bitwise phase 8's knobs-off fit there (each
+   tree fit with its busy share: the same fit over 50,000 rows under
+   torch.profiler), DSGD_MASTER_SHARDS=2 (one
    ``worker_grads`` launch a worker a round for both lanes), and shards
    with the tree; each K=1 fit within 1e-5 of the knobs-off weights
    (printed: bitwise or not), no eviction, windows/s and a window's parts,
@@ -217,7 +218,29 @@ Phases, each fatal (a traceback and a non-zero exit):
    100,000 rows with one NaN reply: the trip, the flight-*-health.json dump,
    the fit-state snapshot at the tripped window and the stop, then a
    restart that resumes from it and completes the epoch;
-17. summary: the card line, one JSON line of per-kernel numbers, and last
+17. fault injection, the autopilot and the spin-up fast path: (a) the RPC
+   sync fit at full width (3 workers, B=100, lr 0.5, quorum 2, a 0.4 s soft
+   deadline, 2 s Gradient deadlines) over the first 162,000 train rows
+   (540 windows), clear-sky and then under DSGD_CHAOS=scenario:flaky-rack:
+   windows/s of both, the injected drops, delays and dups (each > 0), the
+   degraded windows, hedges and late replies, no eviction, no plan left
+   installed, and accuracy >= 0.70 and at most 0.02 below the clear-sky
+   fit's; (b) the continual-learning flywheel (autopilot/) at the dev
+   role's sizes (16,384 features, 8 nonzeros, a 4,096-row window, a
+   12,288-row horizon, B=100, 2 workers, 2 replicas; the step shift moved
+   from row 4,096 to 8,192 so that half the served rows precede it), its
+   traffic from 32 clients at once, waiting for the detector's warm-up
+   before it passes the shift:
+   0 drops, 8,192 served, >= 1 retrain and promotion (a retrain that rolls
+   back is followed by the residual rule's), state SERVING, the
+   transitions with their times, the seconds from the shift to the
+   promotion, no autopilot thread left; (c) spin-up: two fresh worker
+   processes over 100,000 full-width rows with DSGD_COMPILE_CACHE on one
+   empty directory (cold: 2 misses, both kernels built by nvcc; warm: 2
+   hits, no nvcc), each timing its first Gradient reply from its start,
+   then the same worker in this process with the setting unset (nothing
+   written there), the three replies bitwise equal;
+18. summary: the card line, one JSON line of per-kernel numbers, and last
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits non-zero before printing any result.
@@ -264,7 +287,12 @@ from distributed_sgd_tpu_torch.parallel.sync import (
     SyncEngine,
     steps_per_epoch_for,
 )
-from distributed_sgd_tpu_torch.utils.metrics import Metrics, global_metrics
+from distributed_sgd_tpu_torch.utils.metrics import (
+    AUTOPILOT_PROMOTED,
+    AUTOPILOT_ROLLED_BACK,
+    Metrics,
+    global_metrics,
+)
 
 # published H100 SXM peaks: HBM bytes/s and f32 (non-tensor-core) FLOP/s
 HBM_BYTES_PER_S = 3.35e12
@@ -1673,9 +1701,10 @@ def time_checkpoints(tmp: str) -> dict:
 
 def time_hogwild_checkpointer(train, test, model, tmp: str) -> list:
     """Hogwild fits (3 workers, 64 steps a dispatch, the CLI's criterion)
-    without and with a checkpointer, in turns: updates/s of each."""
+    without and then with a checkpointer (one pair; two in turns before a
+    depth cut): updates/s of each."""
     rows = []
-    for i, with_ckpt in enumerate((False, True, True, False)):
+    for i, with_ckpt in enumerate((False, True)):
         ck = Checkpointer(os.path.join(tmp, f"hogwild-timing-{i}")) if with_ckpt else None
         eng = hw.HogwildEngine(model, 3, B, 0.5, steps_per_dispatch=HOGWILD_K, checkpointer=ck,
                                metrics=Metrics(), device="cuda")
@@ -2167,7 +2196,9 @@ FT_QUORUM, FT_SOFT_S = 2, 0.1  # 2 of 3; the soft deadline is about 6 healthy wi
 FT_STRAGGLER_EPOCHS = 2
 FT_HEARTBEAT_S, FT_MAX_MISSES = 0.5, 3
 FT_KILL_AT_WINDOW = 50  # the heartbeat run's victim dies after this many windows
-FT_SNAPSHOT_EVERY, FT_CRASH_AT, FT_CRASH_EPOCHS = 25, 3, 2
+# the crash comes 75 windows into an epoch of 267: one epoch (two before a
+# depth cut) runs it, the resume and the rest of the epoch
+FT_SNAPSHOT_EVERY, FT_CRASH_AT, FT_CRASH_EPOCHS = 25, 3, 1
 FT_WATCH_S = 0.2  # the workers' master watch in the crash run
 FT_CLI_SNAPSHOT_EVERY = 50
 
@@ -2542,7 +2573,9 @@ def check_fault_tolerance_cli(tmp: str) -> dict:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
     ckpt = os.path.join(tmp, "cli")
-    base = {**os.environ, "DSGD_SYNTHETIC": str(FT_ROWS), "DSGD_MAX_EPOCHS": "2",
+    # one epoch (two before a depth cut): the kill comes at the first
+    # snapshot, 50 windows in, and the new master resumes and ends the epoch
+    base = {**os.environ, "DSGD_SYNTHETIC": str(FT_ROWS), "DSGD_MAX_EPOCHS": "1",
             "DSGD_NODE_COUNT": str(RPC_WORKERS), "DSGD_HEARTBEAT_S": "1",
             "DSGD_QUORUM": str(FT_QUORUM), "DSGD_ELASTIC": "1", "DSGD_CHECKPOINT_DIR": ckpt,
             "DSGD_FIT_CKPT_EVERY": str(FT_CLI_SNAPSHOT_EVERY),
@@ -2655,7 +2688,7 @@ WINDOW_ATOL = 1e-6  # the window kernel against its plain version
 WINDOW_ROWS = 20000  # rows the window kernel's checks draw from
 WINDOW_FIT_EPOCHS = 1
 PIPE_CLI_ROWS = 100000  # the row-store CLI run (80,000 train rows)
-PIPE_CLI_EPOCHS = 3
+PIPE_CLI_EPOCHS = 2  # the leave comes after epoch 0 (three epochs before a depth cut)
 PIPE_CLI_OVERPROVISION = 0.1
 # every lever at once, as the fit's keywords and as the CLI's settings
 PIPE_LEVERS = dict(delta_broadcast=True, stream=True, fanin_lanes=2, stage_pool=2)
@@ -3410,7 +3443,6 @@ SHARD_KILL_ROWS = 100000  # the kill_shard fit (80,000 train rows)
 TREE_BUSY_ROWS = 50000  # each configuration's profiled fit, for its busy share
 SHARD_KILL_AT = 50  # windows run before the kill
 TREE_FITS = (  # (label, fit_sync arguments): full-width fits
-    ("tree", dict(agg_tree=TREE_SPEC)),
     (f"tree K={WINDOW_K}", dict(agg_tree=TREE_SPEC, local_steps=WINDOW_K)),
 )
 # fits on phase 8's RPC_SMALL_ROWS rows against its knobs-off fit there
@@ -3567,7 +3599,7 @@ def check_shard_kill(model, train, test) -> dict:
 
 def run_tree_phase(full: dict) -> dict:
     """Phase 13 on phase 8's full-width data and knobs-off weights, then the
-    tree again on phase 8's RPC_SMALL_ROWS rows, which must give that fit's
+    K=1 tree on phase 8's RPC_SMALL_ROWS rows, which must give that fit's
     weights bit for bit (these rows, not full width, keep the smoke's
     time); returns each fit's worker_grads
     and sync_epoch launches."""
@@ -3579,18 +3611,20 @@ def run_tree_phase(full: dict) -> dict:
     for label, kw in TREE_FITS:
         fits[label] = run_tree_fit(label, kw, full, busy_data, RPC_ACC_FLOOR)
         launches[label] = fits[label]["launches"]
+    # the K=1 tree at phase 8's RPC_SMALL_ROWS rows, bitwise its knobs-off
+    # fit there (once at full width too: a depth cut, ~35 s)
+    again = run_tree_fit("tree", dict(agg_tree=TREE_SPEC), full["small"], busy_data, 0.0)
     del busy_data
-    again = run_tree_fit("tree again", dict(agg_tree=TREE_SPEC), full["small"], None, 0.0)
-    launches["tree again"] = again["launches"]
+    launches["tree"] = again["launches"]
     for label, kw in SMALL_TREE_FITS:
         launches[label] = run_tree_fit(label, kw, full["small"], None, 0.0)["launches"]
     with cli_env(DSGD_SYNTHETIC=SHARD_KILL_ROWS):
         train, test, model = port_main.build(Config.from_env(), "cuda")
     launches["kill_shard"] = check_shard_kill(model, train, test)["launches"]
-    print(f"phase 13: the tree again ({RPC_SMALL_ROWS:,} rows) bitwise the knobs-off fit: "
+    print(f"phase 13: the tree ({RPC_SMALL_ROWS:,} rows) bitwise the knobs-off fit: "
           f"{again['bitwise']}", flush=True)
     if not again["bitwise"]:
-        raise AssertionError("phase 13: the tree fit again differs from the knobs-off fit")
+        raise AssertionError("phase 13: the tree fit differs from the knobs-off fit")
     print(f"tree phase seconds: {time.perf_counter() - t0:.1f}", flush=True)
     return launches
 
@@ -4594,6 +4628,357 @@ def run_compression_phase(ref: dict) -> dict:
             "health": health}
 
 
+CHAOS_PLAN = "scenario:flaky-rack"  # drop 3%, delay 2-20 ms, dup 2%, seed 23
+CHAOS_ROWS = 162000  # both fits train on the first 162,000 train rows: 540 windows
+CHAOS_QUORUM, CHAOS_SOFT_S, CHAOS_GRAD_TIMEOUT_S = 2, 0.4, 2.0  # tests/test_chaos.py's soak
+CHAOS_ACC_FLOOR, CHAOS_ACC_GAP = 0.70, 0.02
+CHAOS_KINDS = ("drop", "delay", "dup", "error", "partition")
+# the flywheel at the dev role's sizes (main.py _run_dev_flywheel, the CLI's
+# defaults); the shift moves from row 4,096 (= the window, where serving
+# starts: no pre-shift traffic at all) to 8,192, so half the 8,192 served
+# rows precede it
+FLY_WINDOW, FLY_HORIZON, FLY_SHIFT_AT = 4096, 12288, 8192
+FLY_CLIENTS = 32  # the pump's concurrent clients (Flywheel.pump sends one row at a time)
+FLY_CHUNK = 64
+# shortened timing knobs (the CLI's 1.0 s poll, 5.0 s cooldown, 2.0 s refresh)
+FLY_POLL_S, FLY_COOLDOWN_S, FLY_REFRESH_S = 0.2, 1.0, 0.5
+FLY_WARMUP_WAIT_S = 120  # the pre-shift warm-up refreshes must land within this
+FLY_SETTLE_S = 180
+SPIN_ROWS = 100000  # the spin-up workers' slice of the full-width corpus
+SPIN_LOCAL_STEPS = 4  # the warm-up's K-step window: sync_epoch's sum mode
+SPIN_TIMEOUT_S = 300
+LIFE_BUDGET_S = 100  # printed against the phase's time, not gated
+
+# one spin-up: a worker over SPIN_ROWS rows on the card, the warm-up with
+# DSGD_COMPILE_CACHE set, then its first Gradient reply, timed from the
+# process's start; nvcc runs are counted through _build.nvcc_command
+SPIN_CHILD = """
+import time
+t0 = time.perf_counter()
+import hashlib, json, sys
+import numpy as np
+from distributed_sgd_tpu_torch import compile_cache
+from distributed_sgd_tpu_torch.config import Config
+from distributed_sgd_tpu_torch.core.worker import WorkerNode
+from distributed_sgd_tpu_torch.data.rcv1 import dim_sparsity
+from distributed_sgd_tpu_torch.data.synthetic import rcv1_like
+from distributed_sgd_tpu_torch.models.linear import make_model
+from distributed_sgd_tpu_torch.ops import _build
+from distributed_sgd_tpu_torch.ops import sync_epoch as se
+from distributed_sgd_tpu_torch.ops import worker_grads as wg
+from distributed_sgd_tpu_torch.rpc import codec, dsgd_pb2 as pb
+from distributed_sgd_tpu_torch.rpc.service import WorkerStub, new_channel
+from distributed_sgd_tpu_torch.utils import metrics as mm
+
+rows, bs, k = int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3])
+nvcc = []
+real = _build.nvcc_command
+_build.nvcc_command = lambda name, out: nvcc.append(name) or real(name, out)
+cfg = Config.from_env()
+if cfg.compile_cache:
+    compile_cache.configure(cfg.compile_cache)
+data = rcv1_like(rows, seed=0, idf_values=True)
+model = make_model("hinge", 1e-5, data.n_features, dim_sparsity=dim_sparsity(data),
+                   device="cuda")
+worker = WorkerNode("127.0.0.1", 0, "127.0.0.1", 1, data, model)
+worker.server.start()
+t_warm = time.perf_counter()
+if cfg.compile_cache:
+    compile_cache.warmup_async("spinup", worker.warmup_thunks(bs, k)).join()
+t_warm = time.perf_counter() - t_warm
+warm_launches = (wg.worker_grads.launches, se.sync_epoch.launches)
+w = (np.random.default_rng(1).normal(size=data.n_features) * 0.01).astype(np.float32)
+channel = new_channel("127.0.0.1", worker.port)
+reply = WorkerStub(channel).Gradient(pb.GradientRequest(
+    samples=np.arange(bs, dtype=np.int32), weights=codec.encode_tensor(w)), timeout=120)
+first = time.perf_counter() - t0
+channel.close()
+worker.stop()
+m = mm.global_metrics()
+print(json.dumps({"first_reply_s": first, "warmup_s": t_warm,
+                  "sha": hashlib.sha256(reply.SerializeToString()).hexdigest(),
+                  "hits": m.counter(mm.COMPILE_CACHE_HITS).value,
+                  "misses": m.counter(mm.COMPILE_CACHE_MISSES).value, "nvcc": nvcc,
+                  "warm_launches": warm_launches,
+                  "launches": (wg.worker_grads.launches, se.sync_epoch.launches)}))
+"""
+
+
+def chaos_fit(train, test, model, plan=None) -> dict:
+    """One fit of CHAOS_ROWS rows' windows under `plan` (clear sky when
+    None) with the soak's quorum settings; returns its numbers."""
+    from distributed_sgd_tpu_torch import chaos
+    from distributed_sgd_tpu_torch.autopilot import window_split
+    from distributed_sgd_tpu_torch.core.cluster import DevCluster
+    from distributed_sgd_tpu_torch.utils import metrics as mm
+
+    g = global_metrics()
+    before = {k: g.counter(f"chaos.injected.{k}").value for k in CHAOS_KINDS}
+    m = Metrics()
+    with DevCluster(model, train, test, n_workers=RPC_WORKERS, seed=0, metrics=m,
+                    chaos=plan) as c:
+        reset_counts()
+        fit = c.master.fit_sync(1, B, RPC_LR, split=window_split(0, CHAOS_ROWS),
+                                grad_timeout_s=CHAOS_GRAD_TIMEOUT_S, quorum=CHAOS_QUORUM,
+                                straggler_soft_s=CHAOS_SOFT_S)
+        launches = wg.worker_grads.launches
+        members = len(c.master.members)
+    windows = m.counter("master.sync.rounds").value
+    out = {"acc": fit.test_accuracies[0], "loss": fit.test_losses[0], "windows": windows,
+           "windows_per_s": windows / fit.epoch_seconds[0], "launches": launches,
+           "members": members, "evictions": m.counter(mm.MASTER_EVICTIONS).value,
+           "degraded": m.counter(mm.QUORUM_DEGRADED).value,
+           "hedges": m.counter(mm.QUORUM_HEDGES).value,
+           "late": m.counter(mm.QUORUM_LATE).value,
+           "injected": {k: g.counter(f"chaos.injected.{k}").value - before[k]
+                        for k in CHAOS_KINDS},
+           "left_installed": chaos.state() is not None}
+    print(f"chaos fit {plan or 'clear sky'} (full width, {RPC_WORKERS} workers, B={B}, "
+          f"quorum {CHAOS_QUORUM}, soft {CHAOS_SOFT_S} s, {CHAOS_ROWS:,} rows): "
+          + json.dumps({k: (round(v, 4) if isinstance(v, float) else v)
+                        for k, v in out.items()}), flush=True)
+    return out
+
+
+def check_chaos_fit(full_data, card: str) -> dict:
+    """(a): the clear-sky fit, then the same windows under the plan."""
+    train, test, model = full_data
+    clear = chaos_fit(train, test, model)
+    storm = chaos_fit(train, test, model, CHAOS_PLAN)
+    print(f"chaos windows/s on {card}: clear sky {clear['windows_per_s']:.2f}, "
+          f"{CHAOS_PLAN} {storm['windows_per_s']:.2f}", flush=True)
+    for label, r in (("clear", clear), ("storm", storm)):
+        if r["members"] != RPC_WORKERS or r["evictions"] or r["left_installed"]:
+            raise AssertionError(f"chaos {label}: {r['members']} members, {r['evictions']} "
+                                 f"evictions, plan left installed: {r['left_installed']}")
+        if r["launches"] < r["windows"] * CHAOS_QUORUM:
+            raise AssertionError(f"chaos {label}: {r['launches']} worker_grads launches over "
+                                 f"{r['windows']} windows")
+    if any(clear["injected"].values()):
+        raise AssertionError(f"the clear-sky fit injected faults: {clear['injected']}")
+    missing = [k for k in ("drop", "delay", "dup") if storm["injected"][k] <= 0]
+    if missing:
+        raise AssertionError(f"{CHAOS_PLAN} injected no {missing}: {storm['injected']}")
+    if storm["acc"] < CHAOS_ACC_FLOOR or storm["acc"] < clear["acc"] - CHAOS_ACC_GAP:
+        raise AssertionError(f"chaos: accuracy {storm['acc']:.4f} under weather against "
+                             f"{clear['acc']:.4f} clear (want >= {CHAOS_ACC_FLOOR} and at most "
+                             f"{CHAOS_ACC_GAP} below)")
+    return {"clear": clear["launches"], "storm": storm["launches"]}
+
+
+def pump_clients(fly, n: int) -> list:
+    """``Flywheel.pump``'s traffic -- the next `n` stream rows as Predict
+    requests, features only -- from FLY_CLIENTS clients at once, row i on
+    client i mod FLY_CLIENTS (a request a row, as the fleet's router sees a
+    fleet of users); returns the dropped requests' errors.  One row at a
+    time the fleet's 5 ms coalescing window sets the pace: 8,192 rows would
+    take ~100 s."""
+    from distributed_sgd_tpu_torch.rpc import dsgd_pb2 as pb
+    from distributed_sgd_tpu_torch.rpc.service import ServeStub, new_channel
+
+    n = min(n, fly.horizon_rows - fly.stream_time)
+    rows = fly.stream.rows(fly.stream_time, n)
+    dropped = []
+
+    def client(c):
+        channel = new_channel("127.0.0.1", fly.fleet.router_port)
+        stub = ServeStub(channel)
+        for i in range(c, n, FLY_CLIENTS):
+            try:
+                stub.Predict(pb.PredictRequest(indices=np.asarray(rows.indices[i], np.int32),
+                                               values=np.asarray(rows.values[i], np.float32)),
+                             timeout=10.0)
+            except Exception as e:  # noqa: BLE001 - counted: the zero-drop check
+                dropped.append(repr(e))
+        channel.close()
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(FLY_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    fly.served += n
+    return dropped
+
+
+def check_flywheel(card: str) -> dict:
+    """(b): the flywheel on the card at the dev role's sizes."""
+    from distributed_sgd_tpu_torch.autopilot import DriftDetector, DriftingStream, Flywheel
+
+    cfg = Config()  # the CLI's defaults
+    stream = DriftingStream(seed=cfg.seed, shift_at=FLY_SHIFT_AT)
+    detector = DriftDetector(ratio=cfg.autopilot_drift_ratio,
+                             patience=cfg.autopilot_drift_patience,
+                             warmup=cfg.autopilot_drift_warmup,
+                             abs_floor=cfg.autopilot_drift_floor)
+    m = Metrics()
+    t0 = time.perf_counter()
+    events, retrain_s = [], []
+    reset_counts()
+    with tempfile.TemporaryDirectory(prefix="dsgd-flywheel-") as tmp:
+        fly = Flywheel(
+            stream, horizon_rows=FLY_HORIZON, window_rows=FLY_WINDOW, model=cfg.model,
+            lam=cfg.lam, n_workers=2, n_replicas=2, max_epochs=cfg.max_epochs,
+            batch_size=cfg.batch_size, learning_rate=cfg.learning_rate,
+            patience=cfg.patience, conv_delta=cfg.conv_delta,
+            probe_capacity=cfg.autopilot_probe_capacity,
+            label_delay=cfg.autopilot_label_delay, source_refresh_s=FLY_REFRESH_S,
+            canary_fraction=0.5, detector=detector, poll_s=FLY_POLL_S,
+            cooldown_s=FLY_COOLDOWN_S, canary_timeout_s=cfg.autopilot_canary_timeout_s,
+            max_retrains=cfg.autopilot_max_retrains,
+            recovery_band=cfg.autopilot_recovery_band, seed=cfg.seed, ckpt_dir=tmp,
+            metrics=m, device="cuda")
+        ctl = fly.controller
+        to, retrain = ctl._to, ctl.retrain
+
+        def logged_to(state, **info):
+            events.append((round(time.perf_counter() - t0, 3), state))
+            to(state, **info)
+
+        def timed_retrain():
+            t1 = time.perf_counter()
+            try:
+                return retrain()
+            finally:
+                retrain_s.append(round(time.perf_counter() - t1, 3))
+
+        ctl._to, ctl.retrain = logged_to, timed_retrain
+        fly.start()
+        start_s = time.perf_counter() - t0
+        try:
+            dropped = pump_clients(fly, FLY_SHIFT_AT - fly.stream_time)
+            pre_s = time.perf_counter() - t0
+            deadline = time.monotonic() + FLY_WARMUP_WAIT_S
+            while ctl._consumed <= detector.warmup:
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"flywheel: {ctl._consumed} probe losses after "
+                                         f"{FLY_WARMUP_WAIT_S} s of pre-shift traffic")
+                time.sleep(0.05)
+            pre = list(fly.fleet.router.probe_losses())
+            t_shift = time.perf_counter() - t0
+            dropped += pump_clients(fly, FLY_HORIZON - fly.stream_time)
+            post_s = time.perf_counter() - t0
+            # the horizon is served: run() only waits for the controller
+            summary = fly.run(chunk=FLY_CHUNK, settle_timeout_s=FLY_SETTLE_S)
+            summary["dropped"] += len(dropped)
+            # a retrain whose window still straddled the shift rolls back
+            # (or half-recovers); the controller's residual rule retrains
+            # again on newer rows, hands-free: wait for its promotion
+            deadline = time.monotonic() + FLY_SETTLE_S
+            while time.monotonic() < deadline and not (
+                    m.counter(AUTOPILOT_PROMOTED).value >= 1 and ctl.state == "SERVING"):
+                time.sleep(0.2)
+            summary.update(retrains=ctl.retrains, state=ctl.state,
+                           promoted=int(m.counter(AUTOPILOT_PROMOTED).value),
+                           rolled_back=int(m.counter(AUTOPILOT_ROLLED_BACK).value),
+                           probe_losses=fly.fleet.router.probe_losses())
+        finally:
+            fly.stop()
+    launches = wg.worker_grads.launches
+    left = [t.name for t in threading.enumerate() if "autopilot" in t.name]
+    promoted_at = next((t for t, state in events if state == "PROMOTED"), None)
+    print(f"flywheel on {card}: " + json.dumps(
+        {k: v for k, v in summary.items() if k != "probe_losses"}), flush=True)
+    print(f"flywheel: started (initial fit, fleet up) in {start_s:.2f} s; pre-shift rows "
+          f"served by {pre_s:.2f} s; pre-shift probe losses {[round(x, 4) for x in pre]}; "
+          f"shift's first served row at {t_shift:.2f} s, the last at {post_s:.2f} s; "
+          f"transitions {events}; retrain seconds {retrain_s}; shift to promotion "
+          f"{(promoted_at - t_shift) if promoted_at else float('nan'):.2f} s; worker_grads "
+          f"launches {launches}", flush=True)
+    served = FLY_HORIZON - FLY_WINDOW
+    if (summary["dropped"] or summary["served"] != served or summary["retrains"] < 1
+            or summary["promoted"] < 1 or summary["state"] != "SERVING" or left):
+        raise AssertionError(f"flywheel: {summary} (want 0 dropped, {served} served, >= 1 "
+                             f"retrain and promotion, SERVING), threads left {left}")
+    if launches <= 0:
+        raise AssertionError("flywheel: no worker_grads launch")
+    return {"launches": launches}
+
+
+def spin_up(label: str, cache) -> dict:
+    env = {k: v for k, v in os.environ.items() if k != "DSGD_COMPILE_CACHE"}
+    if cache:
+        env["DSGD_COMPILE_CACHE"] = cache
+    out = subprocess.run([sys.executable, "-c", SPIN_CHILD, str(SPIN_ROWS), str(B),
+                          str(SPIN_LOCAL_STEPS)], env=env, capture_output=True, text=True,
+                         timeout=SPIN_TIMEOUT_S, cwd=os.path.dirname(os.path.abspath(__file__)))
+    if out.returncode != 0:
+        raise AssertionError(f"spin-up {label} exited {out.returncode}:\n{out.stderr[-4000:]}")
+    r = json.loads(out.stdout.strip().splitlines()[-1])
+    print(f"spin-up {label}: " + json.dumps(r), flush=True)
+    return r
+
+
+def spin_up_here() -> dict:
+    """SPIN_CHILD's worker and first reply in this process, with the
+    compile cache unset: the libraries of phase 2's build in _build/."""
+    from distributed_sgd_tpu_torch import compile_cache
+    from distributed_sgd_tpu_torch.core.worker import WorkerNode
+    from distributed_sgd_tpu_torch.rpc import codec, dsgd_pb2 as pb
+    from distributed_sgd_tpu_torch.rpc.service import WorkerStub, new_channel
+
+    if compile_cache.enabled():
+        raise AssertionError("spin-up: the compile cache is on in the smoke's own process")
+    t0 = time.perf_counter()
+    reset_counts()
+    data = rcv1_like(SPIN_ROWS, seed=0, idf_values=True)
+    model = make_model("hinge", LAM, data.n_features, dim_sparsity=dim_sparsity(data),
+                       device="cuda")
+    worker = WorkerNode("127.0.0.1", 0, "127.0.0.1", 1, data, model)
+    worker.server.start()
+    w = (np.random.default_rng(1).normal(size=data.n_features) * 0.01).astype(np.float32)
+    channel = new_channel("127.0.0.1", worker.port)
+    try:
+        reply = WorkerStub(channel).Gradient(pb.GradientRequest(
+            samples=np.arange(B, dtype=np.int32), weights=codec.encode_tensor(w)), timeout=120)
+    finally:
+        channel.close()
+        worker.stop()
+    r = {"first_reply_s": time.perf_counter() - t0,
+         "sha": hashlib.sha256(reply.SerializeToString()).hexdigest(),
+         "launches": (wg.worker_grads.launches, se.sync_epoch.launches)}
+    print("spin-up off (this process): " + json.dumps(r), flush=True)
+    return r
+
+
+def check_spin_up(card: str) -> dict:
+    """(c): cold and warm worker processes, then knobs off here."""
+    with tempfile.TemporaryDirectory(prefix="dsgd-compile-cache-") as cache:
+        cold = spin_up("cold", cache)
+        files = sorted(os.listdir(cache))
+        warm = spin_up("warm", cache)
+        off = spin_up_here()
+        after = sorted(os.listdir(cache))
+    print(f"spin-up first Gradient reply on {card}: cold {cold['first_reply_s']:.2f} s "
+          f"(warm-up {cold['warmup_s']:.2f} s), warm {warm['first_reply_s']:.2f} s (warm-up "
+          f"{warm['warmup_s']:.2f} s), knobs off in this process (from its data) "
+          f"{off['first_reply_s']:.2f} s; cache files {files}", flush=True)
+    if (cold["misses"], cold["hits"], sorted(cold["nvcc"])) != (2, 0, sorted(_build.KERNELS)):
+        raise AssertionError(f"spin-up cold: {cold} (want 2 misses, both kernels built)")
+    if (warm["misses"], warm["hits"], warm["nvcc"]) != (0, 2, []):
+        raise AssertionError(f"spin-up warm: {warm} (want 2 hits, 0 misses, no nvcc)")
+    if after != files or len(files) != 2:
+        raise AssertionError(f"spin-up: the cache changed: {files} -> {after}")
+    if not cold["sha"] == warm["sha"] == off["sha"]:
+        raise AssertionError("spin-up: the first replies differ between cold, warm and off")
+    return {"wg": [r["launches"][0] for r in (cold, warm, off)],
+            "se": [r["launches"][1] for r in (cold, warm, off)]}
+
+
+def run_lifecycle_phase(full_data, card: str) -> dict:
+    """Phase 17; returns the launches of its paths."""
+    t0 = time.perf_counter()
+    out = {"chaos": check_chaos_fit(full_data, card)}
+    t1 = time.perf_counter()
+    out["flywheel"] = check_flywheel(card)
+    t2 = time.perf_counter()
+    out["spin"] = check_spin_up(card)
+    t3 = time.perf_counter()
+    print(f"lifecycle phase seconds: {t3 - t0:.1f} ((a) {t1 - t0:.1f}, (b) {t2 - t1:.1f}, "
+          f"(c) {t3 - t2:.1f}; budget {LIFE_BUDGET_S}) on {card}", flush=True)
+    return out
+
+
 def main() -> None:
     phase("1 device")
     if not torch.cuda.is_available():
@@ -4681,10 +5066,9 @@ def main() -> None:
     comp_ref = {k: rpc_full[k] for k in ("data", "small", "test_acc", "windows_per_s",
                                          "grad_bytes")}
     del rpc_full
-    wg_row["path"] += "; phase 13 (full width, 1 epoch each): " + ", ".join(
-        f"{label} {tree[label][0]}" for label, kw in TREE_FITS if "local_steps" not in kw)
-    wg_row["path"] += f", at {RPC_SMALL_ROWS:,} rows: tree again {tree['tree again'][0]}, " + (
-        ", ".join(f"{label} {tree[label][0]}" for label, _ in SMALL_TREE_FITS)) + (
+    wg_row["path"] += f"; phase 13 at {RPC_SMALL_ROWS:,} rows, 1 epoch each: tree " + (
+        f"{tree['tree'][0]}, ") + ", ".join(
+        f"{label} {tree[label][0]}" for label, _ in SMALL_TREE_FITS) + (
         f", kill_shard ({SHARD_KILL_ROWS:,} rows) {tree['kill_shard']}")
     k_label = next(label for label, kw in TREE_FITS if "local_steps" in kw)
     window_row["path"] += f"; phase 13 {k_label} (full width, 1 epoch) {tree[k_label][1]}"
@@ -4709,6 +5093,7 @@ def main() -> None:
 
     phase("16 gradient compression and the training-health monitor")
     comp = run_compression_phase(comp_ref)
+    full_data = comp_ref["data"]
     del comp_ref
     mean_row["path"] += (f"; phase 16 (b) Hogwild at full width, k={HOGWILD_K}, one budget: "
                          + ", ".join(f"{label} {n}" for label, n in comp["hogwild"].items()))
@@ -4716,7 +5101,18 @@ def main() -> None:
                        f"{comp['rpc']}; (d) the health halt and its resume ({RPC_SMALL_ROWS:,} "
                        f"rows) {comp['health']}")
 
-    phase("17 summary")
+    phase("17 fault injection, the autopilot and the spin-up fast path")
+    life = run_lifecycle_phase(full_data, card)
+    del full_data
+    wg_row["path"] += (f"; phase 17 (a) {CHAOS_ROWS:,} rows' windows clear sky "
+                       f"{life['chaos']['clear']}, under {CHAOS_PLAN} {life['chaos']['storm']} "
+                       f"(hedges included); (b) the flywheel's initial fit and retrains "
+                       f"{life['flywheel']['launches']}; (c) spin-up cold, warm, knobs off "
+                       f"(warm-up and first reply) {life['spin']['wg']}")
+    window_row["path"] += (f"; phase 17 (c) spin-up warm-ups (K={SPIN_LOCAL_STEPS}) cold, warm, "
+                           f"knobs off {life['spin']['se']}")
+
+    phase("18 summary")
     print(card)
     print(json.dumps({"kernels": [wg_row, se_row, mean_row, opt_rows["momentum"],
                                   opt_rows["adam"], window_row]}))

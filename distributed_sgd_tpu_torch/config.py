@@ -44,14 +44,23 @@ workers' sync replies and async gossip.  ``DSGD_ROLE=serve``
 runs a serving replica (or, with ``serve_replicas``, an in-process fleet)
 and ``DSGD_ROLE=route`` the fleet router; the ``serve_*`` fields are the
 JAX Config's, with its defaults and validation, and ``serve_push``
-streams a training role's checkpoints to the fleet.
+streams a training role's checkpoints to the fleet.  ``chaos``
+(DSGD_CHAOS, a plan or ``scenario:NAME``, parsed here by chaos/
+``parse_plan`` so a typo stops the run before any data loads) injects
+faults into every RPC channel of the master and worker roles and of the
+dev rpc cluster; ``compile_cache`` (DSGD_COMPILE_CACHE) shares the
+kernels' build directory between processes and warms each role's
+kernels in the background (compile_cache.py); ``autopilot``
+(DSGD_AUTOPILOT, with the 13 ``autopilot_*`` knobs, validated whether or
+not it is set) runs the continual-learning flywheel in the dev role,
+sources the route role's canary probes from live traffic and trains the
+master role on the drifting stream's window (autopilot/).
 
-Settings that change what the JAX CLI does but are not ported are read
-and refused with NotImplementedError before any data is loaded (on the
-mesh engine main.py warns about the rpc topology's settings, as the JAX
-mesh scenario does).  ``DSGD_KERNEL`` and
-``DSGD_SCATTER`` are not read: in the JAX package they pick among XLA
-formulations of the same function, so ignoring them changes no result.
+Every setting of the JAX CLI is read and acted on, or warned about where
+the JAX CLI warns (main.py: the mesh engine and the rpc topology's
+settings), except ``DSGD_KERNEL`` and ``DSGD_SCATTER``: in the JAX
+package they pick among XLA formulations of the same function, so
+ignoring them changes no result.
 """
 
 from __future__ import annotations
@@ -74,10 +83,6 @@ def _env(name: str, default, cast):
     if cast is bool:
         return raw.strip().lower() in ("1", "true", "yes", "on")
     return cast(raw)
-
-
-def _not_ported(setting: str, where: str) -> NotImplementedError:
-    return NotImplementedError(f"{setting}: not ported yet (ROADMAP.md Queue A {where})")
 
 
 @dataclass
@@ -150,9 +155,12 @@ class Config:
     compress_ef: bool = True  # error-feedback residual accumulation
     agg_tree: str = ""
     master_shards: int = 0
-    # read so that it is not ignored without a word: it raises when set, as
-    # autopilot below does
+    # fault injection on the rpc wire (chaos/): a plan or scenario:NAME
     chaos: Optional[str] = None
+    # the spin-up fast path (compile_cache.py): the kernels' shared build
+    # directory and the background warm-up.  None: libraries in _build/,
+    # no warm-up thread, no instrument
+    compile_cache: Optional[str] = None
     # the cluster telemetry plane (telemetry/aggregate.py): the master (or
     # router) scrapes its members' registries over the Metrics RPC and
     # serves the merged view on telemetry_port (0: OS-assigned); workers
@@ -162,7 +170,24 @@ class Config:
     # the rpc sync fit's training-health monitor (telemetry/health.py):
     # None = no observation; warn | snapshot | halt on a trip
     health_action: Optional[str] = None
+    # the continual-learning autopilot (autopilot/), the JAX Config's knobs
+    # and defaults: the dev role runs the flywheel, the route role sources
+    # its probes from live traffic, the master role trains on the stream's
+    # window; the serve and worker roles refuse it
     autopilot: bool = False
+    autopilot_poll_s: float = 1.0  # controller probe-loss poll period
+    autopilot_cooldown_s: float = 5.0  # post-verdict settle before re-arming
+    autopilot_drift_ratio: float = 1.5  # EWMA > max(ratio x baseline, ...
+    autopilot_drift_patience: int = 2  # ... baseline + floor) this many refreshes
+    autopilot_drift_warmup: int = 4  # refreshes that set the baseline
+    autopilot_drift_floor: float = 0.1
+    autopilot_window: int = 4096  # the newest stream rows a retrain fits
+    autopilot_max_retrains: int = 0  # 0 = unbounded
+    autopilot_canary_timeout_s: float = 120.0  # verdict wait before giving up
+    autopilot_recovery_band: float = 1.35  # residual settling (0 disables)
+    autopilot_probe_capacity: int = 64  # the probe reservoir's rows
+    autopilot_label_delay: int = 0  # requests before a row's truth arrives
+    autopilot_source_refresh_s: float = 2.0  # reservoir -> probe set cadence
     # the resource plane (telemetry/): the probe's period (0: no probe) and
     # the blackbox ring's directory, which needs the probe
     resource_probe_s: float = 0.0
@@ -193,10 +218,12 @@ class Config:
         if self.role_override not in (None, "dev", "master", "worker", "serve", "route"):
             raise ValueError(f"DSGD_ROLE={self.role_override!r} must be one of "
                              f"dev | master | worker | serve | route")
-        for bad, setting in ((self.autopilot, "DSGD_AUTOPILOT"),
-                             (self.chaos, "DSGD_CHAOS")):
-            if bad:
-                raise _not_ported(setting, "[A13] item 8")
+        if self.chaos:
+            # a typo fails here, not mid-fit: the grammar is chaos/'s
+            from distributed_sgd_tpu_torch.chaos import parse_plan
+
+            parse_plan(self.chaos)
+        self._check_autopilot()
         if self.telemetry_port < 0:
             raise ValueError("telemetry_port must be >= 0 (0 = OS-assigned)")
         if self.health_action not in (None, "warn", "snapshot", "halt"):
@@ -311,6 +338,50 @@ class Config:
                 "DSGD_HOST_INDEX with DSGD_HOST_DEVICES > 1 is not "
                 "supported yet: the in-host mesh binds its slice at build "
                 "time (no incremental reload)")
+
+    def _check_autopilot(self) -> None:
+        """The JAX Config's validation of the autopilot knobs, whether or
+        not DSGD_AUTOPILOT is set."""
+        if self.autopilot_poll_s <= 0:
+            raise ValueError("DSGD_AUTOPILOT_POLL_S must be > 0")
+        if self.autopilot_cooldown_s < 0:
+            raise ValueError("DSGD_AUTOPILOT_COOLDOWN_S must be >= 0")
+        if self.autopilot_drift_ratio <= 1.0:
+            raise ValueError(
+                "DSGD_AUTOPILOT_DRIFT_RATIO must be > 1 (the drift rule "
+                "compares EWMA probe loss against ratio x baseline)")
+        if self.autopilot_drift_patience < 1:
+            raise ValueError("DSGD_AUTOPILOT_DRIFT_PATIENCE must be >= 1")
+        if self.autopilot_drift_warmup < 0:
+            raise ValueError("DSGD_AUTOPILOT_DRIFT_WARMUP must be >= 0")
+        if self.autopilot_drift_floor < 0:
+            raise ValueError("DSGD_AUTOPILOT_DRIFT_FLOOR must be >= 0")
+        if self.autopilot_window < 1:
+            raise ValueError("DSGD_AUTOPILOT_WINDOW must be >= 1 rows")
+        if self.autopilot_max_retrains < 0:
+            raise ValueError("DSGD_AUTOPILOT_MAX_RETRAINS must be >= 0 (0 = unbounded)")
+        if self.autopilot_canary_timeout_s <= 0:
+            raise ValueError("DSGD_AUTOPILOT_CANARY_TIMEOUT_S must be > 0")
+        if self.autopilot_recovery_band and self.autopilot_recovery_band <= 1:
+            raise ValueError(
+                "DSGD_AUTOPILOT_RECOVERY_BAND must be > 1 (0 disables "
+                "residual settling)")
+        if self.autopilot_probe_capacity < 1:
+            raise ValueError("DSGD_AUTOPILOT_PROBE_CAPACITY must be >= 1")
+        if self.autopilot_label_delay < 0:
+            raise ValueError("DSGD_AUTOPILOT_LABEL_DELAY must be >= 0")
+        if self.autopilot_source_refresh_s <= 0:
+            raise ValueError("DSGD_AUTOPILOT_SOURCE_REFRESH_S must be > 0")
+        if self.autopilot and self.role_override in ("serve", "worker"):
+            raise ValueError(
+                f"DSGD_AUTOPILOT has no {self.role_override} half: the "
+                f"flywheel lives in the dev/route/master roles "
+                f"(docs/CONTINUAL.md)")
+        if self.autopilot and self.serve_probe_refresh_s > 0:
+            raise ValueError(
+                "DSGD_AUTOPILOT and DSGD_SERVE_PROBE_REFRESH_S are "
+                "mutually exclusive: the traffic reservoir REPLACES the "
+                "operator-rotated probe file (docs/CONTINUAL.md)")
 
     def _check_serving(self) -> None:
         """The JAX Config's validation of the serving fields."""
@@ -445,12 +516,37 @@ class Config:
             host_overprovision=_env("DSGD_HOST_OVERPROVISION", cls.host_overprovision,
                                     float),
             chaos=_env("DSGD_CHAOS", None, str),
+            compile_cache=_env("DSGD_COMPILE_CACHE", None, str),
             telemetry=_env("DSGD_TELEMETRY", cls.telemetry, bool),
             telemetry_port=_env("DSGD_TELEMETRY_PORT", cls.telemetry_port, int),
             health_action=_env("DSGD_HEALTH_ACTION", None, str),
             resource_probe_s=_env("DSGD_RESOURCE_PROBE_S", cls.resource_probe_s, float),
             blackbox_dir=_env("DSGD_BLACKBOX_DIR", None, str),
             autopilot=_env("DSGD_AUTOPILOT", cls.autopilot, bool),
+            autopilot_poll_s=_env("DSGD_AUTOPILOT_POLL_S", cls.autopilot_poll_s, float),
+            autopilot_cooldown_s=_env("DSGD_AUTOPILOT_COOLDOWN_S", cls.autopilot_cooldown_s,
+                                      float),
+            autopilot_drift_ratio=_env("DSGD_AUTOPILOT_DRIFT_RATIO",
+                                       cls.autopilot_drift_ratio, float),
+            autopilot_drift_patience=_env("DSGD_AUTOPILOT_DRIFT_PATIENCE",
+                                          cls.autopilot_drift_patience, int),
+            autopilot_drift_warmup=_env("DSGD_AUTOPILOT_DRIFT_WARMUP",
+                                        cls.autopilot_drift_warmup, int),
+            autopilot_drift_floor=_env("DSGD_AUTOPILOT_DRIFT_FLOOR",
+                                       cls.autopilot_drift_floor, float),
+            autopilot_window=_env("DSGD_AUTOPILOT_WINDOW", cls.autopilot_window, int),
+            autopilot_max_retrains=_env("DSGD_AUTOPILOT_MAX_RETRAINS",
+                                        cls.autopilot_max_retrains, int),
+            autopilot_recovery_band=_env("DSGD_AUTOPILOT_RECOVERY_BAND",
+                                         cls.autopilot_recovery_band, float),
+            autopilot_canary_timeout_s=_env("DSGD_AUTOPILOT_CANARY_TIMEOUT_S",
+                                            cls.autopilot_canary_timeout_s, float),
+            autopilot_probe_capacity=_env("DSGD_AUTOPILOT_PROBE_CAPACITY",
+                                          cls.autopilot_probe_capacity, int),
+            autopilot_label_delay=_env("DSGD_AUTOPILOT_LABEL_DELAY",
+                                       cls.autopilot_label_delay, int),
+            autopilot_source_refresh_s=_env("DSGD_AUTOPILOT_SOURCE_REFRESH_S",
+                                            cls.autopilot_source_refresh_s, float),
             serve_port=_env("DSGD_SERVE_PORT", cls.serve_port, int),
             serve_max_batch=_env("DSGD_SERVE_MAX_BATCH", cls.serve_max_batch, int),
             serve_max_delay_ms=_env("DSGD_SERVE_MAX_DELAY_MS", cls.serve_max_delay_ms, float),

@@ -24,8 +24,12 @@ host over a contiguous group of D of `devices` (parallel/mesh.py
 ``local_device_groups``; parallel/hier.py).  `compress`, `compress_k`
 and `compress_ef` (DSGD_COMPRESS) give every worker its compressor
 (compress/): the sync replies and the async gossip are encoded by it.
-The JAX cluster's chaos argument has no counterpart here (ROADMAP.md
-Queue A [A13]).
+`chaos` (DSGD_CHAOS, a plan or ``scenario:NAME``) installs the fault plan
+(chaos/) before any node opens a channel, un-armed, so the cluster forms
+in clear weather; the nodes are named ``master`` and ``w0``..``wN`` for
+partition specs and for the per-edge streams, the plan is armed at the
+``await_ready`` barrier and uninstalled by ``stop``, as in the JAX
+cluster.
 """
 
 from __future__ import annotations
@@ -68,6 +72,7 @@ class DevCluster:
         telemetry_port: Optional[int] = None,
         host_devices: int = 1,
         devices=None,
+        chaos: Optional[str] = None,
     ):
         """The nodes run on the model's device (`make_model(...,
         device=...)`; the card unless the caller asks for the CPU).  All
@@ -84,7 +89,8 @@ class DevCluster:
         `host_devices` > 1 makes every worker a host of that many devices,
         worker i the i-th contiguous group of `devices` (the model's
         device `n_workers * host_devices` times when None: groups on one
-        card); each group's first device must be the model's."""
+        card); each group's first device must be the model's.  `chaos`
+        puts a fault plan on every channel of the cluster (see above)."""
         telemetry = telemetry_port is not None
         node_metrics = metrics_mod.Metrics if telemetry else (lambda: metrics)
         self._host, self._seed, self._train, self._model = host, seed, train, model
@@ -102,14 +108,24 @@ class DevCluster:
                                    compress_ef=compress_ef,
                                    gossip_topology=gossip_topology,
                                    master_watch_s=master_watch_s, telemetry=telemetry)
-        self.master = MasterNode(host, base_port, train, test, model,
-                                 expected_workers=n_workers, seed=seed,
-                                 metrics=node_metrics()).start(
-            heartbeat_s=heartbeat_s, heartbeat_max_misses=heartbeat_max_misses)
-        if telemetry:
-            self.master.enable_telemetry(telemetry_port)
+        # the plan wraps every channel opened from here on, but injects
+        # nothing until the await_ready barrier arms it
+        self._chaos_installed = False
+        if chaos:
+            from distributed_sgd_tpu_torch import chaos as chaos_mod
+
+            chaos_mod.install(chaos, metrics=metrics_mod.global_metrics(), armed=False)
+            self._chaos_installed = True
         self.workers: List[WorkerNode] = []
+        self.master = None
         try:
+            self.master = MasterNode(host, base_port, train, test, model,
+                                     expected_workers=n_workers, seed=seed,
+                                     metrics=node_metrics()).start(
+                heartbeat_s=heartbeat_s, heartbeat_max_misses=heartbeat_max_misses)
+            if telemetry:
+                self.master.enable_telemetry(telemetry_port)
+            self._name(self.master.port, "master")
             for i in range(n_workers):
                 port = 0 if base_port == 0 else base_port + 1 + i
                 wdata, extra = train, {}
@@ -125,13 +141,28 @@ class DevCluster:
                 self.workers.append(WorkerNode(host, port, host, self.master.port, wdata,
                                                model, seed=seed + i, metrics=node_metrics(),
                                                **self._worker_kwargs, **extra))
+                self._name(self.workers[-1].port, f"w{i}")
             for w in self.workers:
                 w.start(wait_registered=True)
             self.master.await_ready()
         except BaseException:
             self.stop()
             raise
+        if self._chaos_installed:
+            from distributed_sgd_tpu_torch import chaos as chaos_mod
+
+            chaos_mod.arm()
+            log.warning("chaos plan armed: %s", chaos)
         log.info("dev cluster ready: master :%d + %d workers", self.master.port, n_workers)
+
+    def _name(self, port: int, name: str) -> None:
+        """Name a node's endpoint in the installed plan (partition specs,
+        and the per-edge streams' keys: OS-assigned ports differ every
+        run)."""
+        if self._chaos_installed:
+            from distributed_sgd_tpu_torch import chaos as chaos_mod
+
+            chaos_mod.name_endpoint(self._host, port, name)
 
     def _local_kwargs(self, offset: int) -> dict:
         return dict(data_offset=offset, row_reader=host_shard.dataset_reader(self._train),
@@ -152,6 +183,7 @@ class DevCluster:
                        seed=self._seed + i if seed is None else seed,
                        metrics=self._node_metrics(), **self._worker_kwargs, **extra)
         self.workers.append(w)
+        self._name(w.port, f"w{i}")
         w.start(wait_registered=True)
         return w
 
@@ -167,7 +199,13 @@ class DevCluster:
     def stop(self) -> None:
         for w in self.workers:
             w.stop()
-        self.master.stop()
+        if self.master is not None:
+            self.master.stop()
+        if self._chaos_installed:
+            from distributed_sgd_tpu_torch import chaos as chaos_mod
+
+            chaos_mod.uninstall()
+            self._chaos_installed = False
 
     def __enter__(self) -> "DevCluster":
         return self

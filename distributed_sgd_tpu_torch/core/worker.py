@@ -106,6 +106,11 @@ round on leg 0 of a sharded one, and after each async dispatch.  A hedge
 (another worker's slice) publishes none, as in the JAX worker: the norm
 belongs to the straggler.  With it off no ``health.*`` instrument
 registers.
+
+The spin-up fast path (compile_cache.py, DSGD_COMPILE_CACHE):
+``warmup_thunks`` gives the worker role (and the dev rpc cluster) the
+Gradient body and the K-step window to launch once in the background on
+inert inputs while the worker registers.
 """
 
 from __future__ import annotations
@@ -711,6 +716,54 @@ class WorkerNode:
             self.device))
         self.metrics.counter("slave.sync.backward").increment(steps)
         return (wt - w_end).cpu().numpy()
+
+    def warmup_thunks(self, batch_size: int, local_steps: int = 1):
+        """The warm-up thunks of the spin-up fast path (compile_cache.py,
+        DSGD_COMPILE_CACHE), as the JAX worker's: the sync Gradient body
+        at this worker's capacity bucket (the next power of two of
+        `batch_size`), the K-step window when `local_steps` > 1, and their
+        in-host group twins on a hierarchical host.  Each builds or loads
+        its kernel's library and launches it once, on the thread that runs
+        it (its current stream, as a Gradient body's), on inputs of its
+        own: zero weights and the resident slice's zero sentinel row, lr 0.
+        None writes the resident rows, the weight replica, a compressor's
+        residual or a counter of the worker's (the kernels' launch counters
+        do count them).  An empty slice has nothing to warm: its kernels
+        run after its first reload."""
+        d = self.model.n_features
+        bs = max(1, int(batch_size))
+        k = max(1, int(local_steps))
+        if self._resident.n == 0:
+            return []
+        if self._hier is not None:
+            hier = self._hier
+            thunks = [(f"hier.grad[b{bs}]", lambda: hier.grad(
+                np.zeros(d, np.float32), np.zeros(bs, np.int64)))]
+            if k > 1:
+                thunks.append((f"hier.window[k{k},b{bs}]", lambda: hier.local_window(
+                    np.zeros(d, np.float32), np.zeros(k * bs, np.int64), k, bs, 0.0)))
+            return thunks
+        cap = 1 << (bs - 1).bit_length()
+        dev = self.device
+
+        def grad():
+            res = self._resident
+            pad = torch.full((cap,), res.n, dtype=torch.int64, device=dev)
+            batch = SparseBatch(res.idx.index_select(0, pad), res.val.index_select(0, pad))
+            self.model.grad_regularized(torch.zeros(d, dtype=torch.float32, device=dev),
+                                        batch, res.y.index_select(0, pad)).cpu()
+
+        thunks = [(f"grad[cap{cap}]", grad)]
+        if k > 1:
+
+            def window():
+                res = self._resident
+                steps = WindowSteps(self.model, res.idx, res.val, res.y, 0.0)
+                steps.run(torch.zeros(d, dtype=torch.float32, device=dev),
+                          torch.full((k, 1, bs), res.n, dtype=torch.int64, device=dev))[0].cpu()
+
+            thunks.append((f"window[k{k},b{bs}]", window))
+        return thunks
 
     def encode_sync_grad(self, g, window_key, fit_token: int = 0) -> pb.GradUpdate:
         """A compressed Gradient reply whose residual drains at most once.

@@ -60,6 +60,18 @@ health.py): a non-finite round is dropped, a trip leaves its flight dump,
 and snapshot and halt write the fit state where the trip stopped it, from
 which any later run under DSGD_CHECKPOINT_DIR resumes.
 
+DSGD_CHAOS (a fault plan or scenario:NAME, chaos/) wraps every RPC
+channel of the master and worker roles and of the dev rpc cluster in the
+plan's seeded faults; the mesh engine warns about it.  DSGD_COMPILE_CACHE
+builds and loads the kernels' libraries from a directory that processes
+share (compile_cache.py) and warms the worker role's kernels (and the dev
+rpc cluster's, the mesh engine's, a serving replica's) in the background.
+DSGD_AUTOPILOT (autopilot/) runs the continual-learning flywheel in the
+dev role (a DevCluster trains on a drifting stream's window, a fleet
+serves it, drift at the router retrains and promotes hands-free), sources
+the route role's canary probes from its own traffic, and trains the
+master role on the stream's newest window.
+
 DSGD_COMPRESS (topk | qint8, with DSGD_COMPRESS_K and DSGD_COMPRESS_EF)
 encodes every gradient that crosses a wire (compress/): the Hogwild
 engine's gossip and the rpc workers' sync replies and async gossip; the
@@ -307,8 +319,7 @@ def _from_rank0(res: Optional[FitResult], device) -> FitResult:
 def warn_mesh_ignored(cfg: Config) -> None:
     """The JAX mesh scenario's warnings (distributed_sgd_tpu/main.py:
     152-206), in its words, for the settings of the rpc topology that the
-    in-process engines ignore.  The JAX scenario also warns about
-    DSGD_CHAOS, which the port refuses in every role (config.py)."""
+    in-process engines ignore."""
     if cfg.compress != "none" and not (cfg.use_async and cfg.async_mode == "gossip"):
         # the sync, local SGD and dp x tp engines exchange gradients through
         # collectives: there is no wire to compress
@@ -324,7 +335,9 @@ def warn_mesh_ignored(cfg: Config) -> None:
             "DSGD_MASTER_SHARDS ignored: the pipelined sync engine is "
             "the rpc topology's (use engine=rpc; the mesh local-SGD "
             "equivalent is async_mode=local_sgd / sync_period)")
-    if cfg.quorum is not None:
+    if cfg.quorum is not None or cfg.chaos:
+        # quorum barriers gate RPC fan-ins and chaos wraps RPC stubs; an
+        # in-process collective has neither
         log.warning(
             "DSGD_QUORUM/DSGD_CHAOS ignored: the quorum barrier and the "
             "fault-injection layer live on the rpc topology's wire "
@@ -417,8 +430,15 @@ def _health_monitor(cfg: Config, metrics=None):
 
 def _rpc_fit(cfg: Config, master) -> FitResult:
     """The master's fit: the async one with DSGD_ASYNC=1, else the sync
-    one, with the JAX CLI's arguments."""
+    one, with the JAX CLI's arguments.  Under DSGD_AUTOPILOT convergence is
+    judged on the last 2 * patience + 1 evals only (continual eval): a
+    warm-started retrain must not be stopped by a best earned on a
+    distribution that no longer exists."""
     criterion = no_improvement(patience=cfg.patience, min_delta=cfg.conv_delta)
+    if cfg.autopilot:
+        from distributed_sgd_tpu_torch.autopilot import continual_criterion
+
+        criterion = continual_criterion(criterion, horizon=2 * cfg.patience + 1)
     ckpt = _make_checkpointer(cfg)
     if cfg.use_async:
         return master.fit_async(
@@ -454,7 +474,16 @@ def scenario_rpc(cfg: Config, train: Dataset, test: Dataset, model,
                     gossip_topology=cfg.gossip_topology, heartbeat_s=cfg.heartbeat_s,
                     heartbeat_max_misses=cfg.heartbeat_max_misses,
                     telemetry_port=cfg.telemetry_port if cfg.telemetry else None,
-                    host_devices=_resolve_host_devices(cfg, dev_workers=cfg.node_count)) as c:
+                    host_devices=_resolve_host_devices(cfg, dev_workers=cfg.node_count),
+                    chaos=cfg.chaos) as c:
+        if cfg.compile_cache:
+            # every in-process worker warms its kernels in the background
+            # before the fit's first fan-out reaches it
+            from distributed_sgd_tpu_torch import compile_cache
+
+            for i, w in enumerate(c.workers):
+                compile_cache.warmup_async(f"worker[w{i}]",
+                                           w.warmup_thunks(cfg.batch_size, cfg.local_steps))
         w0 = np.zeros(model.n_features, dtype=np.float32)
         loss0, acc0 = c.master.local_loss(w0, test=False)
         log.info("initial loss=%.6f acc=%.4f", loss0, acc0)
@@ -490,6 +519,117 @@ def _run_master(cfg: Config, train: Dataset, test: Dataset, model) -> FitResult:
     finally:
         master.stop()
     return res
+
+
+def _install_chaos(cfg: Config) -> None:
+    """DSGD_CHAOS on a standalone master or worker process: install the
+    plan before any channel exists, so every outgoing stub is wrapped
+    (chaos/).  Partition specs name endpoints as host:port here; the dev
+    rpc cluster also names them master and w0..wN."""
+    if not cfg.chaos:
+        return
+    from distributed_sgd_tpu_torch import chaos
+
+    chaos.install(cfg.chaos, metrics=metrics_mod.global_metrics())
+    log.warning("chaos plan active on this node: %s", cfg.chaos)
+
+
+def _warmup_worker(cfg: Config, worker) -> None:
+    """DSGD_COMPILE_CACHE on the worker role: the background warm-up of
+    the worker's kernels while registration runs."""
+    if not cfg.compile_cache:
+        return
+    from distributed_sgd_tpu_torch import compile_cache
+
+    compile_cache.warmup_async(f"worker[:{cfg.port}]",
+                               worker.warmup_thunks(cfg.batch_size, cfg.local_steps))
+
+
+def _autopilot_probe_source(cfg: Config):
+    """DSGD_AUTOPILOT on the route role -> (ProbeReservoir, refresh_s):
+    live probe sourcing (autopilot/probe_source.py) in place of the
+    operator-rotated probe file.  The env-driven role joins ground truth
+    through the seeded DriftingStream's oracle -- the JAX CLI's assumption
+    that the traffic IS the synthetic stream, which the dev role sends; a
+    production integrator supplies its own labeler programmatically."""
+    if not cfg.autopilot:
+        return None, 0.0
+    from distributed_sgd_tpu_torch.autopilot import DriftingStream, ProbeReservoir
+
+    stream = DriftingStream(seed=cfg.seed)
+    reservoir = ProbeReservoir(
+        stream.oracle_labeler(), capacity=cfg.autopilot_probe_capacity,
+        seed=cfg.seed, label_delay=cfg.autopilot_label_delay,
+        recency=2 * cfg.autopilot_probe_capacity,
+        min_fill=max(1, cfg.autopilot_probe_capacity // 2))
+    log.info("autopilot probe sourcing: reservoir capacity=%d label_delay=%d refresh=%gs",
+             reservoir.capacity, reservoir.label_delay, cfg.autopilot_source_refresh_s)
+    return reservoir, cfg.autopilot_source_refresh_s
+
+
+def _autopilot_stream_build(cfg: Config, device: DeviceLike = None):
+    """DSGD_AUTOPILOT on the master role -> (train, test, model) of the
+    stream plane (autopilot/stream.py): the corpus is the first
+    DSGD_AUTOPILOT_WINDOW rows of the seeded drifting stream and the eval
+    set is pinned at the window's trailing edge, so early stopping judges
+    convergence on the CURRENT distribution.  A relaunch with a raised
+    DSGD_MAX_EPOCHS warm-starts from the epoch checkpoints: one retrain
+    round."""
+    from distributed_sgd_tpu_torch.autopilot import DriftingStream
+
+    stream = DriftingStream(seed=cfg.seed)
+    t0 = time.perf_counter()
+    train = stream.rows(0, cfg.autopilot_window)
+    log.info("stream window materialized in %.2fs", time.perf_counter() - t0)
+    test = stream.eval_set(max(256, cfg.autopilot_window // 8), at=cfg.autopilot_window)
+    model = make_model(cfg.model, cfg.lam, train.n_features, dim_sparsity=dim_sparsity(train),
+                       device=device)
+    return train, test, model
+
+
+def _run_dev_flywheel(cfg: Config, device: DeviceLike = None) -> None:
+    """DSGD_ROLE=dev + DSGD_AUTOPILOT: the whole closed loop in one
+    process (autopilot/flywheel.py), on `device`.  Pumps one complete
+    shift through the fleet unpaced and waits up to 300 s for the
+    controller to settle, as the JAX CLI does (whether the detector's
+    warm-up sees pre-shift traffic then depends on how fast the pump
+    runs), and logs the summary."""
+    from distributed_sgd_tpu_torch.autopilot import DriftDetector, DriftingStream, Flywheel
+
+    stream = DriftingStream(seed=cfg.seed)
+    horizon = stream.shift_at + 2 * cfg.autopilot_window
+    detector = DriftDetector(
+        ratio=cfg.autopilot_drift_ratio, patience=cfg.autopilot_drift_patience,
+        warmup=cfg.autopilot_drift_warmup, abs_floor=cfg.autopilot_drift_floor)
+    fly = Flywheel(
+        stream, horizon_rows=horizon, window_rows=cfg.autopilot_window,
+        model=cfg.model, lam=cfg.lam, n_workers=2,
+        n_replicas=max(2, cfg.serve_replicas),
+        max_epochs=cfg.max_epochs, batch_size=cfg.batch_size,
+        learning_rate=cfg.learning_rate, patience=cfg.patience,
+        conv_delta=cfg.conv_delta,
+        probe_capacity=cfg.autopilot_probe_capacity,
+        label_delay=cfg.autopilot_label_delay,
+        source_refresh_s=cfg.autopilot_source_refresh_s,
+        canary_fraction=cfg.serve_canary or 0.5,
+        detector=detector, poll_s=cfg.autopilot_poll_s,
+        cooldown_s=cfg.autopilot_cooldown_s,
+        canary_timeout_s=cfg.autopilot_canary_timeout_s,
+        max_retrains=cfg.autopilot_max_retrains,
+        recovery_band=cfg.autopilot_recovery_band,
+        seed=cfg.seed, ckpt_dir=cfg.checkpoint_dir or None,
+        telemetry_port=cfg.telemetry_port if cfg.telemetry else None,
+        device=device)
+    log.info("dev flywheel: horizon=%d rows (%s shift at %d), window=%d", horizon,
+             stream.schedule, stream.shift_at, cfg.autopilot_window)
+    fly.start()
+    try:
+        summary = fly.run()
+    finally:
+        fly.stop()
+    log.info("flywheel done: served=%d dropped=%d retrains=%d promoted=%d rolled_back=%d "
+             "state=%s", summary["served"], summary["dropped"], summary["retrains"],
+             summary["promoted"], summary["rolled_back"], summary["state"])
 
 
 _live_workers: list = []  # the worker role's nodes in this process
@@ -561,6 +701,8 @@ def _run_worker(cfg: Config, train: Dataset, model, extra: Optional[dict] = None
                         master_watch_s=(cfg.heartbeat_s or 5.0) if cfg.elastic else None,
                         telemetry=cfg.telemetry, host_devices=_resolve_host_devices(cfg),
                         **(extra or {}))
+    # the warm-up races registration, not traffic
+    _warmup_worker(cfg, worker)
 
     def _on_signal(signum, _frame):
         log.info("signal %d: stopping the worker", signum)
@@ -651,6 +793,9 @@ def _run_serving(cfg: Config, role: str, device) -> None:
         from distributed_sgd_tpu_torch.serving.push import parse_targets
         from distributed_sgd_tpu_torch.serving.router import ServingRouter
 
+        # DSGD_AUTOPILOT: the router samples its own Predict traffic into
+        # the canary probe set (autopilot/probe_source.py)
+        probe_source, source_refresh_s = _autopilot_probe_source(cfg)
         router = ServingRouter(
             parse_targets(cfg.serve_targets), port=cfg.serve_port, model=cfg.model,
             lam=cfg.lam, canary_fraction=cfg.serve_canary, probe=_load_probe(cfg),
@@ -658,7 +803,8 @@ def _run_serving(cfg: Config, role: str, device) -> None:
             telemetry_port=cfg.telemetry_port if cfg.telemetry else None,
             metrics=metrics_mod.global_metrics(), seed=cfg.seed,
             state_path=cfg.serve_state, probe_path=cfg.serve_probe,
-            probe_refresh_s=cfg.serve_probe_refresh_s).start()
+            probe_refresh_s=cfg.serve_probe_refresh_s, probe_source=probe_source,
+            probe_source_refresh_s=source_refresh_s).start()
         if cfg.serve_ha:
             # dual LIVE routers: the lease-based coordinator and its
             # promoted-state peer sync (serving/ha.py)
@@ -781,8 +927,7 @@ def _observability(cfg: Config, role: str):
 
 def main(device: DeviceLike = None, cfg: Optional[Config] = None) -> Run:
     """Run this process's role (see the module docstring) with `cfg`
-    (default: the DSGD_* environment).  Every setting the port does not
-    serve in that role raises before any data loads.  Under torchrun
+    (default: the DSGD_* environment).  Under torchrun
     (WORLD_SIZE set) the dev role joins the process group first, on
     ``cuda:LOCAL_RANK`` unless `device` is given, and leaves it at the
     end."""
@@ -797,12 +942,24 @@ def main(device: DeviceLike = None, cfg: Optional[Config] = None) -> Run:
     log.info("config: %s", cfg.to_json())
     log.info("role: %s", role)
     np.random.seed(cfg.seed)
+    if cfg.compile_cache:
+        # the spin-up fast path: every kernel library of this process is
+        # built and loaded under the shared directory from here on
+        from distributed_sgd_tpu_torch import compile_cache
+
+        compile_cache.configure(cfg.compile_cache)
     exporter, pusher = _observability(cfg, role)
     probe = _resource_probe(cfg, role)
     try:
         if role in ("serve", "route"):
             _run_serving(cfg, role, device)
             return Run(fit=None, data_seconds=0.0)
+        if role == "dev" and cfg.autopilot:
+            # the whole train/serve flywheel in one process
+            _run_dev_flywheel(cfg, device)
+            return Run(fit=None, data_seconds=0.0)
+        if role in ("master", "worker"):
+            _install_chaos(cfg)
         t0 = time.perf_counter()
         if role == "worker" and cfg.row_store:
             if cfg.host_index is not None and _resolve_host_devices(cfg) > 1:
@@ -815,7 +972,11 @@ def main(device: DeviceLike = None, cfg: Optional[Config] = None) -> Run:
             log.info("data mapped: %d rows resident in %.2fs", len(train), data_s)
             _run_worker(cfg, train, model, extra)
             return Run(fit=None, data_seconds=data_s)
-        train, test, model = build(cfg, device)
+        if role == "master" and cfg.autopilot:
+            # the stream plane: the newest window, eval at its trailing edge
+            train, test, model = _autopilot_stream_build(cfg, device)
+        else:
+            train, test, model = build(cfg, device)
         data_s = time.perf_counter() - t0
         log.info("data loaded: %d train + %d test rows in %.2fs", len(train), len(test),
                  data_s)

@@ -2,8 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into its own shared library under the
-package's ``_build/`` directory (listed in ``.gitignore``), at first use,
-from the sources in the checkout only.  The library is loaded with
+package's ``_build/`` directory (listed in ``.gitignore``), or under the
+directory that DSGD_COMPILE_CACHE names (compile_cache.py: shared by
+processes, each library found there a hit, each ``nvcc`` run a miss), at
+first use, from the sources in the checkout only.  The library is loaded with
 ``ctypes``.  A library is named by a hash of its source, of every
 ``csrc/*.cuh`` header the source includes, and of the flags, so an edited
 source or header is rebuilt and a stale library is never loaded.
@@ -66,11 +68,20 @@ def _sources(name: str) -> List[Path]:
     return found
 
 
+def build_dir() -> Path:
+    """Where the libraries are built and loaded from: the configured
+    compile cache (DSGD_COMPILE_CACHE), else ``BUILD_DIR``."""
+    from distributed_sgd_tpu_torch import compile_cache
+
+    configured = compile_cache.configured_dir()
+    return Path(configured) if configured else BUILD_DIR
+
+
 def library_path(name: str) -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in _sources(name):
         digest.update(path.name.encode() + b"\0" + path.read_bytes())
-    return BUILD_DIR / f"lib{name}.{digest.hexdigest()[:12]}.so"
+    return build_dir() / f"lib{name}.{digest.hexdigest()[:12]}.so"
 
 
 def nvcc_command(name: str, out: Path) -> List[str]:
@@ -82,11 +93,14 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
     ``nvcc`` process per source, all started together.  Returns each
     compiled kernel's compiler report (``-Xptxas -v``: registers, shared
     memory, spills); raises with the compiler's output if any fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    from distributed_sgd_tpu_torch import compile_cache
+
+    build_dir().mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
         out = library_path(name)
         if out.exists():
+            compile_cache.record_build(name, hit=True)
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         procs[name] = (out, tmp, subprocess.Popen(
@@ -99,6 +113,7 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{report}")
             continue
         os.replace(tmp, out)  # atomic: a reader never sees half a library
+        compile_cache.record_build(name, hit=False)
         reports[name] = report
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
@@ -111,8 +126,7 @@ def load(name: str) -> ctypes.CDLL:
         lib = _loaded.get(name)
         if lib is None:
             path = library_path(name)
-            if not path.exists():
-                build([name])
+            build([name])  # counts the hit or the miss; builds only if missing
             lib = ctypes.CDLL(str(path))
             _loaded[name] = lib
         return lib

@@ -256,6 +256,46 @@ class BoundSync:
 
     # -- host API ----------------------------------------------------------
 
+    def warmup_thunks(self):
+        """The warm-up thunk of the spin-up fast path (compile_cache.py,
+        DSGD_COMPILE_CACHE), as the JAX binding's ``epoch``: this binding's
+        kernel at its shape (one step, every virtual worker's batch) on
+        inert inputs -- zero weights, a fresh optimizer state, the result
+        dropped -- so the library is built or loaded and launched once
+        before the fit's first epoch.  The binding's own state is not
+        touched.  (The JAX binding also compiles its eval program; the
+        port's evaluation launches no kernel of its own, nor does the dense
+        layout's step: none is warmed.)"""
+        if self.kernel == "dense":
+            return []
+
+        def epoch():
+            w0 = torch.zeros(self.model.n_features, dtype=torch.float32, device=self.device)
+            ids = torch.zeros((1, self.virtual_workers, self.batch_size), dtype=torch.int64,
+                              device=self.device)
+            m, d = self.model, self.data
+            if self.epoch_kernel:
+                sync_epoch(w0, ids, d.indices, d.values, self._labels_f32,
+                           coeff_kind=m.coeff_kind, reg_kind=m.reg_kind, lam=m.lam,
+                           dim_sparsity=m.dim_sparsity, lr=0.0,
+                           n_total_workers=self.n_workers * self.virtual_workers,
+                           optimizer=self.optimizer,
+                           opt_state=self._init_opt_state())[0].cpu()
+            else:
+                worker_grads(w0, d.indices[ids[0]], d.values[ids[0]], self._labels_f32[ids[0]],
+                             m.coeff_kind).cpu()
+
+        return [("epoch", epoch)]
+
+    def _maybe_warmup(self) -> None:
+        """Start the background warm-up at bind time when the compile cache
+        is configured; nothing at all when the knob is off."""
+        from distributed_sgd_tpu_torch import compile_cache
+
+        if compile_cache.enabled():
+            compile_cache.warmup_async(f"mesh[{self.n_workers}x{self.kernel}]",
+                                       self.warmup_thunks())
+
     def _run(self, w: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
         """The weights after the steps ids[S, K, B]: one sync_epoch launch
         where the shape fits the cluster, else one `_one_step` per step.
@@ -547,12 +587,16 @@ class SyncEngine:
 
     def _bound(self, sharded: ShardedData, chunk: int,
                steps_per_epoch: Optional[int]) -> BoundSync:
-        return BoundSync(
+        bound = BoundSync(
             self.model, sharded, self.batch_size, self.learning_rate,
             sampling=self.sampling, steps_per_epoch=steps_per_epoch,
             eval_chunk=chunk, virtual_workers=self.virtual_workers,
             optimizer=self.optimizer, momentum=self.momentum, group=self.group,
         )
+        # the spin-up fast path (DSGD_COMPILE_CACHE): the kernel is built
+        # and launched in the background while the fit gets going
+        bound._maybe_warmup()
+        return bound
 
 
 def padded_layout(n_true: int, n_workers: int, eval_chunk: int = 4096) -> Tuple[int, int]:

@@ -2,9 +2,9 @@
 
 The port's copy of the JAX package's rpc/service.py: the same services,
 method tables and trace hooks, so a JAX master drives torch workers and a
-torch master drives JAX workers.  One difference: `new_channel` returns
-the raw channel, since the fault-injection layer (the JAX package's
-chaos/, DSGD_CHAOS) is not ported yet (ROADMAP.md Queue A 8).
+torch master drives JAX workers.  `new_channel` wraps each channel in
+the port's fault-injection layer (chaos/, DSGD_CHAOS) when a plan is
+installed, and returns the raw channel otherwise.
 
 grpc_tools (the protoc python-grpc plugin) is not available in this image,
 so stubs and servicer registration are built from a method table using
@@ -622,15 +622,19 @@ def new_server(port: int, host: str = "0.0.0.0", max_workers: int = 16) -> grpc.
 def new_channel(host: str, port: int, origin=None) -> grpc.Channel:
     """Plaintext channel factory (core/package.scala:19-21).
 
-    `origin` (the caller's own (host, port)) is accepted for the JAX
-    package's signature, where it labels the edge for the fault-injection
-    layer; the port has no such layer yet and returns the raw channel."""
-    del origin
+    `origin` (the caller's own (host, port), optional) labels the edge
+    for the fault-injection layer: when a chaos plan is installed
+    (chaos/, DSGD_CHAOS) the channel is wrapped so every RPC through it
+    passes the plan's drop/delay/dup/partition decisions -- a no-op
+    returning the raw channel otherwise."""
     channel = grpc.insecure_channel(
         f"{host}:{port}",
         options=[("grpc.max_receive_message_length", 64 * 1024 * 1024),
                  ("grpc.max_send_message_length", 64 * 1024 * 1024)],
     )
-    # endpoint label for client trace spans
+    # endpoint label for client trace spans (read back through the chaos
+    # proxy's __getattr__ when a plan wraps the channel)
     channel.dsgd_target = (host, int(port))
-    return channel
+    from distributed_sgd_tpu_torch import chaos
+
+    return chaos.wrap_channel(channel, target=(host, int(port)), origin=origin)

@@ -27,8 +27,10 @@ Fault contract:
 The frame deadlines sit on one shared ``Wheel`` thread, not on a timer or
 a thread per frame: a frame costs one heap push.  The master's heartbeat
 (core/master.py ``_heartbeat_loop``) schedules its probes on a wheel of
-its own.  (The JAX module's chaos hooks are not ported: chaos/ is
-ROADMAP.md Queue A item 8.)
+its own.  Under a chaos plan (chaos/, DSGD_CHAOS) each outgoing frame
+passes the plan's decisions; a duplicated frame's second reply finds its
+seq retired and is dropped, counted ``master.sync.stream.late`` as a
+late reply is.
 """
 
 from __future__ import annotations

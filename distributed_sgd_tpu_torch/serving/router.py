@@ -254,9 +254,8 @@ class ServingRouter:
                 self._probe_mtime = os.path.getmtime(probe_path)
             except OSError:
                 self._probe_mtime = None
-        # live probe sourcing (the JAX package's autopilot/probe_source.py;
-        # DSGD_AUTOPILOT waits for ROADMAP.md Queue A [A13] item 8): with a
-        # reservoir attached, every routed Predict feeds it, and
+        # live probe sourcing (autopilot/probe_source.py, DSGD_AUTOPILOT on
+        # the route role and the flywheel's fleet): with a reservoir attached, every routed Predict feeds it, and
         # the health loop rotates the sampled rows in through
         # refresh_probe() on its own cadence — each rotation re-probes the
         # PROMOTED version on traffic sampled just now, so the refresh

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import logging
 import os
+import threading
 import time
 from typing import List, Optional, Sequence, Tuple
 
@@ -103,8 +104,8 @@ class PredictEngine:
         DSGD_COMPILE_CACHE): the single-row bucket and the full
         `max_batch` flush bucket at the minimum nnz width.  Each runs the
         forward once on zero rows on the device and marks its bucket
-        used.  Nothing in the port calls them yet: DSGD_COMPILE_CACHE is
-        ROADMAP.md Queue A [A13] item 8."""
+        used.  ``ServingServer._maybe_warmup`` runs them when the compile
+        cache is on (DSGD_COMPILE_CACHE)."""
         self._ensure_model(int(n_features))
         buckets = sorted({
             bucket_shape(1, MIN_NNZ_BUCKET),
@@ -326,15 +327,37 @@ class ServingServer:
         return self
 
     def _maybe_warmup(self) -> None:
-        """The JAX server's spin-up fast path (DSGD_COMPILE_CACHE) warms
-        each bucket's program here.  The port compiles no program a
-        bucket and does not read the setting yet (ROADMAP.md Queue A
-        [A13] item 8): a no-op."""
+        """The spin-up fast path (compile_cache.py, DSGD_COMPILE_CACHE):
+        run the engine's bucket thunks on a background thread as soon as
+        the first checkpoint snapshot lands (the model's dimension is not
+        known before it), as the JAX server does.  No-op with the knob
+        off."""
+        from distributed_sgd_tpu_torch import compile_cache
+
+        if not compile_cache.enabled():
+            return
+        self._warm_stop = threading.Event()
+
+        def _wait_and_warm():
+            while not self._warm_stop.is_set():
+                snapshot = self.store.get()
+                if snapshot is not None:
+                    _step, w = snapshot
+                    compile_cache.run_warmup(
+                        f"serve[:{self.bound_port}]",
+                        self.engine.warmup_thunks(int(w.shape[0]), self.batcher.max_batch),
+                        metrics=self.metrics)
+                    return
+                self._warm_stop.wait(0.2)
+
+        threading.Thread(target=_wait_and_warm, daemon=True, name="serve-warmup").start()
 
     def await_termination(self) -> None:
         self._server.wait_for_termination()
 
     def stop(self, grace: float = 1.0) -> None:
+        if getattr(self, "_warm_stop", None) is not None:
+            self._warm_stop.set()
         self._server.stop(grace).wait()
         self.batcher.stop()
         self.store.stop()

@@ -2,9 +2,8 @@
 plane.
 
 The port's copy of the JAX package's telemetry/resources.py: the same
-gauges, pressure registry, sentinel feed and blackbox snapshot.  The JAX
-probe also counts its compile-cache directory; the port has no compile
-cache, so that gauge is never set here.
+gauges, pressure registry, sentinel feed and blackbox snapshot, the
+compile cache's directory entries (DSGD_COMPILE_CACHE) included.
 
 The aggregate metrics say how fast a run is going and the health monitor
 says whether the MATH is dying — but nothing watched whether the PROCESS
@@ -160,6 +159,14 @@ def sample_resources() -> Dict[str, float]:
     from distributed_sgd_tpu_torch.trace import flight
 
     out[metrics_mod.PROC_PRESSURE_FLIGHT_RING] = float(flight.get().ring_len())
+    from distributed_sgd_tpu_torch import compile_cache
+
+    if compile_cache.enabled():
+        try:
+            out[metrics_mod.PROC_PRESSURE_COMPILE_CACHE] = float(
+                compile_cache.cache_file_count())
+        except OSError:  # pragma: no cover - dir vanished mid-listdir
+            pass
     # ...and the registered ones (drain inbox, admission queues)
     out.update(_sample_pressures())
     return out

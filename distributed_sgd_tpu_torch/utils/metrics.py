@@ -20,8 +20,8 @@ the async engines, the RPC master and worker (core/master.py,
 core/worker.py), the async RPC fit included, the aggregation tree and
 the sharded master, the gradient compressors (compress/), the serving
 fleet (serving/), the resource probe, the cluster telemetry scrape and
-the training-health monitor (telemetry/).  The autopilot family waits
-for its module (ROADMAP.md Queue A).
+the training-health monitor (telemetry/), the spin-up fast path
+(compile_cache.py) and the continual-learning autopilot (autopilot/).
 """
 
 from __future__ import annotations
@@ -530,6 +530,31 @@ def record_push(metrics: "Metrics", form: str, wire_bytes: int,
     metrics.counter(SERVE_PUSH_BYTES).increment(int(wire_bytes))
     metrics.counter(SERVE_PUSH_FULL_EQUIV).increment(int(dense_bytes))
     metrics.counter(f"serve.push.{form}").increment()
+
+
+# -- the spin-up fast path (compile_cache.py; DSGD_COMPILE_CACHE) ---------------
+# The port's compiles are its nvcc builds (ops/_build.py): a kernel library
+# found in the configured directory counts a hit, an nvcc run a miss, once
+# a kernel a process; warmup.* attribute what the background pass did
+# before the first dispatch needed it.  Knobs off, none registers.
+COMPILE_CACHE_HITS = "compile.cache.hits"        # counter: kernel libraries found built
+COMPILE_CACHE_MISSES = "compile.cache.misses"    # counter: nvcc runs
+COMPILE_WARMUP_KERNELS = "compile.warmup.kernels"  # counter: flagship shapes warmed
+COMPILE_WARMUP_SECONDS = "compile.warmup.seconds"  # gauge: background warmup wall clock
+COMPILE_WARMUP_ERRORS = "compile.warmup.errors"  # counter: thunks that failed (logged)
+
+
+# -- continual-learning autopilot (autopilot/; DSGD_AUTOPILOT) -------------------
+# Registered only while an AutopilotController runs: knobs off, none of
+# these exist.
+AUTOPILOT_STATE = "autopilot.state"                # gauge: index into controller.STATES
+AUTOPILOT_TRANSITIONS = "autopilot.transitions"    # counter: state transitions
+AUTOPILOT_DRIFT_TRIPPED = "autopilot.drift.tripped"  # counter: drift detector trips
+AUTOPILOT_DRIFT_EWMA = "autopilot.drift.ewma"      # gauge: detector's smoothed probe loss
+AUTOPILOT_RETRAINS = "autopilot.retrains"          # counter: retrains launched
+AUTOPILOT_RETRAIN_ERRORS = "autopilot.retrain.errors"  # counter: retrains that raised
+AUTOPILOT_PROMOTED = "autopilot.promoted"          # counter: retrains promoted via canary
+AUTOPILOT_ROLLED_BACK = "autopilot.rolled_back"    # counter: retrains rolled back / timed out
 
 
 # -- process gauges -------------------------------------------------------------

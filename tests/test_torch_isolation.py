@@ -57,7 +57,12 @@ def test_every_port_module_imports_with_jax_blocked():
             "distributed_sgd_tpu_torch.tools.process_group_ranks",
             "distributed_sgd_tpu_torch.compress", "distributed_sgd_tpu_torch.compress.codecs",
             "distributed_sgd_tpu_torch.ops.topk", "distributed_sgd_tpu_torch.telemetry.health",
-            "distributed_sgd_tpu_torch.telemetry.provision"} <= set(mods)
+            "distributed_sgd_tpu_torch.telemetry.provision", "distributed_sgd_tpu_torch.chaos",
+            "distributed_sgd_tpu_torch.compile_cache", "distributed_sgd_tpu_torch.autopilot",
+            "distributed_sgd_tpu_torch.autopilot.stream",
+            "distributed_sgd_tpu_torch.autopilot.probe_source",
+            "distributed_sgd_tpu_torch.autopilot.controller",
+            "distributed_sgd_tpu_torch.autopilot.flywheel"} <= set(mods)
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -110,6 +115,10 @@ def test_entry_points_without_a_device_refuse_to_run_on_a_host_without_cuda():
     model = make_model("hinge", 1e-4, 10, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         SyncEngine(model, batch_size=4, learning_rate=0.5)
+    from distributed_sgd_tpu_torch.autopilot import DriftingStream, Flywheel
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Flywheel(DriftingStream(n_features=16, nnz=2), horizon_rows=512, window_rows=256)
 
 
 def _run_smoke(cwd):

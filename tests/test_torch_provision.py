@@ -30,12 +30,10 @@ PORT = ROOT / "distributed_sgd_tpu_torch"
 KUBE_OBS = ROOT / "kube" / "observability"
 
 # constants whose only recorders are modules not ported yet, each with
-# its ROADMAP.md item (Queue A item 8: autopilot/ and chaos/ next, then
-# the compile cache's warm-up)
-NOT_RECORDED_YET = {
-    "EVENT_AUTOPILOT_TRANSITION": "Queue A item 8: autopilot/",
-    "PROC_PRESSURE_COMPILE_CACHE": "Queue A item 8: compile_cache.py, DSGD_COMPILE_CACHE",
-}
+# its ROADMAP.md item: none since autopilot/ and compile_cache.py were
+# ported (they record EVENT_AUTOPILOT_TRANSITION and
+# PROC_PRESSURE_COMPILE_CACHE)
+NOT_RECORDED_YET = {}
 
 
 def _port_sources():

@@ -653,14 +653,17 @@ def test_a_bad_serving_setting_is_refused_as_jax_refuses_it(kw):
     {"DSGD_ROLE": "serve", "DSGD_CHECKPOINT_DIR": "c", "DSGD_HOST_DEVICES": "2"},
 ], ids=lambda env: "+".join(f"{k[5:].lower()}={v}" for k, v in env.items()))
 def test_a_serving_role_refuses_what_is_not_ported_and_takes_the_rest(env, monkeypatch):
-    # DSGD_TELEMETRY is acted on: the route role builds its router with
-    # the fleet telemetry endpoint on DSGD_TELEMETRY_PORT (default 9091).
-    # DSGD_HOST_DEVICES is a worker host's setting, and DSGD_HEALTH_ACTION
-    # a training fit's, which the serve role takes and ignores, as the JAX
-    # CLI does: it builds its server
+    # nothing is refused any more.  DSGD_TELEMETRY is acted on: the route
+    # role builds its router with the fleet telemetry endpoint on
+    # DSGD_TELEMETRY_PORT (default 9091); so is DSGD_AUTOPILOT: the router
+    # samples its own traffic into a probe reservoir, rotated in every
+    # DSGD_AUTOPILOT_SOURCE_REFRESH_S.  DSGD_HOST_DEVICES is a worker host's
+    # setting, DSGD_HEALTH_ACTION a training fit's and DSGD_CHAOS the
+    # training roles' wire, which the serve role takes and ignores, as the
+    # JAX CLI does: it builds its server
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    if "DSGD_HOST_DEVICES" in env or "DSGD_HEALTH_ACTION" in env:
+    if "DSGD_HOST_DEVICES" in env or "DSGD_HEALTH_ACTION" in env or "DSGD_CHAOS" in env:
         from distributed_sgd_tpu_torch.serving import server as tserver
 
         class _Served(Exception):
@@ -673,6 +676,26 @@ def test_a_serving_role_refuses_what_is_not_ported_and_takes_the_rest(env, monke
         with pytest.raises(_Served) as got:
             tmain.main(device="cpu")
         assert got.value.args == (int(env.get("DSGD_HOST_DEVICES", 1)),)
+        from distributed_sgd_tpu_torch import chaos
+
+        assert chaos.state() is None  # the serve role installs no plan
+        return
+    if "DSGD_AUTOPILOT" in env:
+        from distributed_sgd_tpu_torch.autopilot import ProbeReservoir
+        from distributed_sgd_tpu_torch.serving import router as trouter
+
+        class _Sourced(Exception):
+            pass
+
+        def sourced(*a, **kw):
+            src = kw.get("probe_source")
+            raise _Sourced(type(src), src.capacity, src.label_delay, src.min_fill,
+                           kw.get("probe_source_refresh_s"))
+
+        monkeypatch.setattr(trouter, "ServingRouter", sourced)
+        with pytest.raises(_Sourced) as got:
+            tmain.main(device="cpu")
+        assert got.value.args == (ProbeReservoir, 64, 0, 32, 2.0)
         return
     if "DSGD_TELEMETRY" in env:
         from distributed_sgd_tpu_torch.serving import router as trouter
@@ -688,8 +711,7 @@ def test_a_serving_role_refuses_what_is_not_ported_and_takes_the_rest(env, monke
             tmain.main(device="cpu")
         assert got.value.args == (9091,)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A"):
-        tmain.main(device="cpu")
+    raise AssertionError(f"no case for {env}")
 
 
 # -- the CLI -------------------------------------------------------------------

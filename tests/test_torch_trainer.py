@@ -205,11 +205,14 @@ _RPC = {"DSGD_ENGINE": "rpc"}
     # warns as the JAX CLI does (tests/test_torch_compress.py)
     {"DSGD_COMPRESS": "topk", "DSGD_ASYNC": "1"},
     {"DSGD_COMPRESS": "qint8", "DSGD_ASYNC": "1", "DSGD_ASYNC_MODE": "local_sgd"},
-    # every role: autopilot and chaos (the serving roles, push, the resource
-    # probe and the blackbox run now: tests/test_torch_serving.py,
-    # tests/test_torch_resources.py; and so do the telemetry scrape and the
-    # health action, which the mesh engine warns about: accepted now, see
-    # the test; tests/test_torch_telemetry.py, tests/test_torch_health.py)
+    # every role: autopilot and chaos, acted on now (the dev role runs the
+    # flywheel, the mesh engine warns about chaos: see the test;
+    # tests/test_torch_autopilot.py, tests/test_torch_chaos.py); the serving
+    # roles, push, the resource probe and the blackbox run too:
+    # tests/test_torch_serving.py, tests/test_torch_resources.py; and so do
+    # the telemetry scrape and the health action, which the mesh engine
+    # warns about: accepted now, see the test; tests/test_torch_telemetry.py,
+    # tests/test_torch_health.py)
     {"DSGD_AUTOPILOT": "1"},
     {"DSGD_CHAOS": "seed=7;drop=0.05"},
     {"DSGD_TELEMETRY": "1"},
@@ -227,27 +230,39 @@ _RPC = {"DSGD_ENGINE": "rpc"}
 ], ids=lambda env: "+".join(f"{k[5:].lower()}={v}" for k, v in env.items()
                             if k not in ("DSGD_MASTER_HOST", "DSGD_NODE_HOST")))
 def test_settings_not_ported_raise_before_any_data_loads(env, monkeypatch):
-    # the JAX CLI acts on each of these; the port must not ignore one.
-    # DSGD_AGG_TREE, DSGD_MASTER_SHARDS, DSGD_TELEMETRY, DSGD_FEATURE_SHARDS,
-    # DSGD_HOST_DEVICES, DSGD_COMPRESS and DSGD_HEALTH_ACTION are acted on:
-    # the run goes on to load its data
+    # the JAX CLI acts on each of these; the port must not ignore one, and
+    # since the port reads every one of them, none raises any more.
+    # DSGD_AUTOPILOT on the dev role runs the flywheel on the caller's
+    # device, and loads no corpus; every other setting here is acted on and
+    # the run goes on to load its data (DSGD_CHAOS on the mesh engine with
+    # the JAX CLI's warning)
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    acted = ("DSGD_AGG_TREE", "DSGD_MASTER_SHARDS", "DSGD_TELEMETRY", "DSGD_FEATURE_SHARDS",
-             "DSGD_HOST_DEVICES", "DSGD_COMPRESS", "DSGD_HEALTH_ACTION")
-    if any(k in env for k in acted):
-        class _Loaded(Exception):
+    if "DSGD_AUTOPILOT" in env:
+        from distributed_sgd_tpu_torch import autopilot
+
+        class _Flywheel(Exception):
             pass
 
-        def loaded(cfg):
-            raise _Loaded
+        def flywheel(stream, **kw):
+            raise _Flywheel(stream.seed, kw["window_rows"], kw["horizon_rows"], kw["device"])
 
-        monkeypatch.setattr(tmain, "load_data", loaded)
-        with pytest.raises(_Loaded):
+        monkeypatch.setattr(autopilot, "Flywheel", flywheel)
+        monkeypatch.setattr(tmain, "load_data", lambda cfg: pytest.fail("data was loaded"))
+        with pytest.raises(_Flywheel) as got:
             tmain.main(device="cpu")
+        # the JAX CLI's horizon: the stream's shift plus two windows
+        assert got.value.args == (0, 4096, 4096 + 2 * 4096, torch.device("cpu"))
         return
-    monkeypatch.setattr(tmain, "load_data", lambda cfg: pytest.fail("data was loaded"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A"):
+
+    class _Loaded(Exception):
+        pass
+
+    def loaded(cfg):
+        raise _Loaded
+
+    monkeypatch.setattr(tmain, "load_data", loaded)
+    with pytest.raises(_Loaded):
         tmain.main(device="cpu")
 
 
@@ -366,6 +381,7 @@ def test_the_fault_tolerance_settings_act_in_their_role(role, env, monkeypatch, 
     ({"DSGD_AGG_TREE": "fanout:2"}, "DSGD_STAGE_POOL/DSGD_AGG_TREE/"),
     ({"DSGD_MASTER_SHARDS": "2"}, "DSGD_MASTER_SHARDS ignored"),
     ({"DSGD_QUORUM": "2"}, "DSGD_QUORUM/DSGD_CHAOS ignored"),
+    ({"DSGD_CHAOS": "scenario:flaky-rack"}, "the fault-injection layer live on the rpc"),
     ({"DSGD_ELASTIC": "1"}, "DSGD_ELASTIC/DSGD_ASYNC_DRAIN/DSGD_FIT_CKPT_EVERY ignored"),
     ({"DSGD_ASYNC_DRAIN": "1"}, "the elastic + crash-recovery subsystem"),
     ({"DSGD_FIT_CKPT_EVERY": "5", "DSGD_CHECKPOINT_DIR": "ckpt"},
