@@ -11,8 +11,11 @@ Phases, each fatal (a traceback and a non-zero exit):
 3. kernels: hold each kernel against its plain torch version on the same
    CUDA tensors, at the main path's shapes and at edge shapes, and time
    both (CUDA events, in turns: plain, kernel, kernel, plain) -- for
-   ``worker_grads`` also 40 launches on one input, bitwise identical (its
-   fixed-order sum), timed at the RPC reply's shape (K=1) and at K=8; for
+   ``worker_grads`` (one launch a call) on each input of
+   ``tools/worker_grads_routes.py`` ``check_cases`` (with K=2 over 17
+   ranges a worker, D=1 and a non-finite term) and 40
+   launches on one input, bitwise identical (its fixed-order sum), timed
+   at the RPC reply's shape (K=1) and at K=8; for
    ``sync_epoch`` over one full 2,146-step epoch, and for its mean mode
    (K = 1, grad_divisor = B, the async engines' local steps) over one
    64-step Hogwild dispatch; then ``sync_epoch``'s momentum and adam modes
@@ -287,6 +290,7 @@ from distributed_sgd_tpu_torch.parallel.sync import (
     SyncEngine,
     steps_per_epoch_for,
 )
+from distributed_sgd_tpu_torch.tools.worker_grads_routes import check_cases, main_path_batch
 from distributed_sgd_tpu_torch.utils.metrics import (
     AUTOPILOT_PROMOTED,
     AUTOPILOT_ROLLED_BACK,
@@ -322,7 +326,7 @@ PER_STEP_ROWS, PER_STEP_WORKERS = 100000, 8
 MAIN_PATH_LOSS_ACC = [[0.4378645, 0.4081789, 0.4020025], [0.7868265, 0.8038015, 0.8080468]]
 TPU_KERNEL = "distributed_sgd_tpu/ops/pallas_sparse.py:155"  # worker_grads, pl.pallas_call at :178
 HOGWILD_K = 64  # DSGD_STEPS_PER_DISPATCH of the full-width Hogwild run
-HOGWILD_K1_ROWS = 50000  # the one-step-a-dispatch run: 40,000 train rows, a 40,000-step budget
+HOGWILD_K1_ROWS = 12500  # the one-step-a-dispatch run: 10,000 train rows, a 10,000-step budget
 LOCAL_SGD_PERIOD, LOCAL_SGD_CHECK_EVERY = 256, 65536
 TRACED_HOGWILD_ROWS = 200000
 ASYNC_ACC_FLOOR = 0.70  # the sync phase's floor, for the async fits' best weights
@@ -389,56 +393,34 @@ def time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def main_path_batch(seed: int):
-    """[K, B, P] rows shaped like the main path's batches: RCV1-like
-    Zipf ids with duplicate draws zeroed, cosine-normalised ltc values."""
-    ds = rcv1_like(K * B, n_features=D, nnz=P, seed=seed, idf_values=True)
-    return (ds.indices.reshape(K, B, P), ds.values.reshape(K, B, P),
-            ds.labels.reshape(K, B).astype(np.float32))
-
-
-def edge_batch(k: int, b: int, p: int, seed: int, dups: bool = False, pad_rows: bool = False):
-    rng = np.random.default_rng(seed)
-    idx = rng.integers(0, D, (k, b, p)).astype(np.int32)
-    val = rng.normal(size=(k, b, p)).astype(np.float32)
-    y = rng.choice([-1.0, 1.0], (k, b)).astype(np.float32)
-    if dups and p > 1:
-        idx[:, :, 1] = idx[:, :, 0]
-    if pad_rows:
-        idx[:, ::3], val[:, ::3], y[:, ::3] = 0, 0.0, 0.0
-    return idx, val, y
-
-
 def check_worker_grads() -> dict:
-    """Kernel against plain version, and 40 launches on one input bitwise
-    identical (the fixed-order sum); times it at the RPC reply's shape
-    (K=1, B=100) and at the per-step path's (K=8, B=100).  Returns the
-    kernel's summary row, its time and bound at K=1."""
+    """Kernel against plain version on every input of
+    ``tools/worker_grads_routes.py`` ``check_cases`` (the main shape in each
+    rule, edge shapes, K=2 over 17 ranges a worker, D=1 and a non-finite
+    term), and 40 launches on one input bitwise identical (the
+    fixed-order sum); times it at the RPC reply's shape (K=1, B=100) and at
+    the per-step path's (K=8, B=100).  Returns the kernel's summary row,
+    its time and bound at K=1."""
     rng = np.random.default_rng(0)
-    cases = [(f"main-shape kind={kind}", main_path_batch(kind), kind) for kind in wg.COEFF_KINDS]
-    cases += [
-        ("B=37", edge_batch(3, 37, P, 1), wg.HINGE),
-        ("P=1", edge_batch(3, B, 1, 2), wg.LOGISTIC),
-        ("duplicate ids", edge_batch(3, B, P, 3, dups=True), wg.LEAST_SQUARES),
-        ("all-pad rows", edge_batch(3, B, P, 4, pad_rows=True), wg.HINGE),
-        ("K=1", edge_batch(1, B, P, 5), wg.HINGE),
-        ("K=8 B=1024", edge_batch(8, 1024, P, 6), wg.HINGE),
-        ("K=8 B=1024 logistic", edge_batch(8, 1024, P, 7), wg.LOGISTIC),
-    ]
     max_err = 0.0
-    for label, (idx, val, y), kind in cases:
-        w = torch.tensor(rng.normal(size=D).astype(np.float32) * 0.1, device="cuda")
-        args = [torch.from_numpy(a).cuda() for a in (idx, val, y)]
+    for label, w_np, arrays, kind in check_cases():
+        w = torch.from_numpy(w_np).cuda()
+        args = [torch.from_numpy(a).cuda() for a in arrays]
         got = wg.worker_grads(w, *args, kind)
         want = wg.worker_grads_plain(w, *args, kind)
         same = all(torch.equal(got, wg.worker_grads(w, *args, kind))
                    for _ in range(WG_REPEATS - 1))
         torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        ok = bool(((got - want).abs() <= ATOL + RTOL * want.abs()).all())
+        # a non-finite term gives the plain version's inf at its feature
+        # and leaves the finite entries to the tolerance
+        fin = torch.isfinite(want)
+        err = float((got[fin] - want[fin]).abs().max())
+        ok = bool(((got[fin] - want[fin]).abs() <= ATOL + RTOL * want[fin].abs()).all()
+                  and torch.equal(torch.isfinite(got), fin) and torch.equal(got[~fin], want[~fin]))
         print(f"worker_grads {label}: max_abs_err={err:.3e} nonzero={int((want != 0).sum())} "
-              f"bitwise identical over {WG_REPEATS} launches: {same}", flush=True)
-        if not ok:
+              f"non-finite={int((~fin).sum())} bitwise identical over {WG_REPEATS} launches: "
+              f"{same}", flush=True)
+        if not ok or (label == "non-finite term") != bool((~fin).any()):
             raise AssertionError(f"worker_grads {label} disagrees with its plain version "
                                  f"(max abs err {err}, rtol {RTOL}, atol {ATOL})")
         if not same:
@@ -471,7 +453,7 @@ def check_worker_grads() -> dict:
             "bound_us": max(bound_bytes_ms, bound_ops_ms) * 1e3,
             "kernel_us_runs": [t * 1e3 for t in kernel_ms],
             "plain_us_runs": [t * 1e3 for t in plain_ms],
-            "bytes": bytes_moved, "flops": flops,
+            "bytes": bytes_moved, "flops": flops, "plan": wg.launch_plan(k, B, P, D)._asdict(),
             "ms": min(kernel_ms), "plain_ms": min(plain_ms),
             "bound_ms": max(bound_bytes_ms, bound_ops_ms),
             "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
@@ -482,6 +464,9 @@ def check_worker_grads() -> dict:
     return {
         "name": "worker_grads", "route": "cuda",
         "source": "distributed_sgd_tpu_torch/csrc/worker_grads.cu",
+        "design": "one launch a call: K x R blocks, each a range of its worker's 64-bit "
+                  "integer sums in shared memory (it replaced three kernels and an HBM "
+                  "accumulator)",
         "replaces": TPU_KERNEL,
         "launches": None, "max_abs_err": max_err,
         # at the RPC reply's shape, K=1 B=100: this slice's main path
@@ -1854,16 +1839,14 @@ def check_rpc_profiled(model, train, test, w: np.ndarray) -> None:
     busy share, and bitwise the same weights."""
     again, _, _, dev = rpc_fit(model, train, test, profile=True)
     same = np.array_equal(np.asarray(again.weights), w)
-    kernels = [(t0_, t1_) for t0_, t1_, name in dev if "worker_grads" in name
-               or "margins_kernel" in name or "scatter_kernel" in name
-               or "convert_kernel" in name]
+    kernels = [(t0_, t1_) for t0_, t1_, name in dev if "worker_grads" in name]
     if dev:
         lo, hi = dev[0][0], max(t1_ for _, t1_, _ in dev)
         busy = union_us(dev, lo, hi)
         kernel_us = sum(t1_ - t0_ for t0_, t1_ in kernels)
         print(f"rpc device busy share over the profiled fit ({(hi - lo) / 1e3:.1f} ms from its "
               f"first device event to its last): {busy / (hi - lo):.4f}; worker_grads' "
-              f"{len(kernels)} kernels (3 a call) {kernel_us / 1e3:.1f} ms, other device work "
+              f"{len(kernels)} kernels (one a call) {kernel_us / 1e3:.1f} ms, other device work "
               f"{(busy - kernel_us) / 1e3:.1f} ms", flush=True)
     else:
         print("rpc device busy share: not measured (no device events in the trace)", flush=True)
@@ -3478,7 +3461,7 @@ def tree_busy_share(model, train, test, kw: dict) -> str:
     with DevCluster(model, train, test, n_workers=RPC_WORKERS, seed=0) as c:
         dev = device_events(lambda: c.master.fit_sync(1, B, RPC_LR, **kw))
     kernels = [(a, b) for a, b, name in dev if any(k in name for k in (
-        "margins_kernel", "scatter_kernel", "convert_kernel", "sync_epoch"))]
+        "worker_grads", "sync_epoch"))]
     if not kernels:
         return (f"not measured (the trace holds {len(dev)} device events and no "
                 f"worker_grads or sync_epoch kernel)")

@@ -11,13 +11,14 @@ instead of the TPU's lane-blocked ``[R, 128]`` view.  Pad entries
 (idx 0, val 0, y 0) are inert.
 
 On a CUDA tensor the wrapper launches the hand-written kernel in
-``csrc/worker_grads.cu`` (built at first use, ops/_build.py) or raises.
-The kernel sums each g_k in 64-bit integers at a power-of-two scale, so
-one input always gives one output bit for bit (csrc/worker_grads.cu says
-how).  On a CPU tensor it runs ``worker_grads_plain``, the same function
-in plain torch.  ``worker_grads.launches`` counts calls that launched the
-kernel (three kernels on the current stream), under
-a lock: the RPC workers of one process call it from several threads.
+``csrc/worker_grads.cu`` (built at first use, ops/_build.py) or raises:
+one launch a call, K x R blocks, each summing a range of its worker's
+features in 64-bit integers in its shared memory at a power-of-two scale,
+so one input always gives one output bit for bit (csrc/worker_grads.cu
+says how; ``launch_plan`` gives R).  On a CPU tensor it runs
+``worker_grads_plain``, the same function in plain torch.
+``worker_grads.launches`` counts calls that launched the kernel, under a
+lock: the RPC workers of one process call it from several threads.
 
 A Python coefficient function cannot be traced into CUDA the way the JAX
 package traces ``coeff_fn`` into Pallas, so each model names its rule by
@@ -27,14 +28,29 @@ torch definition of each rule and the kernel mirrors it.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
+import math
 import threading
+from typing import NamedTuple
 
 import torch
 
 HINGE, LOGISTIC, LEAST_SQUARES = 0, 1, 2
 COEFF_KINDS = (HINGE, LOGISTIC, LEAST_SQUARES)
 _counts_lock = threading.Lock()
+
+COEFF_CHUNK = 512  # samples whose coefficients a block keeps at once
+# entries a block walks at once: its 1,024 threads, 8 each (csrc/worker_grads.cu
+# kThreads * kPerThread)
+WALK = 8 * 1024
+# Features a block owns at most: 8 blocks a worker at 47,236 features, each
+# sharing out the zero-fill, the atomics and the write (and each reading all
+# of its worker's rows, from L2).  A block's shared memory, 8 bytes a feature
+# and 4 a coefficient, stays within 51,208 bytes of the 232,448 a Hopper
+# block may have, whatever D (the kernel declares no static __shared__).
+SPAN_TARGET = 6144
 
 
 def grad_coeff(kind: int, margins: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -88,26 +104,55 @@ def worker_grads_plain(w: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
     return g.view(k, d)
 
 
-def _launch(w, idx, val, y, coeff_kind):
-    from distributed_sgd_tpu_torch.ops import _build
+class LaunchPlan(NamedTuple):
+    ranges: int  # R: blocks a worker
+    span: int  # features a block owns; the last block may own fewer
+    cap: int  # coefficients a block keeps at once
+    smem: int  # dynamic shared bytes a block: int64 sums, f32 coefficients, two words
 
-    lib = _build.load("worker_grads")
-    fn = lib.dsgd_worker_grads
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+@functools.lru_cache(maxsize=1024)
+def launch_plan(k: int, b: int, p: int, d: int) -> LaunchPlan:
+    """The kernel's grid for K workers of B rows of P entries over D
+    features: R ranges a worker of at most SPAN_TARGET features, so any D
+    is taken.  The kernel's entry point checks the same invariants."""
+    # a block walks a chunk's cap * P entries with int indices
+    cap = max(1, min(b, COEFF_CHUNK, (2 ** 31 - 1 - WALK) // max(1, p)))
+    ranges = max(1, math.ceil(d / SPAN_TARGET))
+    span = max(1, math.ceil(d / ranges))
+    ranges = max(1, math.ceil(d / span))
+    return LaunchPlan(ranges, span, cap, 8 * span + 4 * cap + 8)
+
+
+_fn = None
+
+
+def _kernel():
+    """The C entry point with its argument types, the library built and
+    bound at first use."""
+    global _fn
+    if _fn is None:
+        from distributed_sgd_tpu_torch.ops import _build
+
+        fn = _build.load("worker_grads").dsgd_worker_grads
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def _launch(w, idx, val, y, coeff_kind):
     k, b, p = idx.shape
     d = w.shape[0]
-    with torch.cuda.device(w.device):
-        g = torch.empty((k, d), dtype=torch.float32, device=w.device)  # zeroed by the kernel
-        # scratch: the integer sums; the coefficients, the sample maxima and
-        # each worker's maximum (float bits)
-        acc = torch.empty((k, d), dtype=torch.int64, device=w.device)
-        scratch = torch.empty((2 * k * b + k,), dtype=torch.float32, device=w.device)
-        stream = torch.cuda.current_stream(w.device).cuda_stream
-        err = fn(w.data_ptr(), idx.data_ptr(), val.data_ptr(), y.data_ptr(),
-                 g.data_ptr(), acc.data_ptr(), scratch.data_ptr(),
-                 k, b, p, d, coeff_kind, stream)
+    plan = launch_plan(k, b, p, d)
+    fn = _kernel()
+    g = torch.empty((k, d), dtype=torch.float32, device=w.device)  # written whole by the kernel
+    dev = w.device.index
+    # the raw current stream: no torch.cuda.Stream object, no device switch
+    # where w's device is current
+    with contextlib.nullcontext() if dev == torch.cuda.current_device() else torch.cuda.device(dev):
+        err = fn(w.data_ptr(), idx.data_ptr(), val.data_ptr(), y.data_ptr(), g.data_ptr(),
+                 k, b, p, d, coeff_kind, *plan, torch._C._cuda_getCurrentRawStream(dev))
     if err != 0:
         raise RuntimeError(f"worker_grads kernel launch failed: cudaError {err}")
     with _counts_lock:

@@ -131,6 +131,14 @@ def test_the_flywheel_detects_retrains_and_promotes(tmp_path):
         source_refresh_s=0.2, canary_fraction=0.5, health_s=0.1, detector=detector,
         poll_s=0.1, cooldown_s=0.3, canary_timeout_s=30.0, max_retrains=2, seed=7,
         ckpt_dir=str(tmp_path / "ckpt"), metrics=m, device="cpu")
+    # the router refreshes the probe set from a full reservoir only: on a
+    # loaded host its 0.2 s tick can fire while the first chunk is still
+    # being pumped, and a loss over a half-filled reservoir (0.43 over 14
+    # rows, where each 24-row set gave 0.58-0.83) became the warm-up's
+    # baseline and tripped the detector before the shift.  A full reservoir
+    # is a function of the seed and the arrival order, so the first probe
+    # loss no longer depends on the host's speed.
+    fly.reservoir.min_fill = fly.reservoir.capacity
     fly.start()
     try:
         dropped = []

@@ -134,3 +134,44 @@ def test_build_targets_hopper_and_needs_nvcc():
     if shutil.which("nvcc") is None:
         with pytest.raises(RuntimeError, match="nvcc"):
             _build.build()
+
+
+PLAN_SHAPES = [(1, 100, 76), (8, 100, 76), (3, 37, 76), (64, 1, 1), (8, 1024, 76),
+               (2, 4096, 128), (64, 512, 8), (1, 4, 2 ** 30)]
+PLAN_DS = [1, 2, 127, 4096, 4097, 16384, 47236, 100003, 1_000_000]
+
+
+SMEM_PER_BLOCK = 232_448  # a Hopper block's shared memory (the opt-in limit)
+
+
+@pytest.mark.parametrize("k,b,p", PLAN_SHAPES, ids=[f"K{k}-B{b}-P{p}" for k, b, p in PLAN_SHAPES])
+@pytest.mark.parametrize("d", PLAN_DS + ["boundary", "one past a boundary"])
+def test_launch_plan_covers_every_feature_once_within_shared_memory(k, b, p, d):
+    if d == "boundary":
+        d = wg.SPAN_TARGET
+    elif d == "one past a boundary":
+        d = wg.SPAN_TARGET + 1
+    plan = wg.launch_plan(k, b, p, d)
+    assert plan.ranges >= 1 and plan.span >= 1 and 1 <= plan.cap <= b
+    covered = np.zeros(d, np.int32)
+    for r in range(plan.ranges):
+        covered[r * plan.span:(r + 1) * plan.span] += 1
+    assert (covered == 1).all()
+    assert (plan.ranges - 1) * plan.span < d <= plan.ranges * plan.span  # no empty block
+    # the kernel's whole shared memory is the plan's: it declares no static __shared__
+    src = (_build.CSRC_DIR / "worker_grads.cu").read_text()
+    code = [line for line in src.splitlines() if not line.strip().startswith("//")]
+    static_smem = sum(1 for line in code if "__shared__" in line and "extern" not in line)
+    assert static_smem == 0
+    assert plan.smem == 8 * plan.span + 4 * plan.cap + 8 <= SMEM_PER_BLOCK - static_smem
+    assert plan.span <= wg.SPAN_TARGET
+    assert k * plan.ranges < 2 ** 31 and plan.cap * p <= 2 ** 31 - 1 - wg.WALK
+
+
+def test_kernel_names_and_one_launch_are_unchanged_for_callers():
+    assert _build.KERNELS == ("worker_grads", "sync_epoch")
+    src = (_build.CSRC_DIR / "worker_grads.cu").read_text()
+    assert 'extern "C" int dsgd_worker_grads(' in src
+    assert src.count("__global__") == 1 and src.count("<<<") == 1
+    wrapper = (_build.PACKAGE_DIR / "ops" / "worker_grads.py").read_text()
+    assert ".dsgd_worker_grads" in wrapper
