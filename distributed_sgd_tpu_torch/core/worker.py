@@ -333,6 +333,13 @@ class WorkerNode:
         self._w: Optional[torch.Tensor] = None
         self._running_async = threading.Event()
         self._async_thread: Optional[threading.Thread] = None
+        # StartAsync, StopAsync and stop() meet here: a stop bumps the
+        # session number, and a start that was overtaken by one (its
+        # handler still preparing) starts no loop.  The loop is started and
+        # published under the lock, so a stop joins it or finds none.
+        self._async_ctl = threading.Lock()
+        self._async_start = threading.Lock()  # one StartAsync at a time
+        self._async_session = 0
         self._assignment: Optional[torch.Tensor] = None
         self._async_bs = 0
         self._steps: Optional[MeanSteps] = None
@@ -450,9 +457,7 @@ class WorkerNode:
 
     def stop(self) -> None:
         self._stopped.set()
-        self._running_async.clear()
-        if self._async_thread is not None:
-            self._async_thread.join()
+        self._end_async()
         self._profile.close()
         if self._registered.is_set():
             try:
@@ -856,11 +861,20 @@ class WorkerNode:
         from the weights `w0`.  A repeated StartAsync (the master's
         re-issue after an eviction) replaces a running loop, joined first
         so two loops never share the state.  The optimizer is resolved by
-        name here, so an unknown name fails the call, not the loop."""
-        if self._async_thread is not None and self._async_thread.is_alive():
+        name here, so an unknown name fails the call, not the loop.  A
+        StopAsync or stop() that lands while this call prepares wins: no
+        loop is started."""
+        with self._async_start:
+            self._start_async(w0, assignment, batch_size, learning_rate, optimizer, momentum)
+
+    def _start_async(self, w0, assignment, batch_size, learning_rate, optimizer,
+                     momentum) -> None:
+        with self._async_ctl:
+            session, old = self._async_session, self._async_thread
+        if old is not None and old.is_alive():
             self.log.info("StartAsync re-issued: replacing the running async loop")
             self._running_async.clear()
-            self._async_thread.join()
+            old.join()
         if self._hier is not None:
             self.log.warning(
                 "host_devices=%d: the async loop runs replicated on the "
@@ -868,10 +882,14 @@ class WorkerNode:
                 "Gradient plane)", self.host_devices)
         opt = self._prepare_async(w0, assignment, batch_size, learning_rate, optimizer,
                                   momentum)
-        self._running_async.set()
-        self._async_thread = threading.Thread(target=self._async_loop, daemon=True,
-                                              name=f"async-{self.port}")
-        self._async_thread.start()
+        with self._async_ctl:
+            if session != self._async_session or self._stopped.is_set():
+                self.log.info("StartAsync overtaken by a stop: no async loop started")
+                return
+            self._running_async.set()
+            self._async_thread = threading.Thread(target=self._async_loop, daemon=True,
+                                                  name=f"async-{self.port}")
+            self._async_thread.start()
         self.log.info("async started: %d samples, bs=%d lr=%g optimizer=%s",
                       len(assignment), batch_size, learning_rate, opt.kind)
 
@@ -915,8 +933,13 @@ class WorkerNode:
     def stop_async(self) -> None:
         """StopAsync: the loop ends after its dispatch in flight, which is
         waited for (unless the loop itself asks)."""
-        self._running_async.clear()
-        t = self._async_thread
+        self._end_async()
+
+    def _end_async(self) -> None:
+        with self._async_ctl:
+            self._async_session += 1
+            self._running_async.clear()
+            t = self._async_thread
         if t is not None and t is not threading.current_thread():
             t.join()
 
@@ -951,7 +974,8 @@ class WorkerNode:
         k = self.steps_per_dispatch
         with torch.cuda.stream(self._stream):  # this thread's launches go on the node's stream
             state = self._steps.init_state()
-            while self._running_async.is_set():
+            # a stopped node never trains, whoever cleared the flag
+            while self._running_async.is_set() and not self._stopped.is_set():
                 self._profile.tick()
                 delta_np, state = self._dispatch(state)
                 if self.telemetry:

@@ -4,12 +4,16 @@ The port's own copy of the JAX package's loader (distributed_sgd_tpu/
 data/rcv1.py), kept byte-for-byte in its arithmetic so both packages hand
 their engines identical arrays:
 
-- text parsing is the pure-python line parser (the native C++ chunked
-  parser is not carried over yet);
+- text parsing goes through the native chunked parser
+  (data/_native/parser.cpp, built with g++ at first use); where it cannot
+  be built (no g++) the loader warns once and parses line by line in
+  python (``parse_svm_file_py``), with the same arrays for well-formed
+  files.  ``_native.native_loaded()`` says which route runs;
 - rows land in flat CSR, then are packed once into fixed-shape
-  ``int32[N, P]`` / ``f32[N, P]`` padded arrays; P defaults to the
-  dataset's max nnz (lossless), or can be capped (rows are then truncated
-  by largest |value|);
+  ``int32[N, P]`` / ``f32[N, P]`` padded arrays, by the native row loop or
+  the numpy scatter under the same rule; P defaults to the dataset's max
+  nnz (lossless), or can be capped (rows are then truncated by largest
+  |value|, ties to the earlier position);
 - feature ids are converted to 0-based at parse time;
 - label binarization reproduces the reference exactly, including the
   last-topic-wins quirk: the qrels map keeps only the LAST line per doc id,
@@ -25,6 +29,8 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+
+from distributed_sgd_tpu_torch.data import _native
 
 log = logging.getLogger("dsgd.data")
 
@@ -78,10 +84,12 @@ class Dataset:
 
 
 def parse_svm_file_py(path: str, index_offset: int = -1):
-    """Line parser -> (doc_ids, row_ptr, col_idx, values).
+    """Line parser -> (doc_ids, row_ptr, col_idx, values): the fallback of
+    ``parse_svm_file`` and its oracle.
 
     First token is the doc id, remaining `f:v` tokens are features; tokens
-    are split on arbitrary whitespace.
+    are split on arbitrary whitespace.  A non-numeric doc id raises (the
+    native scan skips such a line and counts it).
     """
     doc_ids: List[int] = []
     row_nnz: List[int] = []
@@ -112,6 +120,15 @@ def parse_svm_file_py(path: str, index_offset: int = -1):
     )
 
 
+def parse_svm_file(path: str, index_offset: int = -1, n_threads: int = 0):
+    """The native parser (`n_threads` 0: the host's hardware threads), or
+    the python parser where the library cannot be had."""
+    out = _native.parse_svm_file(path, n_threads=n_threads, index_offset=index_offset)
+    if out is None:
+        out = parse_svm_file_py(path, index_offset=index_offset)
+    return out
+
+
 def read_labels(path: str) -> Dict[int, int]:
     """qrels 'topic docid 1' -> {docid: +/-1}, CCAT -> +1, last line wins."""
     labels: Dict[int, int] = {}
@@ -133,8 +150,10 @@ def pack_csr(
     """CSR -> padded [N, P] arrays.
 
     P defaults to max row nnz (lossless).  If a smaller P is forced, the
-    affected rows keep their P largest-|value| features (ties: earliest
-    wins), in index order.
+    affected rows keep their P largest-|value| features (NaN last, ties:
+    earliest wins), in index order.  The native row loop
+    (parser.cpp ``dsgd_pack_csr``) packs where the library loads, else the
+    numpy scatter (``pack_csr_numpy``), with the same output.
     """
     nnz = np.diff(row_ptr).astype(np.int64)
     n = len(nnz)
@@ -142,7 +161,23 @@ def pack_csr(
     # width >= 1 always: a zero-width index array is the dense-layout
     # discriminator (Dataset.is_dense)
     p = int(pad_width) if pad_width else max(max_nnz, 1)
+    native = _native.pack_csr(row_ptr, col_idx, values, p)
+    if native is not None:
+        out_idx, out_val, truncated = native
+    else:
+        out_idx, out_val, truncated = pack_csr_numpy(row_ptr, col_idx, values, p)
+    if truncated:
+        log.warning("pad_width=%d truncated %d/%d rows (max nnz %d)", p, truncated, n, max_nnz)
+    return out_idx, out_val
 
+
+def pack_csr_numpy(row_ptr: np.ndarray, col_idx: np.ndarray, values: np.ndarray,
+                   p: int) -> Tuple[np.ndarray, np.ndarray, int]:
+    """The numpy route of ``pack_csr`` at width `p`: (indices, values,
+    rows truncated)."""
+    nnz = np.diff(row_ptr).astype(np.int64)
+    n = len(nnz)
+    max_nnz = int(nnz.max()) if n else 0
     out_idx = np.zeros((n, p), dtype=np.int32)
     out_val = np.zeros((n, p), dtype=np.float32)
     pos_in_row = np.arange(len(col_idx), dtype=np.int64) - np.repeat(row_ptr[:-1], nnz)
@@ -150,7 +185,7 @@ def pack_csr(
     if max_nnz <= p:
         out_idx[row_of, pos_in_row] = col_idx
         out_val[row_of, pos_in_row] = values
-        return out_idx, out_val
+        return out_idx, out_val, 0
     over = np.nonzero(nnz > p)[0]
     keep = pos_in_row < p
     over_mask = np.isin(row_of, over)
@@ -164,8 +199,7 @@ def pack_csr(
         sel.sort()
         out_idx[r, :p] = ci[sel]
         out_val[r, :p] = cv[sel]
-    log.warning("pad_width=%d truncated %d/%d rows (max nnz %d)", p, len(over), n, max_nnz)
-    return out_idx, out_val
+    return out_idx, out_val, len(over)
 
 
 def merge_parts(parts) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
@@ -204,6 +238,7 @@ def load_rcv1(
     full: bool = False,
     n_features: int = N_FEATURES,
     pad_width: Optional[int] = None,
+    n_threads: int = 0,
 ) -> Dataset:
     """Load RCV1 from `folder`: the train vectors file, plus the four test
     parts when `full`, labelled from the topics qrels file."""
@@ -211,7 +246,22 @@ def load_rcv1(
     if full:
         files += [os.path.join(folder, f"lyrl2004_vectors_test_pt{d}.dat") for d in range(4)]
     labels_map = read_labels(os.path.join(folder, "rcv1-v2.topics.qrels"))
-    doc_ids, row_ptr, col_idx, values = merge_parts([parse_svm_file_py(f) for f in files])
+
+    # With auto threading (n_threads=0) and several files, one parse a file
+    # on the shared pool (the native parser releases the GIL inside the
+    # ctypes call, so the files parse at once), the cores split between
+    # them.  An explicit n_threads is a budget a parse: the files go one
+    # after the other.
+    cores = os.cpu_count() or 1
+    if n_threads == 0 and len(files) > 1 and cores >= 2 * len(files):
+        from distributed_sgd_tpu_torch.utils.pool import global_pool
+
+        per_file = cores // len(files)
+        parts = global_pool().map(lambda f: parse_svm_file(f, n_threads=per_file), files)
+    else:
+        parts = [parse_svm_file(f, n_threads=n_threads) for f in files]
+    doc_ids, row_ptr, col_idx, values = merge_parts(parts)
+
     idx, val = pack_csr(row_ptr, col_idx, values, pad_width=pad_width)
     y = np.asarray([labels_map[int(d)] for d in doc_ids], dtype=np.int32)
     return Dataset(indices=idx, values=val, labels=y, n_features=n_features)

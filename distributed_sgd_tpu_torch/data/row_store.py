@@ -116,9 +116,10 @@ def build_row_store(data: Dataset, path: str,
 
 
 def build_from_corpus(folder: str, path: str, full: bool = False,
-                      pad_width: Optional[int] = None) -> dict:
-    """Parse the corpus in `folder` (data/rcv1.py load_rcv1) and build the
-    store from it, recording the 80/20 train cut and the train split's
+                      pad_width: Optional[int] = None, n_threads: int = 0) -> dict:
+    """Parse the corpus in `folder` (data/rcv1.py load_rcv1: the native
+    parser, `n_threads` a parse, else the python one) and build the store
+    from it, recording the 80/20 train cut and the train split's
     dim-sparsity vector.  This is the ONE parse the store's consumers
     amortize."""
     from distributed_sgd_tpu_torch.data.rcv1 import (
@@ -127,7 +128,7 @@ def build_from_corpus(folder: str, path: str, full: bool = False,
         train_test_split,
     )
 
-    data = load_rcv1(folder, full=full, pad_width=pad_width)
+    data = load_rcv1(folder, full=full, pad_width=pad_width, n_threads=n_threads)
     train, _ = train_test_split(data)
     return build_row_store(data, path, train_rows=len(train),
                            dim_sparsity=dim_sparsity(train))

@@ -153,8 +153,11 @@ class Run:
 
 
 def load_data(cfg: Config) -> Dataset:
-    """RCV1 from cfg.data_path, or synthetic via DSGD_SYNTHETIC=<n> when the
-    corpus is absent."""
+    """RCV1 from cfg.data_path (the train file, and the four test parts with
+    DSGD_FULL), or synthetic via DSGD_SYNTHETIC=<n> when the corpus is
+    absent.  The files are parsed and packed by the native parser
+    (data/_native, built with g++ at first use); without g++ the loader
+    warns once and parses and packs in python, to the same arrays."""
     synthetic = os.environ.get("DSGD_SYNTHETIC")
     train_file = os.path.join(cfg.data_path, "lyrl2004_vectors_train.dat")
     if synthetic or not os.path.exists(train_file):
@@ -722,6 +725,9 @@ def _run_worker(cfg: Config, train: Dataset, model, extra: Optional[dict] = None
 
 
 _live_serving: list = []  # the serving roles' nodes in this process
+# stop_serving() calls so far: a role that was answering before one of them
+# and registered only after it stops at once instead of serving on
+_serving_stops = 0
 
 
 class _ServingRole:
@@ -747,13 +753,22 @@ class _ServingRole:
 def stop_serving() -> None:
     """Stop every serving role of this process (what SIGTERM and SIGINT
     do): its gRPC server stops and its `main` returns."""
+    global _serving_stops
     with _live_lock:
+        _serving_stops += 1
         roles = list(_live_serving)
     for r in roles:
         r.stop()
 
 
-def _serve_until_stopped(role: _ServingRole) -> None:
+def _serving_stop_count() -> int:
+    with _live_lock:
+        return _serving_stops
+
+
+def _serve_until_stopped(role: _ServingRole, stops_before: int) -> None:
+    """Serve until the role's node ends; `stops_before` is the count of
+    stop_serving() calls taken before the node was started."""
     def _on_signal(signum, _frame):
         log.info("signal %d: stopping the serving role", signum)
         threading.Thread(target=stop_serving, name="serve-stop", daemon=True).start()
@@ -763,7 +778,10 @@ def _serve_until_stopped(role: _ServingRole) -> None:
             signal.signal(sig, _on_signal)
     with _live_lock:
         _live_serving.append(role)
+        stopped_meanwhile = _serving_stops != stops_before
     try:
+        if stopped_meanwhile:
+            role.stop()
         role.node.await_termination()
     finally:
         with _live_lock:
@@ -786,6 +804,7 @@ def _run_serving(cfg: Config, role: str, device) -> None:
     """The three serving branches of the JAX CLI's `_run_role`: the router
     (with HA), the in-process fleet (with the autoscaler), and the single
     serve node."""
+    stops_before = _serving_stop_count()
     if role == "route":
         # the fleet router (serving/router.py): health-aware
         # power-of-two-choices balancing over DSGD_SERVE_TARGETS, the canary
@@ -815,7 +834,7 @@ def _run_serving(cfg: Config, role: str, device) -> None:
             router._ha.start()
         log.info("routing on :%d over %s (canary=%g, hedge=%gms)", router.bound_port,
                  cfg.serve_targets, cfg.serve_canary, cfg.serve_hedge_ms)
-        _serve_until_stopped(_ServingRole(router))
+        _serve_until_stopped(_ServingRole(router), stops_before)
         return
     if cfg.serve_replicas > 0:
         # the one-machine fleet (serving/fleet.py): DSGD_SERVE_REPLICAS
@@ -849,7 +868,7 @@ def _run_serving(cfg: Config, role: str, device) -> None:
             before_stop.append(autoscaler.stop)
         log.info("serving fleet: router :%d over %d in-process replicas on %s",
                  fleet.router_port, cfg.serve_replicas, device)
-        _serve_until_stopped(_ServingRole(fleet, *before_stop))
+        _serve_until_stopped(_ServingRole(fleet, *before_stop), stops_before)
         return
     # one replica (serving/server.py): the weights on the card, hot-reloaded
     # from the trainer's checkpoints
@@ -860,7 +879,7 @@ def _run_serving(cfg: Config, role: str, device) -> None:
     log.info("serving model=%s on :%d (ckpt=%s, max_batch=%d, max_delay_ms=%g, "
              "queue_depth=%d, device=%s)", cfg.model, server.bound_port, cfg.checkpoint_dir,
              cfg.serve_max_batch, cfg.serve_max_delay_ms, cfg.serve_queue_depth, device)
-    _serve_until_stopped(_ServingRole(server))
+    _serve_until_stopped(_ServingRole(server), stops_before)
 
 
 def _serve_distributor(cfg: Config):

@@ -15,6 +15,7 @@ Nothing here runs at import: the CPU test host has no ``nvcc``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -24,6 +25,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, Iterable, List
+
+from distributed_sgd_tpu_torch.utils import fsio
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -96,27 +99,28 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
     from distributed_sgd_tpu_torch import compile_cache
 
     build_dir().mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in names:
-        out = library_path(name)
-        if out.exists():
-            compile_cache.record_build(name, hit=True)
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        procs[name] = (out, tmp, subprocess.Popen(
-            nvcc_command(name, tmp), stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
     reports, failed = {}, []
-    for name, (out, tmp, proc) in procs.items():
-        report, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exited {proc.returncode}\n{report}")
-            continue
-        os.replace(tmp, out)  # atomic: a reader never sees half a library
-        compile_cache.record_build(name, hit=False)
-        reports[name] = report
-    if failed:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    # each library is installed by an atomic replace once every compile
+    # succeeded: a reader never sees half a library
+    with contextlib.ExitStack() as installs:
+        procs = {}
+        for name in names:
+            out = library_path(name)
+            if out.exists():
+                compile_cache.record_build(name, hit=True)
+                continue
+            tmp = installs.enter_context(fsio.replacing(out))
+            procs[name] = subprocess.Popen(nvcc_command(name, Path(tmp)), stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True)
+        for name, proc in procs.items():
+            report, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{name}: nvcc exited {proc.returncode}\n{report}")
+                continue
+            compile_cache.record_build(name, hit=False)
+            reports[name] = report
+        if failed:
+            raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return reports
 
 

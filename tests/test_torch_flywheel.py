@@ -207,3 +207,62 @@ def test_the_dev_role_runs_the_flywheel(monkeypatch, caplog, tmp_path):
     assert "dev flywheel: horizon=4608 rows (step shift at 4096), window=256" in caplog.text
     assert "flywheel done: served=4352 dropped=0" in caplog.text
     assert _no_autopilot_threads()
+
+
+def _shift_probe_losses(pkg, n_features):
+    """The probe losses a stream shift at row 8,192 gives in expectation
+    (the flywheel's initial fit on rows [0, 4,096) at the CLI's defaults,
+    as Flywheel.start runs it): the model's mean loss over the served rows
+    before the shift, [4,096, 8,192), and after it, [8,192, 12,288)."""
+    if pkg == "jax":
+        from distributed_sgd_tpu.autopilot import stream as st
+        from distributed_sgd_tpu.core import cluster, early_stopping
+        from distributed_sgd_tpu.data import rcv1
+        from distributed_sgd_tpu.models import linear
+    else:
+        from distributed_sgd_tpu_torch.autopilot import stream as st
+        from distributed_sgd_tpu_torch.core import cluster, early_stopping
+        from distributed_sgd_tpu_torch.data import rcv1
+        from distributed_sgd_tpu_torch.models import linear
+    cfg = tmain.Config()
+    stream = st.DriftingStream(n_features=n_features, seed=cfg.seed, shift_at=8192)
+    corpus = stream.rows(0, 12288)
+    device = {} if pkg == "jax" else {"device": "cpu"}
+    model = linear.make_model(cfg.model, cfg.lam, n_features,
+                              dim_sparsity=rcv1.dim_sparsity(corpus), **device)
+    dev = cluster.DevCluster(model, corpus, stream.eval_set(256, at=4096), n_workers=2,
+                             seed=cfg.seed)
+    try:
+        fit = dev.master.fit_sync(
+            max_epochs=cfg.max_epochs, batch_size=cfg.batch_size,
+            learning_rate=cfg.learning_rate, split=st.window_split(0, 4096),
+            criterion=st.continual_criterion(
+                early_stopping.no_improvement(patience=cfg.patience, min_delta=cfg.conv_delta),
+                horizon=2 * cfg.patience + 1))
+    finally:
+        dev.stop()
+    w = np.asarray(fit.weights, np.float32)
+    margins = np.einsum("np,np->n", w[corpus.indices], corpus.values)
+    if pkg == "jax":
+        losses = np.asarray(model.losses_from_margins(margins, corpus.labels.astype(np.float32)))
+    else:
+        losses = model.losses_from_margins(torch.from_numpy(margins),
+                                           torch.from_numpy(corpus.labels)).numpy()
+    return float(losses[4096:8192].mean()), float(losses[8192:].mean())
+
+
+@pytest.mark.parametrize("n_features", [16384, 4096])
+def test_the_smokes_shift_moves_the_probe_loss_as_in_jax(n_features):
+    """The flywheel scenario of the card's smoke (a 4,096-row window, the
+    shift at row 8,192) through both packages: the same pre- and
+    post-shift losses.  At the dev role's 16,384 features the shift moves
+    the loss less than the detector's 1.5x ratio in the JAX package too,
+    so a trip there rides on the probes' sampling noise; at 4,096 it moves
+    it well past."""
+    ref = _shift_probe_losses("jax", n_features)
+    got = _shift_probe_losses("torch", n_features)
+    print(f"n_features {n_features}: pre- and post-shift losses, JAX {ref}, port {got}; "
+          f"ratio {ref[1] / ref[0]:.4f}")
+    np.testing.assert_allclose(got, ref, rtol=1e-6)
+    ratio = tmain.Config().autopilot_drift_ratio
+    assert (ref[1] / ref[0] < ratio) == (n_features == 16384)

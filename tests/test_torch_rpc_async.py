@@ -500,3 +500,39 @@ def test_the_master_and_worker_roles_run_the_async_fit_through_main(monkeypatch)
     assert res.fit.state.updates >= 720 and len(res.fit.test_losses) >= 1
     for i in range(2):
         assert not isinstance(box[f"w{i}"], Exception), box[f"w{i}"]
+
+
+@pytest.mark.parametrize("stopper", ["stop_async", "stop"])
+def test_a_stop_that_lands_while_start_async_prepares_wins(data, stopper):
+    """A StopAsync (or the node's stop) that arrives while a StartAsync is
+    still preparing returns at once, and the StartAsync then starts no
+    loop; a later StartAsync starts one as before."""
+    train, _, _ = data
+    w = WorkerNode("127.0.0.1", 0, "127.0.0.1", 1, _torch(train), _models(data)[1])
+    entered, release = threading.Event(), threading.Event()
+    prepare = w._prepare_async
+
+    def slow_prepare(*a, **kw):
+        entered.set()
+        release.wait(30)
+        return prepare(*a, **kw)
+
+    w._prepare_async = slow_prepare
+    args = (np.zeros(D, np.float32), np.arange(64), B, LR)
+    starter = threading.Thread(target=w.start_async, args=args)
+    starter.start()
+    try:
+        assert entered.wait(30)
+        getattr(w, stopper)()
+        release.set()
+        starter.join(30)
+        assert not starter.is_alive()
+        assert w._async_thread is None and not w._running_async.is_set()
+        if stopper == "stop_async":
+            w._prepare_async = prepare
+            w.start_async(*args)
+            assert w._async_thread.is_alive() and w._running_async.is_set()
+    finally:
+        release.set()
+        w.stop()
+    assert w._async_thread is None or not w._async_thread.is_alive()

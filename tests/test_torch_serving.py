@@ -918,3 +918,21 @@ def test_readers_never_see_a_step_with_another_steps_weights(tmp_path):
     assert not any(t.is_alive() for t in threads)
     assert not bad, f"{len(bad)} snapshots held another step's weights"
     assert store.step > 1
+
+
+def test_a_stop_that_lands_before_the_role_registers_ends_it(tmp_path, monkeypatch):
+    """stop_serving() between the serve node's start and its registration
+    (the role answers, but stop_serving finds no role to stop): main()
+    returns all the same."""
+    Checkpointer(str(tmp_path)).save(2, _weights(3))
+    real = tmain._serve_until_stopped
+
+    def stop_first(role, stops_before):
+        tmain.stop_serving()
+        return real(role, stops_before)
+
+    monkeypatch.setattr(tmain, "_serve_until_stopped", stop_first)
+    t, box = _role_in_thread(Config(role_override="serve", checkpoint_dir=str(tmp_path),
+                                    serve_port=_free_port(), serve_health_s=0.2))
+    t.join(30)
+    assert not t.is_alive() and "error" not in box and box["run"].fit is None
