@@ -45,7 +45,7 @@ Phases, each fatal (a traceback and a non-zero exit):
    accuracy of the returned best weights, and that no worker thread is
    left; the same two with momentum (Hogwild, lr 0.05) and adam (local
    SGD, lr 0.001); Hogwild at the reference's one step a dispatch (depth
-   cut to 50,000 rows); one local SGD round and one evaluation timed at
+   cut to 6,250 rows); one local SGD round and one evaluation timed at
    the default period of 16 steps; and a Hogwild run under
    ``torch.profiler`` (depth cut to 200,000 rows) for the device's busy
    share;
@@ -61,10 +61,12 @@ Phases, each fatal (a traceback and a non-zero exit):
    main path's shape at 100,000 rows of ``python -m
    distributed_sgd_tpu_torch`` with DSGD_PROFILE_DIR, in a process of its
    own, whose trace holds one ``sync_epoch`` kernel; and
-   the host times of a save and a restore, and of Hogwild with and without
-   a checkpointer; then a local SGD fit run twice (100,000 rows; sgd, then
-   adam), bitwise equal, and ``tools/sync_repeatability.py`` in a process
-   of its own, one landing place for each optimizer;
+   the host times of a save and a restore (Hogwild's with and without a
+   checkpointer is no longer run: a depth cut); then a local SGD fit run
+   twice (100,000 rows; sgd, then adam), bitwise equal, and
+   ``tools/sync_repeatability.py`` in a process of its own, one landing
+   place for each optimizer (the two processes of their own run beside
+   the phase's other checks, started after the host times);
 8. the RPC engine: ``grpc`` and ``protobuf`` import (their versions
    printed); a DevCluster of 3 workers on the card at full width (B=100,
    lr 0.5, 1 epoch), checking that each window launched ``worker_grads``
@@ -79,8 +81,8 @@ Phases, each fatal (a traceback and a non-zero exit):
    master's windows and the workers' Gradient spans under the same trace
    ids; and two torch.profiler sessions back to back in one process of
    their own (``tools/profiler_sessions.py``), each over one
-   ``sync_epoch`` launch, each holding its kernel event, and a third
-   after a 12 s gap, printed whatever it holds;
+   ``sync_epoch`` launch, each holding its kernel event (a third after a
+   12 s gap, which checked nothing, is no longer run: a depth cut);
 9. the async fit over RPC: ``main()`` with DSGD_ENGINE=rpc DSGD_ASYNC=1,
    a DevCluster of 3 workers on the card at full width (B=100, lr 0.5, 64
    steps a dispatch, 1 epoch's budget, early stop on), checking one
@@ -92,16 +94,18 @@ Phases, each fatal (a traceback and a non-zero exit):
    with momentum (lr 0.05), and with adam (lr 0.001) under
    torch.profiler for the device's busy share; and
    the CLI as one master and 3 workers in processes of their own with
-   DSGD_ASYNC=1 (100,000 rows), all exiting 0;
+   DSGD_ASYNC=1 (100,000 rows), all exiting 0 (run beside phase 8's
+   traced CLI, its result printed there);
 10. fault tolerance over RPC, nodes on the card at full width (B=100) on
    a 100,000-row slice: a quorum of 3 of 3 workers with no straggler,
-   bitwise equal to the plain barrier; worker 0 sleeping 1.0 s in its
+   bitwise equal to the plain barrier (over the first 40,000 train rows,
+   a depth cut); worker 0 sleeping 1.0 s in its
    first 20 Gradient bodies under a quorum of 2 with a 0.1 s soft
    deadline, 2 epochs (the loss falls, accuracy >= 0.70, rounds degrade, hedges
    are sent and win, the straggler stays a member, ``worker_grads``
-   launches equal the bodies run, hedges and late ones included), and
-   the plain barrier with the same straggler for its first epoch, which
-   holds every slow body (the two compared by that epoch's windows/s);
+   launches equal the bodies run, hedges and late ones included; the
+   plain barrier's fit with it, for the windows/s and its launches
+   against bodies while bodies are slow, is no longer run: a depth cut);
    the heartbeat (0.5 s, 3
    misses) evicting a worker hard-killed mid-fit, the fit completing on
    the survivors; a master that dies after its 3rd fit-state snapshot
@@ -152,7 +156,7 @@ Phases, each fatal (a traceback and a non-zero exit):
    round), accuracy >= 0.70; then on phase 8's 100,000 rows (depth cuts:
    the shard fits and the K=1 tree were once full width)
    DSGD_AGG_TREE=fanout:2, bitwise phase 8's knobs-off fit there (each
-   tree fit with its busy share: the same fit over 50,000 rows under
+   tree fit with its busy share: the same fit over 25,000 rows under
    torch.profiler), DSGD_MASTER_SHARDS=2 (one
    ``worker_grads`` launch a worker a round for both lanes), and shards
    with the tree; each K=1 fit within 1e-5 of the knobs-off weights
@@ -162,7 +166,8 @@ Phases, each fatal (a traceback and a non-zero exit):
    no eviction and the flat fit's weights bit for bit;
 14. the telemetry scrape and the rest of the model, BASELINE configs 3
    and 5: config 5 at full width (1,000,000 x 1,024 dense least squares
-   made as benches/baseline_configs.py makes it, 1 worker, B=256, lr 0.05,
+   made as benches/baseline_configs.py makes it, in a thread beside phase
+   13's fits, 1 worker, B=256, lr 0.05,
    2 epochs: 3,125 steps an epoch, no ``sync_epoch`` or ``worker_grads``
    launch, a test MSE falling to <= 2e-4 and then rising by 1% at most,
    f32 matmul precision throughout, the epoch seconds and the kernel
@@ -178,7 +183,7 @@ Phases, each fatal (a traceback and a non-zero exit):
    snapshots, 0 errors, each worker's ``health.grad.norm`` its last
    reply's norm, ``slave.grad.compute`` its Gradient bodies, the cluster
    ``slave.sync.backward`` the sum, an HTTP GET of the exporter), the
-   windows/s of the same fit at 50,000 rows with telemetry off and on in
+   windows/s of the same fit at 25,000 rows with telemetry off and on in
    turns, split by part (a registry a node, the scrape, the health gauges),
    and the host time of one call of each part; ``flat_sparse`` on the card
    against the CPU;
@@ -264,7 +269,29 @@ Phases, each fatal (a traceback and a non-zero exit):
    from the same run on the CPU (``--device cpu``); its data seconds
    printed beside the reference's 40 s gate, not gated; the phase's
    seconds against a 75 s budget, not gated;
-19. summary: the card line, one JSON line of per-kernel numbers, and last
+19. a model's own coefficient and the examples: (a) the variants of both
+   kernels for the custom-model example's ``SquaredHinge`` and for a
+   ``SparseSVM`` subclass with a rule of its own (``ShiftedSVM``) built from
+   the sources, every nvcc started together, their seconds and ptxas
+   reports printed; (b) each ``SquaredHinge`` variant against its plain
+   version at full width (643,531 rows x 47,236 features, B=100, P=76):
+   ``worker_grads`` at K=1 and K=8 (RTOL, ATOL) and on a non-finite term,
+   ``sync_epoch`` over 20 steps at K=3 (sgd, momentum, adam: w and the
+   state) and at K=4 B=150 (two rounds a step, the kept coefficients), a
+   64-step mean-mode dispatch, a K=4 sum window
+   (SE_ATOL each) and a non-finite term, 40 launches one output on each
+   route and a full epoch, each route timed against its plain version;
+   (c) ``SquaredHinge`` through the engines from counts of 0: a full-width
+   1-epoch sync fit (one variant launch, the test loss below 1.0, its
+   value at w = 0), the per-step path (8 workers, one ``worker_grads``
+   variant launch a step), at 20,000 rows the RPC fit (a variant launch a
+   Gradient body), its K=4 window and Hogwild (the mean mode); (d) 20
+   steps of ``ShiftedSVM`` within SE_ATOL of its plain version and away
+   from hinge's kernel, and its 1-epoch engine fit away from
+   ``SparseSVM``'s; (e) the six ``examples_torch`` mains on the card (the
+   feature-sharded one starts 1 x 2 gloo ranks), each with its example's
+   check; the phase's seconds against a 60 s budget, not gated;
+20. summary: the card line, one JSON line of per-kernel numbers, and last
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits non-zero before printing any result.
@@ -275,6 +302,7 @@ from __future__ import annotations
 import gc
 import hashlib
 import json
+import math
 import os
 import shutil
 import signal
@@ -293,13 +321,13 @@ import torch
 from distributed_sgd_tpu_torch import main as port_main
 from distributed_sgd_tpu_torch.checkpoint import Checkpointer, sync_fit_extra
 from distributed_sgd_tpu_torch.config import Config
-from distributed_sgd_tpu_torch.core.early_stopping import no_improvement
 from distributed_sgd_tpu_torch.core.loss_check import LossChecker
 from distributed_sgd_tpu_torch.core.trainer import SyncTrainer, profile_trace_path
 from distributed_sgd_tpu_torch.data.rcv1 import Dataset, dim_sparsity, train_test_split
 from distributed_sgd_tpu_torch.data.synthetic import rcv1_like
-from distributed_sgd_tpu_torch.models.linear import make_model
+from distributed_sgd_tpu_torch.models.linear import SparseSVM, make_model
 from distributed_sgd_tpu_torch.ops import _build
+from distributed_sgd_tpu_torch.ops import coeff as co
 from distributed_sgd_tpu_torch.ops import sync_epoch as se
 from distributed_sgd_tpu_torch.ops import worker_grads as wg
 from distributed_sgd_tpu_torch.parallel import hogwild as hw
@@ -333,7 +361,7 @@ TRAIN_ROWS, STEPS = 643531, 2146  # the main path's train split and steps per ep
 LAM = 1e-5  # the CLI's default lambda
 # per-rule step for the 20-step cases: least squares sums B squared-error
 # gradients per worker and diverges at the CLI's 0.5
-LR_FOR = {wg.HINGE: 0.5, wg.LOGISTIC: 0.5, wg.LEAST_SQUARES: 0.05}
+LR_FOR = {co.HINGE: 0.5, co.LOGISTIC: 0.5, co.LEAST_SQUARES: 0.05}
 # weights after 20 steps: the kernel's integer sums of g are exact, the
 # plain version's f32 sums are not, and where a feature's terms cancel the
 # kernel's g is 0.0 and the plain version's a residue, so dim_sparsity's
@@ -347,7 +375,9 @@ PER_STEP_ROWS, PER_STEP_WORKERS = 100000, 8
 MAIN_PATH_LOSS_ACC = [[0.4378645, 0.4081789, 0.4020025], [0.7868265, 0.8038015, 0.8080468]]
 TPU_KERNEL = "distributed_sgd_tpu/ops/pallas_sparse.py:155"  # worker_grads, pl.pallas_call at :178
 HOGWILD_K = 64  # DSGD_STEPS_PER_DISPATCH of the full-width Hogwild run
-HOGWILD_K1_ROWS = 12500  # the one-step-a-dispatch run: 10,000 train rows, a 10,000-step budget
+# the one-step-a-dispatch run: 5,000 train rows, a 5,000-step budget (25,000
+# rows, then 12,500, before depth cuts)
+HOGWILD_K1_ROWS = 6250
 LOCAL_SGD_PERIOD, LOCAL_SGD_CHECK_EVERY = 256, 65536
 TRACED_HOGWILD_ROWS = 200000
 ASYNC_ACC_FLOOR = 0.70  # the sync phase's floor, for the async fits' best weights
@@ -456,7 +486,7 @@ def check_worker_grads() -> dict:
         idx, val = ds.indices.reshape(k, B, P), ds.values.reshape(k, B, P)
         y = ds.labels.reshape(k, B).astype(np.float32)
         w = torch.tensor(rng.normal(size=D).astype(np.float32) * 0.1, device="cuda")
-        args = [w] + [torch.from_numpy(a).cuda() for a in (idx, val, y)] + [wg.HINGE]
+        args = [w] + [torch.from_numpy(a).cuda() for a in (idx, val, y)] + [co.HINGE]
         kernel = lambda: wg.worker_grads(*args)  # noqa: E731
         plain = lambda: wg.worker_grads_plain(*args)  # noqa: E731
         plain_ms = [time_ms(plain)]
@@ -523,7 +553,7 @@ def edge_data(n: int, seed: int, p: int = P) -> Dataset:
 def sync_epoch_args(data: dict, ids: np.ndarray, kind: int, reg: str, w0=None, lr=None):
     w = torch.zeros(D, device="cuda") if w0 is None else w0
     args = (w, torch.from_numpy(ids).cuda(), data["indices"], data["values"], data["labels_f32"])
-    kw = dict(coeff_kind=kind, reg_kind=reg, lam=LAM, dim_sparsity=data["dim_sparsity"],
+    kw = dict(coeff=kind, reg_kind=reg, lam=LAM, dim_sparsity=data["dim_sparsity"],
               lr=LR_FOR[kind] if lr is None else lr, n_total_workers=ids.shape[1])
     return args, kw
 
@@ -546,31 +576,31 @@ def check_sync_epoch(train: Dataset, main_data: dict) -> dict:
     pad_rows = np.arange(0, 3000, 3)
     cases = [(f"main-shape kind={kind} reg={reg}", main_data,
               rng.integers(0, TRAIN_ROWS, (20, K, B)), kind, reg, w_rand, None)
-             for kind in wg.COEFF_KINDS for reg in se.REG_KINDS]
+             for kind in co.COEFF_KINDS for reg in se.REG_KINDS]
     cases += [
-        ("K=1 B=37", main_data, rng.integers(0, TRAIN_ROWS, (20, 1, 37)), wg.HINGE,
+        ("K=1 B=37", main_data, rng.integers(0, TRAIN_ROWS, (20, 1, 37)), co.HINGE,
          "dim_sparsity", None, None),
-        ("S=1", main_data, rng.integers(0, TRAIN_ROWS, (1, K, B)), wg.LOGISTIC, "l2",
+        ("S=1", main_data, rng.integers(0, TRAIN_ROWS, (1, K, B)), co.LOGISTIC, "l2",
          w_rand, None),
-        ("S=0", main_data, rng.integers(0, TRAIN_ROWS, (0, K, B)), wg.HINGE,
+        ("S=0", main_data, rng.integers(0, TRAIN_ROWS, (0, K, B)), co.HINGE,
          "dim_sparsity", w_rand, None),
         # 10 rows, each about 30 times a step: least squares then moves each
         # margin by about 30 * lr * 2 / K of its residual, so lr 0.01 keeps
         # the iteration contracting instead of amplifying rounding
-        ("duplicate ids kind=0", edge_card, rng.integers(0, 10, (20, K, B)), wg.HINGE,
+        ("duplicate ids kind=0", edge_card, rng.integers(0, 10, (20, K, B)), co.HINGE,
          "dim_sparsity", w_rand, None),
         ("duplicate ids kind=2", edge_card, rng.integers(0, 10, (20, K, B)),
-         wg.LEAST_SQUARES, "dim_sparsity", w_rand, 0.01),
-        ("all-pad rows", edge_card, rng.choice(pad_rows, (20, K, B)), wg.HINGE, "l2",
+         co.LEAST_SQUARES, "dim_sparsity", w_rand, 0.01),
+        ("all-pad rows", edge_card, rng.choice(pad_rows, (20, K, B)), co.HINGE, "l2",
          w_rand, None),
         # more samples than the cluster holds at once (512): two rounds a step
-        ("K=4 B=150", main_data, rng.integers(0, TRAIN_ROWS, (20, 4, 150)), wg.HINGE,
+        ("K=4 B=150", main_data, rng.integers(0, TRAIN_ROWS, (20, 4, 150)), co.HINGE,
          "dim_sparsity", w_rand, None),
         # rows wider than the 128 entries the lanes hold in registers
         ("P=200", on_card(edge_data(3000, 8, p=200)), rng.integers(0, 3000, (20, K, B)),
-         wg.LOGISTIC, "dim_sparsity", w_rand, None),
+         co.LOGISTIC, "dim_sparsity", w_rand, None),
         ("P=1", on_card(edge_data(3000, 9, p=1)), rng.integers(0, 3000, (20, K, B)),
-         wg.HINGE, "none", w_rand, None),
+         co.HINGE, "none", w_rand, None),
     ]
     # a non-finite term: one value inf in a sampled row, one step from w = 0
     # (later steps would read the inf weight into margins, and the plain
@@ -578,7 +608,7 @@ def check_sync_epoch(train: Dataset, main_data: dict) -> dict:
     inf_data = dict(edge_card, values=edge_card["values"].clone())
     inf_data["values"][1, 0] = float("inf")
     args, kw = sync_epoch_args(inf_data, np.array([[[1, 2, 4, 5]] * K]).reshape(1, K, 4),
-                               wg.HINGE, "l2")
+                               co.HINGE, "l2")
     got, want = se.sync_epoch(*args, **kw), se.sync_epoch_plain(*args, **kw)
     fin = torch.isfinite(want)
     inf_err = float((got[fin] - want[fin]).abs().max())
@@ -611,7 +641,7 @@ def check_sync_epoch(train: Dataset, main_data: dict) -> dict:
     sub = -(-TRAIN_ROWS // K)
     ids = (rng.integers(0, sub, (STEPS, K, B)) % np.minimum(sub, TRAIN_ROWS - np.arange(K) * sub)
            [:, None] + (np.arange(K) * sub)[:, None])
-    args, kw = sync_epoch_args(main_data, ids, wg.HINGE, "dim_sparsity")
+    args, kw = sync_epoch_args(main_data, ids, co.HINGE, "dim_sparsity")
     kw["lr"] = 0.5
     kernel = lambda: se.sync_epoch(*args, **kw)  # noqa: E731
     plain = lambda: se.sync_epoch_plain(*args, **kw)  # noqa: E731
@@ -669,7 +699,7 @@ def check_mean_mode(train: Dataset, main_data: dict) -> dict:
     w_rand = torch.tensor(rng.normal(size=D).astype(np.float32) * 0.1, device="cuda")
     max_err = 0.0
     for s in (1, HOGWILD_K):
-        for kind in wg.COEFF_KINDS:
+        for kind in co.COEFF_KINDS:
             for reg in se.REG_KINDS:
                 args, kw = sync_epoch_args(main_data, rng.integers(0, TRAIN_ROWS, (s, 1, B)),
                                            kind, reg, w_rand)
@@ -690,7 +720,7 @@ def check_mean_mode(train: Dataset, main_data: dict) -> dict:
     # one Hogwild dispatch at the full-width run's shape: hinge, dim_sparsity,
     # 64 steps of 100 ids drawn from one worker's third of the train rows
     ids = rng.integers(0, -(-TRAIN_ROWS // 3), (HOGWILD_K, 1, B))
-    args, kw = sync_epoch_args(main_data, ids, wg.HINGE, "dim_sparsity", lr=0.5)
+    args, kw = sync_epoch_args(main_data, ids, co.HINGE, "dim_sparsity", lr=0.5)
     kw["grad_divisor"] = B
     kernel = lambda: se.sync_epoch(*args, **kw)  # noqa: E731
     plain = lambda: se.sync_epoch_plain(*args, **kw)  # noqa: E731
@@ -783,7 +813,7 @@ def check_opt_modes(train: Dataset, main_data: dict, se_row: dict) -> list:
                 for w0, state, start in (
                         (None, se.init_opt_state(opt, D, "cuda"), "zero state"),
                         (w_rand, random_state(opt, rng, 100), "a random state, count 100")):
-                    args, kw = sync_epoch_args(main_data, ids, wg.HINGE, reg, w0, lr=lr)
+                    args, kw = sync_epoch_args(main_data, ids, co.HINGE, reg, w0, lr=lr)
                     kw.update(optimizer=opt, grad_divisor=div)
                     max_err = max(max_err, hold_opt_launch(
                         f"{mode} reg={reg} from {start}", args, kw, state))
@@ -791,7 +821,7 @@ def check_opt_modes(train: Dataset, main_data: dict, se_row: dict) -> list:
         # a full epoch at the main path's shape (hinge, dim_sparsity, K=3):
         # timed in turns with the sgd mode's kernel beside it; held by its
         # objective, as the sgd mode's full epoch is
-        args, kw = sync_epoch_args(main_data, epoch_ids, wg.HINGE, "dim_sparsity", lr=lr)
+        args, kw = sync_epoch_args(main_data, epoch_ids, co.HINGE, "dim_sparsity", lr=lr)
         kw["optimizer"] = opt
         state = se.init_opt_state(opt, D, "cuda")
         sgd_kw = dict(kw, optimizer=None, lr=0.5)
@@ -847,7 +877,7 @@ def check_opt_modes(train: Dataset, main_data: dict, se_row: dict) -> list:
         # one 64-step Hogwild dispatch in the mean mode, timed as
         # check_mean_mode times the sgd mode's
         ids = rng.integers(0, sub, (HOGWILD_K, 1, B))
-        args, kw = sync_epoch_args(main_data, ids, wg.HINGE, "dim_sparsity", lr=lr)
+        args, kw = sync_epoch_args(main_data, ids, co.HINGE, "dim_sparsity", lr=lr)
         kw.update(optimizer=opt, grad_divisor=B)
         state = se.init_opt_state(opt, D, "cuda")
         mean_ms = time_ms(lambda: se.sync_epoch(*args, **kw, opt_state=state), iters=50,
@@ -880,7 +910,7 @@ def check_sync_epoch_repeats(main_data: dict) -> dict:
     counts = {}
     for kind in se.OPT_KINDS:
         opt = se.Optimizer(kind)
-        args, kw = sync_epoch_args(main_data, epoch_ids(), wg.HINGE, "dim_sparsity",
+        args, kw = sync_epoch_args(main_data, epoch_ids(), co.HINGE, "dim_sparsity",
                                    lr=OPT_LR.get(kind, 0.5))
         kw["optimizer"] = opt
         w1, st1 = se.sync_epoch(*args, **kw, opt_state=se.init_opt_state(opt, D, "cuda"))
@@ -1346,7 +1376,8 @@ def async_busy_share() -> None:
 
 def run_async_paths(mean_row: dict, opt_rows: dict) -> None:
     t0 = time.perf_counter()
-    full = rcv1_like(MAIN_ROWS, seed=0, idf_values=True)
+    with cli_env(DSGD_SYNTHETIC=MAIN_ROWS):  # the main path's rows, generated once
+        full = port_main.load_data(Config.from_env())
     train, test = train_test_split(full)
     model = make_model("hinge", LAM, D, dim_sparsity=dim_sparsity(train), device="cuda")
     test_bound = SyncEngine(model, B, 0.0).bind(test)
@@ -1516,14 +1547,48 @@ def check_local_sgd_twice() -> dict:
     return out
 
 
-def check_sync_repeatability() -> dict:
-    """``python -m distributed_sgd_tpu_torch.tools.sync_repeatability`` in
-    a process of its own: one landing place for each optimizer."""
+def start_process(tmp: str, label: str, cmd: list, env=None) -> dict:
+    """`cmd` started from the checkout's root with its output in files
+    under `tmp`, to run beside this process's checks; `finish_process`
+    waits for it."""
     root = os.path.dirname(os.path.abspath(__file__))
-    out = subprocess.run([sys.executable, "-m",
-                          "distributed_sgd_tpu_torch.tools.sync_repeatability",
-                          "--runs", str(REPEAT_FITS), "--launches", str(SE_REPEATS)],
-                         cwd=root, capture_output=True, text=True, timeout=600)
+    files = [open(os.path.join(tmp, f"{label}.{x}"), "w+") for x in ("out", "err")]
+    proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=files[0], stderr=files[1],
+                            text=True)
+    return {"proc": proc, "files": files, "t0": time.perf_counter()}
+
+
+def finish_process(started: dict, timeout: float) -> subprocess.CompletedProcess:
+    """Waits for a `start_process` (kills it past `timeout` seconds from its
+    start) and returns its exit code and output; `seconds` is its run."""
+    proc = started["proc"]
+    try:
+        proc.wait(timeout=max(1.0, started["t0"] + timeout - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    started["seconds"] = time.perf_counter() - started["t0"]
+    texts = []
+    for f in started["files"]:
+        f.seek(0)
+        texts.append(f.read())
+        f.close()
+    return subprocess.CompletedProcess(proc.args, proc.returncode, *texts)
+
+
+def start_sync_repeatability(tmp: str) -> dict:
+    return start_process(tmp, "sync_repeatability", [
+        sys.executable, "-m", "distributed_sgd_tpu_torch.tools.sync_repeatability",
+        "--runs", str(REPEAT_FITS), "--launches", str(SE_REPEATS)])
+
+
+def check_sync_repeatability(started: dict) -> dict:
+    """``python -m distributed_sgd_tpu_torch.tools.sync_repeatability`` in
+    a process of its own (`start_sync_repeatability`): one landing place
+    for each optimizer."""
+    out = finish_process(started, timeout=600)
+    print(f"sync_repeatability: {started['seconds']:.1f} s beside this process's checks",
+          flush=True)
     lines = [json.loads(x) for x in out.stdout.splitlines() if x.startswith("{")]
     for line in lines:
         print("sync_repeatability: " + json.dumps(line), flush=True)
@@ -1611,24 +1676,27 @@ def check_async_resume(label: str, tmp: str, per_launch: int, **env) -> dict:
     return out
 
 
-def check_profile(tmp: str, train, test, model) -> dict:
-    """``python -m distributed_sgd_tpu_torch`` with DSGD_PROFILE_DIR on a
-    2-epoch run of the main path's shape at PROFILE_ROWS rows (`train` and
-    `test` are those rows, not full width, to keep the smoke's time),
-    in a process of its own as a user runs it (in this process the
-    busy-share phases' torch.profiler sessions came first, and a later
-    session can lose kernel records): the trace of epoch 1
-    holds exactly one sync_epoch kernel.  Its duration is printed beside
-    the same two epochs run here, each timed by CUDA events (the id draw
-    and the launch)."""
+def start_profile_cli(tmp: str) -> dict:
     d = os.path.join(tmp, "profile")
     env = {**os.environ, "DSGD_SYNTHETIC": str(PROFILE_ROWS), "DSGD_MAX_EPOCHS": "2",
            "DSGD_PROFILE_DIR": d}
-    root = os.path.dirname(os.path.abspath(__file__))
-    t0 = time.perf_counter()
-    cli = subprocess.run([sys.executable, "-m", "distributed_sgd_tpu_torch"], cwd=root, env=env,
-                         capture_output=True, text=True, timeout=600)
-    cli_s = time.perf_counter() - t0
+    return dict(start_process(tmp, "profile", [sys.executable, "-m", "distributed_sgd_tpu_torch"],
+                              env=env), dir=d)
+
+
+def check_profile(started: dict, train, test, model) -> dict:
+    """``python -m distributed_sgd_tpu_torch`` with DSGD_PROFILE_DIR on a
+    2-epoch run of the main path's shape at PROFILE_ROWS rows (`train` and
+    `test` are those rows, not full width, to keep the smoke's time),
+    in a process of its own as a user runs it (`start_profile_cli`; in
+    this process the busy-share phases' torch.profiler sessions came
+    first, and a later session can lose kernel records): the trace of
+    epoch 1 holds exactly one sync_epoch kernel.  Its duration is printed
+    beside the same two epochs run here, each timed by CUDA events (the id
+    draw and the launch)."""
+    d = started["dir"]
+    cli = finish_process(started, timeout=600)
+    cli_s = started["seconds"]
     if cli.returncode != 0:
         raise AssertionError(f"the profiled CLI run failed ({cli.returncode}):\n"
                              f"{cli.stdout[-3000:]}\n{cli.stderr[-3000:]}")
@@ -1658,7 +1726,8 @@ def check_profile(tmp: str, train, test, model) -> dict:
     out = {"files": files, "sync_epoch_kernels": len(kernels),
            "kernel_ms": float(kernels[0]["dur"]) / 1e3 if kernels else None,
            "epoch_event_ms": event_ms, "trace_events": len(trace), "cli_seconds": cli_s}
-    print(f"profile: {files} in DSGD_PROFILE_DIR after a {cli_s:.1f} s CLI run, {len(trace)} "
+    print(f"profile: {files} in DSGD_PROFILE_DIR after a {cli_s:.1f} s CLI run (beside this "
+          f"process's checks), {len(trace)} "
           f"events, {len(kernels)} sync_epoch kernel(s) of {out['kernel_ms']} ms; the same epoch "
           f"here by CUDA events {event_ms[1]:.4f} ms (the id draw and the launch; epoch 0 "
           f"{event_ms[0]:.4f} ms)", flush=True)
@@ -1705,37 +1774,21 @@ def time_checkpoints(tmp: str) -> dict:
     return out
 
 
-def time_hogwild_checkpointer(train, test, model, tmp: str) -> list:
-    """Hogwild fits (3 workers, 64 steps a dispatch, the CLI's criterion)
-    without and then with a checkpointer (one pair; two in turns before a
-    depth cut): updates/s of each."""
-    rows = []
-    for i, with_ckpt in enumerate((False, True)):
-        ck = Checkpointer(os.path.join(tmp, f"hogwild-timing-{i}")) if with_ckpt else None
-        eng = hw.HogwildEngine(model, 3, B, 0.5, steps_per_dispatch=HOGWILD_K, checkpointer=ck,
-                               metrics=Metrics(), device="cuda")
-        res = eng.fit(train, test, 1, no_improvement(patience=5, min_delta=0.01))
-        saves = len(os.listdir(ck.directory)) if ck else 0
-        rows.append({"checkpointer": with_ckpt, "updates": res.state.updates,
-                     "seconds": res.state.duration,
-                     "updates_per_s": res.state.updates / res.state.duration,
-                     "checks": len(res.test_losses), "snapshots_kept": saves})
-        print(f"Hogwild {'with' if with_ckpt else 'without'} a checkpointer: "
-              f"{res.state.updates} updates in {res.state.duration:.3f} s "
-              f"({rows[-1]['updates_per_s']:.1f} updates/s), {len(res.test_losses)} checks",
-              flush=True)
-    return rows
-
-
 def run_checkpoint_phase() -> None:
-    """Phase 7, on rows generated once (`rows_of`)."""
+    """Phase 7, on rows generated once (`rows_of`).  The profiled CLI run
+    and sync_repeatability run in processes of their own beside the
+    phase's other checks (one after the other before a depth cut), once
+    the host-clock timings of the snapshots are taken."""
     tmp = tempfile.mkdtemp(prefix="chip-smoke-ckpt-")
     t0 = time.perf_counter()
+    started = []
     try:
+        out = {"checkpoint_ms": time_checkpoints(tmp)}
+        started = [start_profile_cli(tmp), start_sync_repeatability(tmp)]
         with rows_of(MAIN_ROWS) as (train, test, model):
             print(f"checkpoint phase data seconds: {time.perf_counter() - t0:.2f}", flush=True)
-            out = {"sync_sgd": check_sync_resume(train, test, model, tmp, "sgd"),
-                   "sync_adam": check_sync_resume(train, test, model, tmp, "adam")}
+            out["sync_sgd"] = check_sync_resume(train, test, model, tmp, "sgd")
+            out["sync_adam"] = check_sync_resume(train, test, model, tmp, "adam")
             check_nothing_to_run(train, test, model, tmp)
             out["hogwild"] = check_async_resume("Hogwild", tmp, HOGWILD_K,
                                                 DSGD_STEPS_PER_DISPATCH=HOGWILD_K)
@@ -1743,16 +1796,20 @@ def run_checkpoint_phase() -> None:
                                                   DSGD_ASYNC_MODE="local_sgd",
                                                   DSGD_SYNC_PERIOD=LOCAL_SGD_PERIOD,
                                                   DSGD_CHECK_EVERY=LOCAL_SGD_CHECK_EVERY)
-            out["checkpoint_ms"] = time_checkpoints(tmp)
-            out["hogwild_checkpointer"] = time_hogwild_checkpointer(train, test, model, tmp)
+        repeats = {"local_sgd_twice": check_local_sgd_twice()}
         with rows_of(PROFILE_ROWS) as (train, test, model):
-            out["profile"] = check_profile(tmp, train, test, model)
+            out["profile"] = check_profile(started[0], train, test, model)
         print(json.dumps({"checkpoints": out}), flush=True)
+        repeats["sync_repeatability"] = check_sync_repeatability(started[1])
+        print(json.dumps({"repeats": repeats}), flush=True)
     finally:
+        for st in started:
+            if st["proc"].poll() is None:
+                st["proc"].kill()
+                st["proc"].wait()
+            for f in st["files"]:
+                f.close()
         shutil.rmtree(tmp)
-    print(json.dumps({"repeats": {"local_sgd_twice": check_local_sgd_twice(),
-                                  "sync_repeatability": check_sync_repeatability()}}),
-          flush=True)
 
 
 # -- phase 8: the RPC engine ----------------------------------------------------
@@ -1980,13 +2037,14 @@ def check_rpc_cli() -> None:
 def check_profiler_sessions() -> None:
     """Two torch.profiler sessions in one process, each over one sync_epoch
     launch, must each hold its kernel event: ``python -m
-    distributed_sgd_tpu_torch.tools.profiler_sessions`` in a process of
-    its own (here, a short session long after this process's first one
-    holds no device event: the trace's kernel timestamps drift from the
-    host's, and the tool's third session, run after a gap, shows it)."""
+    distributed_sgd_tpu_torch.tools.profiler_sessions --gap 0`` in a
+    process of its own (here, a short session long after this process's
+    first one holds no device event: the trace's kernel timestamps drift
+    from the host's; the tool's third session after a 12 s gap, which
+    shows it and checks nothing, is left out: a depth cut)."""
     root = os.path.dirname(os.path.abspath(__file__))
-    out = subprocess.run([sys.executable, "-m", "distributed_sgd_tpu_torch.tools.profiler_sessions"],
-                         cwd=root, capture_output=True, text=True, timeout=300)
+    out = subprocess.run([sys.executable, "-m", "distributed_sgd_tpu_torch.tools.profiler_sessions",
+                          "--gap", "0"], cwd=root, capture_output=True, text=True, timeout=300)
     lines = [line for line in out.stdout.splitlines() if line.startswith("{")]
     print(f"profiler sessions in one process: {lines[-1] if lines else out.stdout[-2000:]}",
           flush=True)
@@ -1996,11 +2054,20 @@ def check_profiler_sessions() -> None:
 
 
 def run_rpc_phase() -> dict:
-    """Phase 8; returns check_rpc_full_width's dict."""
+    """Phase 8; returns check_rpc_full_width's dict, with phase 9's CLI run
+    (``async_cli``), which runs beside this phase's traced CLI."""
     rpc_versions()
     full = check_rpc_full_width()
     full["small"] = check_rpc_card_against_cpu()
-    check_rpc_cli()
+    async_cli = start_async_rpc_cli()
+    try:
+        check_rpc_cli()
+    except BaseException:
+        for p in async_cli["procs"]:
+            p.kill()
+            p.wait()
+        raise
+    full["async_cli"] = check_async_rpc_cli(async_cli)
     check_profiler_sessions()
     return full
 
@@ -2117,11 +2184,12 @@ def run_async_rpc(label: str, n_train: int, test_bound, profile: bool = False,
     return out
 
 
-def check_async_rpc_cli() -> dict:
+def start_async_rpc_cli() -> dict:
     """``python -m distributed_sgd_tpu_torch`` as one master and
     RPC_WORKERS workers on loopback with DSGD_ASYNC=1 (HOGWILD_K steps a
-    dispatch, ASYNC_RPC_SMALL_ROWS rows, 1 epoch's budget): all exit 0 and
-    the master logs its test losses and its update count."""
+    dispatch, ASYNC_RPC_SMALL_ROWS rows, 1 epoch's budget), started to run
+    beside phase 8's traced CLI (after it, before a depth cut);
+    `check_async_rpc_cli` waits for it."""
     import socket
 
     with socket.socket() as sock:
@@ -2139,6 +2207,13 @@ def check_async_rpc_cli() -> dict:
     procs += [subprocess.Popen(cmd, cwd=root, env={**base, "DSGD_NODE_PORT": "0"},
                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
               for _ in range(RPC_WORKERS)]
+    return {"procs": procs, "t0": t0}
+
+
+def check_async_rpc_cli(started: dict) -> dict:
+    """`start_async_rpc_cli`'s run: all exit 0 and the master logs its test
+    losses and its update count."""
+    procs, t0 = started["procs"], started["t0"]
     outs = [None] * len(procs)
     try:
         outs[0], _ = procs[0].communicate(timeout=600)
@@ -2157,7 +2232,8 @@ def check_async_rpc_cli() -> dict:
     losses = [x.split(" - ", 1)[-1] for x in lines if "test losses:" in x]
     done = [x.split(" - ", 1)[-1] for x in lines if "fit done:" in x]
     checks = [x for x in lines if "loss computed at" in x]
-    print(f"async rpc CLI: master and {RPC_WORKERS} workers exited {codes} after {cli_s:.1f} s; "
+    print(f"async rpc CLI: master and {RPC_WORKERS} workers exited {codes} after {cli_s:.1f} s "
+          f"(beside phase 8's traced CLI); "
           f"{done[-1] if done else 'no fit logged'}; {len(checks)} checks; "
           f"{losses[-1][:300] if losses else 'no test losses logged'}", flush=True)
     if codes != [0] * len(procs) or not losses or not done or not checks:
@@ -2167,10 +2243,15 @@ def check_async_rpc_cli() -> dict:
     return {"codes": codes, "seconds": cli_s, "checks": len(checks)}
 
 
-def run_async_rpc_phase() -> int:
-    """Phase 9; returns the full-width sgd fit's sync_epoch launches."""
+def run_async_rpc_phase(cli: dict) -> int:
+    """Phase 9 (`cli`: its CLI run, which phase 8 ran); returns the
+    full-width sgd fit's sync_epoch launches."""
     t0 = time.perf_counter()
-    out = {}
+    out = {"cli": cli}
+    # the sgd fit is not cut to ASYNC_RPC_SMALL_ROWS: there its early stop
+    # ended it at 14,144 updates and test accuracy 0.6962, on the swings
+    # the comment on ASYNC_RPC_SMALL_PATIENCE describes, and it is the one
+    # fit of the phase that holds the early stop's best weights to a floor
     with rows_of(MAIN_ROWS) as (train, test, model):
         test_bound = SyncEngine(model, B, 0.0).bind(test)
         print(f"async rpc data seconds: {time.perf_counter() - t0:.2f}", flush=True)
@@ -2187,7 +2268,6 @@ def run_async_rpc_phase() -> int:
                 f"{kind} ({ASYNC_RPC_SMALL_ROWS} rows{', profiled' if profile else ''})",
                 len(train), test_bound, profile=profile, DSGD_OPTIMIZER=kind,
                 DSGD_LEARNING_RATE=OPT_LR[kind], **small)
-    out["cli"] = check_async_rpc_cli()
     print(json.dumps({"async_rpc": out}), flush=True)
     return out["sgd"]["launches"]
 
@@ -2199,11 +2279,16 @@ FT_STRAGGLER_S, FT_STRAGGLER_CALLS = 1.0, 20  # worker 0's first 20 bodies sleep
 FT_QUORUM, FT_SOFT_S = 2, 0.1  # 2 of 3; the soft deadline is about 6 healthy windows
 # epochs of the straggler fit under the quorum: the test accuracy at 100,000
 # rows is 0.683 after 1 and 0.709 after 2 (the plain barrier's, which a
-# quorum whose hedges win lands on bit for bit); the plain barrier's fit,
-# there for the comparison, runs the first (2 before a depth cut), which
-# holds all the straggler's slow bodies
+# quorum whose hedges win lands on bit for bit).  The plain barrier's fit
+# with the same straggler went as a depth cut (it ran 2 epochs, then 1):
+# it gave the windows/s comparison (tools/rpc_sync_routes.py --straggler
+# times both) and held launches equal to bodies under the plain barrier
+# while bodies were slow, a check that went with it (the quorum fit here
+# and phase 8's plain barrier without a straggler still hold it)
 FT_STRAGGLER_EPOCHS = 2
-FT_PLAIN_EPOCHS = 1
+# the full quorum's two fits train on the first 40,000 train rows: 134
+# windows (the 80,000 before a depth cut)
+FT_QUORUM_ROWS = 40000
 FT_HEARTBEAT_S, FT_MAX_MISSES = 0.5, 3
 FT_KILL_AT_WINDOW = 50  # the heartbeat run's victim dies after this many windows
 # the crash comes 75 windows into an epoch of 267: one epoch (two before a
@@ -2225,21 +2310,25 @@ def ft_parts(m: Metrics) -> dict:
 
 
 def check_quorum_in_full(model, train, test) -> None:
-    """A quorum of RPC_WORKERS over RPC_WORKERS workers and no straggler:
-    the weights equal the plain barrier's bit for bit, no round degraded
-    and no hedge sent."""
+    """A quorum of RPC_WORKERS over RPC_WORKERS workers and no straggler,
+    over the windows of the first FT_QUORUM_ROWS train rows: the weights
+    equal the plain barrier's bit for bit, no round degraded and no hedge
+    sent."""
+    from distributed_sgd_tpu_torch.autopilot import window_split
     from distributed_sgd_tpu_torch.utils import metrics as mm
 
     m = Metrics()
+    split = window_split(0, FT_QUORUM_ROWS)
     with ft_cluster(model, train, test, m) as c:
-        plain = c.master.fit_sync(1, B, RPC_LR)
+        plain = c.master.fit_sync(1, B, RPC_LR, split=split)
         reset_counts()
-        full = c.master.fit_sync(1, B, RPC_LR, quorum=RPC_WORKERS)
+        full = c.master.fit_sync(1, B, RPC_LR, quorum=RPC_WORKERS, split=split)
         launches = wg.worker_grads.launches
     diff = float(np.abs(np.asarray(full.weights) - np.asarray(plain.weights)).max())
     same = np.array_equal(np.asarray(full.weights), np.asarray(plain.weights))
     degraded, hedges = (m.counter(mm.QUORUM_DEGRADED).value, m.counter(mm.QUORUM_HEDGES).value)
-    print(f"ft quorum {RPC_WORKERS} of {RPC_WORKERS} ({FT_ROWS} rows, 1 epoch, sgd): weights "
+    print(f"ft quorum {RPC_WORKERS} of {RPC_WORKERS} ({FT_QUORUM_ROWS:,} train rows of the "
+          f"{FT_ROWS:,}-row slice, 1 epoch, sgd): weights "
           f"bitwise equal to the plain barrier's: {same} (max abs diff {diff:.3e}); degraded "
           f"{degraded}, hedges {hedges}; worker_grads launches {launches}; test accuracy "
           f"{full.test_accuracies[-1]:.4f}", flush=True)
@@ -2324,27 +2413,22 @@ def check_straggler(model, train, test, loss0: float) -> dict:
     the fit completes, the loss falls, accuracy >= RPC_ACC_FLOOR, rounds
     degrade, hedges are sent and win, the straggler stays a member, and
     worker_grads launched once a Gradient body the workers ran (hedges and
-    late bodies included).  The plain barrier with the same straggler, for
-    comparison over the first epoch."""
+    late bodies included)."""
     q = straggler_fit(model, train, test, FT_STRAGGLER_EPOCHS, quorum=FT_QUORUM,
                       straggler_soft_s=FT_SOFT_S)
-    plain = straggler_fit(model, train, test, FT_PLAIN_EPOCHS)
-    for label, out in (("quorum", q), ("plain barrier", plain)):
-        print(f"ft straggler, {label}: " + json.dumps(out), flush=True)
+    print("ft straggler, quorum: " + json.dumps(q), flush=True)
     print(f"ft straggler: the first epoch's windows/s {q['epoch0_windows_per_s']:.2f} under "
-          f"the quorum, {plain['epoch0_windows_per_s']:.2f} under the plain barrier; windows "
-          f"degraded with no straggler present: {q.get('degraded_after_recovery')} of "
-          f"{q.get('windows_after_recovery')}", flush=True)
+          f"the quorum; windows degraded with no straggler present: "
+          f"{q.get('degraded_after_recovery')} of {q.get('windows_after_recovery')}", flush=True)
     if not (q["test_loss"] < loss0 and q["test_acc"] >= RPC_ACC_FLOOR):
         raise AssertionError(f"ft straggler: the quorum fit did not train: {q}")
     if not (q["degraded"] > 0 and q["hedges"] > 0 and q["hedge_wins"] > 0):
         raise AssertionError(f"ft straggler: no degraded round, hedge or hedge win: {q}")
     if not q["straggler_member"] or q["evictions"]:
         raise AssertionError("ft straggler: the straggler was evicted")
-    for label, out in (("quorum", q), ("plain barrier", plain)):
-        if out["launches"] != out["bodies"]:
-            raise AssertionError(f"ft straggler, {label}: {out['launches']} worker_grads "
-                                 f"launches for {out['bodies']} Gradient bodies")
+    if q["launches"] != q["bodies"]:
+        raise AssertionError(f"ft straggler: {q['launches']} worker_grads launches for "
+                             f"{q['bodies']} Gradient bodies")
     if q["hedges_served"] != q["hedges"]:
         raise AssertionError(f"ft straggler: {q['hedges']} hedges sent, "
                              f"{q['hedges_served']} served")
@@ -2748,7 +2832,7 @@ def check_window_kernel() -> dict:
         launches = se.sync_epoch.launches
         m = window.model
         want = se.sync_epoch_plain(w, ids, window.indices, window.values, window.labels_f32,
-                                   coeff_kind=m.coeff_kind, reg_kind=m.reg_kind, lam=m.lam,
+                                   coeff=m.coeff_kind, reg_kind=m.reg_kind, lam=m.lam,
                                    dim_sparsity=m.dim_sparsity, lr=RPC_LR, n_total_workers=1,
                                    grad_divisor=1)
         outs = {digest(window.run(w, ids)[0]) for _ in range(SE_REPEATS)}
@@ -2767,7 +2851,7 @@ def check_window_kernel() -> dict:
     m = window.model
     kernel = lambda: window.run(w, ids)  # noqa: E731
     plain = lambda: se.sync_epoch_plain(  # noqa: E731
-        w, ids, window.indices, window.values, window.labels_f32, coeff_kind=m.coeff_kind,
+        w, ids, window.indices, window.values, window.labels_f32, coeff=m.coeff_kind,
         reg_kind=m.reg_kind, lam=m.lam, dim_sparsity=m.dim_sparsity, lr=RPC_LR,
         n_total_workers=1, grad_divisor=1)
     plain_ms = [time_ms(plain, iters=20, warmup=2)]
@@ -3453,7 +3537,8 @@ TREE_SPEC = "fanout:2"  # DSGD_AGG_TREE of the phase's tree fits
 TREE_SHARDS = 2  # DSGD_MASTER_SHARDS of its sharded fits
 TREE_ATOL = 1e-5  # a K=1 tree or sharded fit against the knobs-off fit
 SHARD_KILL_ROWS = 100000  # the kill_shard fit (80,000 train rows)
-TREE_BUSY_ROWS = 50000  # each configuration's profiled fit, for its busy share
+# each configuration's profiled fit, for its busy share (50,000 before a depth cut)
+TREE_BUSY_ROWS = 25000
 SHARD_KILL_AT = 50  # windows run before the kill
 TREE_FITS = (  # (label, fit_sync arguments): full-width fits
     (f"tree K={WINDOW_K}", dict(agg_tree=TREE_SPEC, local_steps=WINDOW_K)),
@@ -3660,7 +3745,7 @@ DENSE_LAUNCH_STEPS = 50  # steps profiled for the launches a step
 # BASELINE config 3: logistic with l2 on the RCV1 shape (phase 5's rows)
 CFG3_LAM, CFG3_LR, CFG3_EPOCHS = 1e-5, 0.5, 2
 TEL_ROWS = 100_000  # the checked telemetry fit: 80,000 train rows, 3 workers, 1 epoch
-TEL_TURN_ROWS = 50_000  # the fits in turns (100,000 until PR 14: a depth cut)
+TEL_TURN_ROWS = 25_000  # the fits in turns (100,000, then 50,000, before depth cuts)
 TEL_HEARTBEAT_S = 0.5  # the scrape rides the heartbeat in every fit of the phase
 TEL_NORM_RTOL = 1e-6
 # telemetry's cost, split: each variant adds one part to the one before
@@ -3742,16 +3827,40 @@ def dense_fit(train: Dataset, test: Dataset, device: str, epochs: int, ids_from=
     return fit, bound["train"]
 
 
-def check_config5() -> dict:
-    """Config 5 at full width on the card: 3,125 steps an epoch, no
-    sync_epoch or worker_grads launch, a test MSE that falls until it is
-    <= DENSE_MSE_MAX and then rises by DENSE_FLOOR_RTOL at most, f32
-    matmuls throughout; then at DENSE_CPU_ROWS the same fit on the card and
-    on the CPU from the same ids."""
+def start_config5_rows() -> dict:
+    """`config5_rows` in a thread of its own, started before phase 13 so
+    that phase 14 finds the rows made: numpy draws and multiplies without
+    the interpreter lock, so the 30-odd seconds of it run beside phase
+    13's fits (one core of the host's) instead of after them."""
+    box = {}
+
+    def run():
+        t0 = time.perf_counter()
+        try:
+            box["data"] = config5_rows()
+        except BaseException as e:  # re-raised by check_config5
+            box["error"] = e
+        box["seconds"] = time.perf_counter() - t0
+
+    box["thread"] = threading.Thread(target=run, name="config5-rows", daemon=True)
+    box["thread"].start()
+    return box
+
+
+def check_config5(made: dict) -> dict:
+    """Config 5 at full width on the card, on `start_config5_rows`'s rows:
+    3,125 steps an epoch, no sync_epoch or worker_grads launch, a test
+    MSE that falls until it is <= DENSE_MSE_MAX and then rises by
+    DENSE_FLOOR_RTOL at most, f32 matmuls throughout; then at
+    DENSE_CPU_ROWS the same fit on the card and on the CPU from the same
+    ids."""
     check_precision("config 5, before")
     t0 = time.perf_counter()
-    data = config5_rows()
-    gen_s = time.perf_counter() - t0
+    made["thread"].join()
+    wait_s = time.perf_counter() - t0
+    if "error" in made:
+        raise made["error"]
+    data = made.pop("data")
     train, test = train_test_split(data)
     reset_counts()
     fit, bound = dense_fit(train, test, "cuda", DENSE_EPOCHS)
@@ -3769,7 +3878,8 @@ def check_config5() -> dict:
     bound_ms = 1e3 * max((rows * (DENSE_D * 4 + 4 + 8) + DENSE_STEPS * DENSE_D * 8)
                          / HBM_BYTES_PER_S, DENSE_STEPS * 4 * DENSE_B * DENSE_D / F32_FLOPS)
     print(f"phase 14 config 5 ({DENSE_ROWS:,} x {DENSE_D} dense least squares, 1 worker, "
-          f"B={DENSE_B}, lr {DENSE_LR}, {DENSE_EPOCHS} epochs): data generation {gen_s:.2f} s; "
+          f"B={DENSE_B}, lr {DENSE_LR}, {DENSE_EPOCHS} epochs): data generation "
+          f"{made['seconds']:.2f} s beside phase 13, {wait_s:.2f} s waited here; "
           f"{fit.steps_per_epoch} steps an epoch; epoch seconds {fit.epoch_seconds} (bound "
           f"{bound_ms:.3f} ms an epoch, bytes); test MSE "
           f"at w = 0 {mse0:.6f}, after each epoch {fit.test_losses}; kernel launches a step "
@@ -4054,10 +4164,11 @@ def check_flat_sparse() -> None:
         raise AssertionError(f"flat_sparse: card and CPU differ by {errs}, limit {FLAT_ATOL}")
 
 
-def run_model_phase(main_w: np.ndarray, main_test: Dataset) -> dict:
-    """Phase 14; returns the launches of its paths."""
+def run_model_phase(main_w: np.ndarray, main_test: Dataset, config5: dict) -> dict:
+    """Phase 14 (`config5`: `start_config5_rows`); returns the launches of
+    its paths."""
     t0 = time.perf_counter()
-    dense = check_config5()
+    dense = check_config5(config5)
     cfg3 = check_config3()
     check_predict(main_w, main_test)
     tel = check_telemetry()
@@ -4682,8 +4793,9 @@ from distributed_sgd_tpu_torch.config import Config
 from distributed_sgd_tpu_torch.core.worker import WorkerNode
 from distributed_sgd_tpu_torch.data.rcv1 import dim_sparsity
 from distributed_sgd_tpu_torch.data.synthetic import rcv1_like
-from distributed_sgd_tpu_torch.models.linear import make_model
+from distributed_sgd_tpu_torch.models.linear import SparseSVM, make_model
 from distributed_sgd_tpu_torch.ops import _build
+from distributed_sgd_tpu_torch.ops import coeff as co
 from distributed_sgd_tpu_torch.ops import sync_epoch as se
 from distributed_sgd_tpu_torch.ops import worker_grads as wg
 from distributed_sgd_tpu_torch.rpc import codec, dsgd_pb2 as pb
@@ -4693,7 +4805,7 @@ from distributed_sgd_tpu_torch.utils import metrics as mm
 rows, bs, k = int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3])
 nvcc = []
 real = _build.nvcc_command
-_build.nvcc_command = lambda name, out: nvcc.append(name) or real(name, out)
+_build.nvcc_command = lambda name, out, rule=None: nvcc.append(name) or real(name, out, rule)
 cfg = Config.from_env()
 if cfg.compile_cache:
     compile_cache.configure(cfg.compile_cache)
@@ -5202,6 +5314,419 @@ def run_corpus_phase(card: str) -> int:
     return launches
 
 
+# -- phase 19: a model's own coefficient and the examples ----------------------
+
+COEFF_STEPS = 20  # steps of the sync_epoch variant's checks against the plain version
+# the custom-model example's learning rate, with the CLI's lambda (l2): at
+# full width its 1e-4 makes lam ||w||^2 outgrow the squared hinge's fall
+COEFF_LR = 0.1
+COEFF_SMALL_ROWS = 20000  # the RPC and Hogwild fits of (c): 16,000 train rows
+# the fault-2 check: the variant's 20 steps from the plain version within
+# SE_ATOL, and from hinge's at least this far (the rules differ on every
+# sample with -0.5 <= y*m < 0)
+COEFF_HINGE_GAP = 1e-3
+# the feature-sharded example's workers x shards: 2 ranks on the card (2 x 2
+# before a depth cut; phase 15 (d) runs the dp x tp engine on two ranks too)
+COEFF_FS_GRID = (1, 2)
+COEFF_BUDGET_S = 60  # printed against the phase's time, not gated
+EXAMPLES = ("train_single_chip", "custom_model", "train_async_hogwild", "train_dense",
+            "train_feature_sharded", "serve_predict")
+
+
+class ShiftedSVM(SparseSVM):
+    """The reference hinge model with its subgradient's switch moved from
+    y*m < 0 to y*m < -0.5: a SparseSVM subclass with a rule of its own,
+    which must train by that rule and not by hinge's (the second fault
+    ops/coeff.py repairs)."""
+
+    coeff_cuda = "return (y * m < -0.5f) ? 0.f : y;"
+
+    def grad_coeff(self, margins, y):
+        yf = y.float()
+        return torch.where(yf * margins < -0.5, torch.zeros_like(yf), yf)
+
+
+def same_nonfinite(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """The same NaN entries and the same infinities (a margin through an
+    infinite value is NaN, and so is every term of a user rule there)."""
+    inf = torch.isinf(want)
+    return bool(torch.equal(torch.isnan(got), torch.isnan(want))
+                and torch.equal(torch.isinf(got), inf) and torch.equal(got[inf], want[inf]))
+
+
+def user_counts() -> tuple:
+    return wg.worker_grads.user_launches, se.sync_epoch.user_launches
+
+
+def reset_user_counts() -> None:
+    wg.worker_grads.user_launches = se.sync_epoch.user_launches = 0
+
+
+def build_coeff_variants(rules) -> float:
+    """(a) Both kernels' variants for each rule, every nvcc started
+    together; prints the seconds, the libraries and the ptxas reports."""
+    t0 = time.perf_counter()
+    reports, errors = {}, []
+
+    def one(rule):
+        try:
+            reports[rule.name] = _build.build(_build.KERNELS, rule)
+        except Exception as e:  # noqa: BLE001 - raised below, in this thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=one, args=(r,)) for r in rules]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    seconds = time.perf_counter() - t0
+    print(f"(a) the variants of {[r.name for r in rules]} built in {seconds:.2f} s: "
+          f"{[_build.library_path(n, r).name for r in rules for n in _build.KERNELS]}",
+          flush=True)
+    for name, by_kernel in reports.items():
+        for kernel, report in by_kernel.items():
+            print(f"{name} {kernel} nvcc report:\n{report.strip()}", flush=True)
+    if sorted(len(v) for v in reports.values()) != [2] * len(rules):
+        raise AssertionError(f"(a): want every variant compiled here, got {reports.keys()}")
+    return seconds
+
+
+def check_coeff_worker_grads(rule) -> dict:
+    """(b) The worker_grads variant against its plain version at K=1 and
+    K=8 (and on a non-finite term), 40 launches one output each, timed;
+    returns the rows by K."""
+    rng = np.random.default_rng(19)
+    rows = {}
+    for k in (1, 8):
+        ds = rcv1_like(k * B, n_features=D, nnz=P, seed=10 + k, idf_values=True)
+        idx, val = ds.indices.reshape(k, B, P), ds.values.reshape(k, B, P)
+        y = ds.labels.reshape(k, B).astype(np.float32)
+        w = torch.tensor(rng.normal(size=D).astype(np.float32) * 0.1, device="cuda")
+        args = [w] + [torch.from_numpy(a).cuda() for a in (idx, val, y)] + [rule]
+        got, want = wg.worker_grads(*args), wg.worker_grads_plain(*args)
+        outs = {digest(wg.worker_grads(*args)) for _ in range(WG_REPEATS)}
+        err = float((got - want).abs().max())
+        ok = bool(((got - want).abs() <= ATOL + RTOL * want.abs()).all())
+        kernel = lambda: wg.worker_grads(*args)  # noqa: E731
+        plain = lambda: wg.worker_grads_plain(*args)  # noqa: E731
+        plain_ms = [time_ms(plain)]
+        kernel_ms = [time_ms(kernel), time_ms(kernel)]
+        plain_ms.append(time_ms(plain))
+        nz = val != 0
+        bytes_moved = idx.nbytes + val.nbytes + y.nbytes + 4 * len(np.unique(idx[nz])) + 4 * k * D
+        flops = 4 * int(nz.sum()) + 8 * k * B  # as the built-in row: the rule is a few per sample
+        bound_bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+        bound_ops_ms = flops / F32_FLOPS * 1e3
+        print(f"(b) worker_grads {rule.name} K={k}: max_abs_err={err:.3e} (rtol {RTOL}, atol "
+              f"{ATOL}); {len(outs)} distinct output(s) of {WG_REPEATS} launches; "
+              f"{min(kernel_ms) * 1e3:.2f} us a call (runs "
+              f"{[round(t * 1e3, 2) for t in kernel_ms]}), plain "
+              f"{[round(t * 1e3, 2) for t in plain_ms]} us", flush=True)
+        if not ok or len(outs) != 1:
+            raise AssertionError(f"worker_grads {rule.name} K={k}: max abs err {err}, "
+                                 f"{len(outs)} distinct outputs")
+        rows[k] = {
+            "name": f"worker_grads (user coefficient {rule.name}, K={k})", "route": "cuda",
+            "source": "distributed_sgd_tpu_torch/csrc/worker_grads.cu", "replaces": TPU_KERNEL,
+            "launches": None, "max_abs_err": err,
+            "ms": min(kernel_ms), "plain_ms": min(plain_ms),
+            "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+            "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
+            "library_ms": None,  # no single PyTorch call computes the fused function
+        }
+    # a non-finite term: one value inf, the plain version's inf at its feature
+    idx = np.arange(B * P, dtype=np.int32).reshape(1, B, P) % D
+    val = np.full((1, B, P), 0.5, np.float32)
+    val[0, 3, 5] = np.inf
+    y = np.ones((1, B), np.float32)
+    args = [torch.zeros(D, device="cuda")] + [torch.from_numpy(a).cuda() for a in (idx, val, y)]
+    got, want = wg.worker_grads(*args, rule), wg.worker_grads_plain(*args, rule)
+    fin = torch.isfinite(want)
+    if not (same_nonfinite(got, want) and int((~fin).sum()) > 0
+            and bool(((got[fin] - want[fin]).abs() <= ATOL + RTOL * want[fin].abs()).all())):
+        raise AssertionError(f"worker_grads {rule.name}: a non-finite term came out other than "
+                             f"the plain version's")
+    return rows
+
+
+def se_bound(ids: np.ndarray, row_nnz: np.ndarray, per_feature_step: int,
+             reg_kind: str) -> tuple:
+    """(bound ms, bound_by) of sync_epoch on `ids`: each sampled row, the
+    ids and w read once (and dim_sparsity, where `reg_kind` reads it), w
+    written once; a mul and an add a nonzero for the margin and the
+    scatter, and `per_feature_step` operations a feature and step in the
+    sweep."""
+    vectors = 3 if reg_kind == "dim_sparsity" else 2
+    bytes_moved = len(np.unique(ids)) * (8 * P + 4) + ids.nbytes + vectors * 4 * D
+    flops = 4 * int(row_nnz[ids].sum()) + ids.shape[0] * D * per_feature_step
+    by_bytes, by_ops = bytes_moved / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def check_coeff_sync_epoch(rule, data: dict, row_nnz: np.ndarray) -> dict:
+    """(b) The sync_epoch variant against its plain version at full width:
+    sgd K=3 (20 steps; a full epoch timed), K=4 B=150 (two rounds a step,
+    the kept coefficients), the mean mode K=1 (a 64-step dispatch), the
+    K=4 sum window and a non-finite term; 40 launches one output per
+    route.  Returns the rows by route."""
+    rng = np.random.default_rng(23)
+    n = data["indices"].shape[0]
+    w_rand = torch.tensor(rng.normal(size=D).astype(np.float32) * 0.1, device="cuda")
+    sub = -(-n // K)
+    thirds = np.minimum(sub, n - np.arange(K) * sub)[:, None]
+    epoch = rng.integers(0, sub, (STEPS, K, B)) % thirds + (np.arange(K) * sub)[:, None]
+
+    def launch_args(ids, **extra):
+        args = (w_rand, torch.from_numpy(ids).cuda(), data["indices"], data["values"],
+                data["labels_f32"])
+        kw = dict(coeff=rule, reg_kind="l2", lam=LAM, dim_sparsity=None,
+                  lr=COEFF_LR, n_total_workers=ids.shape[1])
+        return args, dict(kw, **extra)
+
+    routes = {  # label -> (ids, extra kw, launches timed, sweep operations a feature and step)
+        "sgd K=3": (epoch, {}, 1, 2 * K + 4),
+        "mean K=1": (rng.integers(0, sub, (HOGWILD_K, 1, B)), {"grad_divisor": B}, 50, 3 + 4),
+        "window K=4": (rng.integers(0, n, (WINDOW_K, 1, B)), {}, 100, 2 + 3),
+    }
+    def optimizer(kind):
+        opt = se.Optimizer(kind)
+        return dict(optimizer=opt, opt_state=se.init_opt_state(opt, D, "cuda"),
+                    lr=OPT_LR[kind])
+
+    def flat(out):  # w, then the optimizer's state vectors
+        return torch.cat([out[0], *out[1].vectors]) if isinstance(out, tuple) else out
+
+    checks = [("sgd K=3", epoch[:COEFF_STEPS], {}),
+              ("K=4 B=150", rng.integers(0, n, (COEFF_STEPS, 4, 150)), {}),
+              ("momentum K=3", epoch[:COEFF_STEPS], optimizer("momentum")),
+              ("adam K=3", epoch[:COEFF_STEPS], optimizer("adam")),
+              ("mean K=1", routes["mean K=1"][0], {"grad_divisor": B}),
+              ("window K=4", routes["window K=4"][0], {})]
+    errs = {}
+    for label, ids, extra in checks:
+        args, kw = launch_args(ids, **extra)
+        got, want = flat(se.sync_epoch(*args, **kw)), flat(se.sync_epoch_plain(*args, **kw))
+        outs = {digest(flat(se.sync_epoch(*args, **kw))) for _ in range(SE_REPEATS)}
+        err = float((got - want).abs().max())
+        print(f"(b) sync_epoch {rule.name} {label} ({ids.shape[0]} steps): max_abs_err="
+              f"{err:.3e} (atol {SE_ATOL}), weights moved "
+              f"{float((want[:D] - w_rand).abs().max()):.3e};"
+              f" {len(outs)} distinct output(s) of {SE_REPEATS} launches", flush=True)
+        if not err <= SE_ATOL or len(outs) != 1:
+            raise AssertionError(f"sync_epoch {rule.name} {label}: max abs err {err}, "
+                                 f"{len(outs)} distinct outputs")
+        errs[label] = err
+    # a non-finite term, one step from w = 0, as phase 3's
+    vals = data["values"].clone()
+    vals[int(epoch[0, 0, 0]), 0] = float("inf")
+    args, kw = launch_args(epoch[:1])
+    args = (torch.zeros(D, device="cuda"), args[1], data["indices"], vals, data["labels_f32"])
+    got, want = se.sync_epoch(*args, **kw), se.sync_epoch_plain(*args, **kw)
+    fin = torch.isfinite(want)
+    if not (same_nonfinite(got, want) and int((~fin).sum()) > 0
+            and float((got[fin] - want[fin]).abs().max()) <= SE_ATOL):
+        raise AssertionError(f"sync_epoch {rule.name}: a non-finite term came out other than "
+                             f"the plain version's")
+    del vals
+    outs = {digest(se.sync_epoch(*launch_args(epoch)[0], **launch_args(epoch)[1]))
+            for _ in range(SE_REPEATS)}
+    if len(outs) != 1:
+        raise AssertionError(f"sync_epoch {rule.name} full epoch: {len(outs)} distinct outputs")
+
+    rows = {}
+    for label, (ids, extra, iters, per_feature) in routes.items():
+        args, kw = launch_args(ids, **extra)
+        kernel = lambda: se.sync_epoch(*args, **kw)  # noqa: E731
+        plain = lambda: se.sync_epoch_plain(*args, **kw)  # noqa: E731
+        p_iters = max(1, iters // 10)
+        plain_ms = [time_ms(plain, iters=p_iters, warmup=1)]
+        kernel_ms = [time_ms(kernel, iters=iters, warmup=1),
+                     time_ms(kernel, iters=iters, warmup=1)]
+        plain_ms.append(time_ms(plain, iters=p_iters, warmup=1))
+        bound_ms, bound_by = se_bound(ids, row_nnz, per_feature, kw["reg_kind"])
+        print(f"(b) sync_epoch {rule.name} {label} timed ({ids.shape[0]} steps): "
+              f"{[round(t, 4) for t in kernel_ms]} ms a launch, plain "
+              f"{[round(t, 4) for t in plain_ms]} ms, bound {bound_ms:.6f} ms ({bound_by})",
+              flush=True)
+        rows[label] = {
+            "name": f"sync_epoch (user coefficient {rule.name}, {label})", "route": "cuda",
+            "source": "distributed_sgd_tpu_torch/csrc/sync_epoch.cu", "replaces": TPU_KERNEL,
+            "launches": None, "max_abs_err": errs[label],
+            "ms": min(kernel_ms), "plain_ms": min(plain_ms),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None,  # no single PyTorch call runs the steps
+        }
+    return rows
+
+
+def run_coeff_paths(model_cls, train: Dataset, test: Dataset) -> dict:
+    """(c) The user rule through the engines, counts from 0: a full-width
+    1-epoch sync fit (one sync_epoch variant launch, the loss finite and
+    falling), the per-step path (8 workers, worker_grads at K=8), and at
+    COEFF_SMALL_ROWS the RPC fit (a K=1 Gradient body a reply), its K=4
+    window and Hogwild (the mean mode).  Returns the variant launches by
+    route."""
+    from distributed_sgd_tpu_torch.core.cluster import DevCluster
+
+    def model():
+        return model_cls(LAM, D, regularizer="l2", device="cuda")
+
+    launches = {}
+    reset_user_counts()
+    eng = SyncEngine(model(), B, COEFF_LR, virtual_workers=K, device="cuda")
+    bound, bound_test = eng.bind(train), eng.bind(test)
+    w0 = torch.zeros(D, device="cuda")
+    loss0 = bound_test.evaluate(w0)[0]
+    t0 = time.perf_counter()
+    w = bound.epoch(w0, psync.fold_in(0, 0))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    loss, acc = bound_test.evaluate(w)
+    launches["sgd K=3"] = user_counts()[1]
+    print(f"(c) {model_cls.__name__} sync fit, full width, 1 epoch of {bound.steps_per_epoch} "
+          f"steps: {fit_s:.3f} s, test loss {loss0:.7f} -> {loss:.7f}, accuracy {acc:.4f}; "
+          f"variant launches (worker_grads, sync_epoch) {user_counts()}", flush=True)
+    if not (math.isfinite(loss) and loss < loss0) or user_counts() != (0, 1):
+        raise AssertionError(f"(c): the {model_cls.__name__} fit's loss {loss0} -> {loss}, "
+                             f"variant launches {user_counts()} (want (0, 1))")
+    del bound, bound_test
+
+    reset_user_counts()
+    eng = SyncEngine(model(), B, COEFF_LR, virtual_workers=PER_STEP_WORKERS, device="cuda")
+    bound = eng.bind(train)
+    assert not bound.epoch_kernel, "8 workers at D=47,236 take the per-step path"
+    w = bound.epoch(w0, psync.fold_in(0, 0))
+    launches["K=8"] = user_counts()[0]
+    print(f"(c) per-step path ({PER_STEP_WORKERS} workers, 1 epoch): variant launches "
+          f"{user_counts()}", flush=True)
+    if user_counts() != (bound.steps_per_epoch, 0) or not bool(torch.isfinite(w).all()):
+        raise AssertionError(f"(c) per-step path: variant launches {user_counts()}")
+    del bound
+
+    small_train = Dataset(train.indices[:COEFF_SMALL_ROWS], train.values[:COEFF_SMALL_ROWS],
+                          train.labels[:COEFF_SMALL_ROWS], D)
+    for steps, label in ((1, "K=1"), (WINDOW_K, "window K=4")):
+        reset_user_counts()
+        with DevCluster(model(), small_train, test, n_workers=RPC_WORKERS, seed=0) as c:
+            loss0 = c.master.local_loss(np.zeros(D, np.float32), test=True)[0]
+            fit = c.master.fit_sync(1, B, COEFF_LR, local_steps=steps)
+        launches[label] = user_counts()[0 if steps == 1 else 1]
+        print(f"(c) RPC fit, {COEFF_SMALL_ROWS:,} rows, local_steps {steps}: test loss "
+              f"{loss0:.7f} -> {fit.test_losses[-1]:.7f}; variant launches {user_counts()}",
+              flush=True)
+        if not (fit.test_losses[-1] < loss0 and launches[label] > 0 and
+                user_counts()[1 if steps == 1 else 0] == 0):
+            raise AssertionError(f"(c) RPC fit local_steps {steps}: {user_counts()}")
+
+    reset_user_counts()
+    eng = hw.HogwildEngine(model(), n_workers=RPC_WORKERS, batch_size=B,
+                           learning_rate=COEFF_LR, steps_per_dispatch=HOGWILD_K, device="cuda")
+    res = eng.fit(small_train, test, max_epochs=1)
+    launches["mean K=1"] = user_counts()[1]
+    print(f"(c) Hogwild, {COEFF_SMALL_ROWS:,} rows, k={HOGWILD_K}: {res.state.updates} "
+          f"updates, best test loss {res.state.loss:.7f}; variant launches {user_counts()}",
+          flush=True)
+    if user_counts()[0] != 0 or launches["mean K=1"] < 1 or not math.isfinite(res.state.loss):
+        raise AssertionError(f"(c) Hogwild: variant launches {user_counts()}")
+    return launches
+
+
+def check_shifted_svm(data: dict, train: Dataset) -> None:
+    """(d) A SparseSVM subclass with its own rule trains by that rule on
+    the card: 20 steps of its variant against its plain version, and
+    away from hinge's kernel; a 1-epoch fit through the engine, one
+    variant launch, away from hinge's on the same ids."""
+    rng = np.random.default_rng(29)
+    ids = torch.from_numpy(rng.integers(0, data["indices"].shape[0], (COEFF_STEPS, K, B))).cuda()
+    w0 = torch.tensor(rng.normal(size=D).astype(np.float32) * 0.1, device="cuda")
+    shifted = ShiftedSVM(LAM, D, regularizer="l2", device="cuda")
+    kw = dict(reg_kind="l2", lam=LAM, dim_sparsity=None, lr=0.5, n_total_workers=K)
+    args = (w0, ids, data["indices"], data["values"], data["labels_f32"])
+    got = se.sync_epoch(*args, coeff=shifted.coeff, **kw)
+    want = se.sync_epoch_plain(*args, coeff=shifted.coeff, **kw)
+    hinge = se.sync_epoch(*args, coeff=co.HINGE, **kw)
+    err, gap = float((got - want).abs().max()), float((got - hinge).abs().max())
+    fits = {}
+    for cls in (ShiftedSVM, SparseSVM):
+        reset_user_counts()
+        eng = SyncEngine(cls(LAM, D, regularizer="l2", device="cuda"), B, 0.5,
+                         virtual_workers=K, device="cuda")
+        fits[cls.__name__] = (eng.bind(train).epoch(torch.zeros(D, device="cuda"),
+                                                    psync.fold_in(0, 0)), user_counts())
+    fit_gap = float((fits["ShiftedSVM"][0] - fits["SparseSVM"][0]).abs().max())
+    print(f"(d) ShiftedSVM(SparseSVM), {COEFF_STEPS} steps: variant vs its plain version "
+          f"max_abs_err={err:.3e} (atol {SE_ATOL}), vs hinge's kernel {gap:.3e}; 1-epoch fits "
+          f"through the engine: ShiftedSVM vs SparseSVM weights {fit_gap:.3e}, variant launches "
+          f"{fits['ShiftedSVM'][1]} and {fits['SparseSVM'][1]}", flush=True)
+    if not (err <= SE_ATOL and gap >= COEFF_HINGE_GAP and fit_gap >= COEFF_HINGE_GAP
+            and fits["ShiftedSVM"][1] == (0, 1) and fits["SparseSVM"][1] == (0, 0)):
+        raise AssertionError("(d): the SparseSVM subclass did not train by its own rule")
+
+
+def run_examples() -> dict:
+    """(e) The six examples_torch mains on the card, in this process (the
+    feature-sharded one starts its ranks); returns the variant launches of
+    the custom-model example and each main's seconds."""
+    import importlib
+
+    mains = {name: importlib.import_module(f"examples_torch.{name}").main for name in EXAMPLES}
+    out, seconds = {}, {}
+    for name in EXAMPLES:
+        t0 = time.perf_counter()
+        reset_user_counts()
+        if name == "train_feature_sharded":
+            got = mains[name](workers=COEFF_FS_GRID[0], shards=COEFF_FS_GRID[1])
+        else:
+            got = mains[name]()
+        seconds[name] = round(time.perf_counter() - t0, 2)
+        out[name] = (got, user_counts())
+        ok = math.isfinite(got) and {"train_dense": got < 1.0, "serve_predict": got > 1}.get(
+            name, True)
+        if not ok or (user_counts() != (0, 0)) != (name == "custom_model"):
+            raise AssertionError(f"(e) {name}: returned {got}, variant launches {user_counts()}")
+    print(f"(e) examples_torch on the card: {json.dumps(out)}; seconds {json.dumps(seconds)}",
+          flush=True)
+    return {"custom_model": out["custom_model"][1][1], "seconds": seconds}
+
+
+def run_coeff_phase(card: str) -> list:
+    """Phase 19; returns the summary rows of the user-coefficient routes."""
+    from examples_torch.custom_model import SquaredHinge
+
+    t0 = time.perf_counter()
+    sqh = SquaredHinge(LAM, D, regularizer="l2", device="cuda")
+    rule = sqh.coeff
+    build_s = build_coeff_variants([rule, ShiftedSVM(LAM, D, regularizer="l2",
+                                                     device="cuda").coeff])
+    t1 = time.perf_counter()
+    with rows_of(MAIN_ROWS) as (train, test, _):
+        data = on_card(train)
+        row_nnz = (train.values != 0).sum(axis=1)
+        wg_rows = check_coeff_worker_grads(rule)
+        se_rows = check_coeff_sync_epoch(rule, data, row_nnz)
+        t2 = time.perf_counter()
+        launches = run_coeff_paths(SquaredHinge, train, test)
+        t3 = time.perf_counter()
+        check_shifted_svm(data, train)
+        del data
+    t4 = time.perf_counter()
+    ex = run_examples()
+    t5 = time.perf_counter()
+    wg_rows[1]["launches"], wg_rows[8]["launches"] = launches["K=1"], launches["K=8"]
+    se_rows["sgd K=3"]["launches"] = launches["sgd K=3"]
+    se_rows["mean K=1"]["launches"] = launches["mean K=1"]
+    se_rows["window K=4"]["launches"] = launches["window K=4"]
+    se_rows["sgd K=3"]["path"] = (f"full-width fit {launches['sgd K=3']}; the custom-model "
+                                  f"example (K=1, D=2,048, 5 epochs) {ex['custom_model']}")
+    print(card)
+    print(f"coefficient phase seconds: {time.perf_counter() - t0:.1f} ((a) {t1 - t0:.1f} of "
+          f"which nvcc {build_s:.1f}, (b) {t2 - t1:.1f}, (c) {t3 - t2:.1f}, (d) {t4 - t3:.1f}, "
+          f"(e) {t5 - t4:.1f}; budget {COEFF_BUDGET_S}) on {card}", flush=True)
+    return [wg_rows[1], wg_rows[8]] + [se_rows[k] for k in ("sgd K=3", "mean K=1", "window K=4")]
+
+
 def main() -> None:
     phase("1 device")
     if not torch.cuda.is_available():
@@ -5260,7 +5785,7 @@ def main() -> None:
                       f"{momentum_launches} more with momentum")
 
     phase("9 the async fit over RPC: Hogwild gossip between worker nodes")
-    rpc_async_launches = run_async_rpc_phase()
+    rpc_async_launches = run_async_rpc_phase(rpc_full.pop("async_cli"))
     mean_row["path"] = (f"async rpc (k={HOGWILD_K}, one launch a dispatch, full width) "
                         f"{rpc_async_launches}; " + mean_row["path"])
     mean_row["launches"] = rpc_async_launches
@@ -5285,6 +5810,7 @@ def main() -> None:
     run_serving_phase(main_w, main_test)
 
     phase("13 the aggregation tree and the sharded master")
+    config5 = start_config5_rows()  # phase 14's rows, made beside this phase
     tree = run_tree_phase(rpc_full)
     comp_ref = {k: rpc_full[k] for k in ("data", "small", "test_acc", "windows_per_s",
                                          "grad_bytes")}
@@ -5297,7 +5823,8 @@ def main() -> None:
     window_row["path"] += f"; phase 13 {k_label} (full width, 1 epoch) {tree[k_label][1]}"
 
     phase("14 the telemetry scrape and the rest of the model: BASELINE configs 3 and 5")
-    model = run_model_phase(main_w, main_test)
+    model = run_model_phase(main_w, main_test, config5)
+    del config5
     pg_w = main_w
     del main_w, main_test
     se_row["path"] += (f"; phase 14 config 3 (logistic, l2, full width, {CFG3_EPOCHS} epochs) "
@@ -5340,10 +5867,13 @@ def main() -> None:
     se_row["path"] += (f"; phase 18 the CLI from the text corpus (804,414 rows, "
                        f"{CORPUS_EPOCHS} epochs) {corpus_launches}")
 
-    phase("19 summary")
+    phase("19 a model's own coefficient and the examples")
+    coeff_rows = run_coeff_phase(card)
+
+    phase("20 summary")
     print(card)
     print(json.dumps({"kernels": [wg_row, se_row, mean_row, opt_rows["momentum"],
-                                  opt_rows["adam"], window_row]}))
+                                  opt_rows["adam"], window_row] + coeff_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -104,6 +104,21 @@
 // f32 buffer in global memory with a global atomic, and a flag tells its
 // owner to take that entry from there: a sum of infinities and NaNs does
 // not depend on order either.
+//
+// A model's own rule (the Pallas kernel's coeff_fn; ops/coeff.py) is
+// compiled into a variant of this file with DSGD_USER_COEFF (coeff.cuh,
+// ops/_build.py); the built-in kinds' code is what it was.  Such a rule
+// has no bound before the step, so the variant splits phase A in two
+// passes around one more cluster barrier a step:
+//   pass 1  every sample's margin and coefficient, and the cluster's
+//           largest finite term |c v| (block_max, then cluster_reduce);
+//   cluster.sync()
+//   pass 2  the step's scale from that maximum, the rule of
+//           csrc/worker_grads.cu, then the adds.
+// The coefficients of the first 512 samples stay in the registers of
+// their lanes; past K*B = 512, a round's coefficients are kept in a global
+// scratch slice (L2) that the lane writing one reads back, and the rows
+// are loaded again.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -280,6 +295,78 @@ __device__ __forceinline__ void add_term(const cg::cluster_group& cluster, const
   if (q != 0) cluster_add(sink.g + (size_t)k * p.slice + j, owner, (unsigned long long)q);
 }
 
+#ifdef DSGD_USER_COEFF
+// The user variant's phase A, in two passes (see the header).  One
+// sample's margin, as run_sample gathers and reduces it (every lane gets
+// it); every lane of the warp calls this, with a live sample or not.
+__device__ __forceinline__ float sample_margin(const cg::cluster_group& cluster, const Params& p,
+                                               const Sample& r, int sub, float* w_s) {
+  const bool live = r.row >= 0;
+  const int32_t* ri = p.idx + (live ? r.row : 0) * p.P;
+  const float* rv = p.val + (live ? r.row : 0) * p.P;
+  float m = 0.f;
+  if (live) {
+#pragma unroll
+    for (int t = 0; t < kHeld; ++t)
+      if (r.v[t] != 0.f && (uint32_t)r.i[t] < (uint32_t)p.D)
+        m += *owned(cluster, w_s, r.i[t]) * r.v[t];
+    for (int q = sub + kHeld * kLanes; q < p.P; q += kLanes) {
+      const int32_t i = __ldg(ri + q);
+      const float v = __ldg(rv + q);
+      if (v != 0.f && (uint32_t)i < (uint32_t)p.D) m += *owned(cluster, w_s, i) * v;
+    }
+  }
+#pragma unroll
+  for (int off = kLanes / 2; off > 0; off /= 2)
+    m += __shfl_xor_sync(0xffffffffu, m, off, kLanes);
+  return m;
+}
+
+// Pass 1 for one sample: its coefficient, decided by lane 0 of the sample
+// (every lane gets it), and the largest finite |c * v| of the lane's
+// entries into *top: the terms scatter_row adds, rounded the same way.
+__device__ __forceinline__ float measure_sample(const cg::cluster_group& cluster,
+                                               const Params& p, const Sample& r, int sub,
+                                               float* w_s, float* top) {
+  const float m = sample_margin(cluster, p, r, sub, w_s);
+  float c = (r.row >= 0 && sub == 0) ? grad_coeff(p.coeff_kind, m, r.y) : 0.f;
+  c = __shfl_sync(0xffffffffu, c, 0, kLanes);
+  if (c == 0.f) return c;  // no sample, or an inactive one: every c * v is zero
+  float big = *top;
+#pragma unroll
+  for (int t = 0; t < kHeld; ++t)
+    if (r.v[t] != 0.f && (uint32_t)r.i[t] < (uint32_t)p.D) {
+      const float x = fabsf(c * r.v[t]);
+      if (isfinite(x)) big = fmaxf(big, x);
+    }
+  for (int q = sub + kHeld * kLanes; q < p.P; q += kLanes) {
+    const int32_t i = __ldg(p.idx + r.row * p.P + q);
+    const float v = __ldg(p.val + r.row * p.P + q);
+    const float x = fabsf(c * v);
+    if (v != 0.f && (uint32_t)i < (uint32_t)p.D && isfinite(x)) big = fmaxf(big, x);
+  }
+  *top = big;
+  return c;
+}
+
+// Pass 2 for one live sample: c * v of each of the lane's entries added
+// into the owners' g[k], as run_sample adds them.
+__device__ __forceinline__ void scatter_row(const cg::cluster_group& cluster, const Params& p,
+                                            const Sample& r, int sub, float c,
+                                            const Sink& sink) {
+  const int32_t* ri = p.idx + r.row * p.P;
+  const float* rv = p.val + r.row * p.P;
+#pragma unroll
+  for (int t = 0; t < kHeld; ++t)
+    if (r.v[t] != 0.f && (uint32_t)r.i[t] < (uint32_t)p.D)
+      add_term(cluster, p, sink, r.k, r.i[t], c * r.v[t]);
+  for (int q = sub + kHeld * kLanes; q < p.P; q += kLanes) {
+    const int32_t i = __ldg(ri + q);
+    const float v = __ldg(rv + q);
+    if (v != 0.f && (uint32_t)i < (uint32_t)p.D) add_term(cluster, p, sink, r.k, i, c * v);
+  }
+}
+#else
 // Phase A for one sample: its margin gathered from the owners' w, the
 // coefficient, and c * v added into the owners' g[k].  Every lane of the
 // warp calls this, with a live sample or not, so the shuffles converge.
@@ -318,6 +405,7 @@ __device__ __forceinline__ void run_sample(const cg::cluster_group& cluster, con
     if (v != 0.f && (uint32_t)i < (uint32_t)p.D) add_term(cluster, p, sink, r.k, i, c * v);
   }
 }
+#endif
 
 // Sum of every thread's `v`, in a fixed order, written to *out by thread 0.
 __device__ __forceinline__ void block_sum(float v, float* red_s, float* out) {
@@ -358,6 +446,7 @@ __device__ __forceinline__ float cluster_reduce(const cg::cluster_group& cluster
   return out;
 }
 
+#ifndef DSGD_USER_COEFF
 // The step's scale exponent: the launch's, or for least squares the bound
 // from the cluster's largest |w| this step (see the header).
 __device__ __forceinline__ int step_exponent(const cg::cluster_group& cluster, const Params& p,
@@ -366,6 +455,7 @@ __device__ __forceinline__ int step_exponent(const cg::cluster_group& cluster, c
   const double w_max = (double)cluster_reduce(cluster, wmax, lane, true);
   return scale_exponent(4.0 * (w_max * p.l1_max + p.y_max) * p.v_max, p.count_bits);
 }
+#endif
 
 // Feature sums g[k, j..j+3] of this block as f32: the integer sums at
 // 2^-e, or the non-finite sum where one was added.  Zeroes both for the
@@ -449,8 +539,38 @@ __global__ void __launch_bounds__(kThreads, 1) sync_epoch_kernel(const Params p)
   const int n_slots = kCluster * kSlots;
   float* nf_all = p.scratch + (size_t)kCluster * slice;
   Sample first = load_row(p, load_id(p, 0, slot), slot, sub);
+#ifdef DSGD_USER_COEFF
+  // the coefficients of the samples past the first n_slots, by round
+  float* c_keep = nf_all + (size_t)kCluster * p.K * slice;
+#endif
   for (int s = 0; s < p.steps; ++s) {
     // -- phase A: per-sample margins and the scatter into the owners' g ---
+#ifdef DSGD_USER_COEFF
+    const int64_t next_id = load_id(p, s + 1, slot);  // needed at phase B
+    // pass 1: every coefficient, and the cluster's largest finite term
+    float top = 0.f;
+    const float c_first = measure_sample(cluster, p, first, sub, w_s, &top);
+    for (int base = n_slots; base < n_samples; base += n_slots) {
+      const float c = measure_sample(
+          cluster, p, load_row(p, load_id(p, s, base + slot), base + slot, sub), sub, w_s, &top);
+      if (sub == 0) c_keep[base - n_slots + slot] = c;
+    }
+    block_max(top, red_s, &wmax_s[s & 1]);
+    cluster.sync();
+    // pass 2: the step's scale, then the adds with the kept coefficients
+    const int e = scale_exponent((double)cluster_reduce(cluster, &wmax_s[s & 1], lane, true),
+                                 p.count_bits);
+    const Sink sink{g_s, ldexp(1.0, e), nf_all, &flag_s[s & 1]};
+    if (c_first != 0.f) scatter_row(cluster, p, first, sub, c_first, sink);
+    for (int base = n_slots; base < n_samples; base += n_slots) {
+      // read back by the lane that wrote it
+      const float c = __shfl_sync(0xffffffffu, sub == 0 ? c_keep[base - n_slots + slot] : 0.f,
+                                  0, kLanes);
+      if (c != 0.f)
+        scatter_row(cluster, p, load_row(p, load_id(p, s, base + slot), base + slot, sub), sub,
+                    c, sink);
+    }
+#else
     const int e = step_exponent(cluster, p, &wmax_s[s & 1], lane);
     const Sink sink{g_s, ldexp(1.0, e), nf_all, &flag_s[s & 1]};
     const int64_t next_id = load_id(p, s + 1, slot);  // needed at phase B
@@ -458,6 +578,7 @@ __global__ void __launch_bounds__(kThreads, 1) sync_epoch_kernel(const Params p)
     for (int base = n_slots; base < n_samples; base += n_slots)
       run_sample(cluster, p, load_row(p, load_id(p, s, base + slot), base + slot, sub), sub,
                  w_s, sink);
+#endif
     cluster.sync();
     // the next step's first samples: their loads are in flight during the sweep
     first = load_row(p, next_id, slot, sub);
@@ -562,7 +683,9 @@ __global__ void __launch_bounds__(kThreads, 1) sync_epoch_kernel(const Params p)
 // of `slice` entries.  opt_kind 0 (sgd) reads no state; 1 (momentum) the
 // trace st_in0 -> st_out0 with decay1 = m; 2 (adam) mu st_in0 -> st_out0,
 // nu st_in1 -> st_out1 and the [steps, 2] table `bias`.  `scratch` holds
-// (1 + K) * cluster * slice floats; the kernel initialises it.  scale_e
+// (1 + K) * cluster * slice floats, and in the user variant (coeff_kind 3,
+// DSGD_USER_COEFF) (ceil(K * B / 512) - 1) * 512 more; a `scratch_floats`
+// under that is refused.  The kernel initialises what it reads.  scale_e
 // is the hinge and logistic terms' scale exponent; least squares reads
 // l1_max, y_max and v_max instead (ops/sync_epoch.py data_bounds).
 // Returns 0 on success, a cudaError_t, or kErrClusterUnschedulable when
@@ -571,7 +694,8 @@ extern "C" int dsgd_sync_epoch(const float* w, const float* ds, const int64_t* i
                                const int32_t* idx, const float* val, const float* y,
                                float* w_out, const float* st_in0, const float* st_in1,
                                float* st_out0, float* st_out1, const float* bias,
-                               float* scratch, int64_t n_rows, int steps, int K, int B, int P,
+                               float* scratch, int64_t scratch_floats, int64_t n_rows,
+                               int steps, int K, int B, int P,
                                int D, int cluster, int slice, int smem_bytes, int coeff_kind,
                                int reg_kind, int opt_kind, int scale_e, int count_bits,
                                double l1_max, double y_max, double v_max, float lam2, float lr,
@@ -581,6 +705,17 @@ extern "C" int dsgd_sync_epoch(const float* w, const float* ds, const int64_t* i
   if (cluster != kCluster || slice % 4 != 0 || (int64_t)slice * kCluster < D ||
       opt_kind < 0 || opt_kind > kOptAdam)
     return (int)cudaErrorInvalidValue;
+  int64_t need = (int64_t)(1 + K) * kCluster * slice;
+#ifdef DSGD_USER_COEFF
+  const int64_t n_slots = (int64_t)kCluster * kSlots;
+  need += ((int64_t)K * B + n_slots - 1) / n_slots * n_slots - n_slots;
+#endif
+  if (scratch_floats < need) return (int)cudaErrorInvalidValue;  // a buffer too short
+#ifdef DSGD_USER_COEFF
+  if (coeff_kind != kUserCoeff) return (int)cudaErrorInvalidValue;  // the variant's one rule
+#else
+  if (coeff_kind < 0 || coeff_kind >= kUserCoeff) return (int)cudaErrorInvalidValue;
+#endif
   const int n_state = opt_kind;  // sgd 0, momentum 1, adam 2
   const Params p{w, ds, ids, idx, val, y, w_out, {st_in0, st_in1}, {st_out0, st_out1}, bias,
                  scratch, n_rows, steps, K, B, P, D, slice, coeff_kind, reg_kind, opt_kind,

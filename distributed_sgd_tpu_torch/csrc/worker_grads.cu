@@ -7,7 +7,8 @@
 // each of its B padded rows x_b (P (index, value) pairs):
 //
 //     m_b = x_b . w                       margin (gather)
-//     c_b = coeff(m_b, y_b)               hinge / logistic / least squares
+//     c_b = coeff(m_b, y_b)               hinge / logistic / least squares,
+//                                         or a model's own rule (coeff.cuh)
 //     g_k = sum_b c_b * x_b               gradient sum (scatter-add)
 //
 // The TPU kernel builds one-hot operands and runs both sides as MXU
@@ -54,6 +55,11 @@
 //   rare: it sets a flag, and the flagged block alone runs a side pass
 //   that sums those terms in f32 in its shared memory.  Sums of
 //   infinities and NaNs do not depend on order.
+// - A model's own rule (the Pallas kernel's coeff_fn) is compiled into a
+//   variant of this file with DSGD_USER_COEFF (coeff.cuh, ops/_build.py);
+//   nothing else changes: the scale already comes from the terms' own
+//   largest finite |c_b * v|, so the rule needs no bound, and its
+//   non-finite terms take the side pass as any others.
 // - A block keeps at most `cap` coefficients (launch_plan's chunk of
 //   samples); past B = cap it computes each chunk's coefficients again
 //   before scattering it, with the same code, so they come out the same.
@@ -384,6 +390,11 @@ extern "C" int dsgd_worker_grads(const float* w, const int32_t* idx,
                                  int ranges, int span, int cap, int smem_bytes,
                                  void* stream) {
   if (K == 0 || B == 0 || D == 0) return (int)cudaSuccess;
+#ifdef DSGD_USER_COEFF
+  if (coeff_kind != kUserCoeff) return (int)cudaErrorInvalidValue;  // the variant's one rule
+#else
+  if (coeff_kind < 0 || coeff_kind >= kUserCoeff) return (int)cudaErrorInvalidValue;
+#endif
   if (K < 0 || B < 0 || P < 0 || D < 0 || ranges < 1 || span < 1 || cap < 1 ||
       (int64_t)K * ranges > INT32_MAX ||
       (int64_t)cap * P > INT32_MAX - kThreads * kPerThread || (int64_t)ranges * span < D ||

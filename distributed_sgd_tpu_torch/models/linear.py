@@ -13,10 +13,19 @@ quirks included:
 The ``1[g != 0]`` mask is applied to each worker's gradient sum before the
 sum over workers, as the JAX engine does.
 
-Each model names its coefficient rule (`coeff_kind`, ops/worker_grads.py)
-and its regularizer (`reg_kind`, ops/sync_epoch.py) for the CUDA kernels,
-since a Python function cannot be traced into CUDA; ``grad_coeff`` and
-``regularize`` evaluate those same rules in torch.
+The CUDA kernels take a model's coefficient rule as `coeff` (ops/coeff.py,
+the JAX kernel's ``coeff_fn``) and its regularizer as `reg_kind`
+(ops/sync_epoch.py).  The built-in models name a compiled rule by
+``coeff_kind``; ``grad_coeff`` is that rule in torch.  A model may instead
+define its own rule, twice, as the JAX package's models define it once:
+
+- ``grad_coeff(margins, y)`` in torch: the plain version (the CPU route and
+  the card's reference);
+- ``coeff_cuda``, a class attribute: the body of the CUDA device function
+  ``float coeff(float m, float y)``, compiled into a variant of each kernel.
+
+Such a model trains on the CPU from its ``grad_coeff`` alone; on the card
+without ``coeff_cuda`` it raises (ops/coeff.py check_launchable).
 
 Dense-layout rows (``Dataset.dense``: values ``[B, D]``, a zero-width
 index array) take the dense path: ``margins_dense`` (``x @ w``) and
@@ -35,6 +44,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from distributed_sgd_tpu_torch.ops import coeff as co
 from distributed_sgd_tpu_torch.ops import worker_grads as wg
 from distributed_sgd_tpu_torch.ops.sync_epoch import regularize
 from distributed_sgd_tpu_torch.ops.sparse import SparseBatch, matvec, scatter_add
@@ -45,11 +55,13 @@ class LinearModel:
     """Shared machinery: margins, batched gradients, regularization.
 
     Subclasses define `predict(margins)`, `sample_loss(preds, y)` and
-    `coeff_kind`.  `regularizer` is one of 'dim_sparsity' (reference
-    parity), 'l2' (standard 2*lam*w), 'none'.
+    either `coeff_kind` (a built-in rule) or their own `grad_coeff` with
+    `coeff_cuda` (see the module docstring).  `regularizer` is one of
+    'dim_sparsity' (reference parity), 'l2' (standard 2*lam*w), 'none'.
     """
 
     coeff_kind: int
+    coeff_cuda: Optional[str] = None
 
     def __init__(
         self,
@@ -81,7 +93,30 @@ class LinearModel:
         raise NotImplementedError
 
     def grad_coeff(self, margins: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        return wg.grad_coeff(self.coeff_kind, margins, y)
+        return co.builtin_rule(self.coeff_kind, margins, y)
+
+    @property
+    def coeff(self) -> co.Coeff:
+        """The rule as the kernels take it: the class's built-in kind, or,
+        where a class overrides `grad_coeff`, a user rule of that function
+        and `coeff_cuda`.  Resolved once a model: every kernel call of a
+        route reads it."""
+        rule = self.__dict__.get("_coeff")
+        if rule is None:
+            rule = self.__dict__["_coeff"] = self._resolve_coeff()
+        return rule
+
+    def _resolve_coeff(self) -> co.Coeff:
+        name = type(self).__name__
+        if type(self).grad_coeff is not LinearModel.grad_coeff:
+            return co.user(self.grad_coeff, self.coeff_cuda, name)
+        if self.coeff_cuda is not None:
+            raise ValueError(f"{name} has a coeff_cuda but no grad_coeff of its own: the "
+                             f"plain version would not be the same rule")
+        kind = getattr(self, "coeff_kind", None)
+        if kind is None:
+            raise ValueError(f"{name} defines neither coeff_kind nor grad_coeff")
+        return co.resolve(kind)
 
     @property
     def reg_kind(self) -> str:
@@ -156,7 +191,7 @@ class LinearModel:
             return self.regularize(self.grad_dense(w, batch.values, y), w)
         g = wg.worker_grads(w, batch.indices[None].contiguous(),
                             batch.values[None].float().contiguous(),
-                            y.float()[None].contiguous(), self.coeff_kind)[0]
+                            y.float()[None].contiguous(), self.coeff)[0]
         return self.regularize(g, w)
 
     def regularize(self, grad: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -168,7 +203,7 @@ class LinearModel:
 class SparseSVM(LinearModel):
     """Reference-exact hinge model (see module docstring)."""
 
-    coeff_kind = wg.HINGE
+    coeff_kind = co.HINGE
 
     def predict(self, margins: torch.Tensor) -> torch.Tensor:
         # signum(x.w) * -1; preds in {-1, 0, +1}
@@ -181,7 +216,7 @@ class SparseSVM(LinearModel):
 class LogisticRegression(LinearModel):
     """Binary logistic loss on +/-1 labels."""
 
-    coeff_kind = wg.LOGISTIC
+    coeff_kind = co.LOGISTIC
 
     def predict(self, margins: torch.Tensor) -> torch.Tensor:
         return torch.where(margins >= 0, 1.0, -1.0)
@@ -201,7 +236,7 @@ class LogisticRegression(LinearModel):
 class LeastSquares(LinearModel):
     """Squared-error regression."""
 
-    coeff_kind = wg.LEAST_SQUARES
+    coeff_kind = co.LEAST_SQUARES
 
     def predict(self, margins: torch.Tensor) -> torch.Tensor:
         return margins

@@ -34,7 +34,15 @@ first use, ops/_build.py) or raises.  On a CPU tensor it runs
 scaled by a power of two (`scale_exponent`, from the data's bounds,
 `data_bounds`) and added as a 64-bit integer, so one input gives one
 output bit for bit.
-``sync_epoch.launches`` counts kernel launches, ``sync_epoch.steps`` the
+
+``coeff`` is the rule (ops/coeff.py): a built-in kind, or a model's
+own `Coeff`, whose torch function the plain version applies and whose
+CUDA body runs in the kernel's variant (ops/_build.py).  That variant
+takes each step's scale from the cluster's largest finite term after a
+first pass over the step's samples (csrc/sync_epoch.cu), so it needs no
+bound from the data.
+``sync_epoch.launches`` counts kernel launches (``sync_epoch.user_launches``
+those of a user rule's variant), ``sync_epoch.steps`` the
 steps they ran and ``sync_epoch.opt_launches`` the launches of each
 optimizer; the async engines launch from several threads, so all are added
 under a lock.
@@ -55,11 +63,9 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from distributed_sgd_tpu_torch.ops.worker_grads import (
-    COEFF_KINDS,
-    LEAST_SQUARES,
-    worker_grads_plain,
-)
+from distributed_sgd_tpu_torch.ops import coeff as co
+from distributed_sgd_tpu_torch.ops.coeff import LEAST_SQUARES
+from distributed_sgd_tpu_torch.ops.worker_grads import worker_grads_plain
 
 REG_KINDS = ("dim_sparsity", "l2", "none")  # the kernel's reg_kind is the index
 # the kernel's opt_kind is the index, which is also the number of [D] state vectors
@@ -73,6 +79,9 @@ _SCRATCH_FLOATS = 2 + 2 + 32 + 2
 SUM_BITS = 62  # the integer sums of g stay within 2^62 < 2^63
 SCALE_LIMIT = 1000  # |e|: 2^e stays a normal double
 _CLUSTER_UNSCHEDULABLE = 100000  # the C function's code for that
+# samples the cluster holds at once (csrc/sync_epoch.cu kCluster * kSlots; the C
+# entry refuses a scratch buffer shorter than it needs)
+IN_FLIGHT = 512
 _counts_lock = threading.Lock()
 
 
@@ -129,7 +138,8 @@ def term_bound(coeff_kind: int, bounds: DataBounds, w_max: float = 0.0) -> float
     4 (max|w| L1 + max|y|) max|v| from the step's largest |w| (twice the
     exact bound, which covers the f32 rounding of the margin).  The
     kernel computes the least-squares bound each step from the cluster's
-    max |w|; the others the wrapper computes once a launch."""
+    max |w|; the others the wrapper computes once a launch.  A user rule
+    has no bound: its variant measures each step's terms."""
     if coeff_kind == LEAST_SQUARES:
         return 4.0 * (w_max * bounds.l1_max + bounds.y_max) * bounds.v_max
     return bounds.y_max * bounds.v_max
@@ -242,7 +252,7 @@ def apply_update(w: torch.Tensor, g: torch.Tensor, lr: float, optimizer: Optimiz
     return w + (-lr) * u, OptState((mu, nu), count + 1)
 
 
-def sync_epoch_plain(w, ids, indices, values, labels_f32, *, coeff_kind, reg_kind,
+def sync_epoch_plain(w, ids, indices, values, labels_f32, *, coeff, reg_kind,
                      lam, dim_sparsity, lr, n_total_workers, grad_divisor: float = 1,
                      optimizer: Optional[Optimizer] = None,
                      opt_state: Optional[OptState] = None):
@@ -252,7 +262,7 @@ def sync_epoch_plain(w, ids, indices, values, labels_f32, *, coeff_kind, reg_kin
     opt = optimizer or Optimizer()
     state = init_opt_state(opt, w.shape[0], w.device) if opt_state is None else opt_state
     for rows in ids:
-        gk = worker_grads_plain(w, indices[rows], values[rows], labels_f32[rows], coeff_kind)
+        gk = worker_grads_plain(w, indices[rows], values[rows], labels_f32[rows], coeff)
         gk = regularize(gk / grad_divisor, w, reg_kind, lam, dim_sparsity)  # / 1 is exact
         w, state = apply_update(w, gk.sum(dim=0) / n_total_workers, lr, opt, state)
     if ids.shape[0] == 0:
@@ -260,10 +270,11 @@ def sync_epoch_plain(w, ids, indices, values, labels_f32, *, coeff_kind, reg_kin
     return w if optimizer is None else (w, state)
 
 
-def _check(w, ids, indices, values, labels_f32, coeff_kind, reg_kind, dim_sparsity,
+def _check(w, ids, indices, values, labels_f32, coeff, reg_kind, dim_sparsity,
            n_total_workers, grad_divisor, optimizer, opt_state):
-    if coeff_kind not in COEFF_KINDS:
-        raise ValueError(f"coeff_kind must be one of {COEFF_KINDS}, got {coeff_kind!r}")
+    rule = co.resolve(coeff)
+    if w.device.type == "cuda":
+        co.check_launchable(rule, w.device)
     if reg_kind not in REG_KINDS:
         raise ValueError(f"reg_kind must be one of {REG_KINDS}, got {reg_kind!r}")
     if n_total_workers < 1:
@@ -311,12 +322,12 @@ def _check(w, ids, indices, values, labels_f32, coeff_kind, reg_kind, dim_sparsi
             raise ValueError(f"{name} must be contiguous")
 
 
-def _kernel():
-    """The C entry point with its argument types, the library built at
-    first use."""
+def _kernel(rule: co.Coeff):
+    """The C entry point of the library for `rule` (the built-in one, or
+    the rule's variant) with its argument types, built at first use."""
     from distributed_sgd_tpu_torch.ops import _build
 
-    return bind(_build.load("sync_epoch").dsgd_sync_epoch)
+    return bind(_build.load("sync_epoch", rule).dsgd_sync_epoch)
 
 
 def bind(fn):
@@ -324,12 +335,12 @@ def bind(fn):
     its argument types."""
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int64] + [ctypes.c_int] * 13
+        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int64] * 2 + [ctypes.c_int] * 13
                        + [ctypes.c_double] * 3 + [ctypes.c_float] * 9 + [ctypes.c_void_p])
     return fn
 
 
-def _launch(w, ids, indices, values, labels_f32, coeff_kind, reg_kind, lam,
+def _launch(w, ids, indices, values, labels_f32, coeff, reg_kind, lam,
             dim_sparsity, lr, n_total_workers, grad_divisor, optimizer, opt_state, fn=None):
     s, k, b = ids.shape
     n, p = indices.shape
@@ -341,11 +352,16 @@ def _launch(w, ids, indices, values, labels_f32, coeff_kind, reg_kind, lam,
         raise ValueError(
             f"K={k} workers at D={d} with {opt.kind}'s {opt.n_state} state vectors do not "
             f"fit one cluster's shared memory (cluster_plan); run the per-step path")
-    fn = _kernel() if fn is None else bind(fn)
+    rule = co.resolve(coeff)
+    fn = _kernel(rule) if fn is None else bind(fn)
     ds_ptr = dim_sparsity.data_ptr() if reg_kind == "dim_sparsity" else 0
     bounds = data_bounds(values, labels_f32)
     n_terms = b * p  # terms a step adds into one g[k, i], at most
-    scale_e = scale_exponent(term_bound(coeff_kind, bounds), n_terms)
+    user = rule.kind == co.USER
+    # the user variant measures each step's terms itself
+    scale_e = 0 if user else scale_exponent(term_bound(rule.kind, bounds), n_terms)
+    # ... and keeps the coefficients past the first IN_FLIGHT samples of a step
+    kept = max(0, -(-k * b // IN_FLIGHT) - 1) * IN_FLIGHT if user else 0
     # decay1, decay2, keep1, keep2: 1 - b in double, then f32, as JAX's
     # weakly typed constants
     consts = {"sgd": (0.0, 0.0, 0.0, 0.0), "momentum": (opt.momentum, 0.0, 0.0, 0.0),
@@ -355,16 +371,16 @@ def _launch(w, ids, indices, values, labels_f32, coeff_kind, reg_kind, lam,
         outs = tuple(torch.empty_like(v) for v in vectors)
         bias = (torch.from_numpy(bias_corrections(count, s)).to(w.device)
                 if opt.kind == "adam" and s > 0 else None)
-        # dim_sparsity by owner, then the non-finite terms' f32 sums
-        scratch = torch.empty((1 + k) * plan.blocks * plan.slice, dtype=torch.float32,
+        # dim_sparsity by owner, the non-finite terms' f32 sums, the kept coefficients
+        scratch = torch.empty((1 + k) * plan.blocks * plan.slice + kept, dtype=torch.float32,
                               device=w.device)
         ins_ptr = [v.data_ptr() for v in vectors] + [0] * (2 - len(vectors))
         outs_ptr = [v.data_ptr() for v in outs] + [0] * (2 - len(outs))
         stream = torch.cuda.current_stream(w.device).cuda_stream
         err = fn(w.data_ptr(), ds_ptr, ids.data_ptr(), indices.data_ptr(),
                  values.data_ptr(), labels_f32.data_ptr(), w_out.data_ptr(), *ins_ptr,
-                 *outs_ptr, 0 if bias is None else bias.data_ptr(), scratch.data_ptr(), n, s,
-                 k, b, p, d, plan.blocks, plan.slice, plan.smem_bytes, coeff_kind,
+                 *outs_ptr, 0 if bias is None else bias.data_ptr(), scratch.data_ptr(),
+                 scratch.numel(), n, s, k, b, p, d, plan.blocks, plan.slice, plan.smem_bytes, rule.kind,
                  REG_KINDS.index(reg_kind), OPT_KINDS.index(opt.kind), scale_e,
                  (n_terms - 1).bit_length(), bounds.l1_max, bounds.y_max, bounds.v_max,
                  2.0 * lam, lr, float(n_total_workers), float(grad_divisor), *consts,
@@ -377,6 +393,7 @@ def _launch(w, ids, indices, values, labels_f32, coeff_kind, reg_kind, lam,
         raise RuntimeError(f"sync_epoch kernel launch failed: cudaError {err}")
     with _counts_lock:
         sync_epoch.launches += 1
+        sync_epoch.user_launches += user
         sync_epoch.steps += s
         sync_epoch.opt_launches[opt.kind] += 1
     if optimizer is None:
@@ -385,7 +402,7 @@ def _launch(w, ids, indices, values, labels_f32, coeff_kind, reg_kind, lam,
 
 
 def sync_epoch(w: torch.Tensor, ids: torch.Tensor, indices: torch.Tensor,
-               values: torch.Tensor, labels_f32: torch.Tensor, *, coeff_kind: int,
+               values: torch.Tensor, labels_f32: torch.Tensor, *, coeff,
                reg_kind: str, lam: float, dim_sparsity: Optional[torch.Tensor],
                lr: float, n_total_workers: int, grad_divisor: float = 1,
                optimizer: Optional[Optimizer] = None, opt_state: Optional[OptState] = None):
@@ -393,14 +410,15 @@ def sync_epoch(w: torch.Tensor, ids: torch.Tensor, indices: torch.Tensor,
     the data ``indices`` i32[N, P], ``values`` f32[N, P], ``labels_f32``
     f32[N]; ``grad_divisor`` B gives the async mean mode.  With an
     `optimizer` (and its `opt_state`, zeros when None) it returns (w, the
-    new OptState).  CUDA tensors launch the kernel (or raise); CPU tensors
+    new OptState).  `coeff` is a built-in kind or a `Coeff`
+    (ops/coeff.py).  CUDA tensors launch the kernel (or raise); CPU tensors
     run `sync_epoch_plain`."""
-    _check(w, ids, indices, values, labels_f32, coeff_kind, reg_kind, dim_sparsity,
+    _check(w, ids, indices, values, labels_f32, coeff, reg_kind, dim_sparsity,
            n_total_workers, grad_divisor, optimizer, opt_state)
     if optimizer is not None and opt_state is None:
         opt_state = init_opt_state(optimizer, w.shape[0], w.device)
     args = (w, ids, indices, values, labels_f32)
-    kw = dict(coeff_kind=coeff_kind, reg_kind=reg_kind, lam=lam, dim_sparsity=dim_sparsity,
+    kw = dict(coeff=coeff, reg_kind=reg_kind, lam=lam, dim_sparsity=dim_sparsity,
               lr=lr, n_total_workers=n_total_workers, grad_divisor=grad_divisor,
               optimizer=optimizer, opt_state=opt_state)
     if w.device.type == "cuda":
@@ -411,5 +429,6 @@ def sync_epoch(w: torch.Tensor, ids: torch.Tensor, indices: torch.Tensor,
 
 
 sync_epoch.launches = 0
+sync_epoch.user_launches = 0  # of them, launches of a user rule's variant
 sync_epoch.steps = 0
 sync_epoch.opt_launches = dict.fromkeys(OPT_KINDS, 0)  # launches by optimizer

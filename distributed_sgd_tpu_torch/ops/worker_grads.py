@@ -1,6 +1,6 @@
 """Fused per-worker gradient sums: the CUDA kernel and its plain version.
 
-``worker_grads(w, idx, val, y, coeff_kind) -> f32[K, D]`` computes, for
+``worker_grads(w, idx, val, y, coeff) -> f32[K, D]`` computes, for
 each of K workers over its B padded rows,
 
     m_b = x_b . w,    c_b = grad_coeff(m_b, y_b),    g_k = sum_b c_b * x_b
@@ -17,13 +17,15 @@ features in 64-bit integers in its shared memory at a power-of-two scale,
 so one input always gives one output bit for bit (csrc/worker_grads.cu
 says how; ``launch_plan`` gives R).  On a CPU tensor it runs
 ``worker_grads_plain``, the same function in plain torch.
-``worker_grads.launches`` counts calls that launched the kernel, under a
+``worker_grads.launches`` counts calls that launched the kernel (and
+``worker_grads.user_launches`` those of a user rule's variant), under a
 lock: the RPC workers of one process call it from several threads.
 
-A Python coefficient function cannot be traced into CUDA the way the JAX
-package traces ``coeff_fn`` into Pallas, so each model names its rule by
-``coeff_kind`` (HINGE, LOGISTIC, LEAST_SQUARES); ``grad_coeff`` is the one
-torch definition of each rule and the kernel mirrors it.
+The rule ``coeff`` is the JAX kernel's ``coeff_fn`` (ops/coeff.py): a
+built-in kind (HINGE, LOGISTIC, LEAST_SQUARES), or a model's own rule, a
+`Coeff` of kind USER, whose torch function the plain version applies and
+whose CUDA body runs in the kernel's variant (built per rule, ops/
+_build.py).  A user rule without CUDA raises on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -37,8 +39,8 @@ from typing import NamedTuple
 
 import torch
 
-HINGE, LOGISTIC, LEAST_SQUARES = 0, 1, 2
-COEFF_KINDS = (HINGE, LOGISTIC, LEAST_SQUARES)
+from distributed_sgd_tpu_torch.ops import coeff as co
+
 _counts_lock = threading.Lock()
 
 COEFF_CHUNK = 512  # samples whose coefficients a block keeps at once
@@ -53,22 +55,9 @@ WALK = 8 * 1024
 SPAN_TARGET = 6144
 
 
-def grad_coeff(kind: int, margins: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Per-sample gradient coefficient of rule `kind` (labels as f32)."""
-    yf = y.float()
-    if kind == HINGE:
-        # backward = 0 if y*(x.w) < 0 else y  (reference hinge subgradient)
-        return torch.where(yf * margins < 0, torch.zeros_like(yf), yf)
-    if kind == LOGISTIC:
-        return -yf * torch.sigmoid(-yf * margins)
-    if kind == LEAST_SQUARES:
-        return 2.0 * (margins - yf)
-    raise ValueError(f"coeff_kind must be one of {COEFF_KINDS}, got {kind!r}")
-
-
-def _check(w, idx, val, y, coeff_kind):
-    if coeff_kind not in COEFF_KINDS:
-        raise ValueError(f"coeff_kind must be one of {COEFF_KINDS}, got {coeff_kind!r}")
+def _check(w, idx, val, y, coeff) -> co.Coeff:
+    """The resolved rule, after checking every argument."""
+    rule = co.resolve(coeff)
     if w.dim() != 1 or idx.dim() != 3 or y.dim() != 2:
         raise ValueError(
             f"want w[D], idx/val[K, B, P], y[K, B]; got w{list(w.shape)}, "
@@ -85,10 +74,11 @@ def _check(w, idx, val, y, coeff_kind):
             raise ValueError(f"{name} is on {t.device}, w on {w.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    return rule
 
 
 def worker_grads_plain(w: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
-                       y: torch.Tensor, coeff_kind: int) -> torch.Tensor:
+                       y: torch.Tensor, coeff) -> torch.Tensor:
     """The kernel's function in plain torch: ``index_select`` and a row sum
     for the margins, the coefficient, then one ``index_add_`` over all
     workers' rows (worker k's ids offset by k*D)."""
@@ -96,8 +86,8 @@ def worker_grads_plain(w: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
     d = w.shape[0]
     flat = idx.reshape(-1).long()
     margins = (w.index_select(0, flat).view(k, b, p) * val).sum(dim=-1)
-    coeff = grad_coeff(coeff_kind, margins, y)
-    contrib = (coeff[..., None] * val).reshape(-1)
+    c = co.resolve(coeff).plain(margins, y)
+    contrib = (c[..., None] * val).reshape(-1)
     offset = (torch.arange(k, device=w.device) * d).view(k, 1, 1)
     g = torch.zeros(k * d, dtype=torch.float32, device=w.device)
     g.index_add_(0, (idx.long() + offset).reshape(-1), contrib)
@@ -124,55 +114,62 @@ def launch_plan(k: int, b: int, p: int, d: int) -> LaunchPlan:
     return LaunchPlan(ranges, span, cap, 8 * span + 4 * cap + 8)
 
 
-_fn = None
+_fns = {}  # the rule's content key (None: the built-in library) -> its entry point
 
 
-def _kernel():
-    """The C entry point with its argument types, the library built and
-    bound at first use."""
-    global _fn
-    if _fn is None:
+def _kernel(rule: co.Coeff):
+    """The C entry point of the library for `rule` with its argument types,
+    the library built and bound at first use."""
+    key = rule.key if rule.kind == co.USER else None
+    fn = _fns.get(key)
+    if fn is None:
         from distributed_sgd_tpu_torch.ops import _build
 
-        fn = _build.load("worker_grads").dsgd_worker_grads
+        fn = _build.load("worker_grads", rule if key else None).dsgd_worker_grads
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[key] = fn
+    return fn
 
 
-def _launch(w, idx, val, y, coeff_kind):
+def _launch(w, idx, val, y, rule: co.Coeff):
     k, b, p = idx.shape
     d = w.shape[0]
     plan = launch_plan(k, b, p, d)
-    fn = _kernel()
+    fn = _kernel(rule)
     g = torch.empty((k, d), dtype=torch.float32, device=w.device)  # written whole by the kernel
     dev = w.device.index
     # the raw current stream: no torch.cuda.Stream object, no device switch
     # where w's device is current
     with contextlib.nullcontext() if dev == torch.cuda.current_device() else torch.cuda.device(dev):
         err = fn(w.data_ptr(), idx.data_ptr(), val.data_ptr(), y.data_ptr(), g.data_ptr(),
-                 k, b, p, d, coeff_kind, *plan, torch._C._cuda_getCurrentRawStream(dev))
+                 k, b, p, d, rule.kind, *plan, torch._C._cuda_getCurrentRawStream(dev))
     if err != 0:
         raise RuntimeError(f"worker_grads kernel launch failed: cudaError {err}")
     with _counts_lock:
         worker_grads.launches += 1
+        if rule.kind == co.USER:
+            worker_grads.user_launches += 1
     return g
 
 
 def worker_grads(w: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
-                 y: torch.Tensor, coeff_kind: int) -> torch.Tensor:
+                 y: torch.Tensor, coeff) -> torch.Tensor:
     """Fused gradients for K workers: f32[K, D] from w f32[D], idx i32[K,B,P],
-    val f32[K,B,P], y f32[K,B].  CUDA tensors launch the kernel (or raise);
-    CPU tensors run `worker_grads_plain`."""
-    _check(w, idx, val, y, coeff_kind)
+    val f32[K,B,P], y f32[K,B], under the rule `coeff` (a built-in kind or
+    a `Coeff`).  CUDA tensors launch the kernel (or raise); CPU tensors
+    run `worker_grads_plain`."""
+    rule = _check(w, idx, val, y, coeff)
+    if w.device.type == "cuda":
+        co.check_launchable(rule, w.device)
     if idx.shape[1] == 0:  # no rows: nothing to launch, every g_k is zero
         return torch.zeros((idx.shape[0], w.shape[0]), dtype=torch.float32, device=w.device)
     if w.device.type == "cuda":
-        return _launch(w, idx, val, y, coeff_kind)
+        return _launch(w, idx, val, y, rule)
     if w.device.type == "cpu":
-        return worker_grads_plain(w, idx, val, y, coeff_kind)
+        return worker_grads_plain(w, idx, val, y, rule)
     raise ValueError(f"worker_grads runs on cuda or cpu tensors, got {w.device}")
 
 
 worker_grads.launches = 0
+worker_grads.user_launches = 0  # of them, launches of a user rule's variant

@@ -35,6 +35,7 @@ import torch
 from distributed_sgd_tpu_torch.data.rcv1 import Dataset
 from distributed_sgd_tpu_torch.models.linear import LinearModel
 from distributed_sgd_tpu_torch.ops import worker_grads as wg
+from distributed_sgd_tpu_torch.ops.coeff import check_launchable
 from distributed_sgd_tpu_torch.parallel.mesh import DeviceLike
 
 
@@ -62,6 +63,9 @@ class HostMeshEngine:
         self.n_devices = len(self.devices)
         self.n_rows = len(data)
         self.dense = data.is_dense
+        if not self.dense:  # a model's own rule needs its CUDA form on a card
+            for dev in self.devices:
+                check_launchable(model.coeff, dev)
         # the host's slice on every device of the group (one copy a
         # distinct device)
         copies = {}
@@ -115,7 +119,7 @@ class HostMeshEngine:
             return self.model.grad_dense(wd, rows_v, by)
         rows_i = idx.index_select(0, t)
         return wg.worker_grads(wd, rows_i[None].contiguous(), rows_v[None].contiguous(),
-                               by[None].contiguous(), self.model.coeff_kind)[0]
+                               by[None].contiguous(), self.model.coeff)[0]
 
     def _reduced_grad(self, w: torch.Tensor, ids: np.ndarray,
                       valid: np.ndarray) -> torch.Tensor:

@@ -415,7 +415,8 @@ class HogwildEngine:
             # workers' and the coordinator's streams read them; the kernel
             # is built here, not by the first worker threads
             torch.cuda.synchronize(self.device)
-            _build.load("sync_epoch" if workers[0]._steps.fused else "worker_grads")
+            _build.load("sync_epoch" if workers[0]._steps.fused else "worker_grads",
+                        self.model.coeff)
 
         for w in workers:
             w.start_async(w0)

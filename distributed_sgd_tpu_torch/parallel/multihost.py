@@ -58,6 +58,8 @@ def initialize(
     if backend is None:
         backend = "nccl" if device.type == "cuda" else "gloo"
     if device.type == "cuda":
+        if device.index is None:  # the card: the current one, by its index
+            device = torch.device("cuda", torch.cuda.current_device())
         torch.cuda.set_device(device)
     dist.init_process_group(backend, init_method=f"tcp://{coordinator_address}",
                             world_size=int(num_processes), rank=int(process_id))

@@ -68,6 +68,7 @@ import torch
 from distributed_sgd_tpu_torch import convert
 from distributed_sgd_tpu_torch.data.rcv1 import Dataset
 from distributed_sgd_tpu_torch.models.linear import LinearModel
+from distributed_sgd_tpu_torch.ops.coeff import check_launchable
 from distributed_sgd_tpu_torch.ops.sparse import SparseBatch
 from distributed_sgd_tpu_torch.ops.sync_epoch import (
     Optimizer,
@@ -158,6 +159,8 @@ class BoundSync:
                 f"dense-layout rows must span the model's {model.n_features} features, "
                 f"got width {data.values.shape[1]}")
         self.kernel = "dense" if data.is_dense else "sparse"
+        if self.kernel == "sparse":  # a model's own rule needs its CUDA form on the card
+            check_launchable(model.coeff, data.indices.device)
         self.optimizer = resolve_optimizer(optimizer, momentum)
         self.model = model
         self.data = data
@@ -230,7 +233,7 @@ class BoundSync:
             gk = self.model.grad_dense(w, d.values[ids], self._labels_f32[ids])  # [K, D]
         else:
             gk = worker_grads(w, d.indices[ids], d.values[ids], self._labels_f32[ids],
-                              self.model.coeff_kind)  # [K, D], one launch for every worker
+                              self.model.coeff)  # [K, D], one launch for every worker
         gk = self.model.regularize(gk, w)
         # master mean over ALL workers: one all_reduce of the [D] sum
         g = all_reduce_sum(gk.sum(dim=0), self.group) / (self.n_workers * self.virtual_workers)
@@ -276,14 +279,14 @@ class BoundSync:
             m, d = self.model, self.data
             if self.epoch_kernel:
                 sync_epoch(w0, ids, d.indices, d.values, self._labels_f32,
-                           coeff_kind=m.coeff_kind, reg_kind=m.reg_kind, lam=m.lam,
+                           coeff=m.coeff, reg_kind=m.reg_kind, lam=m.lam,
                            dim_sparsity=m.dim_sparsity, lr=0.0,
                            n_total_workers=self.n_workers * self.virtual_workers,
                            optimizer=self.optimizer,
                            opt_state=self._init_opt_state())[0].cpu()
             else:
                 worker_grads(w0, d.indices[ids[0]], d.values[ids[0]], self._labels_f32[ids[0]],
-                             m.coeff_kind).cpu()
+                             m.coeff).cpu()
 
         return [("epoch", epoch)]
 
@@ -304,7 +307,7 @@ class BoundSync:
             m, d = self.model, self.data
             w, self._opt_state = sync_epoch(
                 w, ids.contiguous(), d.indices, d.values, self._labels_f32,
-                coeff_kind=m.coeff_kind, reg_kind=m.reg_kind, lam=m.lam,
+                coeff=m.coeff, reg_kind=m.reg_kind, lam=m.lam,
                 dim_sparsity=m.dim_sparsity, lr=self.learning_rate,
                 n_total_workers=self.n_workers * self.virtual_workers,
                 optimizer=self.optimizer, opt_state=self._opt_state)
@@ -420,6 +423,8 @@ class MeanSteps:
         self.learning_rate = float(learning_rate)
         self.optimizer = optimizer or Optimizer()
         self.dense = SparseBatch(indices, values).is_dense
+        if not self.dense:
+            check_launchable(model.coeff, indices.device)
         self.fused = (not self.dense and cluster_plan(1, model.n_features,
                                                        self.optimizer.n_state) is not None)
         if not self.fused and not self.dense:
@@ -441,7 +446,7 @@ class MeanSteps:
         if self.fused:
             return sync_epoch(
                 w, ids, self.indices, self.values, self.labels_f32,
-                coeff_kind=m.coeff_kind, reg_kind=m.reg_kind, lam=m.lam,
+                coeff=m.coeff, reg_kind=m.reg_kind, lam=m.lam,
                 dim_sparsity=m.dim_sparsity, lr=self.learning_rate, n_total_workers=1,
                 grad_divisor=div, optimizer=self.optimizer, opt_state=state)
         for rows in ids:
@@ -451,7 +456,7 @@ class MeanSteps:
                                  reduce="sum" if div == 1 else "mean")[0]
             else:
                 g = worker_grads(w, self.indices[rows], self.values[rows],
-                                 self.labels_f32[rows], m.coeff_kind)[0] / div
+                                 self.labels_f32[rows], m.coeff)[0] / div
             w, state = apply_update(w, m.regularize(g, w), self.learning_rate,
                                     self.optimizer, state)
         return w, state

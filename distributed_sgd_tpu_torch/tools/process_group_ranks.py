@@ -76,7 +76,7 @@ def _timed_parts(bound, w: torch.Tensor, ids: torch.Tensor) -> dict:
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         ev[0].record()
         gk = wg.worker_grads(w, d.indices[rows], d.values[rows], bound._labels_f32[rows],
-                             m.coeff_kind)
+                             m.coeff)
         ev[1].record()
         g = all_reduce_sum(m.regularize(gk, w).sum(dim=0), bound.group) / (
             bound.n_workers * bound.virtual_workers)

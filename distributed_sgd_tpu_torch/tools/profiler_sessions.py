@@ -1,12 +1,13 @@
 """Do torch.profiler sessions in one process keep their kernel records?
 
-    python -m distributed_sgd_tpu_torch.tools.profiler_sessions
+    python -m distributed_sgd_tpu_torch.tools.profiler_sessions [--gap SECONDS]
 
 On the card, in this fresh process: three ``torch.profiler`` sessions,
 each over one ``sync_epoch`` launch (K=3, B=100 on 30,000 RCV1-shaped
 rows at D=47,236): two back to back, then one after the process has run
-on for ``GAP_S`` seconds.  Prints one JSON line with, for each session,
-its ``sync_epoch`` kernel events, its device events, and how far the
+on for ``--gap`` seconds (``GAP_S`` by default; 0: no late session).
+Prints one JSON line with, for each session, its ``sync_epoch`` kernel
+events, its device events, and how far the
 kernel's timestamp lies from its launch's (milliseconds; both as the
 trace reports them, the kernel's converted from the card's clock).
 Exits 1 if either back-to-back session holds no ``sync_epoch`` kernel
@@ -15,6 +16,7 @@ event; the late session is printed whatever it holds.
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import sys
@@ -25,6 +27,9 @@ GAP_S = 12.0
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--gap", type=float, default=GAP_S)
+    gap = ap.parse_args().gap
     import torch
 
     from distributed_sgd_tpu_torch.data.rcv1 import dim_sparsity
@@ -74,11 +79,13 @@ def main() -> int:
     t_start = time.perf_counter()
     sessions = [dict(session(1), at_s=0.0)]
     sessions.append(dict(session(2), at_s=round(time.perf_counter() - t_start, 3)))
-    time.sleep(GAP_S)
-    sessions.append(dict(session(3), at_s=round(time.perf_counter() - t_start, 3)))
+    if gap > 0:
+        time.sleep(gap)
+        sessions.append(dict(session(3), at_s=round(time.perf_counter() - t_start, 3)))
     held = all(s["sync_epoch_events"] == 1 for s in sessions[:2])
     print(json.dumps({"profiler_sessions": sessions, "back_to_back_held": held,
-                      "after_gap_held": sessions[2]["sync_epoch_events"] == 1}), flush=True)
+                      "after_gap_held": sessions[2]["sync_epoch_events"] == 1 if gap > 0
+                      else None}), flush=True)
     return 0 if held else 1
 
 

@@ -127,7 +127,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         libs = build(Path(tmp), plan.slice)
         for lr in (0.5, 0.0):
-            want = se.sync_epoch_plain(w, ids[:50], idx, val, y, coeff_kind=0,
+            want = se.sync_epoch_plain(w, ids[:50], idx, val, y, coeff=0,
                                        reg_kind="dim_sparsity", lam=1e-5, dim_sparsity=ds,
                                        lr=lr, n_total_workers=K)
             for name, fn in libs.items():

@@ -14,8 +14,9 @@ kernel epoch leaves: sgd (lr 0.5), momentum (lr 0.05) and adam
 each optimizer's mode.  For each: the milliseconds of a launch (CUDA
 events, the least of 3 after a warm-up), how many distinct outputs
 (w and every state vector, bit for bit) `--launches` launches from one
-input gave, and the largest difference from the plain version over the
-first 20 steps.  Run it on two checkouts in one process each, in turns
+input gave (and the least sha256 of them: equal digests from two
+checkouts are the same bits), and the largest difference from the plain
+version over the first 20 steps.  Run it on two checkouts in one process each, in turns
 (a, b, b, a), to compare two routes of the kernel on one card.
 """
 
@@ -23,6 +24,7 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+import inspect
 import json
 import os
 import sys
@@ -85,12 +87,14 @@ def main() -> int:
         return torch.from_numpy(rng.integers(0, sub, (STEPS, K, B)) % thirds[:, None]
                                 + (np.arange(K) * sub)[:, None]).cuda()
 
+    # the rule's keyword: `coeff_kind` in checkouts older than `coeff`
+    rule_kw = "coeff" if "coeff" in inspect.signature(se.sync_epoch).parameters else "coeff_kind"
     out = {"label": args.label or args.root, "source": se.__file__,
            "card": torch.cuda.get_device_name(0), "modes": []}
     for kind in ("sgd", "momentum", "adam"):
         opt = se.Optimizer(kind)
-        kw = dict(coeff_kind=0, reg_kind="dim_sparsity", lam=LAM, dim_sparsity=ds,
-                  lr=LR[kind], n_total_workers=K, optimizer=opt)
+        kw = {rule_kw: 0, "reg_kind": "dim_sparsity", "lam": LAM, "dim_sparsity": ds,
+              "lr": LR[kind], "n_total_workers": K, "optimizer": opt}
         w0 = torch.zeros(D, device="cuda")
         w1, st1 = se.sync_epoch(w0, epoch_ids(), *data, **kw,
                                 opt_state=se.init_opt_state(opt, D, "cuda"))
@@ -110,6 +114,7 @@ def main() -> int:
                       zip((got[0],) + got[1].vectors, (want[0],) + want[1].vectors))
             out["modes"].append({"mode": label, "ms": ms, "ms_runs": runs,
                                  f"distinct_outputs_of_{args.launches}": len(outs),
+                                 "digest": min(outs),
                                  "max_abs_err_20_steps": err})
             print(json.dumps(out["modes"][-1]), file=sys.stderr, flush=True)
     print(json.dumps(out), flush=True)

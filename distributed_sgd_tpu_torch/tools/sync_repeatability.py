@@ -69,7 +69,7 @@ def measure(kind: str, model, train, test_bound, runs: int, launches: int) -> di
         w = bound.epoch(w, fold_in(0, e))
     ids = bound._sample_ids(fold_in(fold_in(0, EPOCHS - 1), 0)).contiguous()
     d = bound.data
-    kw = dict(coeff_kind=model.coeff_kind, reg_kind=model.reg_kind, lam=model.lam,
+    kw = dict(coeff=model.coeff, reg_kind=model.reg_kind, lam=model.lam,
               dim_sparsity=model.dim_sparsity, lr=LR[kind], n_total_workers=K,
               optimizer=bound.optimizer, opt_state=bound._opt_state)
     outs = [se.sync_epoch(w, ids, d.indices, d.values, bound._labels_f32, **kw)[0]

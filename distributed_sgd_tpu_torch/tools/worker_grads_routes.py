@@ -1,6 +1,7 @@
 """Time and check ``worker_grads`` of one checkout of the port on the card.
 
     python distributed_sgd_tpu_torch/tools/worker_grads_routes.py [--root DIR] [--label L]
+        [--user-rule]
 
 Imports ``distributed_sgd_tpu_torch`` from ``--root`` (default: the
 checkout this file is in), builds its ``worker_grads`` kernel and prints
@@ -24,6 +25,12 @@ output bytes for each input case of ``chip_smoke.py``'s phase 3
 (``check_cases``, which the smoke imports from here).  Run it on two
 checkouts in one process each, in turns (a, b, b, a), in one call: equal
 digests mean the two kernels give the same output bit for bit.
+
+``--user-rule`` times the shapes with the squared hinge as a model's own
+rule (ops/coeff.py: the kernel's variant built from ``SQUARED_HINGE_CUDA``,
+the custom-model example's body) in place of the built-in hinge; run it
+in turns with a run without it to compare the two routes (a checkout
+that has ops/coeff.py).
 """
 
 from __future__ import annotations
@@ -37,6 +44,10 @@ import sys
 import time
 
 SHAPES = ((1, 100), (8, 100))
+# the built-in rules' kinds, numbered alike in every checkout (ops/coeff.py)
+HINGE, LOGISTIC, LEAST_SQUARES = 0, 1, 2
+COEFF_KINDS = (HINGE, LOGISTIC, LEAST_SQUARES)
+SQUARED_HINGE_CUDA = "const float t = 1.f - y * m;\nreturn -2.f * y * (t < 0.f ? 0.f : t);"
 K, B, P, D = 3, 100, 76, 47236  # the main path's shape
 REPEATS = 40
 CALLS, GRAPH_CALLS = 200, 10
@@ -75,30 +86,28 @@ def check_cases():
     numpy arrays made from seeds."""
     import numpy as np
 
-    from distributed_sgd_tpu_torch.ops import worker_grads as wg
-
     rng = np.random.default_rng(0)
-    cases = [(f"main-shape kind={kind}", main_path_batch(kind), kind) for kind in wg.COEFF_KINDS]
+    cases = [(f"main-shape kind={kind}", main_path_batch(kind), kind) for kind in COEFF_KINDS]
     cases += [
-        ("B=37", edge_batch(3, 37, P, 1), wg.HINGE),
-        ("P=1", edge_batch(3, B, 1, 2), wg.LOGISTIC),
-        ("duplicate ids", edge_batch(3, B, P, 3, dups=True), wg.LEAST_SQUARES),
-        ("all-pad rows", edge_batch(3, B, P, 4, pad_rows=True), wg.HINGE),
-        ("K=1", edge_batch(1, B, P, 5), wg.HINGE),
-        ("K=8 B=1024", edge_batch(8, 1024, P, 6), wg.HINGE),
-        ("K=8 B=1024 logistic", edge_batch(8, 1024, P, 7), wg.LOGISTIC),
+        ("B=37", edge_batch(3, 37, P, 1), HINGE),
+        ("P=1", edge_batch(3, B, 1, 2), LOGISTIC),
+        ("duplicate ids", edge_batch(3, B, P, 3, dups=True), LEAST_SQUARES),
+        ("all-pad rows", edge_batch(3, B, P, 4, pad_rows=True), HINGE),
+        ("K=1", edge_batch(1, B, P, 5), HINGE),
+        ("K=8 B=1024", edge_batch(8, 1024, P, 6), HINGE),
+        ("K=8 B=1024 logistic", edge_batch(8, 1024, P, 7), LOGISTIC),
     ]
     out = [(label, (rng.normal(size=D) * 0.1).astype(np.float32), a, kind)
            for label, a, kind in cases]
     wide = (rng.normal(size=WIDE_D) * 0.1).astype(np.float32)
-    out.append((f"K=2 D={WIDE_D}", wide, edge_batch(2, B, P, 8, d=WIDE_D), wg.LOGISTIC))
-    out.append(("D=1", np.array([0.1], np.float32), edge_batch(3, B, 4, 9, d=1), wg.HINGE))
+    out.append((f"K=2 D={WIDE_D}", wide, edge_batch(2, B, P, 8, d=WIDE_D), LOGISTIC))
+    out.append(("D=1", np.array([0.1], np.float32), edge_batch(3, B, 4, 9, d=1), HINGE))
     # a non-finite term: one value inf in a sampled row, from w = 0 (a
     # margin that read the inf weight would be NaN, and the plain version
     # multiplies entries the kernel skips by it)
     idx, val, y = edge_batch(3, B, P, 10)
     val[1, 0, 0] = np.inf
-    out.append(("non-finite term", np.zeros(D, np.float32), (idx, val, y), wg.HINGE))
+    out.append(("non-finite term", np.zeros(D, np.float32), (idx, val, y), HINGE))
     return out
 
 
@@ -117,6 +126,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(here)))
     ap.add_argument("--label", default=None)
+    ap.add_argument("--user-rule", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
 
@@ -180,8 +190,18 @@ def main() -> int:
         torch.cuda.synchronize()
         return (t1 - t0) / CALLS * 1e6
 
+    rule = HINGE
+    if args.user_rule:
+        from distributed_sgd_tpu_torch.ops import coeff
+
+        def squared_hinge(m, y):
+            return -2.0 * y.float() * torch.clamp(1.0 - y.float() * m, min=0.0)
+
+        rule = coeff.user(squared_hinge, SQUARED_HINGE_CUDA, "SquaredHinge")
     out = {"label": args.label or args.root, "source": wg.__file__, "card": card(),
-           "device": torch.cuda.get_device_name(0), "shapes": [], "digests": {}}
+           "device": torch.cuda.get_device_name(0),
+           "rule": "SquaredHinge (a user rule)" if args.user_rule else "hinge",
+           "shapes": [], "digests": {}}
     rng = np.random.default_rng(0)
     for k, b in SHAPES:
         ds = rcv1_like(k * b, n_features=D, nnz=P, seed=k, idf_values=True)
@@ -189,8 +209,8 @@ def main() -> int:
         a = [torch.from_numpy(x).cuda() for x in (
             ds.indices.reshape(k, b, P), ds.values.reshape(k, b, P),
             ds.labels.reshape(k, b).astype(np.float32))]
-        kernel = lambda: wg.worker_grads(w, *a, wg.HINGE)  # noqa: E731
-        plain = lambda: wg.worker_grads_plain(w, *a, wg.HINGE)  # noqa: E731
+        kernel = lambda: wg.worker_grads(w, *a, rule)  # noqa: E731
+        plain = lambda: wg.worker_grads_plain(w, *a, rule)  # noqa: E731
         first = kernel()
         identical = all(torch.equal(first, kernel()) for _ in range(REPEATS - 1))
         err = float((first - plain()).abs().max())

@@ -10,6 +10,7 @@ so it is held to the JAX package's own async band instead: its best
 smoothed test loss within ASYNC_TOL = 0.12 of the JAX engine's on the same
 data and budget (tests/test_async_convergence.py)."""
 
+import signal
 import sys
 import threading
 
@@ -37,6 +38,21 @@ from distributed_sgd_tpu_torch.parallel import local_sgd as tlocal
 from distributed_sgd_tpu_torch.parallel import topology as ttopo
 from distributed_sgd_tpu_torch.parallel.sync import ShardedData
 from distributed_sgd_tpu_torch.utils.metrics import Metrics
+
+
+LIMIT_S = 120  # each test's own time limit, seconds
+
+
+@pytest.fixture(autouse=True)
+def _time_limit():
+    def _expired(signum, frame):
+        raise TimeoutError(f"test exceeded its {LIMIT_S} s limit")
+
+    old = signal.signal(signal.SIGALRM, _expired)
+    signal.alarm(LIMIT_S)
+    yield
+    signal.alarm(0)
+    signal.signal(signal.SIGALRM, old)
 
 torch.set_num_threads(1)
 

@@ -13,6 +13,7 @@ across the two packages rtol 1e-5 (f32 sums in another order), with the
 same sample ids injected on both sides as tests/test_torch_trainer.py
 does."""
 
+import signal
 import json
 import logging
 import os
@@ -45,6 +46,21 @@ from distributed_sgd_tpu_torch.parallel import sync as tsync
 from distributed_sgd_tpu_torch.parallel.local_sgd import LocalSGDEngine
 from distributed_sgd_tpu_torch.utils import fsio, measure
 from distributed_sgd_tpu_torch.utils.metrics import Metrics
+
+
+LIMIT_S = 120  # each test's own time limit, seconds
+
+
+@pytest.fixture(autouse=True)
+def _time_limit():
+    def _expired(signum, frame):
+        raise TimeoutError(f"test exceeded its {LIMIT_S} s limit")
+
+    old = signal.signal(signal.SIGALRM, _expired)
+    signal.alarm(LIMIT_S)
+    yield
+    signal.alarm(0)
+    signal.signal(signal.SIGALRM, old)
 
 torch.set_num_threads(1)
 

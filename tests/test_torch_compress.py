@@ -540,7 +540,8 @@ def test_one_hogwild_worker_gossips_the_jax_workers_messages(data, kind):
         c.worker = w
         w.connect([w], c)
         w.start_async(np.zeros(D, np.float32))
-        w.join()
+        w._thread.join(timeout=60)
+        assert not w._thread.is_alive(), "the worker did not stop after its messages"
         coords.append(c)
     (jgot, tgot) = (c.got for c in coords)
     assert len(jgot) == len(tgot) == n

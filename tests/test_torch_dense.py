@@ -10,6 +10,7 @@ of the JAX engine and within 1e-5 of the same rows in the sparse layout
 order set the tolerances: 1e-5 on weights and losses, rtol 1e-6 on
 objectives, as stated at each assert."""
 
+import signal
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -35,6 +36,21 @@ from distributed_sgd_tpu_torch.parallel import hogwild as thog
 from distributed_sgd_tpu_torch.parallel.local_sgd import LocalSGDEngine
 from distributed_sgd_tpu_torch.parallel.sync import BoundSync, ShardedData, SyncEngine
 from distributed_sgd_tpu_torch.utils.metrics import Metrics
+
+
+LIMIT_S = 120  # each test's own time limit, seconds
+
+
+@pytest.fixture(autouse=True)
+def _time_limit():
+    def _expired(signum, frame):
+        raise TimeoutError(f"test exceeded its {LIMIT_S} s limit")
+
+    old = signal.signal(signal.SIGALRM, _expired)
+    signal.alarm(LIMIT_S)
+    yield
+    signal.alarm(0)
+    signal.signal(signal.SIGALRM, old)
 
 torch.set_num_threads(1)
 

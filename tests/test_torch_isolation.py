@@ -1,4 +1,5 @@
-"""The port (distributed_sgd_tpu_torch/) and chip_smoke.py stand alone:
+"""The port (distributed_sgd_tpu_torch/), its examples (examples_torch/)
+and chip_smoke.py stand alone:
 they import no jax, no orbax and nothing of the JAX package, its entry points refuse
 to run without a device choice when there is no CUDA, and chip_smoke.py
 fails without a card or without the rest of the repo."""
@@ -15,7 +16,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "distributed_sgd_tpu_torch"
-PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+EXAMPLES = ROOT / "examples_torch"
+PORT_FILES = sorted(PORT.rglob("*.py")) + sorted(EXAMPLES.glob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _port_modules():
@@ -36,7 +38,9 @@ def _is_jax_package(name: str) -> bool:
 
 
 def test_every_port_module_imports_with_jax_blocked():
-    mods = _port_modules() + ["chip_smoke"]
+    examples = [f"examples_torch.{p.stem}" for p in sorted(EXAMPLES.glob("*.py"))]
+    assert len(examples) == 6
+    mods = _port_modules() + examples + ["chip_smoke"]
     assert {"distributed_sgd_tpu_torch.ops.worker_grads", "distributed_sgd_tpu_torch.parallel.hogwild",
             "distributed_sgd_tpu_torch.parallel.local_sgd",
             "distributed_sgd_tpu_torch.core.loss_check", "distributed_sgd_tpu_torch.checkpoint",

@@ -19,6 +19,7 @@ well above eps = 1e-8, so an entry whose g is an f32 rounding residue
 could flip; none does at these shapes."""
 
 import inspect
+import signal
 
 import jax
 import jax.numpy as jnp
@@ -44,6 +45,21 @@ from distributed_sgd_tpu_torch.parallel import local_sgd as tlocal
 from distributed_sgd_tpu_torch.parallel import sync as tsync
 from distributed_sgd_tpu_torch.parallel.sync import ShardedData
 from distributed_sgd_tpu_torch.utils.metrics import Metrics
+
+
+LIMIT_S = 120  # each test's own time limit, seconds
+
+
+@pytest.fixture(autouse=True)
+def _time_limit():
+    def _expired(signum, frame):
+        raise TimeoutError(f"test exceeded its {LIMIT_S} s limit")
+
+    old = signal.signal(signal.SIGALRM, _expired)
+    signal.alarm(LIMIT_S)
+    yield
+    signal.alarm(0)
+    signal.signal(signal.SIGALRM, old)
 
 torch.set_num_threads(1)
 
@@ -158,7 +174,7 @@ def test_step_advances_the_state_by_one():
     assert tb._opt_state.count == 1
     want, state = se.sync_epoch_plain(
         torch.zeros(D), torch.from_numpy(ids[:1]), tb.data.indices, tb.data.values,
-        tb._labels_f32, coeff_kind=tb.model.coeff_kind, reg_kind="dim_sparsity", lam=LAM,
+        tb._labels_f32, coeff=tb.model.coeff_kind, reg_kind="dim_sparsity", lam=LAM,
         dim_sparsity=tb.model.dim_sparsity, lr=LR["adam"], n_total_workers=3,
         optimizer=tb.optimizer)
     assert torch.equal(w, want) and all(map(torch.equal, tb._opt_state.vectors, state.vectors))
@@ -207,7 +223,7 @@ def _op_case(opt, steps=4, k=3):
     ids = torch.from_numpy(_owned_ids(tb, seed=5)[:steps])
     m = tb.model
     args = (torch.zeros(D), ids, tb.data.indices, tb.data.values, tb._labels_f32)
-    kw = dict(coeff_kind=m.coeff_kind, reg_kind=m.reg_kind, lam=m.lam,
+    kw = dict(coeff=m.coeff_kind, reg_kind=m.reg_kind, lam=m.lam,
               dim_sparsity=m.dim_sparsity, lr=LR[opt], n_total_workers=k,
               optimizer=tb.optimizer)
     return args, kw
@@ -379,7 +395,8 @@ def test_a_hogwild_worker_state_advances_across_two_dispatches(opt):
     # StartAsync (the watchdog's restart too) makes the state anew
     tw._loop = lambda: None
     tw.start_async(w)
-    tw.join()
+    tw._thread.join(timeout=30)
+    assert not tw._thread.is_alive()
     assert tw._opt_state.count == 0 and all(not v.any() for v in tw._opt_state.vectors)
 
 

@@ -12,6 +12,7 @@ bar the ones only modules still to be ported record, each listed with
 its ROADMAP item.  The CLI writes the two files into the directory it is
 given, never into kube/."""
 
+import signal
 import os
 import re
 import subprocess
@@ -24,6 +25,21 @@ from distributed_sgd_tpu.telemetry import provision as jprovision
 from distributed_sgd_tpu_torch import trace as trace_mod
 from distributed_sgd_tpu_torch.telemetry import provision
 from distributed_sgd_tpu_torch.utils import metrics as metrics_mod
+
+
+LIMIT_S = 120  # each test's own time limit, seconds
+
+
+@pytest.fixture(autouse=True)
+def _time_limit():
+    def _expired(signum, frame):
+        raise TimeoutError(f"test exceeded its {LIMIT_S} s limit")
+
+    old = signal.signal(signal.SIGALRM, _expired)
+    signal.alarm(LIMIT_S)
+    yield
+    signal.alarm(0)
+    signal.signal(signal.SIGALRM, old)
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "distributed_sgd_tpu_torch"

@@ -297,7 +297,8 @@ def test_the_fleet_fails_over_a_killed_replica_with_no_dropped_request(tmp_path)
     finally:
         stop.set()
         for t in threads:
-            t.join()
+            t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads), "a client thread outlived its stop"
     try:
         assert not errors, f"dropped requests: {errors[:3]}"
         assert not wrong and m.counter(mm.ROUTER_DRAINED).value >= 1

@@ -11,6 +11,7 @@ sgd, momentum and adam: both masters draw the same sample ids from the
 same numpy generator, sum the replies in send order and apply the same
 update."""
 
+import signal
 import threading
 import time
 
@@ -42,6 +43,21 @@ from distributed_sgd_tpu_torch.models.linear import make_model
 from distributed_sgd_tpu_torch.ops import worker_grads as wg
 from distributed_sgd_tpu_torch.rpc import codec, dsgd_pb2 as pb
 from distributed_sgd_tpu_torch.rpc.service import MasterStub, WorkerStub, new_channel
+
+
+LIMIT_S = 120  # each test's own time limit, seconds
+
+
+@pytest.fixture(autouse=True)
+def _time_limit():
+    def _expired(signum, frame):
+        raise TimeoutError(f"test exceeded its {LIMIT_S} s limit")
+
+    old = signal.signal(signal.SIGALRM, _expired)
+    signal.alarm(LIMIT_S)
+    yield
+    signal.alarm(0)
+    signal.signal(signal.SIGALRM, old)
 
 torch.set_num_threads(1)
 

@@ -13,6 +13,7 @@ the JAX package's async tests: amortized dispatches, a worker killed
 mid-fit, all workers dead, a stall the watchdog mends, a resume past the
 budget, and the batch-drain inbox."""
 
+import signal
 import threading
 import time
 
@@ -47,6 +48,21 @@ from distributed_sgd_tpu_torch.rpc import codec, dsgd_pb2 as pb
 from distributed_sgd_tpu_torch.rpc.service import WorkerStub, new_channel
 from distributed_sgd_tpu_torch.utils import metrics as metrics_mod
 from distributed_sgd_tpu_torch.utils.metrics import Metrics
+
+
+LIMIT_S = 120  # each test's own time limit, seconds
+
+
+@pytest.fixture(autouse=True)
+def _time_limit():
+    def _expired(signum, frame):
+        raise TimeoutError(f"test exceeded its {LIMIT_S} s limit")
+
+    old = signal.signal(signal.SIGALRM, _expired)
+    signal.alarm(LIMIT_S)
+    yield
+    signal.alarm(0)
+    signal.signal(signal.SIGALRM, old)
 
 torch.set_num_threads(1)
 
@@ -262,7 +278,8 @@ def _hard_kill_async(worker):
     worker._stopped.set()
     worker._running_async.clear()
     if worker._async_thread is not None:
-        worker._async_thread.join()
+        worker._async_thread.join(timeout=60)
+        assert not worker._async_thread.is_alive(), "the async loop outlived its stop"
     worker.server.stop(grace=0)
 
 

@@ -16,6 +16,7 @@ JAX master's, over JAX workers, equal to the JAX run through bit for
 bit (both masters draw the same ids from the same generator state, sum
 the same replies in send order and apply the same numpy update)."""
 
+import signal
 import threading
 import time
 
@@ -42,6 +43,21 @@ from distributed_sgd_tpu_torch.core.master import MasterNode
 from distributed_sgd_tpu_torch.data.rcv1 import Dataset as TDataset
 from distributed_sgd_tpu_torch.models.linear import make_model
 from distributed_sgd_tpu_torch.utils import metrics as mm
+
+
+LIMIT_S = 120  # each test's own time limit, seconds
+
+
+@pytest.fixture(autouse=True)
+def _time_limit():
+    def _expired(signum, frame):
+        raise TimeoutError(f"test exceeded its {LIMIT_S} s limit")
+
+    old = signal.signal(signal.SIGALRM, _expired)
+    signal.alarm(LIMIT_S)
+    yield
+    signal.alarm(0)
+    signal.signal(signal.SIGALRM, old)
 
 torch.set_num_threads(1)
 
@@ -92,7 +108,8 @@ def _hard_kill_async(worker):
     worker._stopped.set()
     worker._running_async.clear()
     if worker._async_thread is not None:
-        worker._async_thread.join()
+        worker._async_thread.join(timeout=60)
+        assert not worker._async_thread.is_alive(), "the async loop outlived its stop"
     worker.server.stop(grace=0)
 
 

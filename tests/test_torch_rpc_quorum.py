@@ -14,6 +14,7 @@ Mixed clusters hold both ways: a JAX master's quorum over torch workers
 (the workers serve its ``hedge`` and ``ef_rollback_version`` requests) and
 a torch master's quorum over JAX workers."""
 
+import signal
 import threading
 import time
 
@@ -38,6 +39,21 @@ from distributed_sgd_tpu_torch.data.rcv1 import Dataset as TDataset
 from distributed_sgd_tpu_torch.models.linear import make_model
 from distributed_sgd_tpu_torch.rpc import codec
 from distributed_sgd_tpu_torch.utils import metrics as mm
+
+
+LIMIT_S = 120  # each test's own time limit, seconds
+
+
+@pytest.fixture(autouse=True)
+def _time_limit():
+    def _expired(signum, frame):
+        raise TimeoutError(f"test exceeded its {LIMIT_S} s limit")
+
+    old = signal.signal(signal.SIGALRM, _expired)
+    signal.alarm(LIMIT_S)
+    yield
+    signal.alarm(0)
+    signal.signal(signal.SIGALRM, old)
 
 torch.set_num_threads(1)
 

@@ -518,7 +518,8 @@ def test_a_hot_swap_mid_traffic_fails_no_request(replica):
         time.sleep(0.05)
     stop.set()
     for t in threads:
-        t.join()
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads), "a client thread outlived its stop"
     assert not failures, failures[:3]
     assert steps == {(1, 1.0), (2, -5.0)}
 

@@ -64,7 +64,7 @@ def _owned_ids(bound, seed=0, steps=None):
 def _op_args(tb, ids):
     m, d = tb.model, tb.data
     return ((torch.zeros(D), torch.as_tensor(ids), d.indices, d.values, tb._labels_f32),
-            dict(coeff_kind=m.coeff_kind, reg_kind=m.reg_kind, lam=m.lam,
+            dict(coeff=m.coeff_kind, reg_kind=m.reg_kind, lam=m.lam,
                  dim_sparsity=m.dim_sparsity, lr=tb.learning_rate,
                  n_total_workers=tb.virtual_workers))
 
@@ -137,7 +137,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     elif bad == "no_dim_sparsity":
         kw["dim_sparsity"] = None
     elif bad == "coeff_kind":
-        kw["coeff_kind"] = 9
+        kw["coeff"] = 9
     elif bad == "grad_divisor":
         kw["grad_divisor"] = 0
     else:
@@ -227,7 +227,7 @@ def test_mean_mode_is_the_jax_async_local_step(model, reg):
     y = torch.from_numpy(data.labels.astype(np.float32))
     idx, val = torch.from_numpy(data.indices), torch.from_numpy(data.values)
     got = se.sync_epoch(torch.from_numpy(w0), torch.from_numpy(ids), idx, val, y,
-                        coeff_kind=tm.coeff_kind, reg_kind=reg, lam=LAM,
+                        coeff=tm.coeff_kind, reg_kind=reg, lam=LAM,
                         dim_sparsity=tm.dim_sparsity, lr=lr, n_total_workers=1,
                         grad_divisor=B)
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
@@ -238,7 +238,7 @@ def test_mean_mode_is_the_jax_async_local_step(model, reg):
         w_t = w_t - lr * tm.regularize(tm.grad_mean(w_t, batch, y[rows]), w_t)
     np.testing.assert_allclose(got.numpy(), w_t.numpy(), atol=1e-6)
     # grad_divisor 1 is the sync step, bit for bit
-    kw = dict(coeff_kind=tm.coeff_kind, reg_kind=reg, lam=LAM, dim_sparsity=tm.dim_sparsity,
+    kw = dict(coeff=tm.coeff_kind, reg_kind=reg, lam=LAM, dim_sparsity=tm.dim_sparsity,
               lr=lr, n_total_workers=1)
     args = (torch.from_numpy(w0), torch.from_numpy(ids), idx, val, y)
     np.testing.assert_array_equal(se.sync_epoch_plain(*args, **kw, grad_divisor=1).numpy(),
@@ -261,7 +261,7 @@ def test_mean_steps_take_the_kernel_or_the_per_step_route_by_shape(fits, monkeyp
     assert torch.equal(w, torch.from_numpy(w0))  # the input weights are left as they were
     want = se.sync_epoch_plain(w, torch.from_numpy(ids), idx, val,
                                torch.from_numpy(data.labels.astype(np.float32)),
-                               coeff_kind=tm.coeff_kind, reg_kind="dim_sparsity", lam=LAM,
+                               coeff=tm.coeff_kind, reg_kind="dim_sparsity", lam=LAM,
                                dim_sparsity=tm.dim_sparsity, lr=0.5, n_total_workers=1,
                                grad_divisor=B)
     np.testing.assert_array_equal(got.numpy(), want.numpy())

@@ -9,6 +9,7 @@ rounds carry one trace id on both sides.  The tracer and the flight
 recorder are process globals of each package: in one process they are
 two objects, one per package."""
 
+import signal
 import http.server
 import json
 import os
@@ -34,6 +35,21 @@ from distributed_sgd_tpu_torch.models.linear import make_model
 from distributed_sgd_tpu_torch.trace import flight, merge
 from distributed_sgd_tpu_torch.utils import measure
 from distributed_sgd_tpu_torch.utils import metrics as tmetrics
+
+
+LIMIT_S = 120  # each test's own time limit, seconds
+
+
+@pytest.fixture(autouse=True)
+def _time_limit():
+    def _expired(signum, frame):
+        raise TimeoutError(f"test exceeded its {LIMIT_S} s limit")
+
+    old = signal.signal(signal.SIGALRM, _expired)
+    signal.alarm(LIMIT_S)
+    yield
+    signal.alarm(0)
+    signal.signal(signal.SIGALRM, old)
 
 torch.set_num_threads(1)
 

@@ -6,6 +6,7 @@ series agree to rtol 1e-5 (f32 sums in another order).  With each side's
 own random source, the port's main scenario lands within 0.03 test
 accuracy of the JAX trainer at the same config and one-card topology."""
 
+import signal
 import json
 import logging
 import os
@@ -26,6 +27,21 @@ from distributed_sgd_tpu_torch import main as tmain
 from distributed_sgd_tpu_torch.config import Config
 from distributed_sgd_tpu_torch.core.trainer import SyncTrainer
 from distributed_sgd_tpu_torch.data.rcv1 import Dataset as TDataset
+
+
+LIMIT_S = 120  # each test's own time limit, seconds
+
+
+@pytest.fixture(autouse=True)
+def _time_limit():
+    def _expired(signum, frame):
+        raise TimeoutError(f"test exceeded its {LIMIT_S} s limit")
+
+    old = signal.signal(signal.SIGALRM, _expired)
+    signal.alarm(LIMIT_S)
+    yield
+    signal.alarm(0)
+    signal.signal(signal.SIGALRM, old)
 
 torch.set_num_threads(1)
 

@@ -22,6 +22,7 @@ from distributed_sgd_tpu.ops.sparse import SparseBatch as JBatch
 from distributed_sgd_tpu_torch import convert
 from distributed_sgd_tpu_torch.models import linear as tlinear
 from distributed_sgd_tpu_torch.ops import _build
+from distributed_sgd_tpu_torch.ops import coeff as co
 from distributed_sgd_tpu_torch.ops import worker_grads as wg
 
 torch.set_num_threads(1)
@@ -74,7 +75,7 @@ def test_plain_matches_pallas_kernel_and_blocked_gradient(jcls, tcls, b):
 
 def test_pad_rows_and_duplicates_are_handled():
     w, idx, val, y = _batches(2, 5, 4, seed=7)
-    g = wg.worker_grads_plain(*_torch(w, idx, val, y), wg.LEAST_SQUARES).numpy()
+    g = wg.worker_grads_plain(*_torch(w, idx, val, y), co.LEAST_SQUARES).numpy()
     # the dense reference: every row's entries accumulate, duplicates too
     want = np.zeros((2, D), np.float32)
     for k in range(2):
@@ -85,14 +86,14 @@ def test_pad_rows_and_duplicates_are_handled():
     # the all-pad row contributes nothing: zero it out and compare
     idx2, val2 = idx.copy(), val.copy()
     idx2[:, -1], val2[:, -1] = 5, 0.0
-    g2 = wg.worker_grads_plain(*_torch(w, idx2, val2, y), wg.LEAST_SQUARES).numpy()
+    g2 = wg.worker_grads_plain(*_torch(w, idx2, val2, y), co.LEAST_SQUARES).numpy()
     np.testing.assert_array_equal(g, g2)
 
 
 def test_hinge_at_zero_weights_adds_every_sample():
     # w = 0: y*m = 0 is not < 0, so every sample contributes y*x
     _, idx, val, y = _batches(1, 8, 5, seed=3)
-    g = wg.worker_grads_plain(torch.zeros(D), *_torch(idx, val, y), wg.HINGE).numpy()
+    g = wg.worker_grads_plain(torch.zeros(D), *_torch(idx, val, y), co.HINGE).numpy()
     want = np.zeros(D, np.float32)
     for r in range(8):
         np.add.at(want, idx[0, r], y[0, r] * val[0, r])
@@ -102,16 +103,16 @@ def test_hinge_at_zero_weights_adds_every_sample():
 def test_cpu_wrapper_runs_plain_version_without_launching():
     w, idx, val, y = _batches(3, 10, 6, seed=1)
     before = wg.worker_grads.launches
-    got = wg.worker_grads(*_torch(w, idx, val, y), wg.LOGISTIC)
+    got = wg.worker_grads(*_torch(w, idx, val, y), co.LOGISTIC)
     np.testing.assert_array_equal(
-        got.numpy(), wg.worker_grads_plain(*_torch(w, idx, val, y), wg.LOGISTIC).numpy())
+        got.numpy(), wg.worker_grads_plain(*_torch(w, idx, val, y), co.LOGISTIC).numpy())
     assert wg.worker_grads.launches == before
 
 
 @pytest.mark.parametrize("bad", ["idx_dtype", "shape", "kind", "noncontig"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     w, idx, val, y = _torch(*_batches(2, 4, 3, seed=2))
-    kind = wg.HINGE
+    kind = co.HINGE
     if bad == "idx_dtype":
         idx, err = idx.long(), TypeError
     elif bad == "shape":
