@@ -375,6 +375,11 @@ PER_STEP_ROWS, PER_STEP_WORKERS = 100000, 8
 MAIN_PATH_LOSS_ACC = [[0.4378645, 0.4081789, 0.4020025], [0.7868265, 0.8038015, 0.8080468]]
 TPU_KERNEL = "distributed_sgd_tpu/ops/pallas_sparse.py:155"  # worker_grads, pl.pallas_call at :178
 HOGWILD_K = 64  # DSGD_STEPS_PER_DISPATCH of the full-width Hogwild run
+# ptxas's report of the sync_epoch design that the redesign replaced (one
+# cluster with pulled partials and rows held over the sweep), as nvcc built
+# it on the H100 host (tools/sync_epoch_phases.py on that checkout)
+REPLACED_SE_PTXAS = ("Used 64 registers, 72 bytes stack frame, 212 bytes spill stores, 140 bytes "
+                     "spill loads")
 # the one-step-a-dispatch run: 5,000 train rows, a 5,000-step budget (25,000
 # rows, then 12,500, before depth cuts)
 HOGWILD_K1_ROWS = 6250
@@ -558,6 +563,75 @@ def sync_epoch_args(data: dict, ids: np.ndarray, kind: int, reg: str, w0=None, l
     return args, kw
 
 
+def sweep_edge_data(data: dict, n: int = 3000) -> tuple:
+    """Data for the scatter's and the sweep's edges, on the card: `data`'s
+    first n rows with feature 0 put into every row (every sample adds into
+    one address a worker), and n rows of 8 entries over 300 features, the
+    first id repeated in each row (a step updates few entries).  Feature
+    0's value is 0.1, of the size of a row's values: at 0.5 the squared
+    hinge's step at lr 0.1 over 300 rows multiplies the error in w[0] by
+    about 4 a step, so 20 steps carry the plain version's f32 sums past
+    SE_ATOL from the kernel's exact ones."""
+    busy = {key: t[:n].clone() for key, t in data.items() if key != "dim_sparsity"}
+    busy["indices"][:, 0] = 0
+    busy["values"][:, 0] = 0.1
+    busy["dim_sparsity"] = data.get("dim_sparsity")
+    rng = np.random.default_rng(20)
+    idx = rng.integers(0, 300, (n, 8)).astype(np.int32)
+    idx[:, 1] = idx[:, 0]
+    val = (rng.normal(size=(n, 8)) / np.sqrt(8)).astype(np.float32)
+    few = on_card(Dataset(idx, val, rng.choice([-1, 1], n).astype(np.int32), D))
+    return busy, few
+
+
+def check_sweep_cases(label: str, full: dict, shape: tuple, launch_args,
+                      flat=lambda out: out, steps: int = 20) -> float:
+    """The edges of the redesigned step at `shape` (K, B), each against the
+    plain version within SE_ATOL: one feature in every sampled row, rows
+    over 300 features, duplicate ids, lr 0 and a negative lr (the sparse
+    sgd sweep keeps an untouched entry only where lr is finite with its
+    sign bit clear) and a NaN weight (one step: the same NaN entries as
+    the plain version).  `launch_args(data, ids) -> (args, kw)`.  Returns the
+    largest error."""
+    rng = np.random.default_rng(21)
+    busy, few = sweep_edge_data(full)
+    k, b = shape
+    n, n_full = busy["indices"].shape[0], full["indices"].shape[0]
+    cases = [("one feature in every row", busy, rng.integers(0, n, (steps, k, b)), {}),
+             ("rows over 300 features", few, rng.integers(0, n, (steps, k, b // 5)), {}),
+             ("duplicate ids", few, rng.integers(0, 10, (steps, k, b)), {}),
+             ("lr 0", full, rng.integers(0, n_full, (steps, k, b)), {"lr": 0.0}),
+             ("lr -0.01", full, rng.integers(0, n_full, (steps, k, b)), {"lr": -0.01}),
+             ("a NaN weight", full, rng.integers(0, n_full, (1, k, b)), {"nan": True})]
+    # one step, the NaN on a feature no pad entry names: the plain version
+    # multiplies pad entries (value 0) by their weight, where the kernel
+    # skips them, so margins that read a NaN weight of a step before differ
+    padded = torch.zeros(D, dtype=torch.bool, device=full["indices"].device)
+    padded[full["indices"][full["values"] == 0].long()] = True
+    nan_at = int(torch.nonzero(~padded).max())
+    max_err = 0.0
+    for case, data, ids, extra in cases:
+        args, kw = launch_args(data, ids)
+        kw.update({key: v for key, v in extra.items() if key == "lr"})
+        if "nan" in extra:
+            w0 = args[0].clone()
+            w0[nan_at] = float("nan")
+            args = (w0,) + tuple(args[1:])
+        got = flat(se.sync_epoch(*args, **kw))
+        want = flat(se.sync_epoch_plain(*args, **kw))
+        torch.cuda.synchronize()
+        nan = torch.isnan(want)
+        err = float((got[~nan] - want[~nan]).abs().max()) if bool((~nan).any()) else 0.0
+        same_nan = bool(torch.equal(torch.isnan(got), nan))
+        print(f"sync_epoch {label} {case} (K={k} B={ids.shape[2]}): max_abs_err={err:.3e}, "
+              f"NaN entries {int(nan.sum())} as the plain version's: {same_nan}", flush=True)
+        if not (err <= SE_ATOL and same_nan) or ("nan" in extra) != bool(nan.any()):
+            raise AssertionError(f"sync_epoch {label} {case}: max abs err {err} (atol "
+                                 f"{SE_ATOL}), NaN entries as the plain version's: {same_nan}")
+        max_err = max(max_err, err)
+    return max_err
+
+
 def hinge_objective(w: torch.Tensor, data: dict, rows: int) -> float:
     """lam ||w||^2 + mean hinge loss over the first `rows` rows."""
     m = (w[data["indices"][:rows].long()] * data["values"][:rows]).sum(dim=1)
@@ -635,6 +709,9 @@ def check_sync_epoch(train: Dataset, main_data: dict) -> dict:
             raise AssertionError(f"sync_epoch {label} disagrees with its plain version "
                                  f"(max abs err {err}, atol {SE_ATOL})")
         max_err = max(max_err, err)
+    max_err = max(max_err, check_sweep_cases(
+        "sync", main_data, (K, B),
+        lambda data, ids: sync_epoch_args(data, ids, co.HINGE, "dim_sparsity", w_rand)))
 
     # one full epoch at the main path's shape: hinge, dim_sparsity, K=3
     # workers each drawing from its own third of the train rows
@@ -682,6 +759,9 @@ def check_sync_epoch(train: Dataset, main_data: dict) -> dict:
     return {
         "name": "sync_epoch", "route": "cuda",
         "source": "distributed_sgd_tpu_torch/csrc/sync_epoch.cu",
+        "design": "one cluster of 8 blocks, 64-bit integer sums in DSMEM; pushed partials, "
+                  "the next rows loaded inside the split closing barrier, the sparse sgd "
+                  "sweep, dim_sparsity in shared memory (bit for bit the design it replaced)",
         "replaces": TPU_KERNEL,
         "launches": None, "max_abs_err": max_err,
         "ms": min(kernel_ms), "plain_ms": min(plain_ms),
@@ -716,6 +796,12 @@ def check_mean_mode(train: Dataset, main_data: dict) -> dict:
                                          f"disagrees with its plain version (max abs err {err}, "
                                          f"atol {SE_ATOL})")
                 max_err = max(max_err, err)
+
+    def mean_args(data, ids):
+        args, kw = sync_epoch_args(data, ids, co.LOGISTIC, "dim_sparsity", w_rand)
+        return args, dict(kw, grad_divisor=B)
+
+    max_err = max(max_err, check_sweep_cases("mean mode", main_data, (1, B), mean_args))
 
     # one Hogwild dispatch at the full-width run's shape: hinge, dim_sparsity,
     # 64 steps of 100 ids drawn from one worker's third of the train rows
@@ -5518,6 +5604,14 @@ def check_coeff_sync_epoch(rule, data: dict, row_nnz: np.ndarray) -> dict:
             raise AssertionError(f"sync_epoch {rule.name} {label}: max abs err {err}, "
                                  f"{len(outs)} distinct outputs")
         errs[label] = err
+    for label, k, extra in (("sgd K=3", K, {}), ("adam K=3", K, "adam"),
+                            ("mean K=1", 1, {"grad_divisor": B})):
+        def user_args(d, ids, extra=extra):
+            args, kw = launch_args(ids, **(optimizer(extra) if extra == "adam" else extra))
+            return (args[0], args[1], d["indices"], d["values"], d["labels_f32"]), kw
+
+        errs[label] = max(errs.get(label, 0.0), check_sweep_cases(
+            f"{rule.name} {label}", data, (k, B), user_args, flat, steps=COEFF_STEPS))
     # a non-finite term, one step from w = 0, as phase 3's
     vals = data["values"].clone()
     vals[int(epoch[0, 0, 0]), 0] = float("inf")
@@ -5743,6 +5837,11 @@ def main() -> None:
     print(f"build seconds: {time.perf_counter() - t0:.2f}")
     for name, report in reports.items():
         print(f"{name} nvcc report:\n{report.strip()}", flush=True)
+    if "sync_epoch" in reports:
+        print("sync_epoch ptxas, this design: " + "; ".join(
+            line.split(":", 1)[-1].strip() for line in reports["sync_epoch"].splitlines()
+            if "registers" in line or "spill" in line) + f"; the design it replaced: "
+              f"{REPLACED_SE_PTXAS}", flush=True)
 
     share_synthetic_rows()
 

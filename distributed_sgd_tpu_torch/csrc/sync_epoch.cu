@@ -44,35 +44,47 @@
 // Block r owns the features i with i % 8 == r: its entries of w, the
 // optimizer state and each g[k, .].  It loads them into shared memory
 // once, keeps them there for every step, and writes w_out and the state
-// once at the end.  dim_sparsity, read only by the sweep, stays in global
-// memory: the prologue copies the block's entries into a contiguous slice
-// of a scratch buffer (189 KB at the main shape, resident in L2), which
-// the sweep reads as float4s.  Other blocks reach the shared entries
-// through distributed shared memory.  Ownership is cyclic, not by
-// contiguous slices: where feature popularity follows the index (term ids
-// ranked by frequency, as in the synthetic RCV1 rows), the first slice
-// would take most of every step's remote loads and atomics.  Each step:
+// once at the end.  dim_sparsity, read only by the sweep, is copied once
+// into a slice of shared memory where the plan leaves room (sgd and
+// momentum at K <= 3, the mean mode), else into a contiguous slice of a
+// global scratch buffer (resident in L2); the sweep reads it as float4s.
+// Other blocks reach the shared entries through distributed shared memory
+// (DSMEM).  Ownership is cyclic, not by contiguous slices: where feature
+// popularity follows the index (term ids ranked by frequency, as in the
+// synthetic RCV1 rows), the first slice would take most of every step's
+// remote loads and adds.  Each step:
 //   phase A  16 lanes take one sample (k, b); the cluster holds 512
 //            samples at once, so at K*B <= 512 every sample is in flight
 //            together.  The lanes hold the row's entries in registers,
-//            loaded straight from HBM (no idx[ids] copy) during the last
-//            step's phase B; they gather w[i] * v from the owners' shared
-//            memory, reduce with shuffles, apply the coefficient
-//            (coeff.cuh) and add c * v into the owners' g[k, i];
+//            loaded during the last step's closing barrier; they gather
+//            w[i] * v from the owners' shared memory, reduce with
+//            shuffles, apply the coefficient (coeff.cuh) and add c * v into
+//            the owners' g[k, i];
 //   cluster.sync()  (arrive.release / wait.acquire: the remote adds are
 //            visible to their owners);
-//   phase B  each block sweeps its own entries densely, four at a time:
-//            the conversion of g to f32, the regularizer, the sum over
-//            workers, the mean and the optimizer's update; it zeroes g and
-//            sums its partial of w . dim_sparsity for the next step's
-//            scalar.  Every block adds the cluster's partials in rank
-//            order, so the scalar is the same in every block;
-//   cluster.sync().
-// w is read only from shared memory, never through the non-coherent
-// (__ldg) path: the kernel writes it between steps.  The input w and state
-// are never written; the caller allocates w_out and the state's outputs.
-// The time goes to latency, not to the bound: the two cluster barriers,
-// the remote loads and the remote adds of each step (PERF.md).
+//   phase B  each block sweeps its own entries, four at a time: the
+//            conversion of g to f32, the regularizer, the sum over workers,
+//            the mean and the optimizer's update; it zeroes g and sums its
+//            partial of w . dim_sparsity (and least squares' largest |w|),
+//            which it pushes into its slot in every block.  With sgd, no
+//            l2 term, lr finite with its sign bit clear and no non-finite
+//            term that step, an entry whose sums are all 0 keeps its
+//            weight bit for bit, so the sweep updates only the entries
+//            with a sum (each warp gathers those of its 128 entries, one
+//            a lane) and then reads w densely for the partial;
+//   barrier.cluster.arrive.release; the next step's rows are loaded into
+//            registers, which depends on no other block, while the others
+//            arrive; barrier.cluster.wait.acquire.
+// Each step adds the pushed partials in rank order from its own shared
+// memory: the same floats in the same order in every block, with no
+// remote load on the step's path.  A block reads them before the barrier
+// after which the next ones may be pushed, so one slot a block does.  w is
+// read only from shared memory, never through the non-coherent (__ldg)
+// path: the kernel writes it between steps.  The input w and state are
+// never written; the caller allocates w_out and the state's outputs.  The
+// time goes to latency and to the owners' 64-bit shared-memory atomics,
+// not to the bound: the two cluster barriers a step, which the step's
+// dependence forces, the remote adds and the sweep (PERF.md).
 //
 // Fixed order.  g[k, .] is a 64-bit integer sum, so one input gives one
 // output bit for bit, whatever order the lanes run in (f32 atomics would
@@ -89,7 +101,7 @@
 //            over the data: the caller computes e once for the launch and
 //            the step pays nothing for it;
 //   least squares  c = 2 (m - y) has no bound before the step.  Each step
-//            bounds it from the cluster's largest |w| (kept beside the
+//            bounds it from the cluster's largest |w| (pushed beside the
 //            w . dim_sparsity partial, one more shared word a block):
 //            |c v| <= 4 (max|w| L1 + max|y|) max|v|, where L1 is the data's
 //            largest row sum of |v| (a factor 2 over the exact bound covers
@@ -107,11 +119,12 @@
 //
 // A model's own rule (the Pallas kernel's coeff_fn; ops/coeff.py) is
 // compiled into a variant of this file with DSGD_USER_COEFF (coeff.cuh,
-// ops/_build.py); the built-in kinds' code is what it was.  Such a rule
-// has no bound before the step, so the variant splits phase A in two
-// passes around one more cluster barrier a step:
+// ops/_build.py), with the same pushed values, barriers and sweep.  Such
+// a rule has no bound before the step, so the variant splits phase A in
+// two passes around one more cluster barrier a step:
 //   pass 1  every sample's margin and coefficient, and the cluster's
-//           largest finite term |c v| (block_max, then cluster_reduce);
+//           largest finite term |c v| (over the block, then pushed
+//           into every block's slots);
 //   cluster.sync()
 //   pass 2  the step's scale from that maximum, the rule of
 //           csrc/worker_grads.cu, then the adds.
@@ -135,7 +148,7 @@ constexpr int kCluster = 8;  // blocks in the cluster, the portable size
 constexpr int kWarp = 32;
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / kWarp;
-static_assert(kWarps == kWarp, "block_sum reduces one value per warp in one warp");
+static_assert(kWarps == kWarp, "block_push reduces one value per warp in one warp");
 constexpr int kLanes = 16;                 // lanes that share one sample
 constexpr int kSlots = kThreads / kLanes;  // samples a block holds at once
 constexpr int kHeld = 8;                   // row entries a lane holds: P <= 128 all in registers
@@ -170,6 +183,7 @@ struct Params {
   int64_t n_rows;             // N
   int steps, K, B, P, D;
   int slice;                  // entries of w each block holds: ceil(D / kCluster)
+  int ds_local;               // dim_sparsity's slice in shared memory, not the scratch
   int coeff_kind, reg_kind, opt_kind, n_state;
   int scale_e;                // hinge, logistic: the launch's scale exponent
   int count_bits;             // ceil(log2(B * P)): terms a step adds into one g[k, i], at most
@@ -183,6 +197,28 @@ struct Params {
   float eps;                  // adam
 };
 
+// Byte offsets of a block's dynamic shared memory, the same arithmetic as
+// ops/sync_epoch.py cluster_plan: g[K, slice] (u64) | w | state[n_state] |
+// dim_sparsity (where ds_local) | pushed values [2][kCluster] |
+// red[kWarps] | flag[2].
+struct Layout {
+  size_t g, w, st, ds, pushed, red, flag, end;
+};
+
+__host__ __device__ inline Layout layout(int K, int slice, int n_state, int ds_local) {
+  Layout l;
+  size_t o = 0;
+  l.g = o;      o += (size_t)8 * K * slice;
+  l.w = o;      o += (size_t)4 * slice;
+  l.st = o;     o += (size_t)4 * n_state * slice;
+  l.ds = o;     o += ds_local ? (size_t)4 * slice : 0;
+  l.pushed = o; o += 4 * 2 * kCluster;
+  l.red = o;    o += 4 * kWarps;
+  l.flag = o;   o += 4 * 2;
+  l.end = o;
+  return l;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = kWarp / 2; off > 0; off /= 2) v += __shfl_xor_sync(0xffffffffu, v, off);
@@ -193,6 +229,16 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int off = kWarp / 2; off > 0; off /= 2) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
   return v;
+}
+
+// The two halves of a cluster barrier: what a block does between them
+// must depend on no other block.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
 }
 
 // The exponent e of the scale 2^e at which 2^count_bits terms of magnitude
@@ -407,55 +453,45 @@ __device__ __forceinline__ void run_sample(const cg::cluster_group& cluster, con
 }
 #endif
 
-// Sum of every thread's `v`, in a fixed order, written to *out by thread 0.
-__device__ __forceinline__ void block_sum(float v, float* red_s, float* out) {
+// Every thread's `v` over the block, a sum in a fixed order (or the
+// largest), pushed by warp 0 into slot `rank` of `slots` in every block
+// of the cluster.
+__device__ __forceinline__ void block_push(const cg::cluster_group& cluster, float v,
+                                           float* red_s, float* slots, int rank, bool largest) {
   const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
-  v = warp_sum(v);
+  if (largest) __syncthreads();  // red_s may still be read by a sum just before
+  v = largest ? warp_max(v) : warp_sum(v);
   if (lane == 0) red_s[warp] = v;
   __syncthreads();
   if (warp == 0) {
-    v = warp_sum(red_s[lane]);
-    if (lane == 0) *out = v;
+    v = largest ? warp_max(red_s[lane]) : warp_sum(red_s[lane]);
+    if (lane < kCluster) *cluster.map_shared_rank(slots + rank, lane) = v;
   }
 }
 
-// Largest of every thread's `v`, written to *out by thread 0.
-__device__ __forceinline__ void block_max(float v, float* red_s, float* out) {
-  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
-  __syncthreads();  // red_s may still be read by a block_sum just before
-  v = warp_max(v);
-  if (lane == 0) red_s[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = warp_max(red_s[lane]);
-    if (lane == 0) *out = v;
-  }
-}
-
-// Lane r < kCluster of each warp reads block r's `value`; every lane gets
-// them combined in rank order (a sum, or the largest).
-__device__ __forceinline__ float cluster_reduce(const cg::cluster_group& cluster, float* value,
-                                                int lane, bool largest) {
-  const float mine = lane < kCluster ? *cluster.map_shared_rank(value, lane) : 0.f;
+// The cluster's pushed values combined in rank order from this block's
+// own slots (a sum, or the largest): every block gets the same float.
+__device__ __forceinline__ float rank_order(const float* slots, bool largest) {
   float out = 0.f;
 #pragma unroll
-  for (int r = 0; r < kCluster; ++r) {
-    const float x = __shfl_sync(0xffffffffu, mine, r);
-    out = largest ? fmaxf(out, x) : out + x;
-  }
+  for (int r = 0; r < kCluster; ++r) out = largest ? fmaxf(out, slots[r]) : out + slots[r];
   return out;
 }
 
 #ifndef DSGD_USER_COEFF
 // The step's scale exponent: the launch's, or for least squares the bound
 // from the cluster's largest |w| this step (see the header).
-__device__ __forceinline__ int step_exponent(const cg::cluster_group& cluster, const Params& p,
-                                             float* wmax, int lane) {
+__device__ __forceinline__ int step_exponent(const Params& p, const float* wmax) {
   if (p.coeff_kind != kLeastSquares) return p.scale_e;
-  const double w_max = (double)cluster_reduce(cluster, wmax, lane, true);
+  const double w_max = (double)rank_order(wmax, true);
   return scale_exponent(4.0 * (w_max * p.l1_max + p.y_max) * p.v_max, p.count_bits);
 }
 #endif
+
+// An integer sum at 2^-e as f32: the integer rounded to f32, times 2^-e.
+__device__ __forceinline__ float to_f32(long long acc, int e) {
+  return acc != 0 ? ldexpf(__ll2float_rn(acc), -e) : 0.f;
+}
 
 // Feature sums g[k, j..j+3] of this block as f32: the integer sums at
 // 2^-e, or the non-finite sum where one was added.  Zeroes both for the
@@ -466,7 +502,7 @@ __device__ __forceinline__ void take_sums(unsigned long long* g, float* nf, bool
   const ulonglong2 a = gp[0], b = gp[1];
   const long long acc[4] = {(long long)a.x, (long long)a.y, (long long)b.x, (long long)b.y};
 #pragma unroll
-  for (int q = 0; q < 4; ++q) out[q] = acc[q] != 0 ? ldexpf(__ll2float_rn(acc[q]), -e) : 0.f;
+  for (int q = 0; q < 4; ++q) out[q] = to_f32(acc[q], e);
   if ((a.x | a.y | b.x | b.y) != 0ull) {
     gp[0] = make_ulonglong2(0ull, 0ull);
     gp[1] = make_ulonglong2(0ull, 0ull);
@@ -484,29 +520,68 @@ __device__ __forceinline__ void take_sums(unsigned long long* g, float* nf, bool
   }
 }
 
+// The position of the n-th set bit of m (n counts from 0; n < popc(m)).
+__device__ __forceinline__ int nth_set(uint32_t m, int n) {
+  int pos = 0;
+#pragma unroll
+  for (int half = 16; half > 0; half /= 2) {
+    const uint32_t low = m & ((1u << half) - 1u);
+    const int c = __popc(low);
+    if (n >= c) {
+      n -= c;
+      m >>= half;
+      pos += half;
+    } else {
+      m = low;
+    }
+  }
+  return pos;
+}
+
+// The sparse sweep's update of entry j: sgd, with dim_sparsity or no
+// regularizer, and no non-finite term this step.  The arithmetic of the
+// dense sweep for one entry; zeroes its sums.
+__device__ __forceinline__ void sgd_entry(const Params& p, unsigned long long* g_s, float* w_s,
+                                           int j, int e, float scalar, bool mean, bool dim_sp) {
+  float upd = 0.f;
+  for (int k = 0; k < p.K; ++k) {
+    unsigned long long* gk = g_s + (size_t)k * p.slice + j;
+    const long long acc = (long long)*gk;
+    if (acc != 0) *gk = 0ull;
+    float g = to_f32(acc, e);
+    if (mean) g = __fdiv_rn(g, p.grad_div);
+    if (dim_sp) g = __fadd_rn(g, g != 0.f ? scalar : 0.f);
+    upd = __fadd_rn(upd, g);
+  }
+  w_s[j] = __fsub_rn(w_s[j], __fmul_rn(p.lr, __fdiv_rn(upd, p.n_total)));
+}
+
 __global__ void __launch_bounds__(kThreads, 1) sync_epoch_kernel(const Params p) {
+  // every block of the cluster has started before any remote access
+  asm volatile("barrier.cluster.arrive.relaxed;" ::: "memory");
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
-  const int lane = threadIdx.x % kWarp;
   const int slice = p.slice;
   const int n_own = max(0, (p.D - rank + kCluster - 1) / kCluster);  // features rank + kCluster * j
   const bool dim_sp = p.reg_kind == kRegDimSparsity;
   const bool lsq = p.coeff_kind == kLeastSquares;
   const bool mean = p.grad_div != 1.f;  // the sync path skips a division by 1
+  const bool ds_local = p.ds_local != 0;
 
-  // shared layout: g[K] (u64) | w | state[n_state] | partial[2] | wmax[2] |
-  // red[kWarps] | flag[2]
-  extern __shared__ unsigned long long smem[];
-  unsigned long long* g_s = smem;
-  float* w_s = reinterpret_cast<float*>(g_s + (size_t)p.K * slice);
-  float* st_s = w_s + slice;  // state vector v at st_s + v * slice
-  float* part_s = st_s + (size_t)p.n_state * slice;  // w . ds partial, by step parity
-  float* wmax_s = part_s + 2;  // largest |w| of the block, by step parity
-  float* red_s = wmax_s + 2;
-  int* flag_s = reinterpret_cast<int*>(red_s + kWarps);  // non-finite terms, by step parity
-  // this block's slices of the global scratch
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout l = layout(p.K, slice, p.n_state, p.ds_local);
+  unsigned long long* g_s = reinterpret_cast<unsigned long long*>(smem + l.g);
+  float* w_s = reinterpret_cast<float*>(smem + l.w);
+  float* st_s = reinterpret_cast<float*>(smem + l.st);  // state vector v at st_s + v * slice
+  float* part_s = reinterpret_cast<float*>(smem + l.pushed);  // w . ds partials, by rank
+  float* wmax_s = part_s + kCluster;  // largest |w| (user variant: |c v|), by rank
+  float* red_s = reinterpret_cast<float*>(smem + l.red);
+  int* flag_s = reinterpret_cast<int*>(smem + l.flag);  // non-finite terms, by step parity
+  // this block's slices of the global scratch; dim_sparsity's where the
+  // sweep reads it
   float* ds_own = p.scratch + (size_t)rank * slice;
   float* nf_own = p.scratch + (size_t)kCluster * slice + (size_t)rank * p.K * slice;
+  const float* ds_sweep = ds_local ? reinterpret_cast<const float*>(smem + l.ds) : ds_own;
 
   float part = 0.f, big = 0.f;
   for (int j = threadIdx.x; j < slice; j += kThreads) {
@@ -516,7 +591,11 @@ __global__ void __launch_bounds__(kThreads, 1) sync_epoch_kernel(const Params p)
       if (dim_sp) dv = p.ds[j * kCluster + rank];
     }
     w_s[j] = wv;
-    ds_own[j] = dv;
+    if (ds_local) {
+      reinterpret_cast<float*>(smem + l.ds)[j] = dv;
+    } else {
+      ds_own[j] = dv;
+    }
     part += wv * dv;
     big = fmaxf(big, fabsf(wv));
 #pragma unroll
@@ -529,9 +608,10 @@ __global__ void __launch_bounds__(kThreads, 1) sync_epoch_kernel(const Params p)
     nf_own[j] = 0.f;
   }
   if (threadIdx.x < 2) flag_s[threadIdx.x] = 0;
-  if (dim_sp) block_sum(part, red_s, &part_s[0]);
-  if (lsq) block_max(big, red_s, &wmax_s[0]);
-  cluster.sync();  // every block's state is in place before any remote access
+  asm volatile("barrier.cluster.wait;" ::: "memory");
+  if (dim_sp) block_push(cluster, part, red_s, part_s, rank, false);
+  if (lsq) block_push(cluster, big, red_s, wmax_s, rank, true);
+  cluster.sync();  // every block's state and pushed values are in place
 
   const int n_samples = p.K * p.B;
   const int sub = threadIdx.x % kLanes;
@@ -555,11 +635,10 @@ __global__ void __launch_bounds__(kThreads, 1) sync_epoch_kernel(const Params p)
           cluster, p, load_row(p, load_id(p, s, base + slot), base + slot, sub), sub, w_s, &top);
       if (sub == 0) c_keep[base - n_slots + slot] = c;
     }
-    block_max(top, red_s, &wmax_s[s & 1]);
+    block_push(cluster, top, red_s, wmax_s, rank, true);
     cluster.sync();
     // pass 2: the step's scale, then the adds with the kept coefficients
-    const int e = scale_exponent((double)cluster_reduce(cluster, &wmax_s[s & 1], lane, true),
-                                 p.count_bits);
+    const int e = scale_exponent((double)rank_order(wmax_s, true), p.count_bits);
     const Sink sink{g_s, ldexp(1.0, e), nf_all, &flag_s[s & 1]};
     if (c_first != 0.f) scatter_row(cluster, p, first, sub, c_first, sink);
     for (int base = n_slots; base < n_samples; base += n_slots) {
@@ -571,37 +650,102 @@ __global__ void __launch_bounds__(kThreads, 1) sync_epoch_kernel(const Params p)
                     c, sink);
     }
 #else
-    const int e = step_exponent(cluster, p, &wmax_s[s & 1], lane);
+    const int e = step_exponent(p, wmax_s);
     const Sink sink{g_s, ldexp(1.0, e), nf_all, &flag_s[s & 1]};
     const int64_t next_id = load_id(p, s + 1, slot);  // needed at phase B
-    run_sample(cluster, p, first, sub, w_s, sink);  // loaded during the last phase B
+    run_sample(cluster, p, first, sub, w_s, sink);  // loaded during the last step
     for (int base = n_slots; base < n_samples; base += n_slots)
       run_sample(cluster, p, load_row(p, load_id(p, s, base + slot), base + slot, sub), sub,
                  w_s, sink);
 #endif
-    cluster.sync();
-    // the next step's first samples: their loads are in flight during the sweep
-    first = load_row(p, next_id, slot, sub);
+    // read before the barrier after which the next partials are pushed
+    const float scalar = dim_sp ? __fmul_rn(p.lam2, rank_order(part_s, false)) : 0.f;
+    cluster.sync();  // the remote adds are visible to their owners
 
     // -- phase B: sums to f32, regularizer, sum over workers, mean, update
     const bool any_nf = flag_s[s & 1] != 0;
     // the next step's flag was last read before the barrier that ended
     // the last step, and is next set after the barrier that ends this one
     if (threadIdx.x == 0) flag_s[(s + 1) & 1] = 0;
-    const float scalar =
-        dim_sp ? __fmul_rn(p.lam2, cluster_reduce(cluster, &part_s[s & 1], lane, false)) : 0.f;
     float bc1 = 1.f, bc2 = 1.f;
     if (p.opt_kind == kOptAdam) {
       bc1 = __ldg(p.bias + 2 * s);
       bc2 = __ldg(p.bias + 2 * s + 1);
     }
+    // sgd with dim_sparsity or no regularizer leaves an entry whose sums
+    // are all 0 as it was (w - lr * 0), bit for bit, where lr is finite
+    // with its sign bit clear; such a step updates only the entries with a
+    // nonzero sum (or a NaN weight, which the update makes the canonical
+    // NaN)
+    const bool sparse = p.opt_kind == 0 && p.reg_kind != kRegL2 && !any_nf && !signbit(p.lr) &&
+                        isfinite(p.lr);
     // four entries at a time over the whole slice: the entries past the
-    // block's last feature are zero in w, dim_sparsity and g, and stay so
+    // block's last feature are zero in w, dim_sparsity and g, and stay so.
+    // A warp takes 128 entries a round; lane l entries j..j+3, j = j0 + 4l
     float next = 0.f;
     big = 0.f;
-    for (int j = 4 * threadIdx.x; j < slice; j += 4 * kThreads) {
+    const int lane = threadIdx.x % kWarp;
+    for (int j0 = 4 * (threadIdx.x - lane); j0 < slice; j0 += 4 * kThreads) {
+      const int j = j0 + 4 * lane;
+      const bool in = j < slice;
+      if (sparse) {
+        // the round's entries to update (m_q: the lanes whose entry j + q
+        // has a sum or a NaN weight), compacted one a lane
+        uint32_t m0, m1, m2, m3;
+        {
+          const float4 w4 = in ? *reinterpret_cast<const float4*>(w_s + j)
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+          const float* wv = reinterpret_cast<const float*>(&w4);
+          unsigned long long any[4] = {0ull, 0ull, 0ull, 0ull};
+          for (int k = 0; in && k < p.K; ++k) {
+            const ulonglong2* gp = reinterpret_cast<const ulonglong2*>(g_s + (size_t)k * slice + j);
+            const ulonglong2 a = gp[0], b = gp[1];
+            any[0] |= a.x;
+            any[1] |= a.y;
+            any[2] |= b.x;
+            any[3] |= b.y;
+          }
+          m0 = __ballot_sync(0xffffffffu, any[0] != 0ull || isnan(wv[0]));
+          m1 = __ballot_sync(0xffffffffu, any[1] != 0ull || isnan(wv[1]));
+          m2 = __ballot_sync(0xffffffffu, any[2] != 0ull || isnan(wv[2]));
+          m3 = __ballot_sync(0xffffffffu, any[3] != 0ull || isnan(wv[3]));
+        }
+        const int c0 = __popc(m0), c1 = __popc(m1), c2 = __popc(m2);
+        const int n = c0 + c1 + c2 + __popc(m3);
+        for (int t = lane; t - lane < n; t += kWarp) {
+          if (t >= n) continue;
+          // the t-th entry in the order (q, lane)
+          int q, nth;
+          uint32_t mq;
+          if (t < c0) {
+            q = 0, nth = t, mq = m0;
+          } else if (t < c0 + c1) {
+            q = 1, nth = t - c0, mq = m1;
+          } else if (t < c0 + c1 + c2) {
+            q = 2, nth = t - c0 - c1, mq = m2;
+          } else {
+            q = 3, nth = t - c0 - c1 - c2, mq = m3;
+          }
+          const int jj = j0 + 4 * nth_set(mq, nth) + q;
+          sgd_entry(p, g_s, w_s, jj, e, scalar, mean, dim_sp);
+        }
+        __syncwarp();
+        if (!in) continue;
+        const float4 d4 = dim_sp ? *reinterpret_cast<const float4*>(ds_sweep + j)
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
+        const float4 w4 = *reinterpret_cast<const float4*>(w_s + j);
+        const float* wv = reinterpret_cast<const float*>(&w4);
+        const float* dv = reinterpret_cast<const float*>(&d4);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          next += wv[q] * dv[q];
+          big = fmaxf(big, fabsf(wv[q]));
+        }
+        continue;
+      }
+      if (!in) continue;
       // dim_sparsity's load is issued first; it is used after the update
-      const float4 d4 = dim_sp ? *reinterpret_cast<const float4*>(ds_own + j)
+      const float4 d4 = dim_sp ? *reinterpret_cast<const float4*>(ds_sweep + j)
                                : make_float4(0.f, 0.f, 0.f, 0.f);
       float4 w4 = *reinterpret_cast<float4*>(w_s + j);
       float* wv = reinterpret_cast<float*>(&w4);
@@ -663,9 +807,14 @@ __global__ void __launch_bounds__(kThreads, 1) sync_epoch_kernel(const Params p)
       }
       *reinterpret_cast<float4*>(w_s + j) = w4;
     }
-    if (dim_sp) block_sum(next, red_s, &part_s[(s + 1) & 1]);
-    if (lsq) block_max(big, red_s, &wmax_s[(s + 1) & 1]);
-    cluster.sync();
+    if (dim_sp) block_push(cluster, next, red_s, part_s, rank, false);
+    if (lsq) block_push(cluster, big, red_s, wmax_s, rank, true);
+    // the step's closing barrier, split: the next step's first rows are
+    // loaded while the cluster arrives (not before the sweep, where their
+    // registers would spill it)
+    cluster_arrive();
+    first = load_row(p, next_id, slot, sub);
+    cluster_wait();
   }
 
   for (int j = threadIdx.x; j < n_own; j += kThreads) {
@@ -680,9 +829,11 @@ __global__ void __launch_bounds__(kThreads, 1) sync_epoch_kernel(const Params p)
 
 // Launch one cluster of `cluster` blocks on `stream` (PyTorch's current
 // stream), each with `smem_bytes` of dynamic shared memory holding a slice
-// of `slice` entries.  opt_kind 0 (sgd) reads no state; 1 (momentum) the
-// trace st_in0 -> st_out0 with decay1 = m; 2 (adam) mu st_in0 -> st_out0,
-// nu st_in1 -> st_out1 and the [steps, 2] table `bias`.  `scratch` holds
+// of `slice` entries, laid out as `layout` says, dim_sparsity in shared
+// memory where `ds_local`.  opt_kind 0 (sgd)
+// reads no state; 1 (momentum) the trace st_in0 -> st_out0 with
+// decay1 = m; 2 (adam) mu st_in0 -> st_out0, nu st_in1 -> st_out1 and the
+// [steps, 2] table `bias`.  `scratch` holds
 // (1 + K) * cluster * slice floats, and in the user variant (coeff_kind 3,
 // DSGD_USER_COEFF) (ceil(K * B / 512) - 1) * 512 more; a `scratch_floats`
 // under that is refused.  The kernel initialises what it reads.  scale_e
@@ -694,16 +845,19 @@ extern "C" int dsgd_sync_epoch(const float* w, const float* ds, const int64_t* i
                                const int32_t* idx, const float* val, const float* y,
                                float* w_out, const float* st_in0, const float* st_in1,
                                float* st_out0, float* st_out1, const float* bias,
-                               float* scratch, int64_t scratch_floats, int64_t n_rows,
-                               int steps, int K, int B, int P,
-                               int D, int cluster, int slice, int smem_bytes, int coeff_kind,
-                               int reg_kind, int opt_kind, int scale_e, int count_bits,
-                               double l1_max, double y_max, double v_max, float lam2, float lr,
-                               float n_total, float grad_div, float decay1, float decay2,
-                               float keep1, float keep2, float eps, void* stream) {
+                               float* scratch, int64_t scratch_floats,
+                               int64_t n_rows, int steps, int K, int B, int P, int D, int cluster,
+                               int slice, int smem_bytes, int ds_local,
+                               int coeff_kind, int reg_kind, int opt_kind, int scale_e,
+                               int count_bits, double l1_max, double y_max, double v_max,
+                               float lam2, float lr, float n_total, float grad_div, float decay1,
+                               float decay2, float keep1, float keep2, float eps, void* stream) {
   // the sweep reads the slices as float4s and the integer sums as pairs
   if (cluster != kCluster || slice % 4 != 0 || (int64_t)slice * kCluster < D ||
       opt_kind < 0 || opt_kind > kOptAdam)
+    return (int)cudaErrorInvalidValue;
+  const int n_state = opt_kind;  // sgd 0, momentum 1, adam 2
+  if (layout(K, slice, n_state, ds_local).end > (size_t)smem_bytes)
     return (int)cudaErrorInvalidValue;
   int64_t need = (int64_t)(1 + K) * kCluster * slice;
 #ifdef DSGD_USER_COEFF
@@ -716,11 +870,10 @@ extern "C" int dsgd_sync_epoch(const float* w, const float* ds, const int64_t* i
 #else
   if (coeff_kind < 0 || coeff_kind >= kUserCoeff) return (int)cudaErrorInvalidValue;
 #endif
-  const int n_state = opt_kind;  // sgd 0, momentum 1, adam 2
   const Params p{w, ds, ids, idx, val, y, w_out, {st_in0, st_in1}, {st_out0, st_out1}, bias,
-                 scratch, n_rows, steps, K, B, P, D, slice, coeff_kind, reg_kind, opt_kind,
-                 n_state, scale_e, count_bits, l1_max, y_max, v_max, lam2, lr, n_total,
-                 grad_div, decay1, decay2, keep1, keep2, eps};
+                 scratch, n_rows, steps, K, B, P, D, slice, ds_local,
+                 coeff_kind, reg_kind, opt_kind, n_state, scale_e, count_bits, l1_max, y_max,
+                 v_max, lam2, lr, n_total, grad_div, decay1, decay2, keep1, keep2, eps};
   cudaError_t err = cudaFuncSetAttribute(
       sync_epoch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;

@@ -49,7 +49,7 @@ under a lock.
 
 ``cluster_plan(K, D, n_state)`` says whether that state fits the
 cluster's shared memory; the engine picks its path by it, before any
-launch.
+launch, and whether dim_sparsity's slice fits there too.
 """
 
 from __future__ import annotations
@@ -73,9 +73,9 @@ OPT_KINDS = ("sgd", "momentum", "adam")
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults (eps_root 0)
 CLUSTER_BLOCKS = 8  # the portable cluster size
 SMEM_BYTES_PER_BLOCK = 232_448  # what one Hopper block may use (227 KB)
-# the w . dim_sparsity partial and the largest |w| by step parity, one
-# value per warp, and the non-finite flag by step parity
-_SCRATCH_FLOATS = 2 + 2 + 32 + 2
+# the w . dim_sparsity partials and the largest |w| pushed by each block,
+# one value per warp, and the non-finite flag by step parity
+_SCRATCH_FLOATS = 2 * CLUSTER_BLOCKS + 32 + 2
 SUM_BITS = 62  # the integer sums of g stay within 2^62 < 2^63
 SCALE_LIMIT = 1000  # |e|: 2^e stays a normal double
 _CLUSTER_UNSCHEDULABLE = 100000  # the C function's code for that
@@ -89,6 +89,7 @@ class ClusterPlan(NamedTuple):
     blocks: int  # blocks in the one cluster
     slice: int  # entries of w (and of each g_k, dim_sparsity) each block owns
     smem_bytes: int  # dynamic shared memory per block
+    ds_local: bool  # dim_sparsity's slice in shared memory (else in an L2 scratch)
 
 
 def cluster_plan(k: int, d: int, n_state: int = 0) -> Optional[ClusterPlan]:
@@ -96,7 +97,10 @@ def cluster_plan(k: int, d: int, n_state: int = 0) -> Optional[ClusterPlan]:
     vectors (4 B each) and the integer sums g[K, D] (8 B a worker) in
     shared memory, or None when that does not fit: at D=47,236, K <= 4 for
     sgd and K <= 3 for momentum and adam; at K=1 (the mean mode) D up to
-    154,848 for sgd, 116,128 for momentum and 92,896 for adam."""
+    154,816 for sgd, 116,096 for momentum and 92,896 for adam.  Where what
+    is left holds dim_sparsity's slice too (4 B a feature: sgd and momentum
+    at K <= 3 and the mean mode at D=47,236), the sweep reads it from there
+    (the kernel's layout in csrc/sync_epoch.cu, in the same order)."""
     if k < 1 or d < 1:
         return None
     owned = -(-d // CLUSTER_BLOCKS)
@@ -104,7 +108,8 @@ def cluster_plan(k: int, d: int, n_state: int = 0) -> Optional[ClusterPlan]:
     smem = (8 * k + 4 * (1 + n_state)) * owned + 4 * _SCRATCH_FLOATS
     if smem > SMEM_BYTES_PER_BLOCK:
         return None
-    return ClusterPlan(CLUSTER_BLOCKS, owned, smem)
+    ds_local = smem + 4 * owned <= SMEM_BYTES_PER_BLOCK
+    return ClusterPlan(CLUSTER_BLOCKS, owned, smem + 4 * owned * ds_local, ds_local)
 
 
 def scale_exponent(bound: float, count: int) -> int:
@@ -335,13 +340,15 @@ def bind(fn):
     its argument types."""
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int64] * 2 + [ctypes.c_int] * 13
+        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int64] * 2 + [ctypes.c_int] * 14
                        + [ctypes.c_double] * 3 + [ctypes.c_float] * 9 + [ctypes.c_void_p])
     return fn
 
 
 def _launch(w, ids, indices, values, labels_f32, coeff, reg_kind, lam,
             dim_sparsity, lr, n_total_workers, grad_divisor, optimizer, opt_state, fn=None):
+    """The kernel's launch (`fn`: another build's entry point, as the
+    tools time them)."""
     s, k, b = ids.shape
     n, p = indices.shape
     d = w.shape[0]
@@ -380,8 +387,9 @@ def _launch(w, ids, indices, values, labels_f32, coeff, reg_kind, lam,
         err = fn(w.data_ptr(), ds_ptr, ids.data_ptr(), indices.data_ptr(),
                  values.data_ptr(), labels_f32.data_ptr(), w_out.data_ptr(), *ins_ptr,
                  *outs_ptr, 0 if bias is None else bias.data_ptr(), scratch.data_ptr(),
-                 scratch.numel(), n, s, k, b, p, d, plan.blocks, plan.slice, plan.smem_bytes, rule.kind,
-                 REG_KINDS.index(reg_kind), OPT_KINDS.index(opt.kind), scale_e,
+                 scratch.numel(), n, s, k, b, p, d, plan.blocks, plan.slice, plan.smem_bytes,
+                 int(plan.ds_local), rule.kind, REG_KINDS.index(reg_kind),
+                 OPT_KINDS.index(opt.kind), scale_e,
                  (n_terms - 1).bit_length(), bounds.l1_max, bounds.y_max, bounds.v_max,
                  2.0 * lam, lr, float(n_total_workers), float(grad_divisor), *consts,
                  ADAM_EPS, stream)

@@ -148,9 +148,10 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
 
 def test_cluster_plan_fits_the_main_shape_and_refuses_past_the_budget():
     # w at 4 B a feature and the integer sums at 8 B a worker and feature;
-    # dim_sparsity is read from global memory
+    # dim_sparsity's slice (4 B) fits beside them at K=3
     plan = se.cluster_plan(3, 47236)
-    assert plan == se.ClusterPlan(blocks=8, slice=5908, smem_bytes=(8 * 3 + 4) * 5908 + 4 * 38)
+    assert plan == se.ClusterPlan(blocks=8, slice=5908,
+                                  smem_bytes=(8 * 3 + 4 + 4) * 5908 + 4 * 50, ds_local=True)
     assert plan.blocks * plan.slice >= 47236 and plan.smem_bytes <= se.SMEM_BYTES_PER_BLOCK
     assert se.cluster_plan(4, 47236) is not None
     assert se.cluster_plan(5, 47236) is None
@@ -270,8 +271,57 @@ def test_mean_steps_take_the_kernel_or_the_per_step_route_by_shape(fits, monkeyp
 
 def test_cluster_plan_fits_one_worker_at_the_main_width():
     plan = se.cluster_plan(1, 47236)
-    assert plan == se.ClusterPlan(blocks=8, slice=5908, smem_bytes=12 * 5908 + 4 * 38)
-    assert se.cluster_plan(1, 154848) is not None and se.cluster_plan(1, 154849) is None
+    assert plan == se.ClusterPlan(blocks=8, slice=5908, smem_bytes=16 * 5908 + 4 * 50,
+                                  ds_local=True)
+    # the pushed partials take 48 B more than the earlier pulled ones, so
+    # the widest shape is 154,816 features (8 fewer a block) where it was
+    # 154,848; there dim_sparsity stays in the L2 scratch
+    assert se.cluster_plan(1, 154816) is not None and se.cluster_plan(1, 154817) is None
+    assert not se.cluster_plan(1, 154816).ds_local
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+def test_cluster_plan_keeps_dim_sparsity_in_shared_memory_where_it_fits(k):
+    plan = se.cluster_plan(k, 47236)
+    base = (8 * k + 4) * 5908 + 4 * 50
+    assert plan.ds_local == (k <= 3)  # 4 B a feature more beside g[K] and w
+    assert plan.ds_local == (base + 4 * 5908 <= se.SMEM_BYTES_PER_BLOCK)
+    assert plan.smem_bytes == base + 4 * 5908 * plan.ds_local <= se.SMEM_BYTES_PER_BLOCK
+
+
+@pytest.mark.parametrize("kind", ["momentum", "adam"])
+def test_cluster_plan_of_an_optimizer_at_its_limit(kind):
+    n_state = se.Optimizer(kind).n_state
+    plan = se.cluster_plan(3, 47236, n_state)
+    assert se.cluster_plan(4, 47236, n_state) is None
+    base = (8 * 3 + 4 * (1 + n_state)) * 5908 + 4 * 50
+    # momentum keeps dim_sparsity in shared memory, adam (12 B a feature
+    # of w and state) does not
+    assert plan.ds_local == (kind == "momentum")
+    assert plan.smem_bytes == base + 4 * 5908 * plan.ds_local <= se.SMEM_BYTES_PER_BLOCK
+    assert se.cluster_plan(1, {"momentum": 116096, "adam": 92896}[kind], n_state) is not None
+    assert se.cluster_plan(1, {"momentum": 116097, "adam": 92897}[kind], n_state) is None
+
+
+@pytest.mark.parametrize("reg", ["dim_sparsity", "none"])
+@pytest.mark.parametrize("lr", [0.5, 0.0, 1e-30, -0.05, -0.0])
+def test_sgd_keeps_an_untouched_weight_bit_for_bit_only_where_lr_has_no_sign(reg, lr):
+    # the kernel's sparse sweep skips, with sgd and no l2 term, every entry
+    # whose step sums are all 0; the plain version computes w - lr * 0
+    # there, which is w bit for bit exactly where lr is finite with its
+    # sign bit clear (the kernel takes the dense sweep otherwise)
+    _, tb = _engines("hinge", reg, 3, "mxu", n=600)
+    args, kw = _op_args(tb, _owned_ids(tb, steps=1))
+    kw["lr"] = lr
+    w0 = torch.from_numpy(np.random.default_rng(7).normal(size=D).astype(np.float32))
+    touched = np.zeros(D, bool)
+    rows = args[1].reshape(-1).numpy()
+    touched[args[2][rows].numpy()[args[3][rows].numpy() != 0]] = True
+    untouched = np.flatnonzero(~touched)
+    w0[untouched[:3]] = torch.tensor([-0.0, 0.0, float("inf")])
+    got = se.sync_epoch_plain(w0, *args[1:], **kw).numpy().view(np.int32)
+    kept = np.array_equal(got[untouched], w0.numpy().view(np.int32)[untouched])
+    assert kept == (not math.copysign(1.0, lr) < 0)
 
 
 # -- the kernel's fixed-order sums: the scale of the integer accumulators ----
